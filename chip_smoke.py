@@ -20,6 +20,23 @@ Phases, one JSON line each:
                step's state leaves, decoded rows, match and drop counts
                against the plain version stepped on the card from the same
                state.
+  4. scan_shapes — the per-event scan kernel against its plain PyTorch
+               version on the card: every shape of
+               ``tests/test_torch_scan_shapes.py`` (count, logical, absent,
+               every scopes, sequences, within, strings, overflow) lane-
+               batched, then every device-compilable case of the pattern
+               corpus (``tests/test_pattern_corpus.py``, read as data)
+               through ``DeviceNFARuntime`` on the card; every step exactly
+               equal. ``eventTimestamp()`` in a pattern raises KeyError on
+               the card for both shapes, as in the reference.
+  5. scan_main — the scan shape at full width: a partitioned two-stream
+               app (a stream state, a logical ``and``, a count ``<2:4>``, a
+               stream state; 64 lanes, lane batch 2048, C = 64, 256 keys)
+               fed 2,000,000 events through ``send_many``/``flush(decode=
+               True)``. A timed run gives events/s and the kernel's step
+               time; a checked run holds the first steps (state leaves,
+               counters, ys, decoded rows) against the plain version on the
+               card.
 Then the card's name and power limit (nvidia-smi), the ``kernels`` line and,
 last, ``{"ok": true, "device": {...}}``. Any failure exits non-zero before
 that line. Needs one CUDA card; fails without one.
@@ -163,8 +180,10 @@ def clone(tree):
 
 # ---------------------------------------------------------------- batches
 
-def make_batch(rng, comp, lanes: int, empty_lane: bool):
-    """A seeded wire batch [lanes, B]; stale noise past each lane's count."""
+def make_batch(rng, comp, lanes: int, empty_lane: bool, ts_step: int = 60,
+               base=None):
+    """A seeded wire batch [lanes, B]; stale noise past each lane's count.
+    ``base`` pins every lane's ts base (else random per lane)."""
     B = comp.B
     cols = {}
     for k in sorted(comp.used_cols):
@@ -181,8 +200,9 @@ def make_batch(rng, comp, lanes: int, empty_lane: bool):
             c = rng.integers(0, 2, (lanes, B)).astype(bool)
         cols[k] = c
     tag = rng.integers(0, len(comp.merged.stream_ids), (lanes, B)).astype(np.int8)
-    ts = np.cumsum(rng.integers(0, 60, (lanes, B)), 1).astype(np.int32)
-    base = rng.integers(10**6, 2 * 10**6, lanes).astype(np.int64)
+    ts = np.cumsum(rng.integers(0, ts_step, (lanes, B)), 1).astype(np.int32)
+    base = rng.integers(10**6, 2 * 10**6, lanes).astype(np.int64) \
+        if base is None else np.full(lanes, base, np.int64)
     counts = rng.integers(B // 2, B + 1, lanes).astype(np.int32)
     if empty_lane:
         counts[rng.integers(0, lanes)] = 0
@@ -411,6 +431,361 @@ def phase_main(seed: int, n_events: int):
     return out
 
 
+# ---------------------------------------------------------- the scan shape
+
+def scan_shapes_module():
+    """``tests/test_torch_scan_shapes.py``: the scan apps and cases the CPU
+    tests run (it imports the port, not the JAX package)."""
+    import importlib.util
+    path = os.path.join(REPO, "tests", "test_torch_scan_shapes.py")
+    spec = importlib.util.spec_from_file_location("test_torch_scan_shapes",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def corpus_data() -> dict:
+    """The data region of ``tests/test_pattern_corpus.py`` (app texts and
+    the ``CASES`` list; no imports), executed on its own: the file imports
+    the JAX package, which this script never imports."""
+    import types
+
+    class _Param:
+        @staticmethod
+        def param(*values, id=None):
+            return types.SimpleNamespace(values=values, id=id)
+
+    with open(os.path.join(REPO, "tests", "test_pattern_corpus.py")) as f:
+        src = f.read()
+    start = src.index('S2 = """')
+    end = src.index("def test_every_zero_min_count_alone")
+    ns = {"pytest": _Param}
+    exec(src[start:end], ns)
+    return ns
+
+
+def checking_step(comp, state_err: list):
+    """The compiled step, held against its plain version on every call
+    (same inputs, plain first on a copy of the state)."""
+    import torch
+    from siddhi_tpu_torch.gpu.nfa_block import block_step_plain
+    from siddhi_tpu_torch.gpu.nfa_scan import scan_step_plain
+    kstep = comp.make_step()
+    plain = block_step_plain if comp.blocked else scan_step_plain
+
+    def step(state, *args):
+        ref_state, ref_ys = plain(comp, clone(state), *args)
+        state, ys = kstep(state, *args)
+        torch.cuda.synchronize()
+        ok1, e1, bad1 = compare(ref_state, state)
+        ok2, e2, bad2 = compare(ref_ys, ys)
+        state_err.append(max(e1, e2))
+        if not (ok1 and ok2):
+            raise AssertionError(f"kernel differs from the plain version at "
+                                 f"{bad1 or bad2}")
+        return state, ys
+    step.plan = kstep.plan
+    return step
+
+
+TS_APPS = {
+    "blocked": """
+define stream S (v double);
+from every e1=S[v > 1.0] -> e2=S[v > e1.v and eventTimestamp() > 0]
+select e1.v as a insert into O;
+""",
+    "scan": """
+define stream S (v double);
+from every e1=S[v > 1.0] -> e2=S[v > e1.v]<1:2> -> e3=S[eventTimestamp() > 0]
+select e1.v as a insert into O;
+""",
+}
+
+
+def phase_scan_shapes(seed: int) -> float:
+    import torch
+    from siddhi_tpu_torch.compiler import parse
+    from siddhi_tpu_torch.gpu.expr_compile import DeviceCompileError
+    from siddhi_tpu_torch.gpu.nfa import DeviceNFACompiler, DeviceNFARuntime
+    rng = np.random.default_rng(seed)
+    errs: list = []
+    # ---- the CPU tests' shapes, lane-batched, 4 steps each
+    shapes = scan_shapes_module()
+    cases = []
+    for name, B, C, lanes, ts_step, base in shapes.CASES:
+        app = parse(shapes.APPS[name][0])
+        comp = DeviceNFACompiler(app.queries[0], dict(app.stream_definitions),
+                                 C, B, device="cuda")
+        if comp.blocked:
+            fail(f"scan shape {name} compiled to the blocked kernel")
+        step = checking_step(comp, errs)
+        state = comp.init_state(lanes, 0 if base is not None else 1_000_000)
+        emitted = 0
+        for i in range(4):
+            cols, tag, ts, tb, counts = make_batch(
+                rng, comp, lanes, i % 2 == 1, ts_step, base)
+            dev = {k: torch.from_numpy(v).cuda() for k, v in cols.items()}
+            rest = [torch.from_numpy(a).cuda() for a in (tag, ts, tb, counts)]
+            try:
+                state, ys = step(state, dev, *rest)
+            except AssertionError as e:
+                fail(f"scan shape {name} B={B} C={C} step {i}: {e}")
+            emitted += int(ys["mask"].sum())
+        cases.append({"shape": name, "B": B, "C": C, "lanes": lanes,
+                      "emitted": emitted, "drops": int(state["drops"].sum()),
+                      "equal": True})
+    # ---- the pattern corpus through DeviceNFARuntime on the card
+    corpus = corpus_data()
+    start = 900                       # test_pattern_corpus.START
+    n_scan = n_block = rows = steps = 0
+    for p in corpus["CASES"]:
+        app, seq = p.values[0], p.values[1]
+        try:
+            rt = DeviceNFARuntime(app, slot_capacity=32, batch_capacity=32,
+                                  start_time=start, device="cuda")
+        except DeviceCompileError:
+            continue
+        n0 = len(errs)
+        rt.compiler._step = checking_step(rt.compiler, errs)
+        out: list = []
+        rt.add_callback(out.extend)
+        ts = start
+        try:
+            for entry in seq:
+                ts += entry[2] if len(entry) > 2 else 100
+                rt.send(entry[0], list(entry[1]), ts)
+            rt.flush()
+        except AssertionError as e:
+            fail(f"corpus case {p.id}: {e}")
+        n_block += rt.compiler.blocked
+        n_scan += not rt.compiler.blocked
+        rows += len(out)
+        steps += len(errs) - n0
+    # ---- eventTimestamp() in a pattern: KeyError('__ts__') at the first
+    # step, for both shapes, as the reference raises
+    for shape, text in TS_APPS.items():
+        app = parse(text)
+        comp = DeviceNFACompiler(app.queries[0], dict(app.stream_definitions),
+                                 8, 16, device="cuda")
+        batch = {"cols": {"s0_v": np.array([2.0, 3.0] + [0.0] * 14,
+                                           np.float32)},
+                 "tag": np.zeros(16, np.int8),
+                 "ts": np.array([0, 100] + [0] * 14, np.int32),
+                 "ts_base": np.int64(5000), "count": 2}
+        try:
+            comp.step(comp.init_state(1), batch)
+            fail(f"eventTimestamp() in a {shape} pattern did not raise")
+        except KeyError as e:
+            if "__ts__" not in str(e):
+                fail(f"eventTimestamp() in a {shape} pattern: {e!r}")
+    worst = max(errs) if errs else 0.0
+    emit({"phase": "scan_shapes", "cases": cases,
+          "corpus": {"scan_cases": n_scan, "blocked_cases": n_block,
+                     "steps_checked": steps, "rows": rows, "equal": True},
+          "event_timestamp_raises": True, "max_abs_err": worst})
+    return worst
+
+
+SCAN_APP = """
+define stream Temp (dev string, v double);
+define stream Reg (dev string, action string);
+partition with (dev of Temp, dev of Reg)
+begin
+from every e1=Temp[v > 90.0] -> e2=Temp[v > e1.v] and e3=Reg[action == 'on']
+  -> e4=Temp[v > e2.v]<2:4> -> e5=Temp[v < e1.v] within 4000
+select e1.dev as dev, e1.v as v1, e3.action as a, e5.v as v5 insert into Alerts;
+end;
+"""
+SCAN_MAIN = dict(num_partitions=64, key_attr="dev", slot_capacity=64,
+                 lane_batch=2048)
+SCAN_EVENTS = 2_000_000
+SCAN_CHECK_STEPS = 2     # full-width steps held against the plain version
+
+
+def scan_events(n: int, seed: int):
+    """The scan path's traffic: 90 % Temp with v ~ U(0, 100), 10 % Reg with
+    action on/off at 50 % each, keys uniform over 256, ts increments
+    U{0, 1, 2} ms."""
+    rng = np.random.default_rng(seed)
+    keys = np.array([f"dev{k}" for k in range(N_KEYS)])
+    dev = keys[rng.integers(0, N_KEYS, n)]
+    is_temp = rng.random(n) < 0.9
+    v = np.round(rng.uniform(0.0, 100.0, n), 3)
+    action = np.where(rng.random(n) < 0.5, "on", "off")
+    ts = 1_000_000 + np.cumsum(rng.integers(0, 3, n))
+    return dev, is_temp, v, action, ts
+
+
+def feed_scan(rt, ev, stop=None) -> list:
+    """Runs of consecutive same-stream events through ``send_many``, then
+    ``flush(decode=True)``; ``stop()`` ends the feed early."""
+    dev, is_temp, v, action, ts = ev
+    # run boundaries: where the stream changes
+    cut = np.flatnonzero(is_temp[1:] != is_temp[:-1]) + 1
+    lo_all = np.concatenate([[0], cut])
+    hi_all = np.concatenate([cut, [len(ts)]])
+    rows: list = []
+    for lo, hi in zip(lo_all, hi_all):
+        if stop is not None and stop():
+            return rows
+        sl = slice(int(lo), int(hi))
+        if is_temp[lo]:
+            rows.extend(rt.send_many("Temp", {"dev": dev[sl], "v": v[sl]},
+                                     ts[sl], decode=True))
+        else:
+            rows.extend(rt.send_many("Reg", {"dev": dev[sl],
+                                             "action": action[sl]},
+                                     ts[sl], decode=True))
+    rows.extend(rt.flush(decode=True))
+    return rows
+
+
+def tree_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for _, t in flatten(tree))
+
+
+def scan_ops(plan, L: int, B: int) -> int:
+    """Operations one step does on these inputs, at the least: for every
+    event, lane and slot, each state's mask arithmetic (~10 elementwise
+    operations) and its linked predicate programs."""
+    d = plan.desc
+    per_slot = 0
+    for s in range(d.S):
+        st = d.st[s]
+        per_slot += 10 + sum(st.pred[i].len + st.pred_prev[i].len
+                             for i in range(st.nbr))
+    return L * B * d.C * per_slot
+
+
+def phase_scan_main(seed: int, n_events: int):
+    import torch
+    from siddhi_tpu_torch.gpu.nfa_scan import ScanPlan, scan_step_plain
+    from siddhi_tpu_torch.gpu.partition import PartitionedNFARuntime
+    ev = scan_events(n_events, seed)
+
+    # ---- warm-up (builds, first launch) on a throwaway runtime
+    rt = PartitionedNFARuntime(SCAN_APP, device="cuda", **SCAN_MAIN)
+    if rt.compiler.blocked or [s.kind for s in rt.compiler.states] != \
+            ["stream", "logical", "count", "stream"]:
+        fail("scan_main: the app does not compile to the 4-state scan shape")
+    feed_scan(rt, tuple(x[:CHUNK] for x in ev))
+    torch.cuda.synchronize()
+
+    # ---- timed run: the entry points alone, the kernel step timed by events
+    rt = PartitionedNFARuntime(SCAN_APP, device="cuda", **SCAN_MAIN)
+    kernel_step = rt.vstep
+    marks, step_rows = [], []
+    shapes = {}
+
+    def timed(state, *args):
+        if not shapes:
+            shapes["wire"] = sum(t.numel() * t.element_size()
+                                 for t in [*args[0].values(), *args[1:]])
+            shapes["state"] = tree_bytes(state)
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = kernel_step(state, *args)
+        e1.record()
+        marks.append((e0, e1, args[4]))
+        shapes["ys"] = tree_bytes(out[1])
+        return out
+
+    step_and_decode = rt._step_and_decode
+
+    def per_step_rows(*args):
+        r = step_and_decode(*args)
+        step_rows.append(list(r))
+        return r
+
+    rt.vstep = timed
+    rt._step_and_decode = per_step_rows
+    torch.cuda.synchronize()
+    ScanPlan.launches = 0                       # counts from here: main path
+    t0 = time.perf_counter()
+    rows = feed_scan(rt, ev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ScanPlan.launches
+    steps = len(marks)
+    step_ms = [a.elapsed_time(b) for a, b, _ in marks]
+    fill = [int(n.sum()) for _, _, n in marks]
+    matches, drops = rt.match_count, rt.drop_count
+    if launches != steps or launches == 0:
+        fail(f"scan_main: {launches} kernel launches over {steps} steps")
+    if matches != len(rows) or matches == 0:
+        fail(f"scan_main: match_count {matches}, {len(rows)} rows")
+    for r in rows:
+        if len(r) != 4 or not isinstance(r[0], str) or r[2] != "on" or \
+                not (np.isfinite(r[1]) and np.isfinite(r[3])) or \
+                not (r[1] > 90.0 and r[3] < r[1]):
+            fail(f"scan_main: row breaks the pattern's contract: {r}")
+
+    # ---- checked run: the first steps against the plain version on the card
+    rt = PartitionedNFARuntime(SCAN_APP, device="cuda", **SCAN_MAIN)
+    comp = rt.compiler
+    kernel_step = rt.vstep
+    plain_ms, worst, checked_rows = [], 0.0, []
+
+    def checked(state, cols, tag, ts_, base, counts):
+        nonlocal worst
+        if len(plain_ms) >= SCAN_CHECK_STEPS:
+            return kernel_step(state, cols, tag, ts_, base, counts)
+        before = clone(state)
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        ref_state, ref_ys = scan_step_plain(comp, before, cols, tag, ts_,
+                                            base, counts)
+        e1.record()
+        state, ys = kernel_step(state, cols, tag, ts_, base, counts)
+        torch.cuda.synchronize()
+        plain_ms.append(e0.elapsed_time(e1))
+        ok1, e_1, bad1 = compare(ref_state, state)
+        ok2, e_2, bad2 = compare(ref_ys, ys)
+        worst = max(worst, e_1, e_2)
+        if not (ok1 and ok2):
+            fail(f"scan_main step {len(plain_ms)}: kernel differs from the "
+                 f"plain version at {bad1 or bad2}")
+        got, want = comp.decode_outputs(ys), comp.decode_outputs(ref_ys)
+        if got != want:
+            fail(f"scan_main step {len(plain_ms)}: decoded rows differ")
+        checked_rows.append(got)
+        return state, ys
+
+    rt.vstep = checked
+    feed_scan(rt, ev, stop=lambda: len(plain_ms) >= SCAN_CHECK_STEPS)
+    if len(plain_ms) < min(SCAN_CHECK_STEPS, steps):
+        fail(f"scan_main: only {len(plain_ms)} steps checked")
+    if checked_rows != step_rows[:len(checked_rows)]:
+        fail("scan_main: the checked run's rows differ from the timed run's")
+
+    L, B = SCAN_MAIN["num_partitions"], SCAN_MAIN["lane_batch"]
+    nbytes = shapes["wire"] + 2 * shapes["state"] + shapes["ys"]
+    ops = scan_ops(kernel_step.plan, L, B)
+    out = {
+        "phase": "scan_main", "events": int(n_events), "steps": steps,
+        "events_per_s": n_events / wall, "wall_s": wall,
+        "kernel_step_ms_median": float(np.median(step_ms)),
+        "kernel_step_ms_min": float(np.min(step_ms)),
+        "kernel_step_ms_max": float(np.max(step_ms)),
+        "kernel_step_ms_all": step_ms,
+        "plain_step_ms_median": float(np.median(plain_ms)),
+        "plain_step_ms_all": plain_ms, "plain_device": "cuda",
+        "checked_steps": len(plain_ms), "launches": launches,
+        "matches": matches, "drops": drops, "rows": len(rows),
+        "send_many_calls": 1 + int(np.count_nonzero(ev[1][1:] != ev[1][:-1])),
+        "mean_lane_fill": float(np.mean(fill)) / (L * B),
+        "bytes_per_step": nbytes, "ys_bytes_per_step": shapes["ys"],
+        "wire_bytes_per_step": shapes["wire"],
+        "state_bytes": shapes["state"], "ops_per_step": ops,
+        "bound_ms_bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+        "bound_ms_ops": ops / F32_OPS_PER_S * 1e3,
+        "max_abs_err": worst,
+    }
+    emit(out)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=42)
@@ -423,7 +798,10 @@ def main() -> int:
     card = phase_device()
     shape_err = phase_shapes(args.seed)
     main_out = phase_main(args.seed, args.events)
+    scan_err = phase_scan_shapes(args.seed)
+    scan_out = phase_scan_main(args.seed, SCAN_EVENTS)
     bound = max(main_out["bound_ms_bytes"], main_out["bound_ms_ops"])
+    scan_bound = max(scan_out["bound_ms_bytes"], scan_out["bound_ms_ops"])
     kernels = [{
         "name": "nfa_block_stage",
         "route": "cuda",
@@ -441,6 +819,23 @@ def main() -> int:
         "library_ms": None,
         "unit": "one main-path step (S-1 = 7 launches)",
         "parity": "exact",
+    }, {
+        "name": "nfa_scan_step",
+        "route": "cuda",
+        "source": "siddhi_tpu_torch/csrc/nfa_scan.cu",
+        "replaces": "siddhi_tpu/tpu/nfa.py:829",
+        "also_replaces": ["siddhi_tpu/tpu/partition.py:160"],
+        "launches": scan_out["launches"],
+        "max_abs_err": max(scan_err, scan_out["max_abs_err"]),
+        "ms": scan_out["kernel_step_ms_median"],
+        "plain_ms": scan_out["plain_step_ms_median"],
+        "bound_ms": scan_bound,
+        "bound_by": "bytes" if scan_out["bound_ms_bytes"] >= scan_out["bound_ms_ops"]
+        else "operations",
+        "library_ms": None,
+        "unit": "one scan_main step (1 launch, ys zeroed in it)",
+        "parity": "exact",
+        "checked_steps": scan_out["checked_steps"],
     }]
     print(card, flush=True)
     emit({"kernels": kernels})

@@ -5,7 +5,9 @@
 //   - tpu/expr_compile.py::compile_expression and helpers
 //                                           (B2: predicate / output programs,
 //                                            here a typed postfix IR run by
-//                                            one __device__ interpreter)
+//                                            the __device__ interpreter of
+//                                            expr_ir.cuh, shared with
+//                                            nfa_scan.cu)
 //   - tpu/partition.py:160-181             (B3: vmap over lanes, donated
 //                                            state: here one CTA per lane,
 //                                            tables updated in place)
@@ -41,12 +43,9 @@
 //     test (j = vb). ts is not assumed sorted.
 //   - ordered compaction (creations to K, survivors to C) uses a block-wide
 //     exclusive prefix count built from warp ballots.
-//   - predicates and outputs run through a postfix IR interpreter with
-//     static types (bool/i32/i64/f32), so one build serves every app.
-//     Integer arithmetic wraps; integer division/modulo reproduce XLA's
-//     values for a zero divisor; f32 arithmetic uses the _rn intrinsics
-//     (and the build passes --fmad=false) so rounding matches the plain
-//     version; float -> int conversion saturates, NaN -> 0.
+//   - predicates and outputs run through the postfix IR interpreter of
+//     expr_ir.cuh (static types bool/i32/i64/f32), so one build serves
+//     every app.
 //
 // What bounds it on the H100: neither bytes nor arithmetic. A main-path
 // step (64 lanes x 2048 events, C = 64, K = 320, 8 states) must move about
@@ -66,21 +65,29 @@
 #define MAXB 32
 #define MAXOUT 32
 #define MAXSTACK 32
+#include "expr_ir.cuh"
+
 #define NTHREADS 512
 #define NWARPS (NTHREADS / 32)
 #define SMEM_LIMIT (227 * 1024)
 
-enum Op {
-  OP_EV = 1, OP_BIND, OP_TS, OP_CONST, OP_CAST, OP_ADD, OP_SUB, OP_MUL,
-  OP_DIV, OP_MOD, OP_NEG, OP_EQ, OP_NE, OP_LT, OP_LE, OP_GT, OP_GE, OP_AND,
-  OP_OR, OP_NOT, OP_SELECT, OP_MAX, OP_MIN
+// Event j's staged columns (column c at ev[c * B + j]) and a candidate's
+// bindings (the k-th at bind[k * stride]), as eval_prog reads them.
+struct EvAt {
+  const long long* ev; int B; int j;
+  __device__ long long operator()(int c) const { return ev[(long long)c * B + j]; }
 };
-enum Ty { T_BOOL = 0, T_I32 = 1, T_I64 = 2, T_F32 = 3 };
+struct BindAt {
+  const long long* bind; int stride;
+  __device__ long long operator()(int k) const { return bind[(long long)k * stride]; }
+};
+struct NoBind {
+  __device__ long long operator()(int) const { return 0; }
+};
 
 // creation buffer fields (kernel-private layout, int64 values)
 enum { F_EX = 0, F_BORN, F_VB, F_FIRST, F_LAST, F_BIND };
 
-struct Prog { int off; int len; };
 
 struct StageArgs {
   int L, B, C, s, last;
@@ -117,235 +124,6 @@ struct StageArgs {
   int* y_j;
   long long* y_ts;
 };
-
-// ---------------------------------------------------------------- values
-// A value is an int64 slot: bool 0/1, i32 sign-extended, i64 as is, f32 as
-// its bit pattern in the low 32 bits.
-
-__device__ __forceinline__ float as_f(long long v) {
-  return __int_as_float((int)(unsigned)(unsigned long long)v);
-}
-__device__ __forceinline__ long long from_f(float f) {
-  return (long long)(unsigned)__float_as_int(f);
-}
-__device__ __forceinline__ long long from_i32(int v) { return (long long)v; }
-
-__device__ __forceinline__ long long load_typed(const void* p, int ty, long long i) {
-  switch (ty) {
-    case T_BOOL: return ((const unsigned char*)p)[i] != 0;
-    case T_I32: return from_i32(((const int*)p)[i]);
-    case T_I64: return ((const long long*)p)[i];
-    default: return (long long)(unsigned)((const unsigned*)p)[i];
-  }
-}
-
-__device__ __forceinline__ void store_typed(void* p, int ty, long long i, long long v) {
-  switch (ty) {
-    case T_BOOL: ((unsigned char*)p)[i] = (unsigned char)(v != 0); break;
-    case T_I32: ((int*)p)[i] = (int)v; break;
-    case T_I64: ((long long*)p)[i] = v; break;
-    default: ((unsigned*)p)[i] = (unsigned)(unsigned long long)v; break;
-  }
-}
-
-__device__ __forceinline__ long long f2i_sat(float f, int bits) {
-  // XLA convert: truncate, saturate at the integer range, NaN -> 0
-  if (f != f) return 0;
-  if (bits == 32) {
-    if (f >= 2147483648.0f) return 2147483647LL;
-    if (f <= -2147483648.0f) return -2147483647LL - 1;
-    return (long long)(int)f;
-  }
-  if (f >= 9223372036854775808.0f) return 9223372036854775807LL;
-  if (f <= -9223372036854775808.0f) return -9223372036854775807LL - 1;
-  return (long long)f;
-}
-
-__device__ __forceinline__ long long cast_val(long long v, int src, int dst) {
-  if (src == dst) return v;
-  switch (dst) {
-    case T_BOOL:
-      return src == T_F32 ? (as_f(v) != 0.0f) : (v != 0);
-    case T_I32:
-      if (src == T_F32) return f2i_sat(as_f(v), 32);
-      return from_i32((int)(unsigned)(unsigned long long)v);   // wraps
-    case T_I64:
-      if (src == T_F32) return f2i_sat(as_f(v), 64);
-      return v;
-    default:
-      if (src == T_I64) return from_f(__ll2float_rn(v));
-      return from_f(__int2float_rn((int)v));
-  }
-}
-
-// ------------------------------------------------- integer division (XLA)
-template <typename T, typename U>
-struct IntOps {
-  static __device__ __forceinline__ T tmin() { return (T)((U)1 << (sizeof(T) * 8 - 1)); }
-  static __device__ __forceinline__ T xdiv(T a, T b) {
-    if (b == 0) return (T)-1;
-    if (a == tmin() && b == (T)-1) return a;
-    return a / b;
-  }
-  static __device__ __forceinline__ T xrem(T a, T b) {
-    if (b == 0) return a;
-    if (a == tmin() && b == (T)-1) return 0;
-    return a % b;
-  }
-  static __device__ __forceinline__ T sgn(T a) { return (T)((a > 0) - (a < 0)); }
-  static __device__ __forceinline__ T wabs(T a) { return a < 0 ? (T)((U)0 - (U)a) : a; }
-  static __device__ __forceinline__ T floordiv(T a, T b) {
-    T q = xdiv(a, b);
-    return (sgn(a) != sgn(b) && xrem(a, b) != 0) ? (T)((U)q - (U)1) : q;
-  }
-  static __device__ __forceinline__ T remainder(T a, T b) {
-    if (b == 0) b = 1;
-    T t = xrem(a, b);
-    return (((t < 0) != (b < 0)) && t != 0) ? (T)((U)t + (U)b) : t;
-  }
-  static __device__ __forceinline__ T java_div(T a, T b) {
-    T q = floordiv(wabs(a), wabs(b));
-    return ((a >= 0) == (b >= 0)) ? q : (T)((U)0 - (U)q);
-  }
-  static __device__ __forceinline__ T java_mod(T a, T b) {
-    return (T)((U)sgn(a) * (U)remainder(wabs(a), wabs(b)));
-  }
-};
-typedef IntOps<int, unsigned> I32Ops;
-typedef IntOps<long long, unsigned long long> I64Ops;
-
-__device__ __forceinline__ long long arith(int op, int ty, long long a, long long b) {
-  if (ty == T_F32) {
-    float x = as_f(a), y = as_f(b);
-    switch (op) {
-      case OP_ADD: return from_f(__fadd_rn(x, y));
-      case OP_SUB: return from_f(__fsub_rn(x, y));
-      case OP_MUL: return from_f(__fmul_rn(x, y));
-      case OP_DIV: return from_f(__fdiv_rn(x, y));
-      case OP_MOD: return from_f(fmodf(x, y));
-      case OP_MAX: return (x != x || y != y) ? from_f(__int_as_float(0x7fc00000)) : from_f(fmaxf(x, y));
-      default: return (x != x || y != y) ? from_f(__int_as_float(0x7fc00000)) : from_f(fminf(x, y));
-    }
-  }
-  if (ty == T_BOOL) {
-    switch (op) {
-      case OP_ADD: case OP_MAX: return (a | b) != 0;
-      default: return (a & b) != 0;          // MUL, MIN
-    }
-  }
-  if (ty == T_I32) {
-    int x = (int)a, y = (int)b;
-    switch (op) {
-      case OP_ADD: return from_i32((int)((unsigned)x + (unsigned)y));
-      case OP_SUB: return from_i32((int)((unsigned)x - (unsigned)y));
-      case OP_MUL: return from_i32((int)((unsigned)x * (unsigned)y));
-      case OP_DIV: return from_i32(I32Ops::java_div(x, y));
-      case OP_MOD: return from_i32(I32Ops::java_mod(x, y));
-      case OP_MAX: return x > y ? x : y;
-      default: return x < y ? x : y;
-    }
-  }
-  unsigned long long ux = (unsigned long long)a, uy = (unsigned long long)b;
-  switch (op) {
-    case OP_ADD: return (long long)(ux + uy);
-    case OP_SUB: return (long long)(ux - uy);
-    case OP_MUL: return (long long)(ux * uy);
-    case OP_DIV: return I64Ops::java_div(a, b);
-    case OP_MOD: return I64Ops::java_mod(a, b);
-    case OP_MAX: return a > b ? a : b;
-    default: return a < b ? a : b;
-  }
-}
-
-__device__ __forceinline__ long long compare(int op, int ty, long long a, long long b) {
-  if (ty == T_F32) {
-    float x = as_f(a), y = as_f(b);
-    switch (op) {
-      case OP_EQ: return x == y;
-      case OP_NE: return x != y;
-      case OP_LT: return x < y;
-      case OP_LE: return x <= y;
-      case OP_GT: return x > y;
-      default: return x >= y;
-    }
-  }
-  switch (op) {
-    case OP_EQ: return a == b;
-    case OP_NE: return a != b;
-    case OP_LT: return a < b;
-    case OP_LE: return a <= b;
-    case OP_GT: return a > b;
-    default: return a >= b;
-  }
-}
-
-// Evaluates one program for event j and a candidate whose k-th binding is
-// bind[k * bstride]. ev holds the staged columns, column c at ev[c * B].
-__device__ long long eval_prog(const int4* __restrict__ code, Prog p,
-                               const long long* ev, int B, int j,
-                               const long long* bind, int bstride,
-                               const long long* ts) {
-  long long st[MAXSTACK];
-  int sp = 0;
-  for (int i = 0; i < p.len; ++i) {
-    const int4 in = code[p.off + i];
-    switch (in.x) {
-      case OP_EV: st[sp++] = ev[(long long)in.z * B + j]; break;
-      case OP_BIND: st[sp++] = bind[(long long)in.z * bstride]; break;
-      case OP_TS: st[sp++] = ts[j]; break;
-      case OP_CONST:
-        st[sp++] = (long long)(((unsigned long long)(unsigned)in.w << 32) |
-                               (unsigned long long)(unsigned)in.z);
-        break;
-      case OP_CAST: st[sp - 1] = cast_val(st[sp - 1], in.z, in.y); break;
-      case OP_NEG:
-        if (in.y == T_F32) st[sp - 1] = from_f(-as_f(st[sp - 1]));
-        else if (in.y == T_I32) st[sp - 1] = from_i32((int)(0u - (unsigned)st[sp - 1]));
-        else st[sp - 1] = (long long)(0ull - (unsigned long long)st[sp - 1]);
-        break;
-      case OP_NOT: st[sp - 1] = st[sp - 1] == 0; break;
-      case OP_AND: --sp; st[sp - 1] = (st[sp - 1] != 0) & (st[sp] != 0); break;
-      case OP_OR: --sp; st[sp - 1] = (st[sp - 1] != 0) | (st[sp] != 0); break;
-      case OP_EQ: case OP_NE: case OP_LT: case OP_LE: case OP_GT: case OP_GE:
-        --sp; st[sp - 1] = compare(in.x, in.z, st[sp - 1], st[sp]); break;
-      case OP_SELECT:
-        sp -= 2; st[sp - 1] = st[sp - 1] ? st[sp] : st[sp + 1]; break;
-      default:   // ADD SUB MUL DIV MOD MAX MIN
-        --sp; st[sp - 1] = arith(in.x, in.y, st[sp - 1], st[sp]); break;
-    }
-  }
-  return st[0];
-}
-
-// -------------------------------------------------------- block helpers
-
-// Exclusive rank of every set flag among flag[0..n) in order (-1 where
-// unset); returns the number of set flags. Every thread must call it.
-__device__ int block_rank(const unsigned char* flag, int* rank, int n, int* s_scan) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  __syncthreads();
-  if (tid == 0) s_scan[NWARPS] = 0;
-  __syncthreads();
-  for (int base = 0; base < n; base += NTHREADS) {
-    const int i = base + tid;
-    const int f = (i < n) ? (flag[i] != 0) : 0;
-    const unsigned m = __ballot_sync(0xffffffffu, f);
-    const int pre = __popc(m & ((1u << lane) - 1u));
-    if (lane == 0) s_scan[warp] = __popc(m);
-    __syncthreads();
-    int off = s_scan[NWARPS];
-    for (int w = 0; w < warp; ++w) off += s_scan[w];
-    if (i < n) rank[i] = f ? off + pre : -1;
-    __syncthreads();
-    if (tid == 0) {
-      int tot = 0;
-      for (int w = 0; w < NWARPS; ++w) tot += s_scan[w];
-      s_scan[NWARPS] += tot;
-    }
-    __syncthreads();
-  }
-  return s_scan[NWARPS];
-}
 
 __device__ long long block_max(long long v, long long* s_red) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -463,19 +241,19 @@ nfa_block_stage_kernel(const StageArgs a) {
     for (int j = tid; j < B; j += NTHREADS) {
       int g = (j < nv) && sm.tag[j] == a.sidx0;
       if (g && a.seed.len)
-        g = eval_prog(a.code, a.seed, sm.ev, B, j, nullptr, 0, sm.ts) != 0;
+        g = eval_prog(a.code, a.seed, EvAt{sm.ev, B, j}, NoBind{}) != 0;
       sm.flag[j] = (unsigned char)g;
     }
     __syncthreads();
     if (a.s == 0) {
-      const int n = block_rank(sm.flag, sm.rank, B, sm.scan);
+      const int n = block_rank<NTHREADS>(sm.flag, sm.rank, B, sm.scan);
       for (int j = tid; j < B; j += NTHREADS) {
         a.y_mask[lb + j] = sm.flag[j];
         a.y_j[lb + j] = j;
         a.y_ts[lb + j] = sm.ts[j];
         for (int o = 0; o < a.nout; ++o)
           store_typed(a.out_ptr[o], a.out_ty[o], lb + j,
-                      eval_prog(a.code, a.out[o], sm.ev, B, j, nullptr, 0, sm.ts));
+                      eval_prog(a.code, a.out[o], EvAt{sm.ev, B, j}, NoBind{}));
       }
       if (tid == 0) a.matches[l] += n;
       return;
@@ -492,7 +270,7 @@ nfa_block_stage_kernel(const StageArgs a) {
           ci[(F_BIND + k) * cap + j] = sm.ev[(long long)a.seed_col[k] * B + j];
       }
     } else {
-      const int n = block_rank(sm.flag, sm.rank, B, sm.scan);
+      const int n = block_rank<NTHREADS>(sm.flag, sm.rank, B, sm.scan);
       const int K = a.K;
       for (int j = tid; j < B; j += NTHREADS) {
         const int r = sm.rank[j];
@@ -548,7 +326,7 @@ nfa_block_stage_kernel(const StageArgs a) {
         if (ok && a.has_within) ok = sm.ts[j] - first <= a.within;
         if (ok && a.has_sw) ok = sm.ts[j] - last <= a.sw;
         if (ok && a.pred.len)
-          ok = eval_prog(a.code, a.pred, sm.ev, B, j, bind, bstride, sm.ts) != 0;
+          ok = eval_prog(a.code, a.pred, EvAt{sm.ev, B, j}, BindAt{bind, bstride}) != 0;
         const unsigned m = __ballot_sync(0xffffffffu, ok);
         if (m) { adv = 1; jstar = b0 + __ffs(m) - 1; break; }
       }
@@ -569,15 +347,16 @@ nfa_block_stage_kernel(const StageArgs a) {
       const int bstride = p < C ? C : (int)cap;
       for (int o = 0; o < a.nout; ++o)
         store_typed(a.out_ptr[o], a.out_ty[o], ly + p,
-                    eval_prog(a.code, a.out[o], sm.ev, B, jstar, bind, bstride, sm.ts));
+                    eval_prog(a.code, a.out[o], EvAt{sm.ev, B, jstar},
+                              BindAt{bind, bstride}));
     }
-    const int n = block_rank(sm.flag, sm.rank, P, sm.scan);
+    const int n = block_rank<NTHREADS>(sm.flag, sm.rank, P, sm.scan);
     if (tid == 0) a.matches[l] += n;
   } else {
     // ---- creations entering stage s+1
     long long* co = a.cre_out + (long long)l * nf * cap;
     int n_adv = 0;
-    if (a.compact_out) n_adv = block_rank(sm.flag, sm.rank, P, sm.scan);
+    if (a.compact_out) n_adv = block_rank<NTHREADS>(sm.flag, sm.rank, P, sm.scan);
     const int K = a.K;
     for (int p = tid; p < P; p += NTHREADS) {
       int slot = p;
@@ -633,7 +412,7 @@ nfa_block_stage_kernel(const StageArgs a) {
     if (surv && a.is_seq) surv = vb == nv;
     sm.flag[p] = (unsigned char)surv;      // each p is read and written by one thread
   }
-  const int n_surv = block_rank(sm.flag, sm.rank, P, sm.scan);
+  const int n_surv = block_rank<NTHREADS>(sm.flag, sm.rank, P, sm.scan);
   for (int p = tid; p < P; p += NTHREADS) {
     const int r = sm.rank[p];
     if (r < 0 || r >= C) continue;

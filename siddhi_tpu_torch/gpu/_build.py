@@ -6,8 +6,9 @@ shared library with a plain C interface, for ``sm_90a``, at first CUDA use:
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 --fmad=false
          -shared -Xcompiler -fPIC -o _build/lib<stem>-<hash>.so csrc/<stem>.cu
 
-The library name carries a hash of the source and the flags, so an edited
-source rebuilds and a built one is reused. ``_build/`` is git-ignored.
+The library name carries a hash of the source, every shared header
+(``csrc/*.cuh``) and the flags, so an edited source or header rebuilds and a
+built one is reused. ``_build/`` is git-ignored.
 ``build_all`` starts one ``nvcc`` per source, all at once.
 """
 
@@ -45,8 +46,11 @@ def _nvcc() -> str:
 
 def _target(stem: str) -> tuple[str, str]:
     src = os.path.join(CSRC, f"{stem}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for path in [src] + [os.path.join(CSRC, h) for h in headers]:
+        with open(path, "rb") as f:
+            digest.update(os.path.basename(path).encode() + b"\0" + f.read())
     return src, os.path.join(BUILD_DIR, f"lib{stem}-{digest.hexdigest()[:16]}.so")
 
 

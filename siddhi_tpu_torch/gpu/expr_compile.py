@@ -7,8 +7,9 @@ program:
 - a **torch closure** ``fn(env) -> tensor`` over column tensors: the plain
   version, run on any device; and
 - a **typed postfix IR** (a list of ``(op, type, a, b)`` tuples) that the
-  CUDA kernels (``csrc/nfa_block.cu``) evaluate with one ``__device__``
-  interpreter, so one build of the kernel serves every app.
+  CUDA kernels (``csrc/nfa_block.cu``, ``csrc/nfa_scan.cu``) evaluate with
+  one ``__device__`` interpreter (``csrc/expr_ir.cuh``), so one build of
+  each kernel serves every app.
 
 Semantics are the reference's (the JAX package on its device dtype policy):
 typed compares with int-vs-float constant folding, and/or/not, ``+ - * / %``
@@ -22,8 +23,10 @@ Java ``a / 0`` is ``-2`` for ``a != 0``, ``-1`` for ``a == 0`` and
 against an f32 column compares in f32, and the IR types it as f32.
 
 Env keys: ``ev_<merged col>`` (event columns), ``b<q>_<attr>`` (bound values
-of earlier states), ``__ts__`` (event timestamp) and ``__device__`` (the
-device constants are materialised on).
+of earlier states) and ``__device__`` (the device constants are materialised
+on). ``eventTimestamp()`` reads ``__ts__``, which the NFA steps do not
+provide, as the reference's do not: inside a pattern it raises
+``KeyError('__ts__')`` at the first step, in both packages.
 """
 
 from __future__ import annotations
@@ -58,7 +61,7 @@ class DeviceCompileError(Exception):
 
 # --------------------------------------------------------------------------
 # IR: op codes and static types (mirrored by `enum Op`/`enum Ty` in
-# csrc/nfa_block.cu; a test pins the two lists together)
+# csrc/expr_ir.cuh; a test pins the two lists together)
 # --------------------------------------------------------------------------
 
 T_BOOL, T_I32, T_I64, T_F32 = 0, 1, 2, 3

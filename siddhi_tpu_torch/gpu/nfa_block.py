@@ -169,14 +169,14 @@ def block_step_plain(nfa: "DeviceNFACompiler", state, cols, tag, ts, ts_base,
     st0 = states[0]
     gate0 = valid & (tag == st0.stream_idx)
     if st0.predicate is not None:
-        env = dict(ev_env, __ts__=ts, __device__=dev)
+        env = dict(ev_env, __device__=dev)
         gate0 = gate0 & torch.broadcast_to(
             astype(as_tensor(st0.predicate(env), env), torch.bool), (L, B))
 
     if S == 1:
         # single-state every-pattern: each matching event IS a match
         out = {"mask": gate0, "j": jidx.contiguous(), "ts": ts}
-        emit_env = dict(ev_env, __ts__=ts, __device__=dev)
+        emit_env = dict(ev_env, __device__=dev)
         emit_env.update(new_binding_cols(0))
         for (name, fn, t) in nfa.out_specs:
             out[name] = torch.broadcast_to(
@@ -258,7 +258,6 @@ def block_step_plain(nfa: "DeviceNFACompiler", state, cols, tag, ts, ts_base,
         if st.predicate is not None:
             env = {k: v[:, :, None] for k, v in ev_env.items()}
             env.update({k: v[:, None, :] for k, v in cand_bind.items()})
-            env["__ts__"] = ts[:, :, None]
             env["__device__"] = dev
             pred = astype(as_tensor(st.predicate(env), env), torch.bool)
             grid = grid & torch.broadcast_to(pred, (L, B, P))
@@ -288,7 +287,6 @@ def block_step_plain(nfa: "DeviceNFACompiler", state, cols, tag, ts, ts_base,
             emit_env = {k: v.gather(1, jl) for k, v in ev_env.items()}
             emit_env.update(cand_bind)
             emit_env.update(new_binding_cols(s, jl))
-            emit_env["__ts__"] = ts_j
             emit_env["__device__"] = dev
             for (name, fn, t) in nfa.out_specs:
                 ys[name] = torch.broadcast_to(
@@ -470,10 +468,15 @@ class BlockPlan:
         self.cre_nf = _NF_FIXED + nbind_max
 
         progs = []
+        # eventTimestamp() reads `__ts__`, which the reference's step env
+        # lacks: it raises KeyError at its first step, and so does this one
+        self.link_error = None
 
         def add(ir, bind_slot, ev_alias=None):
             if ir is None:
                 return (0, 0)
+            if any(op == OP["TS"] for (op, _, _, _) in ir):
+                self.link_error = KeyError("__ts__")
             code = link_program(ir, col_slot, bind_slot, ev_alias)
             off = sum(len(p) for p in progs)
             progs.append(code)
@@ -617,6 +620,8 @@ class BlockPlan:
         if tag.device.type != "cuda":
             raise ValueError("step_cuda takes CUDA tensors")
         self._check(state, cols, tag, ts, ts_base, nvalid)
+        if self.link_error is not None:
+            raise self.link_error
         lib = self._lib()
         nfa = self.nfa
         dev = tag.device
@@ -677,7 +682,7 @@ def make_block_step(nfa: "DeviceNFACompiler"):
 
     CPU tensors take the plain version; CUDA tensors launch the kernel (the
     state is updated in place) or raise."""
-    plan = BlockPlan(nfa)
+    plan = nfa.plan
 
     def step(state, cols, tag, ts, ts_base, nvalid):
         kind = tag.device.type

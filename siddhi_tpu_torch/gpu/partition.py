@@ -4,6 +4,9 @@ Port of the reference's ``tpu/partition.py`` for one device (``mesh=None``).
 Keys hash to L partition lanes; each lane owns fixed-capacity match tables.
 Events are routed on the host to their lane's sub-batch; on the card the
 lane axis is the kernel's grid (one CTA per lane), so nothing crosses lanes.
+Both step shapes run here: the blocked chain (``nfa_block``) and the
+per-event scan (``nfa_scan``); absent states are refused under a partition,
+as the reference refuses them.
 Native CSV ingress and lanes spread over several GPUs are not ported yet.
 """
 
@@ -231,41 +234,26 @@ class PartitionedNFARuntime:
             return tbl[enc[self.key_attr]]
         return self.route_lanes(cols[self.key_attr])
 
-    def partition_columns(self, stream_id: str, cols: dict, timestamps):
-        """Encode strings per distinct value, route all rows with ONE stable
-        argsort, return per-lane column/timestamp views."""
+    def send_many(self, stream_id: str, cols: dict, timestamps,
+                  decode: bool = False):
+        """Bulk ingest: encode strings per distinct value, order all rows by
+        lane with ONE stable argsort, bulk-copy each non-empty lane's rows
+        into its wire builder in lane order, flushing as lanes fill.
+        ``cols`` maps attribute name to an array of values."""
         ts = np.asarray(timestamps, dtype=np.int64)
         enc = self.encode_columns(stream_id, cols)
         lanes = self._lanes_for(stream_id, cols, enc)
         order = np.argsort(lanes, kind="stable")
-        lanes_sorted = lanes[order]
-        enc_sorted = {k: v[order] for k, v in enc.items()}
-        ts_sorted = ts[order]
-        bounds = np.searchsorted(lanes_sorted, np.arange(self.P + 1))
-        lane_cols, lane_ts = [], []
-        for lane in range(self.P):
-            lo, hi = int(bounds[lane]), int(bounds[lane + 1])
-            lane_cols.append({k: v[lo:hi] for k, v in enc_sorted.items()})
-            lane_ts.append(ts_sorted[lo:hi])
-        return lane_cols, lane_ts
-
-    def send_many(self, stream_id: str, cols: dict, timestamps,
-                  decode: bool = False):
-        """Bulk ingest: route with ``partition_columns``, bulk-copy per-lane
-        slices into the wire builders, flushing as lanes fill. ``cols`` maps
-        attribute name to an array of values."""
-        lane_cols, lane_ts = self.partition_columns(
-            stream_id, cols, timestamps)
+        bounds = np.searchsorted(lanes[order], np.arange(self.P + 1))
+        enc = {k: v[order] for k, v in enc.items()}
+        ts = ts[order]
         out: list = []
-        for lane in range(self.P):
-            n = len(lane_ts[lane])
-            if n == 0:
-                continue
+        for lane in np.flatnonzero(bounds[1:] > bounds[:-1]):
+            lo, hi = int(bounds[lane]), int(bounds[lane + 1])
             b = self.builders[lane]
-            pos = 0
-            while pos < n:
-                pos += b.append_many(stream_id, lane_cols[lane],
-                                     lane_ts[lane], start=pos)
+            pos = lo
+            while pos < hi:
+                pos += b.append_many(stream_id, enc, ts[:hi], start=pos)
                 if b.full:
                     r = self.flush(decode=decode)
                     if decode and r:
@@ -305,11 +293,16 @@ class PartitionedNFARuntime:
             cols, tag, ts, ts_base, counts))
         if not decode:
             return ys
-        host = {k: v.cpu().numpy() for k, v in ys.items()}
-        rows = []
-        for lane in range(self.P):
-            rows.extend(self.compiler.decode_outputs(
-                {k: v[lane] for k, v in host.items()}))
+        if self.compiler.blocked:
+            host = {k: v.cpu().numpy() for k, v in ys.items()}
+            rows = []
+            for lane in range(self.P):
+                rows.extend(self.compiler.decode_outputs(
+                    {k: v[lane] for k, v in host.items()}))
+        else:
+            # scan ys: hits found where the ys lie, rows in (lane, b, src, c)
+            # order — the reference's lane-by-lane argwhere order
+            rows = self.compiler.decode_outputs(ys)
         if self.callback is not None and rows:
             self.callback(rows)
         return rows

@@ -1,11 +1,19 @@
 """Carries device state between the JAX package and the port.
 
-Both packages keep the same state tree for a partitioned blocked NFA —
-``{"tables": {"t{s}": {leaf: [L, C]}}, "matches": [L], "drops": [L]}`` —
-with the same leaf names and dtypes. ``state_from_numpy`` takes such a tree
-with numpy leaves (what ``jax.device_get(rt.state)`` returns) and makes the
-port's tensors; ``state_to_numpy`` goes the other way. String dictionaries
-travel as the plain dict ``snapshot_dictionaries`` produces
+Both packages keep the same state tree, leaf names and dtypes:
+
+- blocked NFA: ``{"tables": {"t{s}": {leaf: [L, C]}}, "matches": [L],
+  "drops": [L]}``;
+- scan NFA: ``{"pending": {"p{s}": {leaf: [L, C]}}, "seeds": [L],
+  "drops": [L], "matches": [L]}``.
+
+The reference's partitioned runtimes stack lanes in front (``[P, C]``, ``[P]``)
+as the port does; its single-lane ``DeviceNFARuntime`` keeps ``[C]`` leaves
+and scalar counters, which the port holds as one lane (``single_lane=True``
+adds or drops that dim). ``state_from_numpy`` takes a tree with numpy leaves
+(what ``jax.device_get(rt.state)`` returns) and makes the port's tensors;
+``state_to_numpy`` goes the other way. String dictionaries travel as the
+plain dict ``snapshot_dictionaries`` produces
 (``MergedBatchSchema.snapshot_dictionaries`` / ``restore_dictionaries``).
 """
 
@@ -15,15 +23,20 @@ import numpy as np
 import torch
 
 
-def state_from_numpy(tree, device) -> dict:
-    """Nested dict of numpy arrays → the same dict of tensors on ``device``."""
+def state_from_numpy(tree, device, single_lane: bool = False) -> dict:
+    """Nested dict of numpy arrays → the same dict of tensors on ``device``
+    (with a lane dim of 1 added in front when ``single_lane``)."""
     if isinstance(tree, dict):
-        return {k: state_from_numpy(v, device) for k, v in tree.items()}
-    return torch.from_numpy(np.array(tree, copy=True)).to(device)
+        return {k: state_from_numpy(v, device, single_lane)
+                for k, v in tree.items()}
+    a = np.array(tree, copy=True)
+    return torch.from_numpy(a[None] if single_lane else a).to(device)
 
 
-def state_to_numpy(state) -> dict:
-    """Nested dict of tensors → the same dict of numpy arrays (on the host)."""
+def state_to_numpy(state, single_lane: bool = False) -> dict:
+    """Nested dict of tensors → the same dict of numpy arrays on the host
+    (with the lane dim of 1 dropped when ``single_lane``)."""
     if isinstance(state, dict):
-        return {k: state_to_numpy(v) for k, v in state.items()}
-    return state.detach().cpu().numpy()
+        return {k: state_to_numpy(v, single_lane) for k, v in state.items()}
+    a = state.detach().cpu().numpy()
+    return a[0] if single_lane else a

@@ -5,7 +5,7 @@ the same seeded numpy columns; the port's torch closure must give the JAX
 closure's dtype and values exactly (NaN where NaN). The same expression's
 kernel IR, linked as the CUDA kernel receives it, is evaluated by a numpy
 model of the kernel's interpreter (``_run_ir`` below mirrors
-``eval_prog`` in ``csrc/nfa_block.cu``: int64 value slots, f32 as bits,
+``eval_prog`` in ``csrc/expr_ir.cuh``: int64 value slots, f32 as bits,
 wrapping integer arithmetic, XLA division rules) and must agree too.
 """
 
@@ -306,12 +306,17 @@ def test_string_constant_without_comparison_is_refused():
 
 
 def test_kernel_source_agrees_with_the_python_constants():
-    src = (ROOT / "siddhi_tpu_torch" / "csrc" / "nfa_block.cu").read_text()
-    body = re.search(r"enum Op \{(.*?)\};", src, re.S).group(1)
+    csrc = ROOT / "siddhi_tpu_torch" / "csrc"
+    src = (csrc / "nfa_block.cu").read_text()
+    # the IR's op and type enums live in the header both kernels include
+    ir = (csrc / "expr_ir.cuh").read_text()
+    assert '#include "expr_ir.cuh"' in src
+    assert '#include "expr_ir.cuh"' in (csrc / "nfa_scan.cu").read_text()
+    body = re.search(r"enum Op \{(.*?)\};", ir, re.S).group(1)
     names = [n.strip().split("=")[0].strip()[3:] for n in body.split(",")
              if n.strip()]
     assert names == list(OPS) and OP[OPS[0]] == 1
-    ty = re.search(r"enum Ty \{(.*?)\};", src, re.S).group(1)
+    ty = re.search(r"enum Ty \{(.*?)\};", ir, re.S).group(1)
     assert [int(x) for x in re.findall(r"= (\d+)", ty)] == \
         [T_BOOL, T_I32, T_I64, T_F32]
     for name in ("MAXCOL", "MAXB", "MAXOUT", "MAXSTACK"):

@@ -20,7 +20,6 @@ import torch
 from siddhi_tpu.compiler import parse as jparse
 from siddhi_tpu.tpu.nfa import DeviceNFACompiler as JCompiler
 from siddhi_tpu_torch.compiler import parse as tparse
-from siddhi_tpu_torch.gpu.expr_compile import DeviceCompileError
 from siddhi_tpu_torch.gpu.nfa import DeviceNFACompiler as TCompiler
 from siddhi_tpu_torch.gpu.nfa_block import BlockPlan, block_step_plain
 from siddhi_tpu_torch.gpu.state_io import state_from_numpy, state_to_numpy
@@ -218,18 +217,6 @@ def test_sequence_one_lane_steps_match_jax():
     assert emitted > 0
 
 
-def test_scan_shapes_are_refused():
-    app = """
-define stream S (v double);
-from every e1=S[v > 1.0] -> e2=S[v > e1.v]<2:4> -> e3=S[v > 40.0]
-select e1.v as a, e3.v as c insert into O;
-"""
-    tapp = tparse(app)
-    with pytest.raises(DeviceCompileError, match="scan NFA not yet ported"):
-        TCompiler(tapp.queries[0], dict(tapp.stream_definitions), 8, 16,
-                  device="cpu")
-
-
 def test_linked_programs_cover_every_stage():
     # the kernel plan links every predicate/output program without error and
     # maps the bindings minted by the final state onto event columns
@@ -267,24 +254,36 @@ def test_kernel_matches_plain_on_card(name, B, C, K, lanes):
         _assert_tree_equal(state_to_numpy(ref_ys), state_to_numpy(ys), arith)
 
 
-def test_event_timestamp_in_a_pattern_is_the_event_time():
-    # the reference's blocked step has no `__ts__` in its env and fails at
-    # trace time (KeyError); the port evaluates eventTimestamp() as the
-    # matched event's time — pinned here as a deliberate divergence
-    app = """
+TS_APPS = {
+    "blocked": """
 define stream S (v double);
 from every e1=S[v > 1.0] -> e2=S[v > e1.v and eventTimestamp() > 0]
 select e1.v as a, eventTimestamp() as t insert into O;
-"""
+""",
+    "scan": """
+define stream S (v double);
+from every e1=S[v > 1.0] -> e2=S[v > e1.v]<1:2> -> e3=S[eventTimestamp() > 0]
+select e1.v as a, eventTimestamp() as t insert into O;
+""",
+}
+
+
+@pytest.mark.parametrize("shape", sorted(TS_APPS))
+def test_event_timestamp_in_a_pattern_raises_as_in_the_reference(shape):
+    # neither package's NFA step env carries `__ts__`: eventTimestamp()
+    # inside a pattern compiles, then raises KeyError at the first step —
+    # in the reference (at trace time) and in the port, for both shapes
+    app = TS_APPS[shape]
     japp, tapp = jparse(app), tparse(app)
     jc = JCompiler(japp.queries[0], dict(japp.stream_definitions), 8, 16)
     tc = TCompiler(tapp.queries[0], dict(tapp.stream_definitions), 8, 16,
                    device="cpu")
+    assert jc.blocked == tc.blocked == (shape == "blocked")
     batch = {"cols": {"s0_v": np.array([2.0, 3.0] + [0.0] * 14, np.float32)},
              "tag": np.zeros(16, np.int8),
              "ts": np.array([0, 100] + [0] * 14, np.int32),
              "ts_base": np.int64(5000), "count": 2}
     with pytest.raises(KeyError, match="__ts__"):
         jc.step(jc.init_state(), batch)
-    _, ys = tc.step(tc.init_state(1), batch)
-    assert tc.decode_outputs(ys) == [[2.0, 5100]]
+    with pytest.raises(KeyError, match="__ts__"):
+        tc.step(tc.init_state(1), batch)

@@ -37,6 +37,29 @@ Phases, one JSON line each:
                time; a checked run holds the first steps (state leaves,
                counters, ys, decoded rows) against the plain version on the
                card.
+  6. query_shapes — the single-stream query kernel against its plain
+               PyTorch version on the card: every case of
+               ``tests/test_torch_query_shapes.py`` (each sliding window kind,
+               batch(), running and grouped aggregates, having, min/max,
+               stdDev, eventTimestamp(), out-of-order externalTime, group
+               collisions), 5 steps each, state leaves and every output
+               position held to that file's tolerances; the reference's
+               refusals and the next slice's windows refuse on the card.
+  7. query_main — two configurations at full width through
+               ``DeviceStreamRuntime`` (``BatchBuilder.append_columns`` →
+               step → ``decode_outputs``), ``QUERY_EVENTS`` events each:
+               (a) the repo's device sample, a grouped sliding length window
+               (4096 rows, 1,000 Zipf(1.1) symbols, K = 1024); (b) an
+               ungrouped 10 s sliding time window with min/max/stdDev
+               (window capacity 65536, ~50,000 live events); both are
+               defined in ``siddhi_tpu_torch/tools/query_workloads.py``. A
+               timed run gives events/s and, by CUDA events, the kernels'
+               time per step (around their launch call) and the step call's
+               (the wrapper's host work included); a checked run holds every
+               step against the plain version on the card, with the float
+               limits computed per step from the state and batch it reads
+               (``step_scale``), and prints each output's largest error and
+               its largest share of its limit.
 Then the card's name and power limit (nvidia-smi), the ``kernels`` line and,
 last, ``{"ok": true, "device": {...}}``. Any failure exits non-zero before
 that line. Needs one CUDA card; fails without one.
@@ -786,6 +809,285 @@ def phase_scan_main(seed: int, n_events: int):
     return out
 
 
+# ------------------------------------------------- single-stream queries
+
+def query_shapes_module():
+    """``tests/test_torch_query_shapes.py``: the query cases, refusal lists
+    and tolerances of the CPU tests (it imports the port, not the JAX
+    package)."""
+    import importlib.util
+    path = os.path.join(REPO, "tests", "test_torch_query_shapes.py")
+    spec = importlib.util.spec_from_file_location("test_torch_query_shapes",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_query_shapes() -> float:
+    import torch
+    from siddhi_tpu_torch.compiler import parse
+    from siddhi_tpu_torch.gpu.expr_compile import DeviceCompileError
+    from siddhi_tpu_torch.gpu.query_compile import (CompiledStreamQuery,
+                                                    stream_step_plain)
+    from siddhi_tpu_torch.gpu.state_io import state_to_numpy
+    sh = query_shapes_module()
+    t_phase = time.perf_counter()
+    worst, cases = 0.0, []
+    for name, B in sh.CASES:
+        q = sh.compile_port(name, B, "cuda")
+        state = q.init_state()
+        wire = sh.Wire(7, B)
+        rows = 0
+        for step in range(sh.STEPS):
+            cols, ts, valid = q.batch_tensors(wire.batch(step))
+            scale = sh.step_scale(q, state, cols, ts, valid)
+            ref_state, ref_out = stream_step_plain(q, state, cols, ts, valid)
+            state, out = q.step_tensors(state, cols, ts, valid)
+            torch.cuda.synchronize()
+            try:
+                err = sh.compare(q, scale, state_to_numpy(ref_state),
+                                 state_to_numpy(state),
+                                 state_to_numpy(ref_out), state_to_numpy(out))
+            except AssertionError as e:
+                fail(f"query shape {name} B={B} step {step}: kernel differs "
+                     f"from the plain version: {str(e)[:400]}")
+            worst = max(worst, err)
+            rows += int(out["valid"].sum())
+        cases.append({"query": name, "B": B, "rows": rows})
+
+    def build(text):
+        app = parse(sh.REFUSAL_SCHEMA + text)
+        return CompiledStreamQuery(app.queries[0], app.stream_definitions["S"],
+                                   8, device="cuda")
+
+    for text in sh.REFUSED:
+        try:
+            build(text)
+            fail(f"the card accepted a query the reference refuses: {text}")
+        except DeviceCompileError:
+            pass
+    for window, body in sh.STAGED.items():
+        try:
+            build(f"from S{body} insert into O;")
+            fail(f"the card accepted window '{window}'")
+        except DeviceCompileError as e:
+            if "not yet ported" not in str(e):
+                fail(f"window '{window}': {e}")
+    for text in sh.ACCEPTED:
+        build(text)
+    emit({"phase": "query_shapes", "cases": cases, "refused": len(sh.REFUSED),
+          "staged_refused": len(sh.STAGED), "accepted": len(sh.ACCEPTED),
+          "max_abs_err": worst, "phase_s": time.perf_counter() - t_phase})
+    return worst
+
+
+QUERY_EVENTS = 2_000_000          # events per query_main configuration
+def query_step_bytes(state, new_state, cols, ts, valid, out) -> int:
+    """Bytes one step must move: the columns it reads, the state leaves it
+    reads and the ones it writes anew, the outputs."""
+    n = sum(t.numel() * t.element_size() for t in (*cols.values(), ts, valid))
+    n += sum(t.numel() * t.element_size() for t in state.values())
+    n += sum(t.numel() * t.element_size() for k, t in new_state.items()
+             if t is not state[k])
+    n += sum(t.numel() * t.element_size() for t in
+             (*out["out"].values(), out["valid"], out["ts"]))
+    return n
+
+
+def query_step_ops(q) -> int:
+    """Operations one step does at the least: every event runs its filter and
+    argument programs; every scanned lane adds once per position of its axis;
+    every output slot materialises its specs (a few operations each) and,
+    grouped or time-windowed, binary-searches its range (log2 of the axis)."""
+    a = q.plan.args
+    prog = sum(p.len for p in a.filt[:a.nfilt]) + \
+        sum(a.lane[c][l].len for c, n in enumerate((a.AF, a.AI, a.AS, a.AM))
+            for l in range(n)) + \
+        sum(a.proj[i].len for i in range(a.nspec)) + a.having.len
+    lanes = a.AF + a.AI + 1 + 2 * a.AS + 2 * a.AM if a.has_agg else 0
+    search = int(np.log2(max(a.M, 2))) * (2 if a.grouped else 1)
+    return q.B * prog + a.M * lanes + q.B * (4 * a.nspec + search)
+
+
+def phase_query_main(name: str, seed: int) -> dict:
+    import torch
+    from siddhi_tpu_torch.gpu.query_compile import stream_step_plain
+    from siddhi_tpu_torch.gpu.query_step import QueryPlan
+    from siddhi_tpu_torch.gpu.runtime import DeviceStreamRuntime
+    from siddhi_tpu_torch.gpu.state_io import state_to_numpy
+    from siddhi_tpu_torch.tools.query_workloads import (QUERY_MAIN,
+                                                        feed_query,
+                                                        query_events)
+    sh = query_shapes_module()
+    t_phase = time.perf_counter()
+    cfg = dict(QUERY_MAIN[name])
+    app = cfg.pop("app")
+    cfg.pop("stream")
+    cols, ts = query_events(name, QUERY_EVENTS, seed)
+
+    # warm-up: build, first launches
+    rt = DeviceStreamRuntime(app, device="cuda", **cfg)
+    feed_query(rt, {k: v[:3 * rt.compiled.B] for k, v in cols.items()},
+               ts[:3 * rt.compiled.B])
+    torch.cuda.synchronize()
+
+    # ---- timed run: the entry points alone; CUDA events around the step
+    # call (the wrapper's host work included) and around the kernels'
+    # launch call alone (``lib.query_step``: the kernels' own time)
+    rt = DeviceStreamRuntime(app, device="cuda", **cfg)
+    q = rt.compiled
+    kstep = q.step_tensors
+    marks, kmarks, shapes = [], [], {}
+
+    def event_pair():
+        return (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+
+    def timed(state, c, t, v):
+        e0, e1 = event_pair()
+        e0.record()
+        new, out = kstep(state, c, t, v)
+        e1.record()
+        marks.append((e0, e1))
+        if not shapes:
+            shapes["bytes"] = query_step_bytes(state, new, c, t, v, out)
+        return new, out
+
+    lib = q.plan._lib()
+
+    class TimedLib:
+        def query_step(self, *a):
+            e0, e1 = event_pair()
+            e0.record()
+            rc = lib.query_step(*a)
+            e1.record()
+            kmarks.append((e0, e1))
+            return rc
+
+    timed_lib = TimedLib()
+    q.plan._lib = lambda: timed_lib
+    q.step_tensors = timed
+    torch.cuda.synchronize()
+    QueryPlan.launches = 0                     # counts from here: main path
+    t0 = time.perf_counter()
+    rows = feed_query(rt, cols, ts)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = QueryPlan.launches
+    steps = len(marks)
+    call_ms = [a.elapsed_time(b) for a, b in marks]
+    step_ms = [a.elapsed_time(b) for a, b in kmarks]
+    if len(kmarks) != steps:
+        fail(f"query_main {name}: {len(kmarks)} kernel calls over {steps} steps")
+    per_step = 3 if q.agg_idx else 2
+    if launches != steps * per_step or launches == 0:
+        fail(f"query_main {name}: {launches} kernel launches over {steps} steps")
+    drops = int(rt.state["window_drops"]) if "window_drops" in rt.state else 0
+    coll = rt.group_collision_count
+    if drops or coll:
+        fail(f"query_main {name}: {drops} window drops, {coll} collisions")
+    for r in rows:
+        if name == "grouped_length":
+            ok = isinstance(r[0], str) and 1 <= r[3] <= 4096 and \
+                np.isfinite(r[1]) and r[1] >= 0 and 0 <= r[2] and \
+                abs(r[4] - r[1] / r[3]) <= 1e-3 * max(1.0, r[4])
+        else:
+            ok = 1 <= r[4] <= 65536 and r[1] - 1e-3 <= r[0] <= r[2] + 1e-3 \
+                and r[3] >= 0 and 0 <= r[1] and r[2] < 100
+        if not ok:
+            fail(f"query_main {name}: row breaks the query's contract: {r}")
+
+    # ---- checked run: every step against the plain version on the card
+    rt = DeviceStreamRuntime(app, device="cuda", **cfg)
+    q = rt.compiled
+    kstep = q.step_tensors
+    plain_ms, worst, equal_steps = [], 0.0, 0
+    limits, fsum_limit = {}, []
+
+    def checked(state, c, t, v):
+        nonlocal worst, equal_steps
+        e0, e1 = event_pair()
+        e0.record()
+        ref_state, ref_out = stream_step_plain(q, state, c, t, v)
+        e1.record()
+        new, out = kstep(state, c, t, v)
+        torch.cuda.synchronize()
+        plain_ms.append(e0.elapsed_time(e1))
+        scale = sh.step_scale(q, state, c, t, v)
+        fsum_limit.append(2.0 ** -20 * (1.0 + scale.top("s1")))
+        try:
+            err = sh.compare(q, scale, state_to_numpy(ref_state),
+                             state_to_numpy(new), state_to_numpy(ref_out),
+                             state_to_numpy(out), limits)
+        except AssertionError as e:
+            fail(f"query_main {name} step {len(plain_ms)}: kernel differs "
+                 f"from the plain version: {str(e)[:400]}")
+        worst = max(worst, err)
+        equal_steps += err == 0.0
+        return new, out
+
+    q.step_tensors = checked
+    rows2 = feed_query(rt, cols, ts)
+    if rows2 != rows:
+        fail(f"query_main {name}: the checked run's rows differ from the "
+             f"timed run's")
+    ops = query_step_ops(q)
+    out = {
+        "phase": "query_main", "config": name, "events": QUERY_EVENTS,
+        "steps": steps, "events_per_s": QUERY_EVENTS / wall, "wall_s": wall,
+        "launches": launches, "launches_per_step": launches / steps,
+        "kernel_step_ms_median": float(np.median(step_ms)),
+        "kernel_step_ms_min": float(np.min(step_ms)),
+        "kernel_step_ms_max": float(np.max(step_ms)),
+        "step_call_ms_median": float(np.median(call_ms)),
+        "plain_step_ms_median": float(np.median(plain_ms)),
+        "plain_device": "cuda", "checked_steps": len(plain_ms),
+        "bitwise_equal_steps": equal_steps,
+        "rows": len(rows), "window_drops": drops, "group_collisions": coll,
+        "bytes_per_step": shapes["bytes"], "ops_per_step": ops,
+        "bound_ms_bytes": shapes["bytes"] / HBM_BYTES_PER_S * 1e3,
+        "bound_ms_ops": ops / F32_OPS_PER_S * 1e3,
+        "max_abs_err": worst, "errors_by_output": limits,
+        "fsum_limit_min": float(np.min(fsum_limit)),
+        "fsum_limit_max": float(np.max(fsum_limit)),
+        "phase_s": time.perf_counter() - t_phase,
+    }
+    emit(out)
+    return out
+
+
+def query_kernel_entry(q_outs: list, shapes_err: float) -> dict:
+    """The ``kernels`` line's ``query_step`` entry: times and bound of the
+    sample's configuration (a); (b) beside it under ``configs``."""
+    a = q_outs[0]
+    bound = max(a["bound_ms_bytes"], a["bound_ms_ops"])
+    return {
+        "name": "query_step",
+        "route": "cuda",
+        "source": "siddhi_tpu_torch/csrc/query_step.cu",
+        "replaces": "siddhi_tpu/tpu/query_compile.py:608",
+        "also_replaces": ["siddhi_tpu/tpu/expr_compile.py:121"],
+        "launches": sum(o["launches"] for o in q_outs),
+        "max_abs_err": max([shapes_err] + [o["max_abs_err"] for o in q_outs]),
+        "ms": a["kernel_step_ms_median"],
+        "plain_ms": a["plain_step_ms_median"],
+        "bound_ms": bound,
+        "bound_by": "bytes" if a["bound_ms_bytes"] >= a["bound_ms_ops"]
+        else "operations",
+        "library_ms": None,
+        "unit": "one query_main step of (a): CUDA events around the "
+                "kernels' launch call (3 launches)",
+        "step_call_ms": a["step_call_ms_median"],
+        "parity": "exact except f32 sums/avgs and stdDev (stated tolerance)",
+        "configs": {o["config"]: {k: o[k] for k in (
+            "kernel_step_ms_median", "step_call_ms_median",
+            "plain_step_ms_median", "launches",
+            "bound_ms_bytes", "bound_ms_ops", "max_abs_err")}
+            for o in q_outs},
+    }
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=42)
@@ -795,11 +1097,14 @@ def main() -> int:
     if not torch.cuda.is_available():
         fail("no CUDA device (torch.cuda.is_available() is false)")
     sys.path.insert(0, REPO)
+    from siddhi_tpu_torch.tools.query_workloads import QUERY_MAIN
     card = phase_device()
     shape_err = phase_shapes(args.seed)
     main_out = phase_main(args.seed, args.events)
     scan_err = phase_scan_shapes(args.seed)
     scan_out = phase_scan_main(args.seed, SCAN_EVENTS)
+    query_err = phase_query_shapes()
+    q_outs = [phase_query_main(name, args.seed) for name in QUERY_MAIN]
     bound = max(main_out["bound_ms_bytes"], main_out["bound_ms_ops"])
     scan_bound = max(scan_out["bound_ms_bytes"], scan_out["bound_ms_ops"])
     kernels = [{
@@ -836,7 +1141,7 @@ def main() -> int:
         "unit": "one scan_main step (1 launch, ys zeroed in it)",
         "parity": "exact",
         "checked_steps": scan_out["checked_steps"],
-    }]
+    }, query_kernel_entry(q_outs, query_err)]
     print(card, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

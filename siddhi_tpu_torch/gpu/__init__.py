@@ -3,3 +3,8 @@
 Importing this package imports ``torch`` only; CUDA kernels build at first
 CUDA use (``_build.py``).
 """
+
+from .query_compile import CompiledStreamQuery
+from .runtime import DeviceStreamRuntime
+
+__all__ = ["CompiledStreamQuery", "DeviceStreamRuntime"]

@@ -26,7 +26,10 @@ Env keys: ``ev_<merged col>`` (event columns), ``b<q>_<attr>`` (bound values
 of earlier states) and ``__device__`` (the device constants are materialised
 on). ``eventTimestamp()`` reads ``__ts__``, which the NFA steps do not
 provide, as the reference's do not: inside a pattern it raises
-``KeyError('__ts__')`` at the first step, in both packages.
+``KeyError('__ts__')`` at the first step, in both packages. Single-stream
+queries (``query_compile.py``) resolve bare attribute names through
+``ColumnResolver`` and do put ``__ts__`` in the env; their kernel links
+``OP_TS`` to the int64 timestamp column and bare names to column slots.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ import functools
 import math
 from typing import Callable
 
+import numpy as np
 import torch
 
 from ..query_api import (
@@ -59,6 +63,26 @@ class DeviceCompileError(Exception):
     """Raised when an expression or pattern cannot run on the device path."""
 
 
+class ColumnResolver:
+    """Maps a Variable to a column key + dtype for one stream: bare
+    attribute names (pattern compilers resolve prefixed keys instead)."""
+
+    def __init__(self, schema):
+        self.schema = schema
+
+    def resolve(self, var: Variable) -> tuple[str, DataType]:
+        d = self.schema.definition
+        if var.attribute not in d.attribute_names:
+            raise DeviceCompileError(f"unknown attribute '{var.attribute}'")
+        return var.attribute, d.attribute_type(var.attribute)
+
+    def encode_string(self, attr_key: str, value: str) -> int:
+        dic = self.schema.dictionaries.get(attr_key)
+        if dic is None:
+            raise DeviceCompileError(f"no dictionary for '{attr_key}'")
+        return dic.encode(value)
+
+
 # --------------------------------------------------------------------------
 # IR: op codes and static types (mirrored by `enum Op`/`enum Ty` in
 # csrc/expr_ir.cuh; a test pins the two lists together)
@@ -68,6 +92,7 @@ T_BOOL, T_I32, T_I64, T_F32 = 0, 1, 2, 3
 TY_OF = {torch.bool: T_BOOL, torch.int32: T_I32, torch.int64: T_I64,
          torch.float32: T_F32}
 DTYPE_OF = {v: k for k, v in TY_OF.items()}
+MAXSTACK = 32                    # the interpreter's stack depth
 
 OPS = ("EV", "BIND", "TS", "CONST", "CAST", "ADD", "SUB", "MUL", "DIV", "MOD",
        "NEG", "EQ", "NE", "LT", "LE", "GT", "GE", "AND", "OR", "NOT", "SELECT",
@@ -102,6 +127,45 @@ def _cast_ir(ir: list, src: int, dst: int) -> list:
 
 def ir_result_type(ir: list) -> int:
     return ir[-1][1]
+
+
+def const_bits(v, ty: int) -> int:
+    """A constant as the kernel's 64-bit value slot."""
+    if ty == T_BOOL:
+        return int(bool(v))
+    if ty == T_I32:
+        return int(np.array(int(v) & 0xFFFFFFFF, np.uint32).view(np.int32))
+    if ty == T_I64:
+        return int(np.array(int(v) & 0xFFFFFFFFFFFFFFFF, np.uint64).view(np.int64))
+    return int(np.float32(float(v)).view(np.uint32))
+
+
+def link_ir(ir: list, operand) -> np.ndarray:
+    """Encodes a program for the kernels' interpreter: ``operand(op, key)``
+    resolves each EV/BIND/TS operand to ``(op, slot)``; constants become
+    their 64-bit value slots. Returns ``[n, 4]`` int32 instructions;
+    refuses a program deeper than the interpreter's stack."""
+    rows, depth, peak = [], 0, 0
+    for (op, ty, a, b) in ir:
+        if op in (OP["EV"], OP["BIND"], OP["TS"]):
+            op, a = operand(op, a)
+        elif op == OP["CONST"]:
+            bits = const_bits(a, ty) & 0xFFFFFFFFFFFFFFFF
+            lo, hi = bits & 0xFFFFFFFF, bits >> 32
+            a = lo - (1 << 32) if lo >= 1 << 31 else lo
+            b = hi - (1 << 32) if hi >= 1 << 31 else hi
+        if op in (OP["EV"], OP["BIND"], OP["TS"], OP["CONST"]):
+            depth += 1
+        elif op == OP["SELECT"]:
+            depth -= 2
+        elif op not in (OP["CAST"], OP["NEG"], OP["NOT"]):
+            depth -= 1
+        peak = max(peak, depth)
+        rows.append((op, ty, int(a), int(b)))
+    if peak > MAXSTACK:
+        raise DeviceCompileError(
+            f"expression needs a stack of {peak} (kernel limit {MAXSTACK})")
+    return np.array(rows, dtype=np.int32).reshape(-1, 4)
 
 
 # --------------------------------------------------------------------------

@@ -44,13 +44,11 @@ from .expr_compile import (
     DTYPE_OF,
     OP,
     TY_OF,
+    MAXSTACK,
     DeviceCompileError,
-    T_BOOL,
-    T_F32,
-    T_I32,
-    T_I64,
     as_tensor,
     astype,
+    link_ir,
 )
 
 if TYPE_CHECKING:
@@ -60,7 +58,6 @@ if TYPE_CHECKING:
 MAXCOL = 32
 MAXB = 32
 MAXOUT = 32
-MAXSTACK = 32
 _TS_NONE = -(2 ** 62)
 _NF_FIXED = 5                    # creation fields before the bindings
 
@@ -388,53 +385,27 @@ class StageArgs(ctypes.Structure):
     ]
 
 
-def _const_bits(v, ty: int) -> int:
-    """A constant as the kernel's 64-bit value slot."""
-    if ty == T_BOOL:
-        return int(bool(v))
-    if ty == T_I32:
-        return int(np.array(int(v) & 0xFFFFFFFF, np.uint32).view(np.int32))
-    if ty == T_I64:
-        return int(np.array(int(v) & 0xFFFFFFFFFFFFFFFF, np.uint64).view(np.int64))
-    return int(np.float32(float(v)).view(np.uint32))
-
-
 def link_program(ir: list, col_slot: dict, bind_slot: dict,
                  ev_alias: Optional[dict] = None) -> np.ndarray:
-    """Resolves a program's env keys to kernel slots: ``ev_<col>`` → event
-    column slot, a binding key → candidate binding index, or (``ev_alias``)
-    a binding minted by the matched event itself → its event column slot.
-    Returns ``[n, 4]`` int32 instructions."""
+    """Resolves a pattern program's env keys to kernel slots: ``ev_<col>``
+    → event column slot, a binding key → candidate binding index, or
+    (``ev_alias``) a binding minted by the matched event itself → its event
+    column slot."""
     ev_alias = ev_alias or {}
-    rows, depth, peak = [], 0, 0
-    for (op, ty, a, b) in ir:
+
+    def operand(op, a):
         if op == OP["EV"]:
-            a = col_slot[a[3:]]
-        elif op == OP["BIND"]:
+            return op, col_slot[a[3:]]
+        if op == OP["BIND"]:
             if a in ev_alias:
-                op, a = OP["EV"], ev_alias[a]
-            elif a in bind_slot:
-                a = bind_slot[a]
-            else:
-                raise DeviceCompileError(
-                    f"'{a}' is not bound when this program runs")
-        elif op == OP["CONST"]:
-            bits = _const_bits(a, ty) & 0xFFFFFFFFFFFFFFFF
-            lo, hi = bits & 0xFFFFFFFF, bits >> 32
-            a = lo - (1 << 32) if lo >= 1 << 31 else lo
-            b = hi - (1 << 32) if hi >= 1 << 31 else hi
-        if op in (OP["EV"], OP["BIND"], OP["TS"], OP["CONST"]):
-            depth += 1
-        elif op == OP["SELECT"]:
-            depth -= 2
-        elif op not in (OP["CAST"], OP["NEG"], OP["NOT"]):
-            depth -= 1
-        peak = max(peak, depth)
-        rows.append((op, ty, int(a), int(b)))
-    if peak > MAXSTACK:
-        raise DeviceCompileError(
-            f"expression needs a stack of {peak} (kernel limit {MAXSTACK})")
-    return np.array(rows, dtype=np.int32).reshape(-1, 4)
+                return OP["EV"], ev_alias[a]
+            if a in bind_slot:
+                return op, bind_slot[a]
+            raise DeviceCompileError(
+                f"'{a}' is not bound when this program runs")
+        return op, a
+
+    return link_ir(ir, operand)
 
 
 class BlockPlan:

@@ -1,0 +1,404 @@
+"""Kernel side of the single-stream query step: ``csrc/query_step.cu``.
+
+``QueryPlan`` is built by ``CompiledStreamQuery`` at construction: it links
+the query's programs (filters, projections, aggregate arguments, group
+keys, the externalTime column, having) into the IR the kernel's
+interpreter runs (``csrc/expr_ir.cuh``), fills the kernel's argument block
+(``QArgs``, mirrored here with ctypes) and refuses, with
+``DeviceCompileError``, a query over a kernel limit (columns, outputs,
+lanes, filters, group keys, stack depth, sizes), on every device, so the
+CPU and the card accept the same queries.
+
+``step_cuda`` launches the kernel on the current stream (three launches per
+step, two when nothing aggregates; ``QueryPlan.launches`` counts them) and
+returns the new state (fresh tensors for every leaf the step changes; the
+input state is left as it was) and the outputs.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import TYPE_CHECKING
+
+import numpy as np
+import torch
+
+from .dtypes import TORCH
+from .backend import reduce_identity
+from .expr_compile import (OP, TY_OF, DeviceCompileError, const_bits,
+                           ir_result_type, link_ir)
+
+if TYPE_CHECKING:
+    from .query_compile import CompiledStreamQuery
+
+QMAXCOL, QMAXSPEC, QMAXLANE, QMAXFILT, QMAXGK = 32, 32, 16, 8, 8
+MAX_ROWS = 1 << 26          # largest window_capacity + batch_capacity
+MAX_K = 1 << 24             # largest group_capacity
+
+W_KIND = {None: 0, "length": 1, "time": 2, "timeLength": 3, "batch": 4}
+S_KIND = {"value": 0, "count": 1, "sum": 2, "avg": 3, "min": 4, "max": 5,
+          "stdDev": 6}
+KM_NARROW, KM_WIDE1, KM_PAIR, KM_FNV = range(4)
+L_F, L_I, L_S, L_M = range(4)
+
+c_int, c_ll, c_vp = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
+
+
+class _Prog(ctypes.Structure):
+    _fields_ = [("off", c_int), ("len", c_int)]
+
+
+_PTRS_IN = ("f_in", "fc_in", "i_in", "s_in", "smean_in", "sm2_in", "scnt_in",
+            "ones_in", "cnt_in")
+_PTRS_IN2 = ("tts_in", "gkey_in", "owner_in", "owned_in", "last_ts_in",
+             "drops_in", "regress_in", "coll_in")
+_PTRS_OUT = ("f_out", "fc_out", "i_out", "s_out", "smean_out", "sm2_out",
+             "scnt_out", "ones_out", "cnt_out")
+_PTRS_OUT2 = ("tts_out", "gkey_out", "owner_out", "owned_out", "last_ts_out",
+              "drops_out", "regress_out", "coll_out")
+_SCRATCH = ("misc", "mask", "rank", "bf", "bi", "bs", "bm", "bones",
+            "bpacked", "bkey", "bwts", "lo", "firstidx", "cnt", "seg", "run",
+            "ckey", "sorted", "head", "incf", "inci", "inco", "incs1",
+            "incs2", "mP", "mS", "mT")
+
+
+class QArgs(ctypes.Structure):
+    _fields_ = [
+        *[(n, c_int) for n in ("B", "N", "M", "K", "LV", "NB", "wkind",
+                               "grouped", "key_mode", "has_agg", "nfilt",
+                               "ncol", "nspec", "ngk", "AF", "AI", "AS", "AM",
+                               "ntask", "has_wprog", "has_having")],
+        ("window_ms", c_ll),
+        ("col_ty", c_int * QMAXCOL),
+        *[(n, c_int * QMAXSPEC) for n in ("spec_kind", "spec_ty", "spec_lane",
+                                          "spec_int")],
+        ("m_ty", c_int * QMAXLANE), ("m_min", c_int * QMAXLANE),
+        ("m_ident", c_ll * QMAXLANE),
+        ("filt", _Prog * QMAXFILT), ("proj", _Prog * QMAXSPEC),
+        ("lane", (_Prog * QMAXLANE) * 4), ("gk", _Prog * QMAXGK),
+        ("wprog", _Prog), ("having", _Prog),
+        ("code", c_vp), ("col", c_vp * QMAXCOL), ("ts", c_vp), ("valid", c_vp),
+        *[(n, c_vp) for n in _PTRS_IN], ("m_in", c_vp * QMAXLANE),
+        *[(n, c_vp) for n in _PTRS_IN2],
+        *[(n, c_vp) for n in _PTRS_OUT], ("m_out", c_vp * QMAXLANE),
+        *[(n, c_vp) for n in _PTRS_OUT2],
+        ("out", c_vp * QMAXSPEC), ("ovalid", c_vp), ("ots", c_vp),
+        ("ocount", c_vp),
+        *[(n, c_vp) for n in _SCRATCH],
+    ]
+
+
+def link_query_program(ir: list, slot: dict, ts_slot: int | None,
+                       bind: bool = False) -> np.ndarray:
+    """Resolves a query program's env keys to kernel slots: every variable
+    key (bare attribute names, or output names for ``having``) →
+    ``slot[key]`` (an event-column read, or an output binding when
+    ``bind``); ``eventTimestamp()`` → the int64 timestamp column. Raises
+    KeyError for a key the step's env lacks, as the reference raises at its
+    first step."""
+    def operand(op, a):
+        if op == OP["TS"]:
+            if ts_slot is None:
+                raise KeyError("__ts__")
+            return OP["EV"], ts_slot
+        if a not in slot:
+            raise KeyError(a)
+        return (OP["BIND"] if bind else OP["EV"]), slot[a]
+
+    return link_ir(ir, operand)
+
+
+def _cast(ir: list, ty: int) -> list:
+    got = ir_result_type(ir)
+    return ir if got == ty else ir + [(OP["CAST"], ty, got, 0)]
+
+
+def _var_ir(name: str, t) -> list:
+    return [(OP["BIND"], TY_OF[TORCH[t]], name, 0)]
+
+
+class QueryPlan:
+    """Linked programs, the argument template and the launch wrapper of
+    ``csrc/query_step.cu``. ``launches`` counts kernel launches."""
+
+    launches = 0          # class-wide: every launch of the query kernels
+
+    def __init__(self, q: "CompiledStreamQuery"):
+        self.q = q
+        specs = q.specs
+        N = max(q.window_n, 1) if q.windowed else 0
+        M = N + q.B
+        limits = [(len(specs), QMAXSPEC, "outputs"),
+                  (len(q.filter_irs), QMAXFILT, "filters"),
+                  (len(q.group_keys), QMAXGK, "group keys"),
+                  (M, MAX_ROWS, "window + batch rows"), (q.K, MAX_K, "groups")]
+        for idx, what in ((q.fagg_idx, "float sums"), (q.iagg_idx, "int sums"),
+                          (q.sagg_idx, "stdDev lanes"),
+                          (q.magg_idx, "min/max lanes")):
+            limits.append((len(idx), QMAXLANE, what))
+        # event columns the programs read, then the timestamp column
+        used = set()
+        progs_ir = list(q.filter_irs) + [s.ir for s in specs if s.ir]
+        for ir in progs_ir:
+            used |= {a for (op, _, a, _) in ir if op in (OP["EV"], OP["BIND"])}
+        used |= set(q.group_keys)
+        if q.time_key:
+            used.add(q.time_key)
+        self.col_keys = sorted(used)
+        limits.append((len(self.col_keys) + 1, QMAXCOL, "event columns"))
+        for n, cap, what in limits:
+            if n > cap:
+                raise DeviceCompileError(
+                    f"query kernel: {n} {what} (limit {cap})")
+        slot = {k: i for i, k in enumerate(self.col_keys)}
+        ts_slot = len(self.col_keys)
+        types = {k: q.definition.attribute_type(k) for k in self.col_keys}
+        self.col_ty = [TY_OF[TORCH[types[k]]] for k in self.col_keys] + \
+            [TY_OF[torch.int64]]
+
+        a = QArgs()
+        self.args = a
+        code: list[np.ndarray] = []
+        self.link_error = None      # raised at the first step, as the
+        # reference raises at its first step (trace time)
+
+        def add(ir, ty=None, env=slot, tss=ts_slot, bind=False):
+            if ty is not None:
+                ir = _cast(ir, ty)
+            try:
+                prog = link_query_program(ir, env, tss, bind)
+            except KeyError as e:
+                self.link_error = self.link_error or e
+                return _Prog(0, 0)
+            off = sum(len(c) for c in code)
+            code.append(prog)
+            return _Prog(off, len(prog))
+
+        T_BOOL, T_I64, T_F32 = (TY_OF[torch.bool], TY_OF[torch.int64],
+                                TY_OF[torch.float32])
+        a.B, a.N, a.M, a.K = q.B, N, M if q.windowed else q.B, q.K
+        nb = (a.M + 31) // 32
+        a.NB, a.LV = nb, max(nb.bit_length(), 1)
+        a.wkind = W_KIND[q.window_kind]
+        a.grouped = int(bool(q.group_keys))
+        a.has_agg = int(bool(q.agg_idx))
+        a.window_ms = q.window_ms
+        a.nfilt, a.ncol, a.nspec = len(q.filter_irs), ts_slot + 1, len(specs)
+        for i, ty in enumerate(self.col_ty):
+            a.col_ty[i] = ty
+        for f, ir in enumerate(q.filter_irs):
+            a.filt[f] = add(ir, T_BOOL)
+        lanes = {L_F: q.fagg_idx, L_I: q.iagg_idx, L_S: q.sagg_idx,
+                 L_M: q.magg_idx}
+        lane_ty = {L_F: T_F32, L_I: T_I64, L_S: T_F32}
+        lane_of = {}
+        for cls, idx in lanes.items():
+            for l, i in enumerate(idx):
+                lane_of[i] = l
+                ty = lane_ty.get(cls, TY_OF[TORCH[specs[i].dtype]])
+                a.lane[cls][l] = add(specs[i].ir, ty)
+        for m, i in enumerate(q.magg_idx):
+            dt = TORCH[specs[i].dtype]
+            is_min = specs[i].kind == "min"
+            a.m_ty[m], a.m_min[m] = TY_OF[dt], int(is_min)
+            a.m_ident[m] = const_bits(reduce_identity(dt, is_min), TY_OF[dt])
+        a.AF, a.AI = len(q.fagg_idx), len(q.iagg_idx)
+        a.AS, a.AM = len(q.sagg_idx), len(q.magg_idx)
+        a.ntask = (a.AF + a.AI + 1 + a.AS + a.AM) if q.agg_idx else 0
+        for i, s in enumerate(specs):
+            a.spec_kind[i] = S_KIND[s.kind]
+            a.spec_ty[i] = TY_OF[TORCH[s.dtype]]
+            a.spec_int[i] = int(s.acc_int)
+            a.spec_lane[i] = lane_of.get(i, 0)
+            if s.kind == "value":
+                a.proj[i] = add(s.ir, a.spec_ty[i])
+        if q.group_keys:
+            a.ngk = len(q.group_keys)
+            for g, key in enumerate(q.group_keys):
+                a.gk[g] = add(_var_ir(key, types[key]), T_I64)
+            narrow = all(t.name in ("STRING", "INT") for t in q.group_key_types)
+            a.key_mode = (KM_NARROW if narrow else KM_WIDE1) \
+                if a.ngk == 1 else (KM_PAIR if a.ngk == 2 and narrow else KM_FNV)
+        if q.time_key:
+            a.has_wprog = 1
+            a.wprog = add(_var_ir(q.time_key, types[q.time_key]), T_I64)
+        if q.having_ir is not None:
+            a.has_having = 1
+            out_slot = {s.name: i for i, s in enumerate(specs)}
+            a.having = add(_cast(q.having_ir, T_BOOL), env=out_slot, tss=None,
+                           bind=True)
+        self.code_host = np.concatenate(code) if code else \
+            np.zeros((1, 4), np.int32)
+        self._dev = {}      # device → (argument template, code, scratch)
+        self._proto = None  # the state's leaves (meta tensors)
+        self._lib_checked = False
+
+    # -- kernel side ---------------------------------------------------------
+    def _lib(self):
+        from ._build import load
+        lib = load("query_step")
+        if not self._lib_checked:
+            lib.query_step.argtypes = [c_vp, c_vp, c_vp]
+            lib.query_step.restype = c_int
+            lib.query_step_args_size.restype = c_int
+            if lib.query_step_args_size() != ctypes.sizeof(QArgs):
+                raise RuntimeError(
+                    f"QArgs layout differs between query_step.cu "
+                    f"({lib.query_step_args_size()} B) and the ctypes mirror "
+                    f"({ctypes.sizeof(QArgs)} B)")
+            self._lib_checked = True
+        return lib
+
+    def _check(self, state, cols, ts, valid):
+        q = self.q
+        dev = ts.device
+
+        def need(t, name, dtype, shape):
+            if not isinstance(t, torch.Tensor) or t.device != dev:
+                raise ValueError(f"{name} must be a tensor on {dev}")
+            if t.dtype != dtype or tuple(t.shape) != tuple(shape):
+                raise ValueError(f"{name} must be {dtype} {tuple(shape)}, got "
+                                 f"{t.dtype} {tuple(t.shape)}")
+            if not t.is_contiguous():
+                raise ValueError(f"{name} must be contiguous")
+
+        need(ts, "ts", torch.int64, (q.B,))
+        need(valid, "valid", torch.bool, (q.B,))
+        for k in self.col_keys:
+            if k not in cols:
+                raise ValueError(f"missing column '{k}'")
+            need(cols[k], f"cols[{k!r}]", TORCH[q.definition.attribute_type(k)],
+                 (q.B,))
+        if self._proto is None:
+            self._proto = q.init_state(device="meta")
+        proto = self._proto
+        if set(state) != set(proto):
+            raise ValueError(f"state leaves differ: "
+                             f"{sorted(set(state) ^ set(proto))}")
+        for k, p in proto.items():
+            need(state[k], f"state[{k!r}]", p.dtype, p.shape)
+
+    def step_cuda(self, state, cols, ts, valid):
+        """Runs one step on the card (launches on the current stream)."""
+        if ts.device.type != "cuda":
+            raise ValueError("step_cuda takes CUDA tensors")
+        self._check(state, cols, ts, valid)
+        if self.link_error is not None:
+            raise self.link_error
+        return self.launch(self._lib(), state, cols, ts, valid,
+                           torch.cuda.current_stream(ts.device).cuda_stream)
+
+    def launch(self, lib, state, cols, ts, valid, stream):
+        """Calls ``lib.query_step`` over these tensors (checked by
+        ``step_cuda``) and counts the launches it made."""
+        q, dev = self.q, ts.device
+        a = QArgs.from_buffer_copy(self._on(dev))
+        keep = []                                      # alive until launched
+
+        def ptr(t):
+            keep.append(t)
+            return t.data_ptr()
+
+        for c, k in enumerate(self.col_keys):
+            a.col[c] = ptr(cols[k])
+        a.col[len(self.col_keys)] = ptr(ts)
+        a.ts, a.valid = ptr(ts), ptr(valid)
+
+        new = dict(state)
+        names = self._state_names()
+        for field, leaf in names.items():
+            if leaf in state:
+                setattr(a, field + "_in", ptr(state[leaf]))
+                out = torch.empty_like(state[leaf])
+                new[leaf] = out
+                setattr(a, field + "_out", ptr(out))
+        for m, i in enumerate(q.magg_idx):
+            leaf = self._m_leaf(i)
+            if leaf not in state:            # batch(): nothing carried
+                continue
+            a.m_in[m] = ptr(state[leaf])
+            new[leaf] = torch.empty_like(state[leaf])
+            a.m_out[m] = ptr(new[leaf])
+
+        B = q.B
+        outs = {}
+        for n, s in enumerate(q.specs):
+            outs[s.name] = torch.empty(B, dtype=TORCH[s.dtype], device=dev)
+            a.out[n] = ptr(outs[s.name])
+        ovalid = torch.empty(B, dtype=torch.bool, device=dev)
+        ots = torch.empty(B, dtype=torch.int64, device=dev)
+        count = torch.empty((), dtype=torch.int32, device=dev)
+        a.ovalid, a.ots, a.ocount = ptr(ovalid), ptr(ots), ptr(count)
+        n = c_int(0)
+        rc = lib.query_step(ctypes.addressof(a), stream, ctypes.addressof(n))
+        QueryPlan.launches += n.value
+        if rc != 0:
+            raise RuntimeError(f"query_step launch failed: CUDA error {rc}")
+        return new, {"out": outs, "valid": ovalid, "ts": ots, "count": count}
+
+    def _on(self, dev) -> QArgs:
+        """The argument template on ``dev``: the linked code and the scratch
+        buffers, allocated once per device and reused by every step (the
+        launches of consecutive steps are ordered on the stream)."""
+        got = self._dev.get(dev)
+        if got is None:
+            code = torch.from_numpy(self.code_host).to(dev)
+            scratch = self._scratch(dev)
+            a = QArgs.from_buffer_copy(self.args)
+            a.code = code.data_ptr()
+            for name, t in scratch.items():
+                setattr(a, name, t.data_ptr())
+            got = self._dev[dev] = (a, code, scratch)
+        return got[0]
+
+    def _m_leaf(self, i: int) -> str:
+        q = self.q
+        if q.windowed:
+            return f"tail_m{i}"
+        return f"key_m{i}" if q.group_keys else f"run_m{i}"
+
+    def _state_names(self) -> dict:
+        """Kernel pointer field → state leaf, by mode."""
+        q = self.q
+        if q.windowed:
+            return {"f": "tail_fvals", "i": "tail_ivals", "s": "tail_svals",
+                    "ones": "tail_ones", "tts": "tail_ts", "gkey": "tail_gkey",
+                    "owner": "key_owner", "owned": "key_owned",
+                    "last_ts": "last_ts", "drops": "window_drops",
+                    "regress": "ts_regressions", "coll": "group_collisions"}
+        if q.group_keys:
+            return {"f": "key_fsums", "fc": "key_fcomp", "i": "key_isums",
+                    "cnt": "key_counts", "smean": "key_smean",
+                    "sm2": "key_sm2", "scnt": "key_scnt", "owner": "key_owner",
+                    "owned": "key_owned", "coll": "group_collisions"}
+        return {"f": "run_fsums", "fc": "run_fcomp", "i": "run_isums",
+                "cnt": "run_count", "smean": "run_smean", "sm2": "run_sm2",
+                "scnt": "run_scnt"}
+
+    def _scratch(self, dev) -> dict:
+        """Scratch tensors of a step (the kernel allocates nothing)."""
+        q, a = self.q, self.args
+        B, K, M = q.B, q.K, a.M
+        i32, i64, f32, f64, u8 = (torch.int32, torch.int64, torch.float32,
+                                  torch.float64, torch.uint8)
+        grouped = bool(q.group_keys)
+        Kx = K if grouped else 1
+        Mg = M if grouped else 1
+
+        def e(n, dt):
+            return torch.empty(max(n, 1), dtype=dt, device=dev)
+
+        return {
+            "misc": e(8, i32), "mask": e(B, u8), "rank": e(B, i32),
+            "bf": e(a.AF * B, f32), "bi": e(a.AI * B, i64),
+            "bs": e(a.AS * B, f32), "bm": e(a.AM * B, i64),
+            "bones": e(B, i32), "bpacked": e(B, i64), "bkey": e(B, i32),
+            "bwts": e(B, i64), "lo": e(B, i32),
+            "firstidx": e(Kx, i32), "cnt": e(Kx, i32), "seg": e(Kx, i32),
+            "run": e(Kx, i32), "ckey": e(a.AS * Kx, f32),
+            "sorted": e(Mg, i32), "head": e(Mg, u8),
+            "incf": e(a.AF * M, f64), "inci": e(a.AI * M, i64),
+            "inco": e(M, i64), "incs1": e(a.AS * M, f64),
+            "incs2": e(a.AS * M, f64), "mP": e(a.AM * M, i64),
+            "mS": e(a.AM * M, i64), "mT": e(a.AM * a.LV * a.NB, i64),
+        }

@@ -5,7 +5,11 @@ Both packages keep the same state tree, leaf names and dtypes:
 - blocked NFA: ``{"tables": {"t{s}": {leaf: [L, C]}}, "matches": [L],
   "drops": [L]}``;
 - scan NFA: ``{"pending": {"p{s}": {leaf: [L, C]}}, "seeds": [L],
-  "drops": [L], "matches": [L]}``.
+  "drops": [L], "matches": [L]}``;
+- single-stream query (``CompiledStreamQuery``): a flat dict of window
+  tails (``tail_*``), time-window counters, per-key tables (``key_*``) and
+  running aggregates (``run_*``), as ``init_state`` lists them
+  (``query_state_from_numpy`` checks a tree against that list).
 
 The reference's partitioned runtimes stack lanes in front (``[P, C]``, ``[P]``)
 as the port does; its single-lane ``DeviceNFARuntime`` keeps ``[C]`` leaves
@@ -40,3 +44,19 @@ def state_to_numpy(state, single_lane: bool = False) -> dict:
         return {k: state_to_numpy(v, single_lane) for k, v in state.items()}
     a = state.detach().cpu().numpy()
     return a[0] if single_lane else a
+
+
+def query_state_from_numpy(q, tree: dict, device) -> dict:
+    """A single-stream query state with numpy leaves (the JAX package's
+    ``jax.device_get(rt.state)``) → the port's tensors on ``device``. Every
+    leaf of ``q.init_state`` must be present with its dtype and shape."""
+    proto = q.init_state(device="cpu")
+    if set(tree) != set(proto):
+        raise ValueError(f"state leaves differ: {sorted(set(tree) ^ set(proto))}")
+    out = state_from_numpy(tree, device)
+    for k, p in proto.items():
+        if out[k].dtype != p.dtype or out[k].shape != p.shape:
+            raise ValueError(f"state leaf {k!r}: {out[k].dtype}"
+                             f"{tuple(out[k].shape)}, expected {p.dtype}"
+                             f"{tuple(p.shape)}")
+    return out

@@ -1,0 +1,453 @@
+"""The single-stream query shapes, wire batches and tolerances shared by the
+query tests.
+
+``tests/test_torch_query_compile.py`` runs every case through the JAX
+package and the port; ``chip_smoke.py`` runs the same cases on the card
+(kernel against plain version). This module imports only the port, never
+the JAX package, so the chip script can load it where JAX is not installed
+(and ``python -m pytest tests/test_torch_query_shapes.py -m cuda`` runs the
+kernel against the plain version there).
+
+Tolerances (``compare``): everything is exact — masks, row order, counts,
+int64 sums, avgs of int64 sums, min/max, projections, window tails,
+timestamps, every integer and boolean state leaf — except the float32
+sums/avgs, the float32 Kahan and Welford state leaves and stdDev. Their
+limits come from a ``Scale``, the sums of the values the compared steps
+read (``step_scale`` when both sides read the same state, as the kernel
+and the plain version do; ``next_scale`` when each side carries its own:
+the largest ``step_scale`` so far for a window, whose tails both sides
+hold exactly alike, and for running and per-key sums the sum of
+``batch_scale`` over every batch fed, plus ``carried_scale`` of any state
+resumed from):
+
+- float32 sums, ``*_fsums``/``*_fcomp``: prefix sums round in a different
+  order in each implementation (the reference's f32 cumsum rounds at every
+  addition; the port accumulates each prefix in f64 and rounds once), so a
+  window sum, a difference of two prefixes, carries an error of a few ulps
+  of the prefix read, not of the sum: ``|got - ref| <= 2**-20 * (1 + s1)``,
+  where ``s1`` is the sum of |x| over every value a prefix of one float32
+  sum/avg lane can read (the window's tail, every slot of it, since a
+  prefix starts at slot 0, or the carried sums, plus the batch's
+  arguments), largest over the lanes; min/max identities (±inf) are never
+  part of it; a grouped sum reads its own bucket's prefix, which the sum
+  over all buckets bounds;
+- float32 avgs: that bound divided by the row's count (``max(count, 1)``,
+  read from the query's ``count()`` output; without one, the count is
+  taken as 1);
+- ``*_smean``: ``2**-20 * (1 + sm)``, ``sm`` the same sum over the stdDev
+  arguments and carried means; ``*_sm2``: ``2**-20 * (1 + s2)`` with ``s2``
+  bounding every centred second-moment prefix (4 * the sum of squared
+  stdDev arguments, plus the carried moments);
+- stdDev: the variance is a difference of two such prefixes divided by the
+  count, so the standard deviation carries ``sqrt(u * (1 + s2) / n)``;
+  with ``n >= 1``, ``|got - ref| <= 1e-6 * |ref| + sqrt(u * (1 + s2))``
+  per step, where ``u`` is ``2**-20`` for the running and per-key float32
+  Welford moments and ``2**-40`` for a window's, which every
+  implementation accumulates in float64; wherever a count output shows at
+  least 4 events also ``<= 1e-5 * |ref| + 1e-4`` (``STD_RTOL``).
+
+The kernel and the plain version accumulate prefixes the same way, so on
+the card they agree within these bounds (most steps exactly).
+"""
+
+from dataclasses import dataclass
+
+import numpy as np
+import pytest
+import torch
+
+from siddhi_tpu_torch.compiler import parse
+from siddhi_tpu_torch.gpu.expr_compile import as_tensor
+from siddhi_tpu_torch.gpu.query_compile import CompiledStreamQuery, stream_step_plain
+from siddhi_tpu_torch.gpu.state_io import state_from_numpy, state_to_numpy
+
+SCHEMA = "define stream S (sym string, price double, vol long, n int, ets long);\n"
+
+# name → (query, CompiledStreamQuery keyword arguments)
+QUERIES = {
+    "length_filter": ("""
+from S[price > 20.0 and vol < 900]#window.length(8)
+select sym, sum(vol) as tv, sum(price) as tp, count() as c, avg(price) as ap,
+       avg(n) as an insert into O;""", {}),
+    "length_minmax_std": ("""
+from S#window.length(12)
+select min(price) as lo, max(price) as hi, min(n) as ln, max(vol) as hv,
+       stdDev(price) as sd, stdDev(n) as sdn insert into O;""", {}),
+    "time": ("""
+from S#window.time(40)
+select sym, sum(price) as t, count() as c, min(vol) as mv, stdDev(price) as sd
+insert into O;""", {"window_capacity": 32}),
+    "time_drops": ("""
+from S#window.time(100000) select sum(vol) as s, max(price) as m insert into O;
+""", {"window_capacity": 8}),
+    "external_time": ("""
+from S#window.externalTime(ets, 60)
+select sum(vol) as s, count() as c, max(price) as m insert into O;""",
+                      {"window_capacity": 32}),
+    "time_length": ("""
+from S#window.timeLength(50, 6)
+select sym, sum(price) as t, count() as c, min(price) as lo insert into O;""",
+                    {}),
+    "filter_running": ("""
+from S[vol > 100]
+select sym, sum(vol) as s, count() as c, eventTimestamp() as e insert into O;
+""", {}),
+    "batch": ("""
+from S#window.batch()
+select sum(vol) as s, avg(price) as a, count() as c, stdDev(price) as sd,
+       min(price) as lo insert into O;""", {}),
+    "batch_values": ("""
+from S[n > 2]#window.batch()
+select sym, n * 2 as n2, eventTimestamp() as e insert into O;""", {}),
+    "running": ("""
+from S
+select sum(price) as t, sum(n) as sn, avg(vol) as av, count() as c,
+       min(price) as lo, max(n) as hn, stdDev(price) as sd insert into O;""",
+                {}),
+    "grouped": ("""
+from S
+select sym, sum(price) as t, sum(vol) as v, count() as c, avg(price) as a,
+       min(price) as lo, max(vol) as hv, stdDev(price) as sd
+group by sym insert into O;""", {"group_capacity": 16}),
+    "grouped_having": ("""
+from S[price > 10.0]
+select sym, count() as c, sum(vol) as v group by sym
+having c > 3 and v > 1000 insert into O;""", {"group_capacity": 16}),
+    "grouped_pair": ("""
+from S select sym, n, sum(vol) as v, count() as c group by sym, n
+insert into O;""", {"group_capacity": 16}),
+    "grouped_long_collide": ("""
+from S select vol, count() as c, sum(price) as t group by vol insert into O;
+""", {"group_capacity": 8}),
+    "grouped_three": ("""
+from S select sym, n, count() as c, stdDev(price) as sd
+group by sym, n, vol insert into O;""", {"group_capacity": 16}),
+    "length_grouped": ("""
+from S#window.length(10)
+select sym, sum(vol) as v, sum(price) as t, count() as c, avg(price) as a
+group by sym insert into O;""", {"group_capacity": 16}),
+    "time_grouped_having": ("""
+from S[vol > 100]#window.time(50)
+select sym, sum(vol) as v, count() as c group by sym having v > 800
+insert into O;""", {"group_capacity": 16, "window_capacity": 32}),
+    "length_grouped_collide": ("""
+from S#window.length(16)
+select vol, sum(price) as t, count() as c group by vol insert into O;""",
+                               {"group_capacity": 4}),
+    "projection": ("""
+from S[price > 50.0]
+select sym, price * 2.0 as p2, vol / 3 as v3, n % 4 as nm,
+       eventTimestamp() - 1000 as e insert into O;""", {}),
+    "having_window": ("""
+from S#window.length(5) select sym, sum(price) as t having t > 150.0
+insert into O;""", {}),
+    "length_values": ("""
+from S#window.length(3) select sym, price insert into O;""", {}),
+}
+
+# queries the reference refuses (the port must refuse them with the same
+# message), queries of the next slice's windows and queries the slice takes
+REFUSAL_SCHEMA = "define stream S (sym string, v double, w long, k long, n int, ets long);\n"
+REFUSED = [
+    "from S#window.cron('*/2 * * * * ?') select sum(w) as s insert into O;",
+    "from S select distinctCount(v) as dc insert into O;",
+    "from S select sum() as t insert into O;",
+    "from S select min(sym) as m insert into O;",
+    "from S#window() select sum(w) as s insert into O;",
+    "from S#window.length(5)#window.time(5) select sum(w) as s insert into O;",
+    "from S#window.externalTime(ets) select sum(w) as s insert into O;",
+    "from S#window.externalTime(v, 10) select sum(w) as s insert into O;",
+    "from S#window.batch(5) select sum(w) as s insert into O;",
+    "from S#window.length(5) select sym, min(v) as m group by sym insert into O;",
+    "from S#window.time(5) select sym, stdDev(v) as m group by sym insert into O;",
+    "from S select v, sum(w) as s group by v insert into O;",
+    "from S#window.batch() select sym, sum(w) as s group by sym insert into O;",
+    "from S select sum(w) as s having q > 1 insert into O;",
+    "from S[w > v] select w insert into O;",
+    "from S#window.sort(5, w, 'asc', k) select sum(w) as s insert into O;",
+    "from S#window.sort(5, sym) select count() as c insert into O;",
+    "from S#window.hopping(300, 100) select w insert into O;",
+    "from S#window.hopping(300, 0) select sum(w) as s insert into O;",
+    "from S#window.timeBatch(10, 5) select sum(w) as s insert into O;",
+    "from S#window.session(10, sym) select sum(w) as s insert into O;",
+    "from S#window.frequent(0, sym) select count() as c insert into O;",
+    "from S#window.frequent(3, v) select count() as c insert into O;",
+    "from S#window.lossyFrequent(0.1, 0.0, sym) select count() as c insert into O;",
+    "from S#window.delay(10) select sum(w) as s insert into O;",
+    "from S#window.lengthBatch(4) select sym, sum(w) as s group by sym insert into O;",
+    "from S#window.frequent(3, sym) select min(v) as m insert into O;",
+]
+# one accepted query per window of the next slice: the reference compiles
+# it, the port refuses it with the staged message
+STAGED = {
+    "lengthBatch": "#window.lengthBatch(4) select sum(w) as s",
+    "timeBatch": "#window.timeBatch(10) select sum(w) as s",
+    "externalTimeBatch": "#window.externalTimeBatch(ets, 10) select sum(w) as s",
+    "session": "#window.session(10) select sum(w) as s",
+    "delay": "#window.delay(10) select w",
+    "sort": "#window.sort(4, w) select sum(w) as s",
+    "hopping": "#window.hopping(30, 10) select sum(w) as s",
+    "frequent": "#window.frequent(3, sym) select count() as c",
+    "lossyFrequent": "#window.lossyFrequent(0.3, 0.08, sym) select count() as c",
+}
+ACCEPTED = [
+    "from S[v > 1.0]#window.length(4) select sym, sum(w) as s insert into O;",
+    "from S select sym, count() as c group by sym insert into O;",
+    "from S#window.timeLength(10, 3) select max(v) as m insert into O;",
+    "from S#window.externalTime(ets, 10) select avg(v) as a insert into O;",
+    "from S#window.batch() select stdDev(v) as sd insert into O;",
+    "from S select sym, k, n, sum(v) as t group by sym, k, n insert into O;",
+]
+
+# (query, batch capacity B)
+CASES = [(name, 16) for name in QUERIES] + [
+    ("length_filter", 5), ("time", 64), ("external_time", 7),
+    ("grouped", 64), ("length_grouped", 3), ("batch", 9),
+]
+IDS = [f"{n}-B{b}" for n, b in CASES]
+STEPS = 5
+STD_RTOL = 1e-5
+
+
+def app_text(name: str) -> str:
+    return SCHEMA + QUERIES[name][0]
+
+
+def compile_port(name: str, B: int, device) -> CompiledStreamQuery:
+    app = parse(app_text(name))
+    return CompiledStreamQuery(app.queries[0], app.stream_definitions["S"],
+                               B, device=device, **QUERIES[name][1])
+
+
+class Wire:
+    """Seeded wire batches (``BatchBuilder.emit()`` layout) with stale
+    values past each batch's count."""
+
+    def __init__(self, seed: int, B: int):
+        self.rng = np.random.default_rng(seed)
+        self.B = B
+        self.ts = 1000
+
+    def batch(self, step: int) -> dict:
+        rng, B = self.rng, self.B
+        count = 0 if step == 2 and B > 8 else int(rng.integers(B // 2, B + 1))
+        inc = rng.choice([0, 0, 1, 2, 5, 30], size=B)
+        ts = self.ts + np.cumsum(inc)
+        self.ts = int(ts[max(count - 1, 0)]) if count else self.ts
+        cols = {
+            "sym": rng.integers(1, 6, B).astype(np.int32),
+            "price": np.round(rng.uniform(0, 100, B), 2).astype(np.float32),
+            "vol": rng.integers(0, 1000, B).astype(np.int64),
+            "n": rng.integers(-2, 10, B).astype(np.int32),
+            "ets": (ts + rng.integers(-40, 20, B)).astype(np.int64),
+        }
+        valid = np.zeros(B, bool)
+        valid[:count] = True
+        return {"cols": cols, "ts": ts.astype(np.int64), "valid": valid,
+                "count": count}
+
+
+@dataclass
+class Scale:
+    """Sums of the values a comparison's float32 arithmetic reads (see the
+    module docstring), one per lane, since a prefix reads one lane: ``s1``
+    over each float32 sum/avg lane, ``sm`` over each stdDev lane, ``s2``
+    bounding each stdDev lane's centred second moments. A limit takes the
+    largest lane."""
+
+    s1: np.ndarray | float = 0.0
+    sm: np.ndarray | float = 0.0
+    s2: np.ndarray | float = 0.0
+
+    def __add__(self, o: "Scale") -> "Scale":
+        return Scale(self.s1 + o.s1, self.sm + o.sm, self.s2 + o.s2)
+
+    def top(self, name: str) -> float:
+        return float(np.max(getattr(self, name), initial=0.0))
+
+
+def batch_scale(q, cols, ts, valid) -> Scale:
+    """The scale of one batch: its valid events' float32 sum/avg and stdDev
+    arguments, as the query's argument programs compute them."""
+    env = {**cols, "__ts__": ts, "__device__": ts.device}
+
+    def args(idx):
+        return [torch.broadcast_to(as_tensor(q.specs[i].fn(env), env),
+                                   valid.shape)[valid].double() for i in idx]
+
+    f, s = args(q.fagg_idx), args(q.sagg_idx)
+    return Scale(np.array([float(x.abs().sum()) for x in f]),
+                 np.array([float(x.abs().sum()) for x in s]),
+                 np.array([4.0 * float((x * x).sum()) for x in s]))
+
+
+def carried_scale(q, state) -> Scale:
+    """The scale of what a step reads from its state: every slot of the
+    window's float32 sum and stdDev tails (a prefix starts at slot 0), or
+    the carried per-key/running sums, means and moments."""
+    AF, AS = len(q.fagg_idx), len(q.sagg_idx)
+
+    def lanes(name, A, fn=torch.abs):
+        if name not in state or not A:
+            return np.zeros(A)
+        return fn(state[name].double()).reshape(A, -1).sum(1).cpu().numpy()
+
+    def sq(x):
+        return x * x
+
+    sc = Scale(lanes("tail_fvals", AF) + lanes("key_fsums", AF)
+               + lanes("run_fsums", AF),
+               lanes("tail_svals", AS) + lanes("key_smean", AS)
+               + lanes("run_smean", AS),
+               4.0 * lanes("tail_svals", AS, sq) + lanes("key_sm2", AS)
+               + lanes("run_sm2", AS))
+    for pre in ("key", "run"):
+        if f"{pre}_smean" in state and AS:
+            m = state[f"{pre}_smean"].double()
+            n = state[f"{pre}_scnt"].double() + q.B
+            sc.s2 = sc.s2 + 4.0 * (n * m * m).reshape(AS, -1).sum(1).cpu().numpy()
+    return sc
+
+
+def step_scale(q, state, cols, ts, valid) -> Scale:
+    """The scale of one step whose both sides read ``state``."""
+    return carried_scale(q, state) + batch_scale(q, cols, ts, valid)
+
+
+def next_scale(q, sc: Scale, state, cols, ts, valid) -> Scale:
+    """The scale after one more step when each side carries its own state
+    (``state`` is one side's). A window's tails are the same on both sides
+    (compared exactly), so a step reads only what ``step_scale`` sums, and
+    the largest over the steps so far holds for every step; running and
+    per-key sums carry each side's rounding forward, so theirs add up over
+    every batch fed."""
+    if q.window_kind is None:
+        return sc + batch_scale(q, cols, ts, valid)
+    st = step_scale(q, state, cols, ts, valid)
+    return Scale(np.maximum(sc.s1, st.s1), np.maximum(sc.sm, st.sm),
+                 np.maximum(sc.s2, st.s2))
+
+
+def tolerance_kinds(q) -> dict:
+    """Output name → tolerance class."""
+    out = {}
+    for s in q.specs:
+        if s.kind == "sum" and not s.acc_int:
+            out[s.name] = "fsum"
+        elif s.kind == "avg" and not s.acc_int:
+            out[s.name] = "favg"
+        elif s.kind == "stdDev":
+            out[s.name] = "std" if q.window_kind is None else "wstd"
+        else:
+            out[s.name] = "exact"
+    return out
+
+
+def _leaf_kind(name: str) -> str:
+    if name.endswith(("_fsums", "_fcomp")):
+        return "fsum"
+    if name.endswith("_smean"):
+        return "smean"
+    if name.endswith("_sm2"):
+        return "sm2"
+    return "exact"
+
+
+def check_close(tag, ref, got, kind, sc: Scale, counts=None):
+    """Holds ``got`` to ``ref`` under the tolerance class ``kind``; returns
+    the largest absolute error and the largest error over its limit."""
+    ref, got = np.asarray(ref), np.asarray(got)
+    assert ref.dtype == got.dtype and ref.shape == got.shape, \
+        (tag, ref.dtype, got.dtype, ref.shape, got.shape)
+    if kind == "exact" or ref.dtype.kind not in "f":
+        same = (ref == got) | (np.isnan(ref) & np.isnan(got)) \
+            if ref.dtype.kind == "f" else ref == got
+        assert same.all(), (tag, np.flatnonzero(~same)[:8], ref, got)
+        return 0.0, 0.0
+    r64, g64 = ref.astype(np.float64), got.astype(np.float64)
+    err = np.abs(r64 - g64)
+    err = np.where(np.isnan(r64) & np.isnan(g64), 0.0, err)
+    if kind == "fsum":
+        tol = 2.0 ** -20 * (1.0 + sc.top("s1"))
+    elif kind == "favg":
+        n = 1.0 if counts is None else np.maximum(counts, 1)
+        tol = 2.0 ** -20 * (1.0 + sc.top("s1")) / n
+    elif kind == "smean":
+        tol = 2.0 ** -20 * (1.0 + sc.top("sm"))
+    elif kind == "sm2":
+        tol = 2.0 ** -20 * (1.0 + sc.top("s2"))
+    else:
+        ulp = 2.0 ** -20 if kind == "std" else 2.0 ** -40
+        tol = 1e-6 * np.abs(r64) + np.sqrt(ulp * (1.0 + sc.top("s2")))
+        if counts is not None:
+            big = counts >= 4
+            tol = np.where(big, np.minimum(tol, STD_RTOL * np.abs(r64) + 1e-4),
+                           tol)
+    tol = np.broadcast_to(tol, err.shape)
+    bad = err > tol
+    assert not bad.any(), (tag, float(err.max()), np.flatnonzero(bad)[:8],
+                           tol[bad][:8], ref[bad][:8], got[bad][:8])
+    if not err.size:
+        return 0.0, 0.0
+    return float(err.max()), float((err / tol).max())
+
+
+def compare(q, sc: Scale, ref_state: dict, got_state: dict, ref_out: dict,
+            got_out: dict, limits: dict | None = None) -> float:
+    """Holds a step's state and outputs (numpy trees) to the module's
+    tolerances under the scale ``sc``; returns the largest absolute error.
+    ``limits``, if given, collects per output and leaf the largest absolute
+    error (``err``) and its largest share of the limit (``of_limit``)."""
+    worst = 0.0
+
+    def keep(tag, e):
+        nonlocal worst
+        worst = max(worst, e[0])
+        if limits is not None and e[0] > 0:
+            d = limits.setdefault(tag, {"err": 0.0, "of_limit": 0.0})
+            d["err"], d["of_limit"] = max(d["err"], e[0]), \
+                max(d["of_limit"], e[1])
+
+    assert set(ref_state) == set(got_state), set(ref_state) ^ set(got_state)
+    for k in sorted(ref_state):
+        keep(f"state.{k}", check_close(f"state.{k}", ref_state[k], got_state[k],
+                                  _leaf_kind(k), sc))
+    kinds = tolerance_kinds(q)
+    counts = None
+    for s in q.specs:
+        if s.kind == "count":
+            counts = np.asarray(ref_out["out"][s.name])
+    for name in ("valid", "ts"):
+        check_close(name, ref_out[name], got_out[name], "exact", sc)
+    assert int(ref_out["count"]) == int(got_out["count"])
+    for s in q.specs:
+        keep(f"out.{s.name}", check_close(f"out.{s.name}", ref_out["out"][s.name],
+                                     got_out["out"][s.name], kinds[s.name],
+                                     sc, counts))
+    return worst
+
+
+@pytest.mark.parametrize("name", sorted(QUERIES))
+def test_every_query_takes_the_query_kernel(name):
+    q = compile_port(name, 16, "cpu")
+    assert q.plan.link_error is None
+    assert q.window_kind in (None, "length", "time", "timeLength", "batch")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,B", CASES, ids=IDS)
+def test_kernel_matches_plain_on_card(name, B):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    q = compile_port(name, B, "cuda")
+    state = q.init_state()
+    wire = Wire(7, B)
+    for step in range(STEPS):
+        cols, ts, valid = q.batch_tensors(wire.batch(step))
+        sc = step_scale(q, state, cols, ts, valid)
+        ref_state, ref_out = stream_step_plain(
+            q, state_from_numpy(state_to_numpy(state), "cuda"), cols, ts, valid)
+        state, out = q.step_tensors(state, cols, ts, valid)
+        torch.cuda.synchronize()
+        compare(q, sc, state_to_numpy(ref_state), state_to_numpy(state),
+                state_to_numpy(ref_out), state_to_numpy(out))

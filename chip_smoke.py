@@ -37,29 +37,40 @@ Phases, one JSON line each:
                time; a checked run holds the first steps (state leaves,
                counters, ys, decoded rows) against the plain version on the
                card.
-  6. query_shapes — the single-stream query kernel against its plain
+  6. query_shapes — the single-stream query kernels against their plain
                PyTorch version on the card: every case of
                ``tests/test_torch_query_shapes.py`` (each sliding window kind,
                batch(), running and grouped aggregates, having, min/max,
                stdDev, eventTimestamp(), out-of-order externalTime, group
-               collisions), 5 steps each, state leaves and every output
-               position held to that file's tolerances; the reference's
-               refusals and the next slice's windows refuse on the card.
-  7. query_main — two configurations at full width through
+               collisions; lengthBatch, timeBatch, externalTimeBatch,
+               session, delay and hopping through ``query_step.cu``, sort,
+               frequent and lossyFrequent through ``query_walk.cu``, and
+               wider windows whose kernel passes span several blocks), 5
+               steps each, state leaves and every output position held to
+               that file's tolerances; the reference's refusals refuse on
+               the card and one small query per new window compiles there.
+  7. query_main — four configurations at full width through
                ``DeviceStreamRuntime`` (``BatchBuilder.append_columns`` →
                step → ``decode_outputs``), ``QUERY_EVENTS`` events each:
                (a) the repo's device sample, a grouped sliding length window
                (4096 rows, 1,000 Zipf(1.1) symbols, K = 1024); (b) an
                ungrouped 10 s sliding time window with min/max/stdDev
-               (window capacity 65536, ~50,000 live events); both are
-               defined in ``siddhi_tpu_torch/tools/query_workloads.py``. A
-               timed run gives events/s and, by CUDA events, the kernels'
-               time per step (around their launch call) and the step call's
-               (the wrapper's host work included); a checked run holds every
-               step against the plain version on the card, with the float
+               (window capacity 65536, ~50,000 live events); (c) a 10 s
+               timeBatch with avg/min/max/stdDev/sum/count (an open bucket
+               of ~50,000 events, outputs over 69,632 slots); (d) the
+               lossyFrequent fraud query (50,000 Zipf(1.1) card numbers,
+               table C = 4096, through ``query_walk.cu``); all are defined
+               in ``siddhi_tpu_torch/tools/query_workloads.py``. A timed run
+               gives events/s and, by CUDA events, the kernels' time per
+               step (around their launch call) and the step call's (the
+               wrapper's host work included); a checked run holds every step
+               (the first 2 for (d), whose plain version walks the events in
+               Python) against the plain version on the card, with the float
                limits computed per step from the state and batch it reads
                (``step_scale``), and prints each output's largest error and
-               its largest share of its limit.
+               its largest share of its limit; (c)'s rows are also held to a
+               numpy computation of every closed bucket, (d)'s to the
+               frequency bound of lossy counting.
 Then the card's name and power limit (nvidia-smi), the ``kernels`` line and,
 last, ``{"ok": true, "device": {...}}``. Any failure exits non-zero before
 that line. Needs one CUDA card; fails without one.
@@ -834,10 +845,10 @@ def phase_query_shapes() -> float:
     sh = query_shapes_module()
     t_phase = time.perf_counter()
     worst, cases = 0.0, []
-    for name, B in sh.CASES:
+    for name, B in sh.CASES + sh.WINDOW_CASES + sh.CARD_CASES:
         q = sh.compile_port(name, B, "cuda")
         state = q.init_state()
-        wire = sh.Wire(7, B)
+        wire = sh.wire_for(name, B)
         rows = 0
         for step in range(sh.STEPS):
             cols, ts, valid = q.batch_tensors(wire.batch(step))
@@ -854,7 +865,8 @@ def phase_query_shapes() -> float:
                      f"from the plain version: {str(e)[:400]}")
             worst = max(worst, err)
             rows += int(out["valid"].sum())
-        cases.append({"query": name, "B": B, "rows": rows})
+        cases.append({"query": name, "B": B, "kernel": q.plan.LIB,
+                      "rows": rows})
 
     def build(text):
         app = parse(sh.REFUSAL_SCHEMA + text)
@@ -868,21 +880,22 @@ def phase_query_shapes() -> float:
         except DeviceCompileError:
             pass
     for window, body in sh.STAGED.items():
-        try:
-            build(f"from S{body} insert into O;")
-            fail(f"the card accepted window '{window}'")
-        except DeviceCompileError as e:
-            if "not yet ported" not in str(e):
-                fail(f"window '{window}': {e}")
+        if build(f"from S{body} insert into O;").plan.link_error is not None:
+            fail(f"window '{window}': the kernel plan does not link")
     for text in sh.ACCEPTED:
         build(text)
     emit({"phase": "query_shapes", "cases": cases, "refused": len(sh.REFUSED),
-          "staged_refused": len(sh.STAGED), "accepted": len(sh.ACCEPTED),
+          "windows_compiled": len(sh.STAGED), "accepted": len(sh.ACCEPTED),
           "max_abs_err": worst, "phase_s": time.perf_counter() - t_phase})
     return worst
 
 
 QUERY_EVENTS = 2_000_000          # events per query_main configuration
+# full-width steps held against the plain version (None: every step); the
+# heavy hitters' plain version walks each event in Python
+QUERY_CHECK_STEPS = {"lossy_frequent": 2}
+
+
 def query_step_bytes(state, new_state, cols, ts, valid, out) -> int:
     """Bytes one step must move: the columns it reads, the state leaves it
     reads and the ones it writes anew, the outputs."""
@@ -905,15 +918,87 @@ def query_step_ops(q) -> int:
         sum(a.lane[c][l].len for c, n in enumerate((a.AF, a.AI, a.AS, a.AM))
             for l in range(n)) + \
         sum(a.proj[i].len for i in range(a.nspec)) + a.having.len
+    if q.plan.LIB == "query_walk":
+        # every event looks its key up in the table and the lossy window's
+        # prune visits every slot: two passes over the C slots per event
+        return q.B * prog + q.B * 2 * a.N + q.B * 4 * a.nspec
     lanes = a.AF + a.AI + 1 + 2 * a.AS + 2 * a.AM if a.has_agg else 0
     search = int(np.log2(max(a.M, 2))) * (2 if a.grouped else 1)
-    return q.B * prog + a.M * lanes + q.B * (4 * a.nspec + search)
+    return q.B * prog + a.M * lanes + a.O * (4 * a.nspec + search)
+
+
+def time_batch_reference(cols, ts) -> list:
+    """(c)'s rows from numpy alone: the accepted events (v > 0 in float32)
+    bucketed by (ts - first ts) // 10 s; every bucket but the open last one
+    gives [avg, min, max, stdDev, sum(n), count]."""
+    v = cols["v"].astype(np.float32)
+    acc = v > 0
+    va, na, ta = v[acc].astype(np.float64), cols["n"][acc], ts[acc]
+    seg = (ta - ta[0]) // 10_000
+    out = []
+    for b in np.unique(seg)[:-1]:
+        m = seg == b
+        x = va[m]
+        out.append([float(x.mean()), float(x.min()), float(x.max()),
+                    float(x.std()), int(na[m].sum()), int(m.sum())])
+    return out
+
+
+def check_query_rows(name: str, rows: list, cols, ts) -> dict:
+    """Each configuration's rows against what the query promises (and, for
+    (c) and (d), against numpy)."""
+    extra = {}
+    if name == "time_batch":
+        want = time_batch_reference(cols, ts)
+        if len(rows) != len(want):
+            fail(f"query_main {name}: {len(rows)} rows, numpy gives {len(want)}")
+        for r, w in zip(rows, want):
+            if r[4:] != w[4:] or r[1] != w[1] or r[2] != w[2] or \
+                    abs(r[0] - w[0]) > 1e-4 * max(1.0, abs(w[0])) or \
+                    abs(r[3] - w[3]) > 1e-3:
+                fail(f"query_main {name}: row {r} differs from numpy's {w}")
+        extra["numpy_buckets"] = len(want)
+        return extra
+    if name == "lossy_frequent":
+        cards, price = cols["cardNo"], cols["price"].astype(np.float32)
+        acc = cards[price >= 30.0]
+        uniq, cnt = np.unique(acc, return_counts=True)
+        share = cnt / len(acc)
+        top = uniq[np.argmax(cnt)]
+        # a key emits only if its count in the prefix read so far is at
+        # least (support - error) of it: once the prefix is long, only the
+        # top card (~14 %) qualifies, every other card holds under 9 %
+        late = {r[0] for r in rows[len(rows) // 2:]}
+        if late != {top} or np.sort(share)[-2] >= 0.09:
+            fail(f"query_main {name}: the late rows name {sorted(late)[:5]} "
+                 f"(top card {top}, shares {np.sort(share)[-2:]})")
+        # the reference retracts every pruned entry's last event, emitted
+        # or not, so the running sum and count may fall below zero
+        for r in rows:
+            if not (isinstance(r[0], str) and np.isfinite(r[1])
+                    and isinstance(r[2], int)):
+                fail(f"query_main {name}: row breaks the query's contract: {r}")
+        extra.update(emitted_cards=len({r[0] for r in rows}),
+                     top_card_share=float(share.max()))
+        return extra
+    for r in rows:
+        if name == "grouped_length":
+            ok = isinstance(r[0], str) and 1 <= r[3] <= 4096 and \
+                np.isfinite(r[1]) and r[1] >= 0 and 0 <= r[2] and \
+                abs(r[4] - r[1] / r[3]) <= 1e-3 * max(1.0, r[4])
+        else:
+            ok = 1 <= r[4] <= 65536 and r[1] - 1e-3 <= r[0] <= r[2] + 1e-3 \
+                and r[3] >= 0 and 0 <= r[1] and r[2] < 100
+        if not ok:
+            fail(f"query_main {name}: row breaks the query's contract: {r}")
+    return extra
 
 
 def phase_query_main(name: str, seed: int) -> dict:
     import torch
     from siddhi_tpu_torch.gpu.query_compile import stream_step_plain
     from siddhi_tpu_torch.gpu.query_step import QueryPlan
+    from siddhi_tpu_torch.gpu.query_walk import WalkPlan
     from siddhi_tpu_torch.gpu.runtime import DeviceStreamRuntime
     from siddhi_tpu_torch.gpu.state_io import state_to_numpy
     from siddhi_tpu_torch.tools.query_workloads import (QUERY_MAIN,
@@ -954,49 +1039,49 @@ def phase_query_main(name: str, seed: int) -> dict:
             shapes["bytes"] = query_step_bytes(state, new, c, t, v, out)
         return new, out
 
+    plan = type(q.plan)
     lib = q.plan._lib()
+    entry = getattr(lib, plan.LIB)
 
     class TimedLib:
-        def query_step(self, *a):
-            e0, e1 = event_pair()
-            e0.record()
-            rc = lib.query_step(*a)
-            e1.record()
-            kmarks.append((e0, e1))
-            return rc
+        def __getattr__(self, attr):
+            if attr != plan.LIB:
+                return getattr(lib, attr)
+
+            def call(*a):
+                e0, e1 = event_pair()
+                e0.record()
+                rc = entry(*a)
+                e1.record()
+                kmarks.append((e0, e1))
+                return rc
+            return call
 
     timed_lib = TimedLib()
     q.plan._lib = lambda: timed_lib
     q.step_tensors = timed
     torch.cuda.synchronize()
-    QueryPlan.launches = 0                     # counts from here: main path
+    QueryPlan.launches = WalkPlan.launches = 0   # counts from here: main path
     t0 = time.perf_counter()
     rows = feed_query(rt, cols, ts)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = QueryPlan.launches
+    launches = plan.launches
+    other = QueryPlan.launches + WalkPlan.launches - launches
     steps = len(marks)
     call_ms = [a.elapsed_time(b) for a, b in marks]
     step_ms = [a.elapsed_time(b) for a, b in kmarks]
     if len(kmarks) != steps:
         fail(f"query_main {name}: {len(kmarks)} kernel calls over {steps} steps")
-    per_step = 3 if q.agg_idx else 2
-    if launches != steps * per_step or launches == 0:
-        fail(f"query_main {name}: {launches} kernel launches over {steps} steps")
+    per_step = 1 if plan is WalkPlan else (3 if q.agg_idx else 2)
+    if launches != steps * per_step or launches == 0 or other:
+        fail(f"query_main {name}: {launches} {plan.LIB} launches over {steps} "
+             f"steps ({other} of the other query kernel)")
     drops = int(rt.state["window_drops"]) if "window_drops" in rt.state else 0
     coll = rt.group_collision_count
-    if drops or coll:
+    if (drops and name != "lossy_frequent") or coll:
         fail(f"query_main {name}: {drops} window drops, {coll} collisions")
-    for r in rows:
-        if name == "grouped_length":
-            ok = isinstance(r[0], str) and 1 <= r[3] <= 4096 and \
-                np.isfinite(r[1]) and r[1] >= 0 and 0 <= r[2] and \
-                abs(r[4] - r[1] / r[3]) <= 1e-3 * max(1.0, r[4])
-        else:
-            ok = 1 <= r[4] <= 65536 and r[1] - 1e-3 <= r[0] <= r[2] + 1e-3 \
-                and r[3] >= 0 and 0 <= r[1] and r[2] < 100
-        if not ok:
-            fail(f"query_main {name}: row breaks the query's contract: {r}")
+    extra = check_query_rows(name, rows, cols, ts)
 
     # ---- checked run: every step against the plain version on the card
     rt = DeviceStreamRuntime(app, device="cuda", **cfg)
@@ -1004,9 +1089,12 @@ def phase_query_main(name: str, seed: int) -> dict:
     kstep = q.step_tensors
     plain_ms, worst, equal_steps = [], 0.0, 0
     limits, fsum_limit = {}, []
+    check_steps = QUERY_CHECK_STEPS.get(name)
 
     def checked(state, c, t, v):
         nonlocal worst, equal_steps
+        if check_steps is not None and len(plain_ms) >= check_steps:
+            return kstep(state, c, t, v)
         e0, e1 = event_pair()
         e0.record()
         ref_state, ref_out = stream_step_plain(q, state, c, t, v)
@@ -1034,7 +1122,8 @@ def phase_query_main(name: str, seed: int) -> dict:
              f"timed run's")
     ops = query_step_ops(q)
     out = {
-        "phase": "query_main", "config": name, "events": QUERY_EVENTS,
+        "phase": "query_main", "config": name, "kernel": plan.LIB,
+        "events": QUERY_EVENTS,
         "steps": steps, "events_per_s": QUERY_EVENTS / wall, "wall_s": wall,
         "launches": launches, "launches_per_step": launches / steps,
         "kernel_step_ms_median": float(np.median(step_ms)),
@@ -1051,41 +1140,64 @@ def phase_query_main(name: str, seed: int) -> dict:
         "max_abs_err": worst, "errors_by_output": limits,
         "fsum_limit_min": float(np.min(fsum_limit)),
         "fsum_limit_max": float(np.max(fsum_limit)),
-        "phase_s": time.perf_counter() - t_phase,
+        "phase_s": time.perf_counter() - t_phase, **extra,
     }
     emit(out)
     return out
 
 
-def query_kernel_entry(q_outs: list, shapes_err: float) -> dict:
-    """The ``kernels`` line's ``query_step`` entry: times and bound of the
-    sample's configuration (a); (b) beside it under ``configs``."""
-    a = q_outs[0]
-    bound = max(a["bound_ms_bytes"], a["bound_ms_ops"])
-    return {
-        "name": "query_step",
-        "route": "cuda",
-        "source": "siddhi_tpu_torch/csrc/query_step.cu",
-        "replaces": "siddhi_tpu/tpu/query_compile.py:608",
-        "also_replaces": ["siddhi_tpu/tpu/expr_compile.py:121"],
-        "launches": sum(o["launches"] for o in q_outs),
-        "max_abs_err": max([shapes_err] + [o["max_abs_err"] for o in q_outs]),
-        "ms": a["kernel_step_ms_median"],
-        "plain_ms": a["plain_step_ms_median"],
-        "bound_ms": bound,
-        "bound_by": "bytes" if a["bound_ms_bytes"] >= a["bound_ms_ops"]
-        else "operations",
-        "library_ms": None,
-        "unit": "one query_main step of (a): CUDA events around the "
-                "kernels' launch call (3 launches)",
-        "step_call_ms": a["step_call_ms_median"],
-        "parity": "exact except f32 sums/avgs and stdDev (stated tolerance)",
-        "configs": {o["config"]: {k: o[k] for k in (
-            "kernel_step_ms_median", "step_call_ms_median",
-            "plain_step_ms_median", "launches",
-            "bound_ms_bytes", "bound_ms_ops", "max_abs_err")}
-            for o in q_outs},
-    }
+QUERY_ENTRIES = [
+    # (name, source, replaced TPU kernel, also replaced, configurations)
+    ("query_step", "query_step.cu", "siddhi_tpu/tpu/query_compile.py:608",
+     ["siddhi_tpu/tpu/expr_compile.py:121"],
+     ("grouped_length", "time_minmax_std")),
+    ("query_step_tumbling", "query_step.cu",
+     "siddhi_tpu/tpu/query_compile.py:1316",
+     ["siddhi_tpu/tpu/query_compile.py:1235",
+      "siddhi_tpu/tpu/query_compile.py:872",
+      "siddhi_tpu/tpu/query_compile.py:1554", "siddhi_tpu/tpu/runtime.py:21"],
+     ("time_batch",)),
+    ("query_walk", "query_walk.cu", "siddhi_tpu/tpu/query_compile.py:1648",
+     ["siddhi_tpu/tpu/query_compile.py:1447"], ("lossy_frequent",)),
+]
+
+
+def query_kernel_entries(q_outs: list, shapes_err: float) -> list:
+    """The ``kernels`` line's query entries: B5a (times and bound of the
+    sample's configuration (a), (b) beside it under ``configs``), the
+    tumbling family of B5b ((c)) and the scan-walked kernel ((d))."""
+    by = {o["config"]: o for o in q_outs}
+    entries = []
+    for name, src, replaces, also, configs in QUERY_ENTRIES:
+        outs = [by[c] for c in configs]
+        a = outs[0]
+        entries.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"siddhi_tpu_torch/csrc/{src}",
+            "replaces": replaces,
+            "also_replaces": also,
+            "launches": sum(o["launches"] for o in outs),
+            "max_abs_err": max([shapes_err] + [o["max_abs_err"] for o in outs]),
+            "ms": a["kernel_step_ms_median"],
+            "plain_ms": a["plain_step_ms_median"],
+            "bound_ms": max(a["bound_ms_bytes"], a["bound_ms_ops"]),
+            "bound_by": "bytes" if a["bound_ms_bytes"] >= a["bound_ms_ops"]
+            else "operations",
+            "library_ms": None,
+            "unit": f"one query_main step of {a['config']}: CUDA events "
+                    f"around the kernels' launch call "
+                    f"({a['launches_per_step']:g} launches)",
+            "step_call_ms": a["step_call_ms_median"],
+            "parity": "exact except f32 sums/avgs and stdDev (stated "
+                      "tolerance)",
+            "configs": {o["config"]: {k: o[k] for k in (
+                "kernel_step_ms_median", "step_call_ms_median",
+                "plain_step_ms_median", "launches", "checked_steps",
+                "bound_ms_bytes", "bound_ms_ops", "max_abs_err")}
+                for o in outs},
+        })
+    return entries
 
 
 def main() -> int:
@@ -1141,7 +1253,7 @@ def main() -> int:
         "unit": "one scan_main step (1 launch, ys zeroed in it)",
         "parity": "exact",
         "checked_steps": scan_out["checked_steps"],
-    }, query_kernel_entry(q_outs, query_err)]
+    }, *query_kernel_entries(q_outs, query_err)]
     print(card, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,0 +1,348 @@
+// Shared by the single-stream query kernels (query_step.cu, query_walk.cu):
+// the argument block QArgs (mirrored by gpu/query_step.py with ctypes), the
+// block-wide scans and reductions, and the step's first stage, the filter
+// and the stable compaction of the accepted events (compact_batch).
+//
+// Replaces, from the reference JAX package, the head of tpu/query_compile.py
+// ::CompiledStreamQuery._make_step (filters, compact(), agg_stack(), the
+// group and heavy-hitter key codes, the sort key).
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#define MAXSTACK 32
+#include "expr_ir.cuh"
+
+#define QMAXCOL 32
+#define QMAXSPEC 32
+#define QMAXLANE 16
+#define QMAXFILT 8
+#define QMAXGK 8
+#define FULL 0xffffffffu
+
+enum {
+  W_NONE = 0, W_LENGTH, W_TIME, W_TIMELENGTH, W_BATCH,
+  W_LBATCH, W_TBATCH, W_SESSION, W_DELAY, W_HOPPING,
+  W_SORT, W_FREQ, W_LOSSY
+};
+enum { S_VALUE = 0, S_COUNT, S_SUM, S_AVG, S_MIN, S_MAX, S_STD };
+enum { KM_NARROW = 0, KM_WIDE1, KM_PAIR, KM_FNV };
+enum { L_F = 0, L_I, L_S, L_M };
+
+#define TS_NEG (-(1LL << 62))
+#define TS_POS (1LL << 62)
+
+struct QArgs {
+  int B, N, M, K, LV, NB;          // M: scan length bound; LV/NB: sparse table
+  int O;                           // output slots: B, or M (remainder windows)
+  int wkind, grouped, key_mode, has_agg;
+  int nfilt, ncol, nspec, ngk;
+  int AF, AI, AS, AM, ntask;
+  int has_wprog, has_having;
+  int sort_kty, sort_desc;         // sort key type (T_*), descending order
+  long long window_ms, hop_ms;
+  long long skey_fill;             // sort key of an empty slot (slot bits)
+  double hh_support, hh_error;
+  int col_ty[QMAXCOL];
+  int spec_kind[QMAXSPEC], spec_ty[QMAXSPEC], spec_lane[QMAXSPEC], spec_int[QMAXSPEC];
+  int m_ty[QMAXLANE], m_min[QMAXLANE];
+  long long m_ident[QMAXLANE];
+  Prog filt[QMAXFILT];
+  Prog proj[QMAXSPEC];
+  Prog lane[4][QMAXLANE];
+  Prog gk[QMAXGK];
+  Prog wprog, having, skey;
+  const int4* code;
+  const void* col[QMAXCOL];
+  const long long* ts;
+  const unsigned char* valid;
+  // state in (meaning by mode: tails | grouped [K] tables | running |
+  // sort buffer | heavy-hitter table)
+  const float* f_in; const float* fc_in; const long long* i_in;
+  const float* s_in; const float* smean_in; const float* sm2_in; const float* scnt_in;
+  const int* ones_in; const long long* cnt_in;
+  const void* m_in[QMAXLANE];
+  const long long* tts_in; const int* gkey_in;
+  const long long* owner_in; const unsigned char* owned_in;
+  const long long* last_ts_in; const long long* drops_in;
+  const long long* regress_in; const long long* coll_in;
+  const int* rc_in;                // rem_count | sort_n
+  const long long* rts_in;         // rem_ts
+  const long long* base_in;        // batch_base | hop_next
+  const void* skeys_in;            // sort_keys
+  const long long* hkeys_in; const long long* hcnt_in; const long long* hdelta_in;
+  const float* runf_in; const long long* runi_in;
+  const long long* runc_in; const long long* htot_in;
+  const void* rp_in[QMAXSPEC];     // rem_proj_i | tail_proj_i
+  // state out (fresh buffers)
+  float* f_out; float* fc_out; long long* i_out;
+  float* s_out; float* smean_out; float* sm2_out; float* scnt_out;
+  int* ones_out; long long* cnt_out;
+  void* m_out[QMAXLANE];
+  long long* tts_out; int* gkey_out;
+  long long* owner_out; unsigned char* owned_out;
+  long long* last_ts_out; long long* drops_out;
+  long long* regress_out; long long* coll_out;
+  int* rc_out;
+  long long* rts_out;
+  long long* base_out;
+  void* skeys_out;
+  long long* hkeys_out; long long* hcnt_out; long long* hdelta_out;
+  float* runf_out; long long* runi_out;
+  long long* runc_out; long long* htot_out;
+  void* rp_out[QMAXSPEC];
+  // outputs ([O])
+  void* out[QMAXSPEC];
+  unsigned char* ovalid; long long* ots; int* ocount;
+  // scratch
+  int* misc;                        // [0] k, [1] scan length P, [2] remainder
+                                    // r, [3] carry start, [4] carried count
+  unsigned char* mask; int* rank;   // [B]
+  float* bf; long long* bi; float* bs; long long* bm;   // batch lanes [A, B]
+  int* bones; long long* bpacked; int* bkey; long long* bwts;   // [B]
+  long long* bkeyv;                 // [B] sort key slots
+  long long* bv;                    // [nspec, B] value projections (hopping)
+  int* lo; int* hi;                 // [O] output ranges [lo, hi] on the axis
+  unsigned char* oflag;             // [O] validity before having
+  long long* zt;                    // [M] the axis clock (monotonised)
+  long long* zseg;                  // [M] segment ids
+  int* firstidx; int* cnt; int* seg; int* run;   // [K]
+  float* ckey;                      // [AS, K] (or [AS]) stdDev centres
+  int* sorted; unsigned char* head; // [M]
+  double* incf; long long* inci; long long* inco;   // [AF, M], [AI, M], [M]
+  double* incs1; double* incs2;     // [AS, M]
+  long long* mP; long long* mS;     // [AM, M]
+  long long* mT;                    // [AM, LV, NB]
+};
+
+// ------------------------------------------------------------------ helpers
+
+struct ColAt {
+  const QArgs* a; int b;
+  __device__ long long operator()(int c) const {
+    return load_typed(a->col[c], a->col_ty[c], b);
+  }
+};
+struct NoBindQ {
+  __device__ long long operator()(int) const { return 0; }
+};
+struct OutAt {
+  const long long* v;
+  __device__ long long operator()(int k) const { return v[k]; }
+};
+
+__device__ __forceinline__ long long eval_row(const QArgs& a, Prog p, int b) {
+  return eval_prog(a.code, p, ColAt{&a, b}, NoBindQ{});
+}
+
+// min/max of two value slots of type ty; NaN propagates (jnp.minimum)
+__device__ __forceinline__ long long red_slot(int ty, int is_min, long long x,
+                                              long long y) {
+  if (ty == T_F32) {
+    const float fx = as_f(x), fy = as_f(y);
+    if (fx != fx) return x;
+    if (fy != fy) return y;
+    return (is_min ? (fy < fx) : (fy > fx)) ? y : x;
+  }
+  return (is_min ? (y < x) : (y > x)) ? y : x;
+}
+
+__device__ __forceinline__ unsigned long long avalanche64(unsigned long long x) {
+  x = (x ^ (x >> 30)) * 0xBF58476D1CE4E5B9ull;
+  x = (x ^ (x >> 27)) * 0x94D049BB133111EBull;
+  x = x ^ (x >> 31);
+  return x & 0x7FFFFFFFFFFFFFFFull;
+}
+
+__device__ __forceinline__ int bucket_of(const QArgs& a, long long packed) {
+  unsigned long long u = (unsigned long long)packed;
+  if (a.key_mode == KM_NARROW) u &= 0x7FFFFFFFFFFFFFFFull;
+  else u = avalanche64(u);
+  return (int)(u % (unsigned long long)a.K);
+}
+
+__device__ __forceinline__ float f32_of(double v) { return __double2float_rn(v); }
+
+// Block-wide reduction of one value per thread under op (every thread gets
+// the result; the reduction's order is fixed: within warps, then warps in
+// order).
+template <typename T, class Op>
+__device__ T block_reduce(T v, Op op, T* s_buf) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = (blockDim.x + 31) >> 5;
+  const int ws = blockDim.x < 32 ? (int)blockDim.x : 32;
+  for (int d = 16; d > 0; d >>= 1) {
+    const T u = __shfl_down_sync(FULL, v, d);
+    if (lane + d < ws) v = op(v, u);
+  }
+  __syncthreads();
+  if (lane == 0) s_buf[warp] = v;
+  __syncthreads();
+  T tot = s_buf[0];
+  for (int w = 1; w < nw; ++w) tot = op(tot, s_buf[w]);
+  __syncthreads();
+  return tot;
+}
+
+// Inclusive segmented scan over s in [0, P) of get(s) under op; a segment
+// starts where head(s) is true (and at s = 0); put(s, v) receives each
+// result. Every thread of the block calls it. s_val/s_flag hold 33 entries.
+template <typename T, class Op, class Get, class Head, class Put>
+__device__ void block_seg_scan(int P, Op op, Get get, Head head, Put put,
+                               T* s_val, int* s_flag) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nt = blockDim.x, nw = (nt + 31) >> 5;
+  T carry = T();
+  for (int base = 0; base < P; base += nt) {
+    const int s = base + tid;
+    const bool in = s < P;
+    T v = in ? get(s) : T();
+    int f = in ? (s == 0 || head(s)) : 1;
+    for (int d = 1; d < 32; d <<= 1) {
+      const T vu = __shfl_up_sync(FULL, v, d);
+      const int fu = __shfl_up_sync(FULL, f, d);
+      if (lane >= d) {
+        if (!f) v = op(vu, v);
+        f |= fu;
+      }
+    }
+    __syncthreads();
+    if (lane == 31 || tid == nt - 1) { s_val[warp] = v; s_flag[warp] = f; }
+    __syncthreads();
+    if (warp == 0) {
+      T wv = lane < nw ? s_val[lane] : T();
+      int wf = lane < nw ? s_flag[lane] : 1;
+      for (int d = 1; d < 32; d <<= 1) {
+        const T vu = __shfl_up_sync(FULL, wv, d);
+        const int fu = __shfl_up_sync(FULL, wf, d);
+        if (lane >= d) {
+          if (!wf) wv = op(vu, wv);
+          wf |= fu;
+        }
+      }
+      if (lane < nw) { s_val[lane] = wv; s_flag[lane] = wf; }
+    }
+    __syncthreads();
+    if (warp > 0 && !f) { v = op(s_val[warp - 1], v); f = s_flag[warp - 1]; }
+    if (base > 0 && !f) v = op(carry, v);
+    if (in) put(s, v);
+    __syncthreads();
+    if (tid == nt - 1) s_val[32] = v;
+    __syncthreads();
+    carry = s_val[32];
+    __syncthreads();
+  }
+}
+
+struct AddOp {
+  template <typename T> __device__ T operator()(T x, T y) const { return x + y; }
+};
+struct MaxI64 {
+  __device__ long long operator()(long long x, long long y) const { return x > y ? x : y; }
+};
+
+// Block-wide sum of one value per thread (every thread gets the total).
+template <typename T>
+__device__ T block_sum(T v, T* s_buf) { return block_reduce<T>(v, AddOp(), s_buf); }
+struct RedOp {
+  int ty, is_min;
+  __device__ long long operator()(long long x, long long y) const {
+    return red_slot(ty, is_min, x, y);
+  }
+};
+
+__device__ __forceinline__ bool remainder_kind(int w) {
+  return w == W_LBATCH || w == W_TBATCH || w == W_SESSION || w == W_DELAY;
+}
+
+// --------------------------------------------------- stage 1: compaction
+// Filters -> mask and stable rank; every accepted event b goes to slot
+// rank_b: its aggregate arguments to the batch lanes, its group or
+// heavy-hitter key code, window clock and sort key to their scratch, its
+// value projections to out[i] at voff + rank_b (to bv for hopping), its
+// timestamp to ots (where the output axis is the batch's). Slots past the
+// accepted count k hold the reference's fills. Returns k; every thread of
+// the block calls it.
+__device__ int compact_batch(const QArgs& a, int voff, int* s_scan) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int B = a.B;
+  const bool hop = a.wkind == W_HOPPING;
+  const bool direct_ts = !(remainder_kind(a.wkind) || hop);
+  for (int b = tid; b < B; b += nt) {
+    bool m = a.valid[b] != 0;
+    for (int f = 0; f < a.nfilt; ++f)
+      m = m && (eval_row(a, a.filt[f], b) != 0);
+    a.mask[b] = m;
+  }
+  const int k = block_rank<0>(a.mask, a.rank, B, s_scan);
+
+  for (int b = tid; b < B; b += nt) {
+    const int r = a.rank[b];
+    if (r < 0) continue;
+    if (direct_ts) a.ots[r] = a.ts[b];
+    for (int i = 0; i < a.nspec; ++i)
+      if (a.spec_kind[i] == S_VALUE) {
+        const long long v = eval_row(a, a.proj[i], b);
+        if (hop) a.bv[(long long)i * B + r] = v;
+        else store_typed(a.out[i], a.spec_ty[i], voff + r, v);
+      }
+    for (int l = 0; l < a.AF; ++l)
+      a.bf[(long long)l * B + r] = as_f(eval_row(a, a.lane[L_F][l], b));
+    for (int l = 0; l < a.AI; ++l)
+      a.bi[(long long)l * B + r] = eval_row(a, a.lane[L_I][l], b);
+    for (int l = 0; l < a.AS; ++l)
+      a.bs[(long long)l * B + r] = as_f(eval_row(a, a.lane[L_S][l], b));
+    for (int l = 0; l < a.AM; ++l)
+      a.bm[(long long)l * B + r] = eval_row(a, a.lane[L_M][l], b);
+    a.bones[r] = 1;
+    if (a.ngk > 0) {
+      unsigned long long packed = (unsigned long long)eval_row(a, a.gk[0], b);
+      if (a.key_mode == KM_PAIR) {
+        packed = (packed << 32) |
+                 ((unsigned long long)eval_row(a, a.gk[1], b) & 0xFFFFFFFFull);
+      } else if (a.key_mode == KM_FNV) {
+        for (int g = 1; g < a.ngk; ++g)
+          packed = packed * 0x100000001B3ull ^
+                   (unsigned long long)eval_row(a, a.gk[g], b);
+      }
+      a.bpacked[r] = (long long)packed;
+    }
+    a.bwts[r] = a.has_wprog ? eval_row(a, a.wprog, b) : a.ts[b];
+    if (a.wkind == W_SORT) {
+      long long v = eval_row(a, a.skey, b);
+      if (a.sort_desc) {
+        // stored negated (ascending order is the sort order); the integer
+        // minimum has no negation and is clamped one up first
+        if (a.sort_kty == T_F32) {
+          v = from_f(-as_f(v));
+        } else if (a.sort_kty == T_I32) {
+          const int x = (int)v;
+          v = from_i32(x == INT32_MIN ? -(INT32_MIN + 1) : -x);
+        } else {
+          v = v == INT64_MIN ? -(INT64_MIN + 1) : -v;
+        }
+      }
+      a.bkeyv[r] = v;
+    }
+  }
+  for (int s = k + tid; s < B; s += nt) {
+    if (direct_ts) a.ots[s] = 0;
+    for (int i = 0; i < a.nspec; ++i)
+      if (a.spec_kind[i] == S_VALUE) {
+        if (hop) a.bv[(long long)i * B + s] = 0;
+        else store_typed(a.out[i], a.spec_ty[i], voff + s, 0);
+      }
+    for (int l = 0; l < a.AF; ++l) a.bf[(long long)l * B + s] = 0.0f;
+    for (int l = 0; l < a.AI; ++l) a.bi[(long long)l * B + s] = 0;
+    for (int l = 0; l < a.AS; ++l) a.bs[(long long)l * B + s] = 0.0f;
+    for (int l = 0; l < a.AM; ++l) a.bm[(long long)l * B + s] = a.m_ident[l];
+    a.bones[s] = 0;
+    a.bpacked[s] = 0;
+    a.bwts[s] = TS_POS;
+    a.bkeyv[s] = a.skey_fill;
+  }
+  __syncthreads();
+  return k;
+}

@@ -7,32 +7,49 @@
 //     the sum/count/avg/min/max/stdDev aggregates; helpers _range_reduce,
 //     _range_sums, _keyed_range_sums, _window_svars, _time_window_bounds,
 //     _slide_tails, _materialize)
+//   - the tumbling half of B5b in the same file: lengthBatch
+//     (_length_batch), timeBatch, externalTimeBatch and session
+//     (_segmented_batch), delay (the step's delay branch) and hopping
+//     (_hopping_flushes). sort, frequent and lossyFrequent are
+//     query_walk.cu's.
 // and evaluates filters, projections, aggregate arguments, group keys and
 // having through B2's IR (expr_ir.cuh; OP_TS is linked as a read of the
 // int64 timestamp column, having reads the row's outputs as bindings).
 //
 // What it computes, per step over a batch of B events: the filter mask and
-// its stable compaction (accepted event i -> slot rank_i, fills past the
-// accepted count k, as the reference writes them); for sliding windows the
-// concat axis z = [tail (N) | batch (B)], M = N + B, and per output slot
-// b the range [lo_b, N + b] (length: the live tail; time: a binary search
-// over the clamped event times; timeLength: both), sums and counts as
-// prefix differences, min/max as exact range reductions, stdDev from
-// float64 shifted moments; for group-by the bucket ids, the ownership map
-// and collision count, and per-key sums over the range (windowed) or per-
-// key prefixes plus the carried [K] tables (unwindowed: Kahan f32 sums,
-// int64 sums and counts, min/max, Welford-merged f32 stdDev); the running
-// aggregates; the outputs, the having mask and the new state.
+// its stable compaction (query_common.cuh); the step's axis z: the tail
+// and the batch, z = [tail (N) | batch (B)], for the sliding windows and
+// hopping, the open remainder and the batch's accepted events compacted,
+// z = [remainder (r) | accepted (k) | fills], for the tumbling windows, or
+// the batch alone; and for every output slot o a range [lo_o, hi_o] of z:
+//   - sliding: o = b, hi = N + b, lo the live tail (length), a binary
+//     search over the clamped event times (time), or both (timeLength);
+//   - lengthBatch: o over all M = N + B slots, lo = (o / N) * N;
+//   - timeBatch/session: o over M, lo = the start of o's segment (bucket
+//     id (t - base) // duration, or a break where the gap >= duration),
+//     from a max-scan of segment heads over the monotonised clock;
+//   - hopping: o = the f-th flush boundary t_f = b0 + f * hop of the step,
+//     [lo, hi] = the events in (t_f - duration, t_f), two binary searches;
+// sums and counts as prefix differences, min/max as exact range
+// reductions, stdDev from float64 shifted moments; for group-by the bucket
+// ids, the ownership map and collision count, and per-key sums over the
+// range (windowed) or per-key prefixes plus the carried [K] tables
+// (unwindowed: Kahan f32 sums, int64 sums and counts, min/max,
+// Welford-merged f32 stdDev); the running aggregates; the outputs, the
+// having mask and the new state (tails slide by k; a tumbling window keeps
+// its open part, capped at the N newest, counting drops).
 //
 // Design: three launches per step (two when nothing aggregates).
-//   1. q_prep, one CTA: filters and block_rank compaction; the output
-//      timestamps and value projections go straight to the outputs, the
-//      aggregate arguments to batch lanes; bucket ids; the time-window
-//      clamp (a max-scan), regressions, drops and range bounds; ownership
-//      and collisions; for group-by a stable counting sort of the scan
-//      positions by bucket (histogram, exclusive scan, then one warp
-//      places positions in order with __match_any_sync), which replaces
-//      the reference's [M, K] one-hot grids.
+//   1. q_prep, one CTA: compaction (the output timestamps and value
+//      projections go straight to the outputs, the aggregate arguments to
+//      batch lanes); bucket ids; the time clamp (a max-scan), regressions,
+//      drops and range bounds; for the tumbling windows the axis clock,
+//      segment ids and starts, each slot's validity and the carried
+//      remainder; for hopping the flush boundaries and their ranges;
+//      ownership and collisions; for group-by a stable counting sort of
+//      the scan positions by bucket (histogram, exclusive scan, then one
+//      warp places positions in order with __match_any_sync), which
+//      replaces the reference's [M, K] one-hot grids.
 //   2. q_scan, one CTA per aggregate lane: an inclusive scan over the scan
 //      positions (segmented by bucket when grouped): float32 lanes in
 //      float64 (each prefix rounds to float32 once, as the plain version
@@ -40,246 +57,73 @@
 //      (windowed) or float32-rounded (carried) shifted moments, min/max
 //      lanes as block-of-32 prefix/suffix reductions plus a sparse table
 //      over the blocks (exact range min/max for any [lo, j]).
-//   3. q_emit, a grid over max(B, N, K): each output slot reads its range
+//   3. q_emit, a grid over max(O, N, K): each output slot reads its range
 //      from the scans (binary searches inside its bucket's segment when
 //      grouped), materialises every output, evaluates having; the new
-//      tails and per-key tables are written to fresh buffers (the input
-//      state is read-only, as in the reference).
+//      tails, remainders and per-key tables are written to fresh buffers
+//      (the input state is read-only, as in the reference).
 //
-// What bounds it on the H100: bytes, in principle. A main-path step moves
-// the batch columns, the tails it reads and writes, the outputs and the
-// [K] tables: about 0.4-1.5 MB, well under a microsecond at 3.35 TB/s.
-// This first version is bound instead by its single-CTA phases (the
-// compaction, the counting sort's one-warp placement loop, one CTA per
-// scanned lane) and three dependent launches: multi-CTA scans and a
+// What bounds it on the H100: bytes, in principle. A step moves the batch
+// columns, the tails it reads and writes, the outputs and the [K] tables:
+// about 0.4-4 MB, around a microsecond at 3.35 TB/s. This first version is
+// bound instead by its single-CTA phases (the compaction, the counting
+// sort's one-warp placement loop, the tumbling windows' axis scans, one CTA
+// per scanned lane) and three dependent launches: multi-CTA scans and a
 // decoupled look-back compaction are later work.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "query_common.cuh"
 
-#define MAXSTACK 32
-#include "expr_ir.cuh"
-
-#define QMAXCOL 32
-#define QMAXSPEC 32
-#define QMAXLANE 16
-#define QMAXFILT 8
-#define QMAXGK 8
 #define NT 1024
 #define NT_EMIT 256
-#define FULL 0xffffffffu
 
-enum { W_NONE = 0, W_LENGTH, W_TIME, W_TIMELENGTH, W_BATCH };
-enum { S_VALUE = 0, S_COUNT, S_SUM, S_AVG, S_MIN, S_MAX, S_STD };
-enum { KM_NARROW = 0, KM_WIDE1, KM_PAIR, KM_FNV };
-enum { L_F = 0, L_I, L_S, L_M };
-
-#define TS_NEG (-(1LL << 62))
-#define TS_POS (1LL << 62)
-
-struct QArgs {
-  int B, N, M, K, LV, NB;          // M: scan length bound; LV/NB: sparse table
-  int wkind, grouped, key_mode, has_agg;
-  int nfilt, ncol, nspec, ngk;
-  int AF, AI, AS, AM, ntask;
-  int has_wprog, has_having;
-  long long window_ms;
-  int col_ty[QMAXCOL];
-  int spec_kind[QMAXSPEC], spec_ty[QMAXSPEC], spec_lane[QMAXSPEC], spec_int[QMAXSPEC];
-  int m_ty[QMAXLANE], m_min[QMAXLANE];
-  long long m_ident[QMAXLANE];
-  Prog filt[QMAXFILT];
-  Prog proj[QMAXSPEC];
-  Prog lane[4][QMAXLANE];
-  Prog gk[QMAXGK];
-  Prog wprog, having;
-  const int4* code;
-  const void* col[QMAXCOL];
-  const long long* ts;
-  const unsigned char* valid;
-  // state in (meaning by mode: sliding tails | grouped [K] tables | running)
-  const float* f_in; const float* fc_in; const long long* i_in;
-  const float* s_in; const float* smean_in; const float* sm2_in; const float* scnt_in;
-  const int* ones_in; const long long* cnt_in;
-  const void* m_in[QMAXLANE];
-  const long long* tts_in; const int* gkey_in;
-  const long long* owner_in; const unsigned char* owned_in;
-  const long long* last_ts_in; const long long* drops_in;
-  const long long* regress_in; const long long* coll_in;
-  // state out (fresh buffers)
-  float* f_out; float* fc_out; long long* i_out;
-  float* s_out; float* smean_out; float* sm2_out; float* scnt_out;
-  int* ones_out; long long* cnt_out;
-  void* m_out[QMAXLANE];
-  long long* tts_out; int* gkey_out;
-  long long* owner_out; unsigned char* owned_out;
-  long long* last_ts_out; long long* drops_out;
-  long long* regress_out; long long* coll_out;
-  // outputs
-  void* out[QMAXSPEC];
-  unsigned char* ovalid; long long* ots; int* ocount;
-  // scratch
-  int* misc;                        // [0] k, [1] scan length P
-  unsigned char* mask; int* rank;   // [B]
-  float* bf; long long* bi; float* bs; long long* bm;   // batch lanes [A, B]
-  int* bones; long long* bpacked; int* bkey; long long* bwts; int* lo;   // [B]
-  int* firstidx; int* cnt; int* seg; int* run;   // [K]
-  float* ckey;                      // [AS, K] (or [AS]) stdDev centres
-  int* sorted; unsigned char* head; // [M]
-  double* incf; long long* inci; long long* inco;   // [AF, M], [AI, M], [M]
-  double* incs1; double* incs2;     // [AS, M]
-  long long* mP; long long* mS;     // [AM, M]
-  long long* mT;                    // [AM, LV, NB]
-};
-
-// ------------------------------------------------------------------ helpers
-
-struct ColAt {
-  const QArgs* a; int b;
-  __device__ long long operator()(int c) const {
-    return load_typed(a->col[c], a->col_ty[c], b);
-  }
-};
-struct NoBindQ {
-  __device__ long long operator()(int) const { return 0; }
-};
-struct OutAt {
-  const long long* v;
-  __device__ long long operator()(int k) const { return v[k]; }
-};
-
-__device__ __forceinline__ long long eval_row(const QArgs& a, Prog p, int b) {
-  return eval_prog(a.code, p, ColAt{&a, b}, NoBindQ{});
+// int64 arithmetic that wraps, as XLA's does
+__device__ __forceinline__ long long wadd(long long x, long long y) {
+  return (long long)((unsigned long long)x + (unsigned long long)y);
+}
+__device__ __forceinline__ long long wmul(long long x, long long y) {
+  return (long long)((unsigned long long)x * (unsigned long long)y);
+}
+// floor division (jnp's // on int64), d > 0
+__device__ __forceinline__ long long floor_div(long long x, long long d) {
+  long long q = x / d;
+  if ((x % d != 0) && (x < 0)) --q;
+  return q;
 }
 
-// min/max of two value slots of type ty; NaN propagates (jnp.minimum)
-__device__ __forceinline__ long long red_slot(int ty, int is_min, long long x,
-                                              long long y) {
-  if (ty == T_F32) {
-    const float fx = as_f(x), fy = as_f(y);
-    if (fx != fx) return x;
-    if (fy != fy) return y;
-    return (is_min ? (fy < fx) : (fy > fx)) ? y : x;
-  }
-  return (is_min ? (y < x) : (y > x)) ? y : x;
-}
-
-__device__ __forceinline__ unsigned long long avalanche64(unsigned long long x) {
-  x = (x ^ (x >> 30)) * 0xBF58476D1CE4E5B9ull;
-  x = (x ^ (x >> 27)) * 0x94D049BB133111EBull;
-  x = x ^ (x >> 31);
-  return x & 0x7FFFFFFFFFFFFFFFull;
-}
-
-__device__ __forceinline__ int bucket_of(const QArgs& a, long long packed) {
-  unsigned long long u = (unsigned long long)packed;
-  if (a.key_mode == KM_NARROW) u &= 0x7FFFFFFFFFFFFFFFull;
-  else u = avalanche64(u);
-  return (int)(u % (unsigned long long)a.K);
-}
-
-// Block-wide sum of one value per thread (every thread gets the total).
-template <typename T>
-__device__ T block_sum(T v, T* s_buf) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nw = (blockDim.x + 31) >> 5;
-  for (int d = 16; d > 0; d >>= 1) v += __shfl_down_sync(FULL, v, d);
-  __syncthreads();
-  if (lane == 0) s_buf[warp] = v;
-  __syncthreads();
-  T tot = 0;
-  for (int w = 0; w < nw; ++w) tot += s_buf[w];
-  __syncthreads();
-  return tot;
-}
-
-// Inclusive segmented scan over s in [0, P) of get(s) under op; a segment
-// starts where head(s) is true (and at s = 0); put(s, v) receives each
-// result. Every thread of the block calls it. s_val/s_flag hold 33 entries.
-template <typename T, class Op, class Get, class Head, class Put>
-__device__ void block_seg_scan(int P, Op op, Get get, Head head, Put put,
-                               T* s_val, int* s_flag) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int nt = blockDim.x, nw = (nt + 31) >> 5;
-  T carry = T();
-  for (int base = 0; base < P; base += nt) {
-    const int s = base + tid;
-    const bool in = s < P;
-    T v = in ? get(s) : T();
-    int f = in ? (s == 0 || head(s)) : 1;
-    for (int d = 1; d < 32; d <<= 1) {
-      const T vu = __shfl_up_sync(FULL, v, d);
-      const int fu = __shfl_up_sync(FULL, f, d);
-      if (lane >= d) {
-        if (!f) v = op(vu, v);
-        f |= fu;
-      }
-    }
-    __syncthreads();
-    if (lane == 31 || tid == nt - 1) { s_val[warp] = v; s_flag[warp] = f; }
-    __syncthreads();
-    if (warp == 0) {
-      T wv = lane < nw ? s_val[lane] : T();
-      int wf = lane < nw ? s_flag[lane] : 1;
-      for (int d = 1; d < 32; d <<= 1) {
-        const T vu = __shfl_up_sync(FULL, wv, d);
-        const int fu = __shfl_up_sync(FULL, wf, d);
-        if (lane >= d) {
-          if (!wf) wv = op(vu, wv);
-          wf |= fu;
-        }
-      }
-      if (lane < nw) { s_val[lane] = wv; s_flag[lane] = wf; }
-    }
-    __syncthreads();
-    if (warp > 0 && !f) { v = op(s_val[warp - 1], v); f = s_flag[warp - 1]; }
-    if (base > 0 && !f) v = op(carry, v);
-    if (in) put(s, v);
-    __syncthreads();
-    if (tid == nt - 1) s_val[32] = v;
-    __syncthreads();
-    carry = s_val[32];
-    __syncthreads();
-  }
-}
-
-struct AddOp {
-  template <typename T> __device__ T operator()(T x, T y) const { return x + y; }
-};
-struct MaxI64 {
-  __device__ long long operator()(long long x, long long y) const { return x > y ? x : y; }
-};
-struct RedOp {
-  int ty, is_min;
-  __device__ long long operator()(long long x, long long y) const {
-    return red_slot(ty, is_min, x, y);
-  }
-};
-
-// z-axis readers: position p of the concat [tail (N) | batch (B)] (sliding)
-// or of the batch alone
+// z-axis readers: position p of the step's axis [tail | batch | fills];
+// the tail is N slots (sliding, hopping), the remainder's r (tumbling) or
+// nothing
 __device__ __forceinline__ bool sliding(const QArgs& a) {
   return a.wkind == W_LENGTH || a.wkind == W_TIME || a.wkind == W_TIMELENGTH;
 }
+__device__ __forceinline__ int zsplit(const QArgs& a) {
+  if (sliding(a) || a.wkind == W_HOPPING) return a.N;
+  return remainder_kind(a.wkind) ? a.misc[2] : 0;
+}
 __device__ __forceinline__ float zf(const QArgs& a, int l, int p) {
-  if (sliding(a) && p < a.N) return a.f_in[(long long)l * a.N + p];
-  return a.bf[(long long)l * a.B + p - (sliding(a) ? a.N : 0)];
+  const int sp = zsplit(a), q = p - sp;
+  if (q < 0) return a.f_in[(long long)l * a.N + p];
+  return q < a.B ? a.bf[(long long)l * a.B + q] : 0.0f;
 }
 __device__ __forceinline__ long long zi(const QArgs& a, int l, int p) {
-  if (sliding(a) && p < a.N) return a.i_in[(long long)l * a.N + p];
-  return a.bi[(long long)l * a.B + p - (sliding(a) ? a.N : 0)];
+  const int sp = zsplit(a), q = p - sp;
+  if (q < 0) return a.i_in[(long long)l * a.N + p];
+  return q < a.B ? a.bi[(long long)l * a.B + q] : 0;
 }
 __device__ __forceinline__ float zs(const QArgs& a, int l, int p) {
-  if (sliding(a) && p < a.N) return a.s_in[(long long)l * a.N + p];
-  return a.bs[(long long)l * a.B + p - (sliding(a) ? a.N : 0)];
+  const int sp = zsplit(a), q = p - sp;
+  if (q < 0) return a.s_in[(long long)l * a.N + p];
+  return q < a.B ? a.bs[(long long)l * a.B + q] : 0.0f;
 }
 __device__ __forceinline__ long long zm(const QArgs& a, int l, int p) {
-  if (sliding(a) && p < a.N) return load_typed(a.m_in[l], a.m_ty[l], p);
-  return a.bm[(long long)l * a.B + p - (sliding(a) ? a.N : 0)];
+  const int sp = zsplit(a), q = p - sp;
+  if (q < 0) return load_typed(a.m_in[l], a.m_ty[l], p);
+  return q < a.B ? a.bm[(long long)l * a.B + q] : a.m_ident[l];
 }
 __device__ __forceinline__ int zo(const QArgs& a, int p) {
-  if (sliding(a) && p < a.N) return a.ones_in[p];
-  return a.bones[p - (sliding(a) ? a.N : 0)];
+  const int sp = zsplit(a), q = p - sp;
+  if (q < 0) return a.ones_in[p];
+  return q < a.B ? a.bones[q] : 0;
 }
 __device__ __forceinline__ long long zts(const QArgs& a, int p) {
   return p < a.N ? a.tts_in[p] : a.bwts[p - a.N];
@@ -303,6 +147,184 @@ __device__ __forceinline__ int upper_bound_zts(const QArgs& a, long long x) {
   }
   return lo;
 }
+__device__ __forceinline__ int lower_bound_zts(const QArgs& a, long long x) {
+  int lo = 0, hi = a.N + a.B;              // first position with zts >= x
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (zts(a, mid) < x) lo = mid + 1; else hi = mid;
+  }
+  return lo;
+}
+
+// The tumbling windows (lengthBatch, timeBatch, session, delay): the axis
+// clock over M = N + B slots ([remainder r | accepted k | fills]), each
+// slot's range and validity, the output timestamps, the carried remainder
+// clock and the counters. The batch's value projections already sit at
+// [r, r + k) of the outputs.
+__device__ void prep_remainder(const QArgs& a, int k, int r, long long* s_buf,
+                               int* s_flag) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int N = a.N, M = a.M, w = a.wkind;
+  const int total = r + k;
+  const long long ms = a.window_ms;
+  for (int p = tid; p < M; p += nt) {
+    if (p >= r && p < total) continue;
+    for (int i = 0; i < a.nspec; ++i)
+      if (a.spec_kind[i] == S_VALUE)
+        store_typed(a.out[i], a.spec_ty[i], p,
+                    p < r ? load_typed(a.rp_in[i], a.spec_ty[i], p) : 0);
+  }
+  // the clock: raw (the rows' own timestamps) and monotonised (zt); fills
+  // sort after every real event
+  auto raw = [&](int p) -> long long {
+    if (p < r) return a.rts_in[p];
+    if (p < total) return a.bwts[p - r];
+    return w == W_LBATCH ? 0 : TS_POS;
+  };
+  long long regressed = 0;
+  if (w == W_LBATCH) {
+    for (int p = tid; p < M; p += nt) {
+      const long long v = raw(p);
+      a.ots[p] = v;
+      a.zt[p] = v;
+    }
+  } else {
+    block_seg_scan<long long>(
+        M, MaxI64(), raw, [](int) { return false; },
+        [&](int p, long long v) {
+          const long long x = raw(p);
+          a.ots[p] = w == W_DELAY ? wadd(v, ms) : x;
+          a.zt[p] = v;
+          regressed += (v > x) && p < total;
+        },
+        s_buf, s_flag);
+    regressed = block_sum<long long>(regressed, s_buf);
+  }
+  __syncthreads();
+
+  int rem_n, start, count;
+  long long drops = 0;
+  if (w == W_LBATCH) {
+    const int full = total / N;
+    for (int p = tid; p < M; p += nt) {
+      a.lo[p] = (p / N) * N;
+      a.hi[p] = p;
+      // an aggregated batch collapses to one row, its last slot
+      a.oflag[p] = p < full * N && p < total && (!a.has_agg || p % N == N - 1);
+    }
+    rem_n = total - full * N;
+    start = full * N;
+    count = full * N;
+  } else if (w == W_DELAY) {
+    const long long newest = total > 0 ? a.zt[total - 1] : TS_NEG;
+    int nrel = 0;
+    for (int p = tid; p < M; p += nt) {
+      const bool rel = p < total && wadd(a.zt[p], ms) <= newest;
+      a.oflag[p] = rel;
+      nrel += rel;
+    }
+    nrel = block_sum<int>(nrel, (int*)s_buf);
+    rem_n = total - nrel < N ? total - nrel : N;
+    drops = total - nrel - rem_n;
+    start = total - rem_n > 0 ? total - rem_n : 0;
+    count = nrel;
+  } else {                                       // timeBatch, session
+    long long base = 0;
+    if (w == W_TBATCH) {
+      base = *a.base_in > TS_NEG ? *a.base_in : a.zt[0];
+      for (int p = tid; p < M; p += nt) a.zseg[p] = floor_div(a.zt[p] - base, ms);
+    } else {
+      // a gap of exactly the parameter closes the session
+      block_seg_scan<long long>(
+          M, AddOp(),
+          [&](int p) { return (long long)(p > 0 && a.zt[p] - a.zt[p - 1] >= ms); },
+          [](int) { return false; }, [&](int p, long long v) { a.zseg[p] = v; },
+          s_buf, s_flag);
+    }
+    __syncthreads();
+    const int last = total - 1 < 0 ? 0 : (total - 1 < M ? total - 1 : M - 1);
+    const long long seg_last = a.zseg[last];
+    int open = 0, nvalid = 0;
+    for (int p = tid; p < M; p += nt) {
+      bool ok;
+      if (w == W_TBATCH) {
+        // closed buckets emit; aggregated, one row per bucket (its last)
+        ok = p < total && a.zseg[p] < seg_last;
+        if (ok && a.has_agg)
+          ok = p + 1 >= total || a.zseg[p + 1 < M ? p + 1 : M - 1] != a.zseg[p];
+      } else {
+        ok = p >= r && p < total;                // currents pass once
+      }
+      a.oflag[p] = ok;
+      a.hi[p] = p;
+      nvalid += ok;
+      open += p < total && a.zseg[p] == seg_last;
+    }
+    // a slot's range starts at its segment's head: a max-scan of heads
+    block_seg_scan<long long>(
+        M, MaxI64(),
+        [&](int p) { return (long long)((p == 0 || a.zseg[p] != a.zseg[p - 1]) ? p : 0); },
+        [](int) { return false; }, [&](int p, long long v) { a.lo[p] = (int)v; },
+        s_buf, s_flag);
+    open = block_sum<int>(open, (int*)s_buf);
+    count = block_sum<int>(nvalid, (int*)s_buf);
+    rem_n = open < N ? open : N;
+    drops = open - rem_n;
+    start = total - rem_n > 0 ? total - rem_n : 0;
+    if (tid == 0 && w == W_TBATCH) *a.base_out = total > 0 ? base : *a.base_in;
+  }
+  __syncthreads();
+  // the carried remainder's clock (monotonised, raw for lengthBatch)
+  for (int t = tid; t < N; t += nt) a.rts_out[t] = t < rem_n ? a.zt[start + t] : 0;
+  if (tid == 0) {
+    *a.rc_out = rem_n;
+    a.misc[1] = M;
+    a.misc[3] = start;
+    a.misc[4] = rem_n;
+    *a.ocount = count;
+    if (w != W_LBATCH) {
+      *a.drops_out = *a.drops_in + drops;
+      *a.regress_out = *a.regress_in + regressed;
+    }
+  }
+}
+
+// hopping(D, H): the step's flush boundaries t_f = b0 + f * H (f < B) and
+// their buckets (t_f - D, t_f) on the axis [tail (N) | batch]; bwts holds
+// the clamped batch clock. Boundaries past B fire on the next step.
+__device__ void prep_hopping(const QArgs& a, int k, long long last,
+                             long long* s_buf) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int B = a.B;
+  const long long H = a.hop_ms, D = a.window_ms;
+  const long long newest = k > 0 ? a.bwts[k - 1] : last;
+  const bool armed = *a.base_in > TS_NEG;
+  // unarmed: the tail is empty and the first real event sits at slot N
+  const long long b0 = armed ? *a.base_in : wadd(a.bwts[0], H);
+  const bool any = armed || k > 0;
+  long long nf = (any && newest >= b0) ? (newest - b0) / H + 1 : 0;
+  if (nf > B) nf = B;
+  for (int f = tid; f < B; f += nt) {
+    const long long t = wadd(b0, wmul(f, H));
+    const int l = upper_bound_zts(a, wadd(t, -D));
+    int h = lower_bound_zts(a, t) - 1;
+    if (h < l - 1) h = l - 1;                  // empty bucket: zero range
+    a.ots[f] = t;
+    a.lo[f] = l;
+    a.hi[f] = h;
+    a.oflag[f] = f < nf;
+  }
+  const long long live_cut = nf > 0 ? wadd(wadd(b0, wmul(nf - 1, H)), -D) : TS_NEG;
+  long long drops = 0;                         // live slots pushed out
+  for (int p = tid; p < k; p += nt)
+    if (zts(a, p) > live_cut) drops += zo(a, p);
+  drops = block_sum<long long>(drops, s_buf);
+  if (tid == 0) {
+    *a.base_out = nf > 0 ? wadd(b0, wmul(nf, H)) : (any ? b0 : TS_NEG);
+    *a.drops_out = *a.drops_in + drops;
+    a.misc[1] = a.N + B;
+  }
+}
 
 __global__ void __launch_bounds__(NT) q_prep(QArgs a) {
   __shared__ int s_scan[NT / 32 + 1];
@@ -310,66 +332,19 @@ __global__ void __launch_bounds__(NT) q_prep(QArgs a) {
   __shared__ int s_flag[33];
   const int tid = threadIdx.x, nt = blockDim.x;
   const int B = a.B, N = a.N, K = a.K;
-
-  // filters -> mask, stable rank
-  for (int b = tid; b < B; b += nt) {
-    bool m = a.valid[b] != 0;
-    for (int f = 0; f < a.nfilt; ++f)
-      m = m && (eval_row(a, a.filt[f], b) != 0);
-    a.mask[b] = m;
-  }
-  const int k = block_rank<0>(a.mask, a.rank, B, s_scan);
-
-  // compaction: accepted rows to their rank, fills past k
-  for (int b = tid; b < B; b += nt) {
-    const int r = a.rank[b];
-    if (r < 0) continue;
-    a.ots[r] = a.ts[b];
-    for (int i = 0; i < a.nspec; ++i)
-      if (a.spec_kind[i] == S_VALUE)
-        store_typed(a.out[i], a.spec_ty[i], r, eval_row(a, a.proj[i], b));
-    for (int l = 0; l < a.AF; ++l)
-      a.bf[(long long)l * B + r] = as_f(eval_row(a, a.lane[L_F][l], b));
-    for (int l = 0; l < a.AI; ++l)
-      a.bi[(long long)l * B + r] = eval_row(a, a.lane[L_I][l], b);
-    for (int l = 0; l < a.AS; ++l)
-      a.bs[(long long)l * B + r] = as_f(eval_row(a, a.lane[L_S][l], b));
-    for (int l = 0; l < a.AM; ++l)
-      a.bm[(long long)l * B + r] = eval_row(a, a.lane[L_M][l], b);
-    a.bones[r] = 1;
-    if (a.grouped) {
-      unsigned long long packed = (unsigned long long)eval_row(a, a.gk[0], b);
-      if (a.key_mode == KM_PAIR) {
-        packed = (packed << 32) |
-                 ((unsigned long long)eval_row(a, a.gk[1], b) & 0xFFFFFFFFull);
-      } else if (a.key_mode == KM_FNV) {
-        for (int g = 1; g < a.ngk; ++g)
-          packed = packed * 0x100000001B3ull ^
-                   (unsigned long long)eval_row(a, a.gk[g], b);
-      }
-      a.bpacked[r] = (long long)packed;
-    }
-    if (a.wkind == W_TIME || a.wkind == W_TIMELENGTH)
-      a.bwts[r] = a.has_wprog ? eval_row(a, a.wprog, b) : a.ts[b];
-  }
-  for (int s = k + tid; s < B; s += nt) {
-    a.ots[s] = 0;
-    for (int i = 0; i < a.nspec; ++i)
-      if (a.spec_kind[i] == S_VALUE) store_typed(a.out[i], a.spec_ty[i], s, 0);
-    for (int l = 0; l < a.AF; ++l) a.bf[(long long)l * B + s] = 0.0f;
-    for (int l = 0; l < a.AI; ++l) a.bi[(long long)l * B + s] = 0;
-    for (int l = 0; l < a.AS; ++l) a.bs[(long long)l * B + s] = 0.0f;
-    for (int l = 0; l < a.AM; ++l) a.bm[(long long)l * B + s] = a.m_ident[l];
-    a.bones[s] = 0;
-    a.bpacked[s] = 0;
-    a.bwts[s] = TS_POS;
-  }
-  __syncthreads();
+  const bool rem = remainder_kind(a.wkind), hop = a.wkind == W_HOPPING;
+  const int r0 = rem ? *a.rc_in : 0;
+  const int k = compact_batch(a, r0, s_scan);
   if (a.grouped)
     for (int s = tid; s < B; s += nt) a.bkey[s] = bucket_of(a, a.bpacked[s]);
   if (tid == 0) {
     a.misc[0] = k;
-    *a.ocount = a.wkind == W_BATCH ? 0 : k;
+    a.misc[2] = r0;
+    *a.ocount = (a.wkind == W_BATCH || hop) ? 0 : k;
+  }
+  if (rem) {
+    prep_remainder(a, k, r0, s_buf, s_flag);
+    return;
   }
 
   // sliding windows: range lower bounds (and the time clamp)
@@ -382,7 +357,7 @@ __global__ void __launch_bounds__(NT) q_prep(QArgs a) {
       const long long l1 = j - N + 1, l2 = (long long)N - n_tail;
       a.lo[b] = (int)(l1 > l2 ? l1 : l2);
     }
-  } else if (a.wkind == W_TIME || a.wkind == W_TIMELENGTH) {
+  } else if (a.wkind == W_TIME || a.wkind == W_TIMELENGTH || hop) {
     const long long last = *a.last_ts_in;
     long long regressed = 0;
     // mono = max(cummax(raw), last_ts) over the valid prefix; wts_s in place
@@ -401,6 +376,16 @@ __global__ void __launch_bounds__(NT) q_prep(QArgs a) {
         s_buf, s_flag);
     regressed = block_sum<long long>(regressed, s_buf);
     __syncthreads();
+    if (tid == 0) {
+      *a.regress_out = *a.regress_in + regressed;
+      long long nl = last;
+      if (k > 0 && a.bwts[k - 1] > nl) nl = a.bwts[k - 1];
+      *a.last_ts_out = nl;
+    }
+    if (hop) {
+      prep_hopping(a, k, last, s_buf);
+      return;
+    }
     const long long D = a.window_ms;
     const long long newest = zts(a, N + k - 1 > 0 ? N + k - 1 : 0);
     long long drops = 0;
@@ -415,13 +400,7 @@ __global__ void __launch_bounds__(NT) q_prep(QArgs a) {
       }
       a.lo[b] = (int)l;
     }
-    if (tid == 0) {
-      *a.regress_out = *a.regress_in + regressed;
-      *a.drops_out = *a.drops_in + (a.wkind == W_TIME ? drops : 0);
-      long long nl = last;
-      if (k > 0 && a.bwts[k - 1] > nl) nl = a.bwts[k - 1];
-      *a.last_ts_out = nl;
-    }
+    if (tid == 0) *a.drops_out = *a.drops_in + (a.wkind == W_TIME ? drops : 0);
   }
 
   if (!a.grouped) {
@@ -528,7 +507,7 @@ __global__ void __launch_bounds__(NT) q_scan(QArgs a) {
     const int l = t;
     double* o1 = a.incs1 + (long long)l * M;
     double* o2 = a.incs2 + (long long)l * M;
-    if (sliding(a) || a.wkind == W_BATCH) {
+    if (a.wkind != W_NONE) {
       // float64 shifted moments centred at the mean of the whole axis
       double sx = 0.0, so = 0.0;
       for (int p = threadIdx.x; p < P; p += blockDim.x) {
@@ -573,7 +552,7 @@ __global__ void __launch_bounds__(NT) q_scan(QArgs a) {
     const int l = t;
     const RedOp op{a.m_ty[l], a.m_min[l]};
     long long* Pm = a.mP + (long long)l * M;
-    if (!(sliding(a) || a.wkind == W_BATCH)) {
+    if (a.wkind == W_NONE) {
       // prefix (per key when grouped) reductions
       block_seg_scan<long long>(
           P, op, [&](int s) { return zm(a, l, zpos(a, s)); }, head,
@@ -611,10 +590,12 @@ __global__ void __launch_bounds__(NT) q_scan(QArgs a) {
 // ------------------------------------------------------------ 3. q_emit
 
 // exact reduction of min/max lane l over z positions [lo, j] (the
-// reference's sparse table, including its value for lo > j)
+// reference's sparse table, including its value for lo > j, where a
+// negative j indexes from the end)
 __device__ long long range_red(const QArgs& a, int l, int P, int lo, int j) {
   const RedOp op{a.m_ty[l], a.m_min[l]};
-  if (lo > j) return op(zm(a, l, j), zm(a, l, lo < P - 1 ? lo : P - 1));
+  if (lo > j)
+    return op(zm(a, l, j < 0 ? j + P : j), zm(a, l, lo < P - 1 ? lo : P - 1));
   const int qa = lo >> 5, qb = j >> 5;
   if (qa == qb) {
     long long r = zm(a, l, lo);
@@ -642,13 +623,12 @@ __device__ __forceinline__ int count_below(const int* v, int c, int x, bool incl
   return lo;
 }
 
-__device__ __forceinline__ float f32_of(double v) { return __double2float_rn(v); }
-
 __device__ void emit_row(const QArgs& a, int b, int k, int P) {
   const long long M = a.M;
-  const bool sl = sliding(a);
-  const int j = sl ? a.N + b : b;
-  const int lo = sl ? a.lo[b] : 0;
+  const bool sl = sliding(a), hop = a.wkind == W_HOPPING;
+  const bool ranged = hop || remainder_kind(a.wkind);
+  const int j = ranged ? a.hi[b] : (sl ? a.N + b : b);
+  const int lo = (ranged || sl) ? a.lo[b] : 0;
   // scan index range [s0 + r_lo, s0 + r_hi) of this output
   int s0 = 0, r_hi = j + 1, r_lo = lo, key = 0;
   if (a.grouped) {
@@ -661,9 +641,10 @@ __device__ void emit_row(const QArgs& a, int b, int k, int P) {
   }
   auto EXd = [&](const double* arr, int r) { return r == 0 ? 0.0 : arr[s0 + r - 1]; };
   auto EXi = [&](const long long* arr, int r) { return r == 0 ? 0LL : arr[s0 + r - 1]; };
-  const bool carried = !sl && a.wkind != W_BATCH;    // running or grouped
+  const bool carried = a.wkind == W_NONE;    // running or grouped
   long long cnt = 0;
-  if (a.has_agg) {
+  if (a.wkind == W_LBATCH) cnt = j % a.N + 1;
+  else if (a.has_agg) {
     if (a.grouped && !sl) cnt = r_hi + a.cnt_in[key];
     else cnt = EXi(a.inco, r_hi) - EXi(a.inco, r_lo) + (carried ? *a.cnt_in : 0);
   }
@@ -672,7 +653,16 @@ __device__ void emit_row(const QArgs& a, int b, int k, int P) {
     const int kind = a.spec_kind[i], l = a.spec_lane[i];
     long long v = 0;
     if (kind == S_VALUE) {
-      v = load_typed(a.out[i], a.spec_ty[i], b);
+      if (hop) {
+        // a collapsed row's non-aggregate columns read the bucket's last
+        // event (the reference clips hi into the axis)
+        const int h = j < 0 ? 0 : (j < a.N + a.B ? j : a.N + a.B - 1);
+        v = h < a.N ? load_typed(a.rp_in[i], a.spec_ty[i], h)
+                    : a.bv[(long long)i * a.B + h - a.N];
+        store_typed(a.out[i], a.spec_ty[i], b, v);
+      } else {
+        v = load_typed(a.out[i], a.spec_ty[i], b);
+      }
       ov[i] = v;
       continue;
     }
@@ -735,11 +725,18 @@ __device__ void emit_row(const QArgs& a, int b, int k, int P) {
     store_typed(a.out[i], a.spec_ty[i], b, v);
     ov[i] = v;
   }
-  bool ok = b < k;
-  if (a.wkind == W_BATCH && a.has_agg) ok = ok && b == k - 1;
+  bool ok;
+  if (ranged) {
+    ok = a.oflag[b] != 0;
+    if (hop) ok = ok && cnt > 0;             // empty buckets emit nothing
+  } else {
+    ok = b < k;
+    if (a.wkind == W_BATCH && a.has_agg) ok = ok && b == k - 1;
+  }
+  // the count is taken before having, as the reference takes it
+  if ((a.wkind == W_BATCH || hop) && ok) atomicAdd(a.ocount, 1);
   if (a.has_having) ok = ok && eval_prog(a.code, a.having, NoBindQ{}, OutAt{ov}) != 0;
   a.ovalid[b] = ok;
-  if (a.wkind == W_BATCH && ok) atomicAdd(a.ocount, 1);
 }
 
 __device__ __forceinline__ void kahan(float base, float comp, float add,
@@ -795,9 +792,10 @@ __global__ void __launch_bounds__(NT_EMIT) q_emit(QArgs a) {
   const int k = a.misc[0], P = a.misc[1];
   const int stride = gridDim.x * blockDim.x;
   const int g = blockIdx.x * blockDim.x + threadIdx.x;
-  for (int b = g; b < a.B; b += stride) emit_row(a, b, k, P);
-  if (sliding(a)) {
-    const int N = a.N;
+  const int N = a.N;
+  for (int b = g; b < a.O; b += stride) emit_row(a, b, k, P);
+  if (sliding(a) || a.wkind == W_HOPPING) {
+    // the tails slide by k
     for (int t = g; t < N; t += stride) {
       const int p = k + t;
       for (int l = 0; l < a.AF; ++l) a.f_out[(long long)l * N + t] = zf(a, l, p);
@@ -807,6 +805,30 @@ __global__ void __launch_bounds__(NT_EMIT) q_emit(QArgs a) {
       for (int l = 0; l < a.AM; ++l) store_typed(a.m_out[l], a.m_ty[l], t, zm(a, l, p));
       if (a.wkind != W_LENGTH) a.tts_out[t] = zts(a, p);
       if (a.grouped) a.gkey_out[t] = zk(a, p);
+      if (a.wkind == W_HOPPING)
+        for (int i = 0; i < a.nspec; ++i)
+          if (a.spec_kind[i] == S_VALUE)
+            store_typed(a.rp_out[i], a.spec_ty[i], t,
+                        p < N ? load_typed(a.rp_in[i], a.spec_ty[i], p)
+                              : a.bv[(long long)i * a.B + p - N]);
+    }
+  } else if (remainder_kind(a.wkind)) {
+    // the open remainder: rem_n slots of the axis from start (the rest
+    // zero, or the min/max identity)
+    const int start = a.misc[3], rem_n = a.misc[4];
+    for (int t = g; t < N; t += stride) {
+      const bool keep = t < rem_n;
+      const int p = start + t;
+      for (int l = 0; l < a.AF; ++l) a.f_out[(long long)l * N + t] = keep ? zf(a, l, p) : 0.0f;
+      for (int l = 0; l < a.AI; ++l) a.i_out[(long long)l * N + t] = keep ? zi(a, l, p) : 0;
+      for (int l = 0; l < a.AS; ++l) a.s_out[(long long)l * N + t] = keep ? zs(a, l, p) : 0.0f;
+      if (a.ones_out != nullptr) a.ones_out[t] = keep ? zo(a, p) : 0;
+      for (int l = 0; l < a.AM; ++l)
+        store_typed(a.m_out[l], a.m_ty[l], t, keep ? zm(a, l, p) : a.m_ident[l]);
+      for (int i = 0; i < a.nspec; ++i)
+        if (a.spec_kind[i] == S_VALUE)
+          store_typed(a.rp_out[i], a.spec_ty[i], t,
+                      keep ? load_typed(a.out[i], a.spec_ty[i], p) : 0);
     }
   } else if (a.grouped) {
     for (int q = g; q < a.K; q += stride) update_carried(a, q, k, P);
@@ -836,7 +858,7 @@ extern "C" int query_step(const QArgs* args, void* stream, int* nlaunch) {
     if (e != cudaSuccess) return (int)e;
     *nlaunch += 1;
   }
-  int n = a.B > a.N ? a.B : a.N;
+  int n = a.O > a.N ? a.O : a.N;
   if (a.K > n) n = a.K;
   int grid = (n + NT_EMIT - 1) / NT_EMIT;
   if (grid > 1024) grid = 1024;

@@ -1,15 +1,14 @@
 """Compiled single-stream queries: filter → window → aggregate.
 
 Port of the reference's ``tpu/query_compile.py`` (``CompiledStreamQuery``,
-B5 in ``ROADMAP.md``) for the sliding half of its windows: no window,
-``#window()``, ``length``, ``time``, ``externalTime``, ``timeLength`` and
-``batch()``, with filters, projections, group-by, ``having`` and the
-sum/count/avg/min/max/stdDev aggregates. The tumbling and scan-walked
-windows (``lengthBatch``, ``timeBatch``, ``externalTimeBatch``, ``session``,
-``delay``, ``sort``, ``hopping``, ``frequent``, ``lossyFrequent``) are
-validated as the reference validates them and then refused with
-``DeviceCompileError("window '<name>' is not yet ported to
-siddhi_tpu_torch")``.
+B5 in ``ROADMAP.md``) for every window the reference puts on the device:
+no window, ``#window()``, the sliding ``length``, ``time``,
+``externalTime`` and ``timeLength``, ``batch()``, the tumbling
+``lengthBatch``, ``timeBatch``, ``externalTimeBatch``, ``session`` and
+``delay``, ``hopping``, and the scan-walked ``sort``, ``frequent`` and
+``lossyFrequent``; with filters, projections, group-by, ``having`` and the
+sum/count/avg/min/max/stdDev aggregates, and the reference's refusals and
+their messages.
 
 The state tree, its leaf names and dtypes, the wire batch and the outputs
 are the reference's, so a state carries between the two packages
@@ -17,21 +16,27 @@ are the reference's, so a state carries between the two packages
 
 - ``stream_step_plain``: the torch translation of the reference's jitted
   step. It runs on any device; the CPU tests hold it against the JAX
-  package and ``chip_smoke.py`` holds the kernel against it on the card.
+  package and ``chip_smoke.py`` holds the kernels against it on the card.
 - ``query_step.QueryPlan.step_cuda``: the wrapper of the hand-written
-  kernel ``csrc/query_step.cu``.
+  kernels, ``csrc/query_step.cu`` (every window but the scan-walked three)
+  and ``csrc/query_walk.cu`` (``sort``, ``frequent``, ``lossyFrequent``).
 
 ``CompiledStreamQuery.step`` dispatches on the device: CPU tensors run the
 plain version, CUDA tensors launch the kernel or raise.
 
+Output axis: ``[B]`` (one slot per batch event) for no window, the sliding
+windows, ``batch()`` and the scan-walked windows; ``[N + B]`` (remainder and
+batch) for ``lengthBatch``, ``timeBatch``, ``session`` and ``delay``; ``[B]``
+flush slots for ``hopping``.
+
 Numeric policy (``dtypes.py``): integer sums/avgs accumulate exactly in
 int64, float aggregates in float32 with Kahan compensation on carried
-bases. Float32 prefix sums are accumulated in float64 and rounded to
-float32 once per prefix, so the kernel and the plain version round the same
-values whatever their summation order; against the reference (whose f32
-prefixes round at every addition) window sums agree to within a few ulps of
-the prefix read, not of the sum. Windowed stdDev works in float64 as the
-reference does.
+bases. Float32 prefix sums (and the scan-walked windows' buffer sums) are
+accumulated in float64 and rounded to float32 once, so the kernels and the
+plain version round the same values whatever their summation order;
+against the reference (whose f32 sums round at every addition) they agree
+to within a few ulps of the sum of |x| read. Windowed stdDev works in
+float64 as the reference does; ``sort``'s stdDev in float32, as there.
 """
 
 from __future__ import annotations
@@ -73,10 +78,13 @@ TS_POS = 2 ** 62
 FACC = torch.float32     # float accumulator (dtype policy)
 IACC = torch.int64       # exact integer accumulator
 
-# windows of the reference's query compiler that this slice does not port
-NOT_PORTED = ("lengthBatch", "timeBatch", "externalTimeBatch", "session",
-              "delay", "sort", "hopping", "frequent", "lossyFrequent")
 SLIDING = ("length", "time", "timeLength")
+# tumbling windows: the step's axis is [open remainder (N) | batch (B)]
+REMAINDER = ("lengthBatch", "timeBatch", "session", "delay")
+# windows whose state carries the tail_* aggregate lanes
+TAILED = SLIDING + ("lengthBatch", "timeBatch", "session", "hopping")
+# windows walked event by event over a carried table
+WALKED = ("sort", "frequent", "lossyFrequent")
 
 
 @dataclass
@@ -122,8 +130,8 @@ class _OutputResolver:
 class CompiledStreamQuery:
     """Compiles a supported Query AST to a (state, batch) -> (state, out)
     step. Raises DeviceCompileError for shapes the device path doesn't
-    cover, with the reference's messages; the windows of ``NOT_PORTED``
-    raise after the reference's validation of them.
+    cover, with the reference's messages, and for what exceeds a kernel's
+    limits (``query_step.QueryPlan``).
 
     ``device`` follows ``backend.resolve_device``: the card unless the
     caller asks for the CPU."""
@@ -150,6 +158,13 @@ class CompiledStreamQuery:
         self.window_n = 0
         self.window_ms = 0
         self.time_key: Optional[str] = None     # externalTime ts column
+        self.hop_ms = 0
+        self.sort_key: Optional[str] = None
+        self.sort_key_type: Optional[DataType] = None
+        self.sort_desc = False
+        self.hh_keys: list[str] = []
+        self.lossy_support = 0.0
+        self.lossy_error = 0.0
         for h in ist.handlers:
             if isinstance(h, Filter):
                 fn, _, ir = compile_expression(h.expr, resolver)
@@ -259,12 +274,8 @@ class CompiledStreamQuery:
             self.having_fn, _, self.having_ir = compile_expression(
                 query.selector.having, hres)
 
-        if self.window_name in NOT_PORTED:
-            raise DeviceCompileError(
-                f"window '{self.window_name}' is not yet ported to "
-                f"siddhi_tpu_torch")
-        from .query_step import QueryPlan
-        self.plan = QueryPlan(self)       # kernel limits refuse here
+        from .query_step import make_plan
+        self.plan = make_plan(self)       # kernel limits refuse here
         self.device = resolve_device(device)
 
     def _parse_window(self, h: Window, resolver, definition, window_capacity):
@@ -346,11 +357,13 @@ class CompiledStreamQuery:
                 raise DeviceCompileError("sort window needs (N, key attribute)")
             if len(h.params) > 3:
                 raise DeviceCompileError("multi-key sort takes the host path")
+            order = "asc"
             if len(h.params) == 3:
                 v = getattr(h.params[2], "value", None)
                 if not isinstance(v, str) or v.lower() not in ("asc", "desc"):
                     raise DeviceCompileError("sort order must be 'asc'|'desc'")
-            _, skt = resolver.resolve(h.params[1])
+                order = v.lower()
+            skey, skt = resolver.resolve(h.params[1])
             if skt not in (DataType.INT, DataType.LONG, DataType.FLOAT,
                            DataType.DOUBLE):
                 raise DeviceCompileError(
@@ -358,6 +371,8 @@ class CompiledStreamQuery:
                     "collation takes the host path)")
             self.window_kind = "sort"
             self.window_n = const_param(0)
+            self.sort_key, self.sort_key_type = skey, skt
+            self.sort_desc = order == "desc"
         elif h.name in ("frequent", "lossyFrequent"):
             def fconst(idx: int) -> float:
                 if len(h.params) <= idx or not hasattr(h.params[idx], "value"):
@@ -373,18 +388,20 @@ class CompiledStreamQuery:
                         "frequent window count must be >= 1")
                 key_params = list(h.params[1:])
             else:
-                support = fconst(0)
+                self.lossy_support = fconst(0)
                 nxt = 1
                 if len(h.params) > 1 and isinstance(h.params[1], Constant) \
                         and not isinstance(h.params[1].value, str):
-                    error = fconst(1)
+                    self.lossy_error = fconst(1)
                     nxt = 2
                 else:
-                    error = support / 10.0
-                if error <= 0:
+                    self.lossy_error = self.lossy_support / 10.0
+                if self.lossy_error <= 0:
                     raise DeviceCompileError(
                         "lossyFrequent error bound must be positive")
-                cap = min(65536, max(int(1.0 / error) + 64, window_capacity))
+                # the host dict is unbounded; honour the window capacity
+                cap = min(65536, max(int(1.0 / self.lossy_error) + 64,
+                                     window_capacity))
                 key_params = list(h.params[nxt:])
             if not key_params:
                 key_params = [Variable(attribute=a.name)
@@ -402,13 +419,14 @@ class CompiledStreamQuery:
                 if kt not in allowed:
                     raise DeviceCompileError(
                         f"{h.name} key '{kk}' type takes the host path")
+                self.hh_keys.append(kk)
             self.window_kind = h.name
             self.window_n = cap
         elif h.name == "hopping":
             self.window_kind = "hopping"
             self.window_ms = const_param(0)
-            hop_ms = const_param(1)
-            if hop_ms <= 0 or self.window_ms <= 0:
+            self.hop_ms = const_param(1)
+            if self.hop_ms <= 0 or self.window_ms <= 0:
                 raise DeviceCompileError(
                     "hopping needs positive duration and hop")
             self.window_n = window_capacity
@@ -419,10 +437,6 @@ class CompiledStreamQuery:
     def _mdtype(self, i: int) -> torch.dtype:
         return TORCH[self.specs[i].dtype]
 
-    @property
-    def windowed(self) -> bool:
-        return self.window_kind in SLIDING
-
     # ------------------------------------------------------------------ state
     def init_state(self, device=None) -> dict:
         """The reference's initial state tree, on ``device`` (default: the
@@ -432,6 +446,7 @@ class CompiledStreamQuery:
         AF, AI = len(self.fagg_idx), len(self.iagg_idx)
         AS = len(self.sagg_idx)
         K = self.K
+        kind = self.window_kind
 
         def z(shape, dt):
             return torch.zeros(shape, dtype=dt, device=dev)
@@ -439,23 +454,69 @@ class CompiledStreamQuery:
         def full(shape, v, dt):
             return torch.full(shape, v, dtype=dt, device=dev)
 
+        def m_lanes(prefix, shape):
+            for i in self.magg_idx:
+                dt = self._mdtype(i)
+                state[f"{prefix}{i}"] = full(
+                    shape, reduce_identity(dt, self.specs[i].kind == "min"), dt)
+
+        def proj_lanes(prefix):
+            for i in self.value_idx:
+                state[f"{prefix}{i}"] = z((N,), TORCH[self.specs[i].dtype])
+
         state: dict[str, Any] = {}
-        if self.windowed:
+        if kind in TAILED:
             state["tail_fvals"] = z((AF, N), FACC)
             state["tail_ivals"] = z((AI, N), IACC)
             state["tail_svals"] = z((AS, N), FACC)
             state["tail_ones"] = z((N,), torch.int32)
-            for i in self.magg_idx:
-                dt = self._mdtype(i)
-                state[f"tail_m{i}"] = full(
-                    (N,), reduce_identity(dt, self.specs[i].kind == "min"), dt)
-        if self.window_kind in ("time", "timeLength"):
+            m_lanes("tail_m", (N,))
+        if kind in ("time", "timeLength"):
             # sentinel = long-expired; keeps the concat ts array sorted
             state["tail_ts"] = full((N,), TS_NEG, torch.int64)
             state["window_drops"] = z((), torch.int64)
             state["last_ts"] = full((), TS_NEG, torch.int64)
             state["ts_regressions"] = z((), torch.int64)
-        if self.group_keys and self.windowed:
+        if kind in REMAINDER:
+            state["rem_count"] = z((), torch.int32)
+            state["rem_ts"] = z((N,), torch.int64)
+            proj_lanes("rem_proj_")
+        if kind == "timeBatch":
+            state["batch_base"] = full((), TS_NEG, torch.int64)
+        if kind in ("timeBatch", "session", "delay"):
+            state["window_drops"] = z((), torch.int64)
+            state["ts_regressions"] = z((), torch.int64)
+        if kind == "hopping":
+            state["tail_ts"] = full((N,), TS_NEG, torch.int64)
+            state["hop_next"] = full((), TS_NEG, torch.int64)
+            state["window_drops"] = z((), torch.int64)
+            state["last_ts"] = full((), TS_NEG, torch.int64)
+            state["ts_regressions"] = z((), torch.int64)
+            proj_lanes("tail_proj_")
+        if kind in ("frequent", "lossyFrequent"):
+            C = N
+            state["hh_keys"] = z((C,), torch.int64)
+            state["hh_counts"] = z((C,), torch.int64)
+            state["hh_fvals"] = z((AF, C), FACC)
+            state["hh_ivals"] = z((AI, C), IACC)
+            state["hh_run_f"] = z((AF,), FACC)
+            state["hh_run_i"] = z((AI,), IACC)
+            state["hh_run_cnt"] = z((), torch.int64)
+            if kind == "lossyFrequent":
+                state["hh_delta"] = z((C,), torch.int64)
+                state["hh_total"] = z((), torch.int64)
+                state["window_drops"] = z((), torch.int64)
+        if kind == "sort":
+            kdt = TORCH[self.sort_key_type]
+            # empty slots sort after every real key (desc keys are stored
+            # negated, so ascending order IS the sort order)
+            state["sort_keys"] = full((N,), reduce_identity(kdt, True), kdt)
+            state["sort_n"] = z((), torch.int32)
+            state["sort_fvals"] = z((AF, N), FACC)
+            state["sort_ivals"] = z((AI, N), IACC)
+            state["sort_svals"] = z((AS, N), FACC)
+            m_lanes("sort_m", (N,))
+        if self.group_keys and kind in TAILED:
             # windowed group-by carries no per-key sums: only the bucket id
             # per tail slot and the collision-ownership map persist
             state["tail_gkey"] = z((N,), torch.int32)
@@ -477,7 +538,7 @@ class CompiledStreamQuery:
             state["key_smean"] = z((AS, K), FACC)
             state["key_sm2"] = z((AS, K), FACC)
             state["key_scnt"] = z((AS, K), FACC)
-        if self.window_kind is None and not self.group_keys:
+        if kind is None and not self.group_keys:
             state["run_fsums"] = z((AF,), FACC)
             state["run_fcomp"] = z((AF,), FACC)
             state["run_isums"] = z((AI,), IACC)
@@ -676,8 +737,10 @@ def stream_step_plain(q: CompiledStreamQuery, state: dict, cols: dict,
                       ts: torch.Tensor, valid: torch.Tensor):
     """One step of the compiled query in plain torch, on any device:
     ``(state, cols [B], ts int64 [B], valid bool [B]) -> (new state, out)``
-    with ``out = {"out": {name: [B]}, "valid": bool [B], "ts": int64 [B],
-    "count": int32}``. The input state is not modified."""
+    with ``out = {"out": {name: [O]}, "valid": bool [O], "ts": int64 [O],
+    "count": int32}`` over the window's output axis (``O`` = B, or N + B for
+    the tumbling windows; see the module docstring). The input state is not
+    modified."""
     B = q.B
     dev = ts.device
     specs = q.specs
@@ -734,16 +797,47 @@ def stream_step_plain(q: CompiledStreamQuery, state: dict, cols: dict,
     out_valid = ar < k
 
     def finish(new_state, sums_f, sums_i, cnts, mins, svars,
-               ovalid=out_valid, count=None):
+               ovalid=out_valid, count=None, ots=cts, proj=proj_c):
         out = _materialize(specs, value_idx, fagg_idx, iagg_idx, sagg_idx,
-                           proj_c, sums_f, sums_i, cnts, mins, svars)
+                           proj, sums_f, sums_i, cnts, mins, svars)
         if q.having_fn is not None:
             hv = as_tensor(q.having_fn({**out, "__device__": dev}), env)
-            ovalid = ovalid & hv.expand(B)
+            ovalid = ovalid & hv.expand(ovalid.shape)
         cnt = torch.tensor(k if count is None else count, dtype=i32,
                            device=dev)
-        return new_state, {"out": out, "valid": ovalid, "ts": cts,
+        return new_state, {"out": out, "valid": ovalid, "ts": ots,
                            "count": cnt}
+
+    lanes = (av_f, av_i, av_s, av_m, ones_c, proj_c)
+    if window_kind in REMAINDER:
+        wcol = cols[q.time_key].to(i64) if q.time_key else ts
+        return _remainder_step(q, state, k, lanes, cts, compact(wcol, TS_POS),
+                               m_ismin, finish)
+    if window_kind == "hopping":
+        return _hopping_step(q, state, k, lanes, compact(ts, TS_POS),
+                             m_ismin, finish)
+    if window_kind == "sort":
+        kdt = TORCH[q.sort_key_type]
+        kv = full_b(cols[q.sort_key], kdt)
+        if q.sort_desc:
+            # stored negated: ascending order IS the sort order; the integer
+            # minimum has no negation, so it is clamped one up first
+            if not kdt.is_floating_point:
+                lowest = torch.iinfo(kdt).min
+                kv = torch.where(kv == lowest, lowest + 1, kv)
+            kv = -kv
+        return finish(*_sort_walk(q, state, k, compact(kv, reduce_identity(
+            kdt, True)), av_f, av_i, av_s, av_m, m_ismin, m_ident))
+    if window_kind in ("frequent", "lossyFrequent"):
+        k64 = [compact(cols[kk].to(i64)) for kk in q.hh_keys]
+        kcode = (k64[0] << 32) | (k64[1] & 0xFFFFFFFF) if len(k64) == 2 \
+            else k64[0]
+        new_state, emit, sums_f, sums_i, cnts = _heavy_hitters(
+            q, state, k, kcode, av_f, av_i)
+        ovalid = out_valid & emit
+        return finish(new_state, sums_f, sums_i, cnts, {},
+                      torch.zeros((0, B), dtype=FACC, device=dev),
+                      ovalid=ovalid, count=int(ovalid.sum()))
 
     def slide(new, z_f, z_i, z_s, zo, zm):
         new["tail_fvals"] = z_f[:, k:k + N]
@@ -869,6 +963,416 @@ def stream_step_plain(q: CompiledStreamQuery, state: dict, cols: dict,
         smean[si], sm2[si], scnt[si] = mean_new, torch.clamp(m2_new, min=0.0), n_new
     new_state.update({"run_smean": smean, "run_sm2": sm2, "run_scnt": scnt})
     return finish(new_state, sums_f, sums_i, cnts, mins, svars)
+
+
+def _pad_slice(row, start: int, n: int):
+    """``row[..., start:start + n]``, zero-padded past the end (the
+    reference pads its slab so a slice start past ``M - n`` never clamps
+    back into emitted slots)."""
+    pad = torch.zeros(row.shape[:-1] + (n,), dtype=row.dtype, device=row.device)
+    return torch.cat([row, pad], -1)[..., start:start + n]
+
+
+def _remainder_step(q, state, k, lanes, cts, cts_pos, m_ismin, finish):
+    """``lengthBatch``, ``timeBatch``/``externalTimeBatch``, ``session`` and
+    ``delay``: the open remainder (first ``r`` of N) and the batch's
+    accepted events, compacted into one axis of M = N + B slots; outputs
+    over every slot, the open part carried to the next step."""
+    av_f, av_i, av_s, av_m, ones_c, proj_c = lanes
+    kind, B, N = q.window_kind, q.B, max(q.window_n, 1)
+    dev = cts.device
+    i64 = torch.int64
+    M = N + B
+    r = int(state["rem_count"])
+    total = r + k
+    j2 = torch.arange(M, device=dev)
+    has_agg = bool(q.agg_idx)
+
+    def zc(x_rem, x_batch, fill=0):
+        out = torch.full(x_rem.shape[:-1] + (M,), fill, dtype=x_rem.dtype,
+                         device=dev)
+        out[..., :r] = x_rem[..., :r]
+        out[..., r:r + k] = x_batch[..., :k]
+        return out
+
+    zproj = {i: zc(state[f"rem_proj_{i}"], proj_c[i]) for i in q.value_idx}
+    new_state = dict(state)
+
+    def carry(rem_n: int, start: int, zts_keep, tails=None):
+        """The new remainder: ``rem_n`` slots from ``start`` (the rest
+        zero, or the min/max identity)."""
+        keep = torch.arange(N, device=dev) < rem_n
+        new_state["rem_count"] = torch.tensor(rem_n, dtype=torch.int32,
+                                              device=dev)
+        new_state["rem_ts"] = torch.where(keep, _pad_slice(zts_keep, start, N),
+                                          0)
+        for i, z in zproj.items():
+            new_state[f"rem_proj_{i}"] = torch.where(
+                keep, _pad_slice(z, start, N), 0)
+        if tails is None:
+            return
+        z_f, z_i, z_s, zo, zm = tails
+        new_state["tail_fvals"] = torch.where(keep, _pad_slice(z_f, start, N), 0)
+        new_state["tail_ivals"] = torch.where(keep, _pad_slice(z_i, start, N), 0)
+        new_state["tail_svals"] = torch.where(keep, _pad_slice(z_s, start, N), 0)
+        new_state["tail_ones"] = torch.where(keep, _pad_slice(zo, start, N), 0)
+        for i, z in zm.items():
+            new_state[f"tail_m{i}"] = torch.where(
+                keep, _pad_slice(z, start, N),
+                reduce_identity(z.dtype, m_ismin[i]))
+
+    if kind == "delay":
+        # pass-through after a fixed delay: hold rows until the newest
+        # arrival passes held_ts + delay; rows carry ts = held_ts + delay
+        zts_raw = zc(state["rem_ts"], cts, TS_POS)
+        zts = torch.cummax(zts_raw, 0).values
+        regressions = ((zts > zts_raw) & (j2 < total)).sum()
+        newest = zts[min(max(total - 1, 0), M - 1)] if total > 0 else \
+            torch.tensor(TS_NEG, dtype=i64, device=dev)
+        release = (j2 < total) & (zts + q.window_ms <= newest)
+        n_rel = int(release.sum())
+        rem_n = min(total - n_rel, N)
+        new_state["window_drops"] = state["window_drops"] + \
+            (total - n_rel - rem_n)
+        new_state["ts_regressions"] = state["ts_regressions"] + regressions
+        carry(rem_n, max(total - rem_n, 0), zts)
+        return finish(new_state, None, None, None, {}, None, ovalid=release,
+                      count=n_rel, ots=zts + q.window_ms, proj=zproj)
+
+    z_f = zc(state["tail_fvals"], av_f)
+    z_i = zc(state["tail_ivals"], av_i)
+    z_s = zc(state["tail_svals"], av_s)
+    zm = {i: zc(state[f"tail_m{i}"], av_m[i],
+                reduce_identity(av_m[i].dtype, m_ismin[i])) for i in q.magg_idx}
+    zo = zc(state["tail_ones"], ones_c)
+    tails = (z_f, z_i, z_s, zo, zm)
+
+    if kind == "lengthBatch":
+        zts = zc(state["rem_ts"], cts)
+        lo = torch.div(j2, N, rounding_mode="floor") * N
+        cnts = j2 % N + 1
+        full = total // N
+        ovalid = (j2 < full * N) & (j2 < total)
+        if has_agg:
+            # an aggregated batch collapses to one row, its last slot
+            ovalid = ovalid & (j2 % N == N - 1)
+        carry(total - full * N, full * N, zts, tails)
+        count = full * N
+    else:
+        # padding slots carry +inf timestamps; out-of-order arrivals are
+        # clamped to the running max (counted)
+        zts = zc(state["rem_ts"], cts_pos, TS_POS)
+        zts_m = torch.cummax(zts, 0).values
+        regressions = ((zts_m > zts) & (j2 < total)).sum()
+        last_idx = min(max(total - 1, 0), M - 1)
+        if kind == "timeBatch":
+            armed = bool(state["batch_base"] > TS_NEG)
+            base = state["batch_base"] if armed else zts_m[0]
+            seg = torch.div(zts_m - base, q.window_ms, rounding_mode="floor")
+            ovalid = (j2 < total) & (seg < seg[last_idx])
+            if has_agg:
+                nxt = torch.clamp(j2 + 1, 0, M - 1)
+                ovalid = ovalid & ((j2 + 1 >= total) | (seg[nxt] != seg))
+            if total > 0:
+                new_state["batch_base"] = base.clone()
+        else:                                   # session
+            prev = torch.cat([zts_m[:1], zts_m[:-1]])
+            # a gap of exactly the parameter closes the session
+            brk = (zts_m - prev) >= q.window_ms
+            brk[0] = False
+            seg = torch.cumsum(brk.to(i64), 0)
+            ovalid = (j2 >= r) & (j2 < total)  # currents pass through once
+        open_count = int(((j2 < total) & (seg == seg[last_idx])).sum())
+        rem_n = min(open_count, N)
+        new_state["window_drops"] = state["window_drops"] + (open_count - rem_n)
+        new_state["ts_regressions"] = state["ts_regressions"] + regressions
+        # the carried clock is the monotonised one; rows keep their own
+        carry(rem_n, max(total - rem_n, 0), zts_m, tails)
+        lo = torch.searchsorted(seg, seg, right=False)
+        count = int(ovalid.sum())
+        cnts = None
+    sums_f = _range_sums(z_f, lo, j2)
+    sums_i = _range_sums(z_i, lo, j2)
+    if cnts is None:
+        cso = torch.cat([torch.zeros(1, dtype=i64, device=dev),
+                         torch.cumsum(zo.to(i64), 0)])
+        cnts = cso[j2 + 1] - cso[lo]
+    mins = {i: _range_reduce(zm[i], lo, j2, m_ismin[i]) for i in q.magg_idx}
+    svars = _window_svars(z_s, zo, lo, j2, cnts, M)
+    return finish(new_state, sums_f, sums_i, cnts, mins, svars, ovalid=ovalid,
+                  count=count, ots=zts, proj=zproj)
+
+
+def _hopping_step(q, state, k, lanes, wts, m_ismin, finish):
+    """``hopping(D, H)``: every H ms one row over the events of the last D
+    ms before the boundary. The f-th flush slot of the step (F = B) reads
+    its bucket (t_f - D, t_f) as range reductions over [tail (N) | batch];
+    boundaries past F fire on the next step (``hop_next`` advances only by
+    the processed count), empty buckets emit nothing."""
+    av_f, av_i, av_s, av_m, ones_c, proj_c = lanes
+    B, N, D, H = q.B, max(q.window_n, 1), q.window_ms, q.hop_ms
+    dev = wts.device
+    i64 = torch.int64
+    F = B
+    ar = torch.arange(B, device=dev)
+    valid = ar < k
+    raw = torch.where(valid, wts, TS_POS)
+    mono = torch.maximum(torch.cummax(raw, 0).values, state["last_ts"])
+    regressed = (valid & (raw < mono)).sum()
+    wts_s = torch.where(valid, mono, TS_POS)
+    zts = torch.cat([state["tail_ts"], wts_s])
+    zo = torch.cat([state["tail_ones"], ones_c])
+    z_f = torch.cat([state["tail_fvals"], av_f], 1)
+    z_i = torch.cat([state["tail_ivals"], av_i], 1)
+    z_s = torch.cat([state["tail_svals"], av_s], 1)
+    zm = {i: torch.cat([state[f"tail_m{i}"], av_m[i]]) for i in q.magg_idx}
+    zproj = {i: torch.cat([state[f"tail_proj_{i}"], proj_c[i]])
+             for i in q.value_idx}
+
+    newest = zts[N + k - 1] if k > 0 else state["last_ts"]
+    armed = bool(state["hop_next"] > TS_NEG)
+    # unarmed: the tail is empty and the first real event sits at slot N
+    b0 = state["hop_next"] if armed else zts[N] + H
+    has_any = armed or k > 0
+    n_flush = int(torch.div(newest - b0, H, rounding_mode="floor")) + 1 \
+        if has_any and bool(newest >= b0) else 0
+    n_flush = min(n_flush, F)
+    f = torch.arange(F, device=dev)
+    t_f = b0 + f.to(i64) * H
+    lo = torch.searchsorted(zts, t_f - D, right=True)
+    hi = torch.searchsorted(zts, t_f, right=False) - 1
+    hi = torch.maximum(hi, lo - 1)              # empty bucket: zero range
+    sums_f = _range_sums(z_f, lo, hi)
+    sums_i = _range_sums(z_i, lo, hi)
+    cso = torch.cat([torch.zeros(1, dtype=i64, device=dev),
+                     torch.cumsum(zo.to(i64), 0)])
+    cnts = cso[hi + 1] - cso[lo]
+    mins = {i: _range_reduce(zm[i], lo, hi, m_ismin[i]) for i in q.magg_idx}
+    svars = _window_svars(z_s, zo, lo, hi, cnts, F)
+    # a collapsed row's non-aggregate columns read the bucket's last event
+    proj = {i: z[torch.clamp(hi, 0, N + B - 1)] for i, z in zproj.items()}
+    ovalid = (f < n_flush) & (cnts > 0)
+
+    live_cut = b0 + (n_flush - 1) * H - D if n_flush > 0 else \
+        torch.tensor(TS_NEG, dtype=i64, device=dev)
+    sliced = torch.arange(N + B, device=dev) < k   # pushed out by the slide
+    drops = torch.where(sliced & (zts > live_cut), zo, 0).sum()
+    new_state = dict(state)
+    new_state.update({
+        "tail_fvals": z_f[:, k:k + N], "tail_ivals": z_i[:, k:k + N],
+        "tail_svals": z_s[:, k:k + N], "tail_ones": zo[k:k + N],
+        "tail_ts": zts[k:k + N],
+        "hop_next": (b0 + n_flush * H) if n_flush > 0 else
+        (b0 if has_any else torch.tensor(TS_NEG, dtype=i64, device=dev)),
+        "window_drops": state["window_drops"] + drops,
+        "last_ts": torch.maximum(state["last_ts"], newest),
+        "ts_regressions": state["ts_regressions"] + regressed,
+    })
+    for i, z in zm.items():
+        new_state[f"tail_m{i}"] = z[k:k + N]
+    for i, z in zproj.items():
+        new_state[f"tail_proj_{i}"] = z[k:k + N]
+    return finish(new_state, sums_f, sums_i, cnts, mins, svars, ovalid=ovalid,
+                  count=int(ovalid.sum()), ots=t_f, proj=proj)
+
+
+def _sum32(x: torch.Tensor, extra) -> torch.Tensor:
+    """float32 ``sum(x) + extra`` accumulated in float64, rounded once."""
+    return (x.double().sum(-1) + extra.double()).float()
+
+
+def _sort_walk(q, state, k, skey, av_f, av_i, av_s, av_m, m_ismin, m_ident):
+    """``sort(N, key[, order])``: a carried buffer of the N best keys, kept
+    sorted, with aligned aggregate lanes, walked event by event. Each event
+    first emits the aggregates over the buffer plus itself (the row still
+    includes the value about to be evicted), then, if accepted, inserts at
+    ``min(searchsorted(keys, key, right), n)`` (stable after equal keys)
+    and slot N - 1 falls off. Events past the accepted count emit over the
+    buffer plus their fill values."""
+    B, N = q.B, max(q.window_n, 1)
+    dev = skey.device
+    keys = state["sort_keys"].clone()
+    n = int(state["sort_n"])
+    lanes = {"f": state["sort_fvals"].clone(), "i": state["sort_ivals"].clone(),
+             "s": state["sort_svals"].clone()}
+    for i in q.magg_idx:
+        lanes[f"m{i}"] = state[f"sort_m{i}"].clone()
+    AF, AI, AS = av_f.shape[0], av_i.shape[0], av_s.shape[0]
+    sums_f = torch.zeros((AF, B), dtype=FACC, device=dev)
+    sums_i = torch.zeros((AI, B), dtype=IACC, device=dev)
+    svars = torch.zeros((AS, B), dtype=FACC, device=dev)
+    cnts = torch.zeros(B, dtype=torch.int64, device=dev)
+    mins = {i: torch.zeros(B, dtype=av_m[i].dtype, device=dev)
+            for i in q.magg_idx}
+
+    def emit(b):
+        """The outputs of event b over the buffer (first n slots) + b."""
+        sums_f[:, b] = _sum32(lanes["f"][:, :n], av_f[:, b])
+        sums_i[:, b] = lanes["i"][:, :n].sum(1) + av_i[:, b]
+        cnt = n + 1
+        cnts[b] = cnt
+        for i in q.magg_idx:
+            red = torch.amin if m_ismin[i] else torch.amax
+            both = torch.cat([lanes[f"m{i}"][:n], av_m[i][b:b + 1]])
+            mins[i][b] = red(both)
+        nf = torch.tensor(float(cnt), dtype=FACC, device=dev)
+        for si in range(AS):
+            v, x = lanes["s"][si, :n], av_s[si, b]
+            c = _sum32(v, x) / nf
+            d, dx = v - c, x - c
+            s1 = _sum32(d, dx) / nf
+            s2 = _sum32(d * d, dx * dx) / nf
+            svars[si, b] = _sqrt32(torch.clamp(s2 - s1 * s1, min=0.0))
+
+    def insert(row, pos, v):
+        if pos < N:
+            row[..., pos + 1:] = row[..., pos:N - 1].clone()
+            row[..., pos] = v
+
+    for b in range(k):
+        emit(b)
+        pos = min(int(torch.searchsorted(keys, skey[b:b + 1], right=True)), n)
+        insert(keys, pos, skey[b])
+        insert(lanes["f"], pos, av_f[:, b])
+        insert(lanes["i"], pos, av_i[:, b])
+        insert(lanes["s"], pos, av_s[:, b])
+        for i in q.magg_idx:
+            insert(lanes[f"m{i}"], pos, av_m[i][b])
+        n = min(n + 1, N)
+    if k < B:
+        # every unaccepted slot sees the same buffer and the same fills
+        emit(k)
+        for t in (sums_f, sums_i, svars, cnts, *mins.values()):
+            t[..., k + 1:] = t[..., k:k + 1].clone()
+    new_state = dict(state)
+    new_state.update({"sort_keys": keys,
+                      "sort_n": torch.tensor(n, dtype=torch.int32, device=dev),
+                      "sort_fvals": lanes["f"], "sort_ivals": lanes["i"],
+                      "sort_svals": lanes["s"]})
+    for i in q.magg_idx:
+        new_state[f"sort_m{i}"] = lanes[f"m{i}"]
+    return new_state, sums_f, sums_i, cnts, mins, svars
+
+
+def _first(x: torch.Tensor) -> int:
+    """Index of the first true entry (0 when none, as argmax gives)."""
+    return int(torch.argmax(x.to(torch.int8)))
+
+
+def _heavy_hitters(q, state, k, kcode, av_f, av_i):
+    """``frequent`` (Misra-Gries) and ``lossyFrequent`` (lossy counting): a
+    carried [C]-slot key/counter table walked event by event. An emitted
+    event adds its values to the running aggregates; an eviction or prune
+    retracts the evicted key's last values. ``frequent`` retracts before
+    the arrival adds (its row sees the post-eviction sums); the lossy
+    window emits first and prunes after, retracting the post-update lanes.
+    A slot is chosen as the first hit, else the first free slot."""
+    lossy = q.window_kind == "lossyFrequent"
+    B = q.B
+    dev = kcode.device
+    keys, counts = state["hh_keys"].clone(), state["hh_counts"].clone()
+    f, iv = state["hh_fvals"].clone(), state["hh_ivals"].clone()
+    run_f, run_i = state["hh_run_f"].clone(), state["hh_run_i"].clone()
+    run_cnt = int(state["hh_run_cnt"])
+    if lossy:
+        delta = state["hh_delta"].clone()
+        total, drops = int(state["hh_total"]), int(state["window_drops"])
+    AF, AI = av_f.shape[0], av_i.shape[0]
+    emit_out = torch.zeros(B, dtype=torch.bool, device=dev)
+    ys_f = torch.zeros((AF, B), dtype=FACC, device=dev)
+    ys_i = torch.zeros((AI, B), dtype=IACC, device=dev)
+    ys_c = torch.zeros(B, dtype=torch.int64, device=dev)
+    zero_f = torch.zeros(AF, dtype=FACC, device=dev)
+    zero_i = torch.zeros(AI, dtype=IACC, device=dev)
+    for b in range(min(k + 1, B)):
+        accept = b < k
+        vf, vi = av_f[:, b], av_i[:, b]
+        evicted = None
+        emit = False
+        if accept:
+            key = kcode[b]
+            occ = counts > 0
+            hit = occ & (keys == key)
+            has, has_space = bool(hit.any()), bool((~occ).any())
+            insert = not has and has_space
+            idx = _first(hit) if has else _first(~occ)
+            upd = has or insert
+            if has:
+                counts = torch.where(hit, counts + 1, counts)
+            if insert:
+                counts[idx] = 1
+            if not lossy:
+                emit = upd
+                if not has and not has_space:       # decrement-all
+                    dec = torch.clamp(counts - 1, min=0)
+                    evicted = occ & (dec == 0)
+                    counts = torch.where(occ, dec, counts)
+                    if bool(evicted.any()):
+                        idx = _first(evicted)
+                        counts[idx] = 1
+                        upd = emit = True
+            else:
+                total += 1
+                bucket = int(float(total) * q.lossy_error) + 1
+                if not has and not has_space:
+                    drops += 1
+                if insert:
+                    delta[idx] = bucket - 1
+                emit = upd and float(int(counts[idx]) + int(delta[idx])) \
+                    >= float(total) * q.lossy_support
+                # prune after the emission decision: every entry with
+                # f + delta <= bucket - 1, the one just updated included
+                low = (counts + delta) <= bucket - 1
+                evicted = occ & low
+                if upd:
+                    evicted[idx] = low[idx]
+                counts = torch.where(evicted, 0, counts)
+        old_f, old_i = f, iv
+        if accept and upd:
+            f, iv = f.clone(), iv.clone()
+            f[:, idx], iv[:, idx] = vf, vi
+            keys[idx] = kcode[b]
+        n_ev = 0 if evicted is None else int(evicted.sum())
+
+        def retract(lf, li):
+            if evicted is None:
+                return zero_f, zero_i
+            return (torch.where(evicted, lf, 0.0).double().sum(1).float(),
+                    torch.where(evicted, li, 0).sum(1))
+
+        add_f = vf if emit else zero_f
+        add_i = vi if emit else zero_i
+        if not lossy:
+            rf, ri = retract(old_f, old_i)
+            run_f = (run_f - rf) + add_f
+            run_i = (run_i - ri) + add_i
+            run_cnt = run_cnt - n_ev + int(emit)
+            ys_f[:, b], ys_i[:, b], ys_c[b] = run_f, run_i, run_cnt
+        else:
+            run_f = run_f + add_f
+            run_i = run_i + add_i
+            run_cnt += int(emit)
+            ys_f[:, b], ys_i[:, b], ys_c[b] = run_f, run_i, run_cnt
+            rf, ri = retract(f, iv)
+            run_f = run_f - rf
+            run_i = run_i - ri
+            run_cnt -= n_ev
+        emit_out[b] = emit
+    if k + 1 < B:
+        # every later slot sees the same sums (nothing is accepted there)
+        for t in (ys_f, ys_i, ys_c):
+            t[..., k + 1:] = t[..., k:k + 1].clone()
+    new_state = dict(state)
+    new_state.update({"hh_keys": keys, "hh_counts": counts, "hh_fvals": f,
+                      "hh_ivals": iv, "hh_run_f": run_f, "hh_run_i": run_i,
+                      "hh_run_cnt": torch.tensor(run_cnt, dtype=torch.int64,
+                                                 device=dev)})
+    if lossy:
+        new_state.update({
+            "hh_delta": delta,
+            "hh_total": torch.tensor(total, dtype=torch.int64, device=dev),
+            "window_drops": torch.tensor(drops, dtype=torch.int64, device=dev)})
+    return new_state, emit_out, ys_f, ys_i, ys_c
 
 
 def _keyed_range_sums(z, zk, K, lo, j, keys_b):

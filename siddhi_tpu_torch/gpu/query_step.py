@@ -1,24 +1,28 @@
-"""Kernel side of the single-stream query step: ``csrc/query_step.cu``.
+"""Kernel side of the single-stream query step: ``csrc/query_step.cu``
+(every window but the scan-walked ones) and, through ``query_walk.WalkPlan``,
+``csrc/query_walk.cu``; both share the argument block of
+``csrc/query_common.cuh``.
 
-``QueryPlan`` is built by ``CompiledStreamQuery`` at construction: it links
-the query's programs (filters, projections, aggregate arguments, group
-keys, the externalTime column, having) into the IR the kernel's
-interpreter runs (``csrc/expr_ir.cuh``), fills the kernel's argument block
-(``QArgs``, mirrored here with ctypes) and refuses, with
-``DeviceCompileError``, a query over a kernel limit (columns, outputs,
-lanes, filters, group keys, stack depth, sizes), on every device, so the
-CPU and the card accept the same queries.
+``QueryPlan`` is built by ``CompiledStreamQuery`` at construction
+(``make_plan``): it links the query's programs (filters, projections,
+aggregate arguments, group and heavy-hitter keys, the sort key, the
+externalTime column, having) into the IR the kernels' interpreter runs
+(``csrc/expr_ir.cuh``), fills the kernels' argument block (``QArgs``,
+mirrored here with ctypes) and refuses, with ``DeviceCompileError``, a query
+over a kernel limit (columns, outputs, lanes, filters, group keys, stack
+depth, sizes), on every device, so the CPU and the card accept the same
+queries.
 
-``step_cuda`` launches the kernel on the current stream (three launches per
-step, two when nothing aggregates; ``QueryPlan.launches`` counts them) and
-returns the new state (fresh tensors for every leaf the step changes; the
-input state is left as it was) and the outputs.
+``step_cuda`` launches the kernel on the current stream (``query_step.cu``:
+three launches per step, two when nothing aggregates; ``query_walk.cu``: one;
+each plan class counts its own in ``launches``) and returns the new state
+(fresh tensors for every leaf the step changes; the input state is left as
+it was) and the outputs, over the window's output axis.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import TYPE_CHECKING
 
 import numpy as np
 import torch
@@ -27,15 +31,15 @@ from .dtypes import TORCH
 from .backend import reduce_identity
 from .expr_compile import (OP, TY_OF, DeviceCompileError, const_bits,
                            ir_result_type, link_ir)
-
-if TYPE_CHECKING:
-    from .query_compile import CompiledStreamQuery
+from .query_compile import REMAINDER, TAILED, WALKED, CompiledStreamQuery
 
 QMAXCOL, QMAXSPEC, QMAXLANE, QMAXFILT, QMAXGK = 32, 32, 16, 8, 8
 MAX_ROWS = 1 << 26          # largest window_capacity + batch_capacity
 MAX_K = 1 << 24             # largest group_capacity
 
-W_KIND = {None: 0, "length": 1, "time": 2, "timeLength": 3, "batch": 4}
+W_KIND = {None: 0, "length": 1, "time": 2, "timeLength": 3, "batch": 4,
+          "lengthBatch": 5, "timeBatch": 6, "session": 7, "delay": 8,
+          "hopping": 9, "sort": 10, "frequent": 11, "lossyFrequent": 12}
 S_KIND = {"value": 0, "count": 1, "sum": 2, "avg": 3, "min": 4, "max": 5,
           "stdDev": 6}
 KM_NARROW, KM_WIDE1, KM_PAIR, KM_FNV = range(4)
@@ -48,27 +52,30 @@ class _Prog(ctypes.Structure):
     _fields_ = [("off", c_int), ("len", c_int)]
 
 
-_PTRS_IN = ("f_in", "fc_in", "i_in", "s_in", "smean_in", "sm2_in", "scnt_in",
-            "ones_in", "cnt_in")
-_PTRS_IN2 = ("tts_in", "gkey_in", "owner_in", "owned_in", "last_ts_in",
-             "drops_in", "regress_in", "coll_in")
-_PTRS_OUT = ("f_out", "fc_out", "i_out", "s_out", "smean_out", "sm2_out",
-             "scnt_out", "ones_out", "cnt_out")
-_PTRS_OUT2 = ("tts_out", "gkey_out", "owner_out", "owned_out", "last_ts_out",
-              "drops_out", "regress_out", "coll_out")
+_STATE = ("f", "fc", "i", "s", "smean", "sm2", "scnt", "ones", "cnt")
+_STATE2 = ("tts", "gkey", "owner", "owned", "last_ts", "drops", "regress",
+           "coll")
+_STATE3 = ("rc", "rts", "base", "skeys", "hkeys", "hcnt", "hdelta", "runf",
+           "runi", "runc", "htot")
 _SCRATCH = ("misc", "mask", "rank", "bf", "bi", "bs", "bm", "bones",
-            "bpacked", "bkey", "bwts", "lo", "firstidx", "cnt", "seg", "run",
-            "ckey", "sorted", "head", "incf", "inci", "inco", "incs1",
-            "incs2", "mP", "mS", "mT")
+            "bpacked", "bkey", "bwts", "bkeyv", "bv", "lo", "hi", "oflag",
+            "zt", "zseg", "firstidx", "cnt", "seg", "run", "ckey", "sorted",
+            "head", "incf", "inci", "inco", "incs1", "incs2", "mP", "mS", "mT")
+
+
+def _ptrs(names, suffix):
+    return [(n + suffix, c_vp) for n in names]
 
 
 class QArgs(ctypes.Structure):
     _fields_ = [
-        *[(n, c_int) for n in ("B", "N", "M", "K", "LV", "NB", "wkind",
+        *[(n, c_int) for n in ("B", "N", "M", "K", "LV", "NB", "O", "wkind",
                                "grouped", "key_mode", "has_agg", "nfilt",
                                "ncol", "nspec", "ngk", "AF", "AI", "AS", "AM",
-                               "ntask", "has_wprog", "has_having")],
-        ("window_ms", c_ll),
+                               "ntask", "has_wprog", "has_having", "sort_kty",
+                               "sort_desc")],
+        ("window_ms", c_ll), ("hop_ms", c_ll), ("skey_fill", c_ll),
+        ("hh_support", ctypes.c_double), ("hh_error", ctypes.c_double),
         ("col_ty", c_int * QMAXCOL),
         *[(n, c_int * QMAXSPEC) for n in ("spec_kind", "spec_ty", "spec_lane",
                                           "spec_int")],
@@ -76,12 +83,14 @@ class QArgs(ctypes.Structure):
         ("m_ident", c_ll * QMAXLANE),
         ("filt", _Prog * QMAXFILT), ("proj", _Prog * QMAXSPEC),
         ("lane", (_Prog * QMAXLANE) * 4), ("gk", _Prog * QMAXGK),
-        ("wprog", _Prog), ("having", _Prog),
+        ("wprog", _Prog), ("having", _Prog), ("skey", _Prog),
         ("code", c_vp), ("col", c_vp * QMAXCOL), ("ts", c_vp), ("valid", c_vp),
-        *[(n, c_vp) for n in _PTRS_IN], ("m_in", c_vp * QMAXLANE),
-        *[(n, c_vp) for n in _PTRS_IN2],
-        *[(n, c_vp) for n in _PTRS_OUT], ("m_out", c_vp * QMAXLANE),
-        *[(n, c_vp) for n in _PTRS_OUT2],
+        *_ptrs(_STATE, "_in"), ("m_in", c_vp * QMAXLANE),
+        *_ptrs(_STATE2, "_in"), *_ptrs(_STATE3, "_in"),
+        ("rp_in", c_vp * QMAXSPEC),
+        *_ptrs(_STATE, "_out"), ("m_out", c_vp * QMAXLANE),
+        *_ptrs(_STATE2, "_out"), *_ptrs(_STATE3, "_out"),
+        ("rp_out", c_vp * QMAXSPEC),
         ("out", c_vp * QMAXSPEC), ("ovalid", c_vp), ("ots", c_vp),
         ("ocount", c_vp),
         *[(n, c_vp) for n in _SCRATCH],
@@ -119,15 +128,18 @@ def _var_ir(name: str, t) -> list:
 
 class QueryPlan:
     """Linked programs, the argument template and the launch wrapper of
-    ``csrc/query_step.cu``. ``launches`` counts kernel launches."""
+    ``csrc/query_step.cu``. ``launches`` counts its kernel launches."""
 
-    launches = 0          # class-wide: every launch of the query kernels
+    launches = 0          # class-wide: every launch of this plan's kernels
+    LIB = "query_step"    # csrc/<LIB>.cu, entry point <LIB>(args, stream, n)
+    WHAT = "query kernel"
 
-    def __init__(self, q: "CompiledStreamQuery"):
+    def __init__(self, q: CompiledStreamQuery):
         self.q = q
         specs = q.specs
-        N = max(q.window_n, 1) if q.windowed else 0
-        M = N + q.B
+        kind = q.window_kind
+        N = max(q.window_n, 1) if kind not in (None, "batch") else 0
+        M = N + q.B if kind in TAILED + REMAINDER else q.B
         limits = [(len(specs), QMAXSPEC, "outputs"),
                   (len(q.filter_irs), QMAXFILT, "filters"),
                   (len(q.group_keys), QMAXGK, "group keys"),
@@ -141,15 +153,16 @@ class QueryPlan:
         progs_ir = list(q.filter_irs) + [s.ir for s in specs if s.ir]
         for ir in progs_ir:
             used |= {a for (op, _, a, _) in ir if op in (OP["EV"], OP["BIND"])}
-        used |= set(q.group_keys)
-        if q.time_key:
-            used.add(q.time_key)
+        used |= set(q.group_keys) | set(q.hh_keys)
+        for key in (q.time_key, q.sort_key):
+            if key:
+                used.add(key)
         self.col_keys = sorted(used)
         limits.append((len(self.col_keys) + 1, QMAXCOL, "event columns"))
         for n, cap, what in limits:
             if n > cap:
                 raise DeviceCompileError(
-                    f"query kernel: {n} {what} (limit {cap})")
+                    f"{self.WHAT}: {n} {what} (limit {cap})")
         slot = {k: i for i, k in enumerate(self.col_keys)}
         ts_slot = len(self.col_keys)
         types = {k: q.definition.attribute_type(k) for k in self.col_keys}
@@ -176,13 +189,14 @@ class QueryPlan:
 
         T_BOOL, T_I64, T_F32 = (TY_OF[torch.bool], TY_OF[torch.int64],
                                 TY_OF[torch.float32])
-        a.B, a.N, a.M, a.K = q.B, N, M if q.windowed else q.B, q.K
+        a.B, a.N, a.M, a.K = q.B, N, M, q.K
+        a.O = M if kind in REMAINDER else q.B
         nb = (a.M + 31) // 32
         a.NB, a.LV = nb, max(nb.bit_length(), 1)
-        a.wkind = W_KIND[q.window_kind]
+        a.wkind = W_KIND[kind]
         a.grouped = int(bool(q.group_keys))
         a.has_agg = int(bool(q.agg_idx))
-        a.window_ms = q.window_ms
+        a.window_ms, a.hop_ms = q.window_ms, q.hop_ms
         a.nfilt, a.ncol, a.nspec = len(q.filter_irs), ts_slot + 1, len(specs)
         for i, ty in enumerate(self.col_ty):
             a.col_ty[i] = ty
@@ -212,16 +226,28 @@ class QueryPlan:
             a.spec_lane[i] = lane_of.get(i, 0)
             if s.kind == "value":
                 a.proj[i] = add(s.ir, a.spec_ty[i])
-        if q.group_keys:
-            a.ngk = len(q.group_keys)
-            for g, key in enumerate(q.group_keys):
+        keys = q.group_keys or q.hh_keys
+        if keys:
+            a.ngk = len(keys)
+            for g, key in enumerate(keys):
                 a.gk[g] = add(_var_ir(key, types[key]), T_I64)
-            narrow = all(t.name in ("STRING", "INT") for t in q.group_key_types)
-            a.key_mode = (KM_NARROW if narrow else KM_WIDE1) \
-                if a.ngk == 1 else (KM_PAIR if a.ngk == 2 and narrow else KM_FNV)
+            if q.group_keys:
+                narrow = all(t.name in ("STRING", "INT")
+                             for t in q.group_key_types)
+                a.key_mode = (KM_NARROW if narrow else KM_WIDE1) \
+                    if a.ngk == 1 else \
+                    (KM_PAIR if a.ngk == 2 and narrow else KM_FNV)
+            else:               # a heavy-hitter code: (k0 << 32) | k1
+                a.key_mode = KM_PAIR if a.ngk == 2 else KM_NARROW
         if q.time_key:
             a.has_wprog = 1
             a.wprog = add(_var_ir(q.time_key, types[q.time_key]), T_I64)
+        if q.sort_key:
+            kdt = TORCH[q.sort_key_type]
+            a.sort_kty, a.sort_desc = TY_OF[kdt], int(q.sort_desc)
+            a.skey = add(_var_ir(q.sort_key, q.sort_key_type), a.sort_kty)
+            a.skey_fill = const_bits(reduce_identity(kdt, True), a.sort_kty)
+        a.hh_support, a.hh_error = q.lossy_support, q.lossy_error
         if q.having_ir is not None:
             a.has_having = 1
             out_slot = {s.name: i for i, s in enumerate(specs)}
@@ -236,15 +262,17 @@ class QueryPlan:
     # -- kernel side ---------------------------------------------------------
     def _lib(self):
         from ._build import load
-        lib = load("query_step")
+        lib = load(self.LIB)
         if not self._lib_checked:
-            lib.query_step.argtypes = [c_vp, c_vp, c_vp]
-            lib.query_step.restype = c_int
-            lib.query_step_args_size.restype = c_int
-            if lib.query_step_args_size() != ctypes.sizeof(QArgs):
+            entry = getattr(lib, self.LIB)
+            entry.argtypes = [c_vp, c_vp, c_vp]
+            entry.restype = c_int
+            size = getattr(lib, self.LIB + "_args_size")
+            size.restype = c_int
+            if size() != ctypes.sizeof(QArgs):
                 raise RuntimeError(
-                    f"QArgs layout differs between query_step.cu "
-                    f"({lib.query_step_args_size()} B) and the ctypes mirror "
+                    f"QArgs layout differs between {self.LIB}.cu "
+                    f"({size()} B) and the ctypes mirror "
                     f"({ctypes.sizeof(QArgs)} B)")
             self._lib_checked = True
         return lib
@@ -289,7 +317,7 @@ class QueryPlan:
                            torch.cuda.current_stream(ts.device).cuda_stream)
 
     def launch(self, lib, state, cols, ts, valid, stream):
-        """Calls ``lib.query_step`` over these tensors (checked by
+        """Calls the library's entry point over these tensors (checked by
         ``step_cuda``) and counts the launches it made."""
         q, dev = self.q, ts.device
         a = QArgs.from_buffer_copy(self._on(dev))
@@ -305,35 +333,40 @@ class QueryPlan:
         a.ts, a.valid = ptr(ts), ptr(valid)
 
         new = dict(state)
-        names = self._state_names()
-        for field, leaf in names.items():
+
+        def fresh(leaf):
+            new[leaf] = torch.empty_like(state[leaf])
+            return ptr(state[leaf]), ptr(new[leaf])
+
+        for field, leaf in self._state_names().items():
             if leaf in state:
-                setattr(a, field + "_in", ptr(state[leaf]))
-                out = torch.empty_like(state[leaf])
-                new[leaf] = out
-                setattr(a, field + "_out", ptr(out))
+                src, dst = fresh(leaf)
+                setattr(a, field + "_in", src)
+                setattr(a, field + "_out", dst)
         for m, i in enumerate(q.magg_idx):
             leaf = self._m_leaf(i)
-            if leaf not in state:            # batch(): nothing carried
-                continue
-            a.m_in[m] = ptr(state[leaf])
-            new[leaf] = torch.empty_like(state[leaf])
-            a.m_out[m] = ptr(new[leaf])
+            if leaf in state:                # batch(): nothing carried
+                a.m_in[m], a.m_out[m] = fresh(leaf)
+        prefix = self._proj_prefix()
+        for i in q.value_idx:
+            if prefix:
+                a.rp_in[i], a.rp_out[i] = fresh(f"{prefix}{i}")
 
-        B = q.B
+        O = a.O
         outs = {}
         for n, s in enumerate(q.specs):
-            outs[s.name] = torch.empty(B, dtype=TORCH[s.dtype], device=dev)
+            outs[s.name] = torch.empty(O, dtype=TORCH[s.dtype], device=dev)
             a.out[n] = ptr(outs[s.name])
-        ovalid = torch.empty(B, dtype=torch.bool, device=dev)
-        ots = torch.empty(B, dtype=torch.int64, device=dev)
+        ovalid = torch.empty(O, dtype=torch.bool, device=dev)
+        ots = torch.empty(O, dtype=torch.int64, device=dev)
         count = torch.empty((), dtype=torch.int32, device=dev)
         a.ovalid, a.ots, a.ocount = ptr(ovalid), ptr(ots), ptr(count)
         n = c_int(0)
-        rc = lib.query_step(ctypes.addressof(a), stream, ctypes.addressof(n))
-        QueryPlan.launches += n.value
+        rc = getattr(lib, self.LIB)(ctypes.addressof(a), stream,
+                                    ctypes.addressof(n))
+        type(self).launches += n.value
         if rc != 0:
-            raise RuntimeError(f"query_step launch failed: CUDA error {rc}")
+            raise RuntimeError(f"{self.LIB} launch failed: CUDA error {rc}")
         return new, {"out": outs, "valid": ovalid, "ts": ots, "count": count}
 
     def _on(self, dev) -> QArgs:
@@ -353,19 +386,41 @@ class QueryPlan:
 
     def _m_leaf(self, i: int) -> str:
         q = self.q
-        if q.windowed:
+        if q.window_kind in TAILED:
             return f"tail_m{i}"
+        if q.window_kind == "sort":
+            return f"sort_m{i}"
         return f"key_m{i}" if q.group_keys else f"run_m{i}"
 
+    def _proj_prefix(self) -> str | None:
+        """The state leaves that carry value projections, per spec."""
+        kind = self.q.window_kind
+        if kind in REMAINDER:
+            return "rem_proj_"
+        return "tail_proj_" if kind == "hopping" else None
+
     def _state_names(self) -> dict:
-        """Kernel pointer field → state leaf, by mode."""
+        """Kernel pointer field → state leaf, by mode (a leaf the state lacks
+        leaves its pointers null)."""
         q = self.q
-        if q.windowed:
+        kind = q.window_kind
+        if kind in TAILED or kind in REMAINDER:
             return {"f": "tail_fvals", "i": "tail_ivals", "s": "tail_svals",
                     "ones": "tail_ones", "tts": "tail_ts", "gkey": "tail_gkey",
                     "owner": "key_owner", "owned": "key_owned",
                     "last_ts": "last_ts", "drops": "window_drops",
-                    "regress": "ts_regressions", "coll": "group_collisions"}
+                    "regress": "ts_regressions", "coll": "group_collisions",
+                    "rc": "rem_count", "rts": "rem_ts",
+                    "base": "hop_next" if kind == "hopping" else "batch_base"}
+        if kind == "sort":
+            return {"f": "sort_fvals", "i": "sort_ivals", "s": "sort_svals",
+                    "rc": "sort_n", "skeys": "sort_keys"}
+        if kind in ("frequent", "lossyFrequent"):
+            return {"f": "hh_fvals", "i": "hh_ivals", "hkeys": "hh_keys",
+                    "hcnt": "hh_counts", "hdelta": "hh_delta",
+                    "runf": "hh_run_f", "runi": "hh_run_i",
+                    "runc": "hh_run_cnt", "htot": "hh_total",
+                    "drops": "window_drops"}
         if q.group_keys:
             return {"f": "key_fsums", "fc": "key_fcomp", "i": "key_isums",
                     "cnt": "key_counts", "smean": "key_smean",
@@ -376,14 +431,16 @@ class QueryPlan:
                 "scnt": "run_scnt"}
 
     def _scratch(self, dev) -> dict:
-        """Scratch tensors of a step (the kernel allocates nothing)."""
+        """Scratch tensors of a step (the kernels allocate nothing)."""
         q, a = self.q, self.args
-        B, K, M = q.B, q.K, a.M
+        B, K, M, O = q.B, q.K, a.M, a.O
         i32, i64, f32, f64, u8 = (torch.int32, torch.int64, torch.float32,
                                   torch.float64, torch.uint8)
         grouped = bool(q.group_keys)
         Kx = K if grouped else 1
         Mg = M if grouped else 1
+        Mr = M if q.window_kind in REMAINDER else 1
+        Bh = a.nspec * B if q.window_kind == "hopping" else 1
 
         def e(n, dt):
             return torch.empty(max(n, 1), dtype=dt, device=dev)
@@ -393,7 +450,9 @@ class QueryPlan:
             "bf": e(a.AF * B, f32), "bi": e(a.AI * B, i64),
             "bs": e(a.AS * B, f32), "bm": e(a.AM * B, i64),
             "bones": e(B, i32), "bpacked": e(B, i64), "bkey": e(B, i32),
-            "bwts": e(B, i64), "lo": e(B, i32),
+            "bwts": e(B, i64), "bkeyv": e(B, i64), "bv": e(Bh, i64),
+            "lo": e(O, i32), "hi": e(O, i32), "oflag": e(O, u8),
+            "zt": e(Mr, i64), "zseg": e(Mr, i64),
             "firstidx": e(Kx, i32), "cnt": e(Kx, i32), "seg": e(Kx, i32),
             "run": e(Kx, i32), "ckey": e(a.AS * Kx, f32),
             "sorted": e(Mg, i32), "head": e(Mg, u8),
@@ -402,3 +461,12 @@ class QueryPlan:
             "incs2": e(a.AS * M, f64), "mP": e(a.AM * M, i64),
             "mS": e(a.AM * M, i64), "mT": e(a.AM * a.LV * a.NB, i64),
         }
+
+
+def make_plan(q: CompiledStreamQuery) -> QueryPlan:
+    """The kernel plan of a compiled query: ``csrc/query_walk.cu`` for the
+    scan-walked windows, ``csrc/query_step.cu`` for every other shape."""
+    if q.window_kind in WALKED:
+        from .query_walk import WalkPlan
+        return WalkPlan(q)
+    return QueryPlan(q)

@@ -3,9 +3,12 @@
 Port of the reference's ``tpu/runtime.py`` (``DeviceStreamRuntime``): host
 rows accumulate in a staging buffer; when a micro-batch fills (or
 ``flush()`` is called) one step runs (on the card through
-``csrc/query_step.cu``, or the plain version with ``device="cpu"``) and
-decoded rows go to the callback. ``hopping``'s boundary drain
-(``drain_hop_boundaries``) and ``pipeline_safe`` come with that window.
+``csrc/query_step.cu`` or ``csrc/query_walk.cu``, or the plain version with
+``device="cpu"``) and decoded rows go to the callback. A ``hopping`` window
+fires at most B boundaries a step; ``flush`` and ``collect`` step empty
+batches until the next boundary lies in the future
+(``drain_hop_boundaries``), so a runtime that pipelines steps keeps one in
+flight for it (``pipeline_safe``).
 """
 
 from __future__ import annotations
@@ -16,8 +19,22 @@ import torch
 
 from ..compiler import parse as _parse
 from .batch import BatchBuilder, device_state_restore, device_state_snapshot
-from .query_compile import CompiledStreamQuery
+from .query_compile import TS_NEG, CompiledStreamQuery
 from .state_io import query_state_from_numpy
+
+
+def drain_hop_boundaries(compiled, state, drain_builder, on_out):
+    """Steps empty batches while the next hop boundary lies at or before the
+    newest event (a time gap can span more boundaries than one step's B
+    flush slots), handing each step's outputs to ``on_out``; returns the
+    advanced state. One host read of ``hop_next``/``last_ts`` per step."""
+    while True:
+        hop_next, last_ts = (int(v) for v in torch.stack(
+            [state["hop_next"], state["last_ts"]]).tolist())
+        if hop_next <= TS_NEG or hop_next > last_ts:
+            return state
+        state, out = compiled.step(state, drain_builder.emit())
+        on_out(out)
 
 
 class DeviceStreamRuntime:
@@ -44,6 +61,13 @@ class DeviceStreamRuntime:
         self.state = self.compiled.init_state()
         self.callback: Optional[Callable[[list[list]], None]] = None
         self._pending_out = []
+        # hopping reads the dispatched step's state inside collect(): a
+        # pipeline keeps exactly one step in flight for it
+        self.pipeline_safe = self.compiled.window_kind != "hopping"
+        # the empty batches of the drain (the live builder may already hold
+        # the next batch's rows when collect() runs)
+        self._drain_builder = BatchBuilder(self.compiled.schema,
+                                           batch_capacity)
 
     def add_callback(self, fn: Callable[[list[list]], None]) -> None:
         self.callback = fn
@@ -56,6 +80,10 @@ class DeviceStreamRuntime:
     def flush(self, decode: bool = True) -> None:
         if len(self.builder):
             self._deliver(self.dispatch(self.builder.emit()), decode)
+        if self.compiled.window_kind == "hopping":
+            self.state = drain_hop_boundaries(
+                self.compiled, self.state, self._drain_builder,
+                lambda out: self._deliver(out, decode))
 
     # -- two-phase step -------------------------------------------------------
     def dispatch(self, batch: dict):
@@ -65,8 +93,14 @@ class DeviceStreamRuntime:
         return out
 
     def collect(self, out) -> list[list]:
-        """Decodes one dispatched step (the copy to the host waits for it)."""
-        return self.compiled.decode_outputs(out)
+        """Decodes one dispatched step (the copy to the host waits for it);
+        a hopping window drains its deferred boundaries here."""
+        rows = self.compiled.decode_outputs(out)
+        if self.compiled.window_kind == "hopping":
+            self.state = drain_hop_boundaries(
+                self.compiled, self.state, self._drain_builder,
+                lambda o: rows.extend(self.compiled.decode_outputs(o)))
+        return rows
 
     def process(self, batch: dict) -> list[list]:
         return self.collect(self.dispatch(batch))

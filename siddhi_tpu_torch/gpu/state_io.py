@@ -7,9 +7,14 @@ Both packages keep the same state tree, leaf names and dtypes:
 - scan NFA: ``{"pending": {"p{s}": {leaf: [L, C]}}, "seeds": [L],
   "drops": [L], "matches": [L]}``;
 - single-stream query (``CompiledStreamQuery``): a flat dict of window
-  tails (``tail_*``), time-window counters, per-key tables (``key_*``) and
-  running aggregates (``run_*``), as ``init_state`` lists them
-  (``query_state_from_numpy`` checks a tree against that list).
+  tails (``tail_*``), tumbling remainders (``rem_*``, the 0-d
+  ``rem_count``), clocks and counters (``last_ts``, ``batch_base``,
+  ``hop_next``, ``window_drops``, ``ts_regressions``), the sort buffer
+  (``sort_*``), the heavy-hitter table (``hh_*``), per-key tables
+  (``key_*``) and running aggregates (``run_*``), as ``init_state`` lists
+  them (``query_state_from_numpy`` checks a tree against that list, 0-d
+  leaves included, so a JAX runtime stopped mid-stream resumes in the port
+  for every window).
 
 The reference's partitioned runtimes stack lanes in front (``[P, C]``, ``[P]``)
 as the port does; its single-lane ``DeviceNFARuntime`` keeps ``[C]`` leaves

@@ -4,11 +4,12 @@
     python3 siddhi_tpu_torch/tools/profile_query_step.py [--steps 40]
 
 Runs each ``query_main`` configuration (``tools/query_workloads.py``: the grouped
-length window of the device sample, and the 10 s time window with
-min/max/stdDev) through ``DeviceStreamRuntime`` for ``--steps`` full
-batches under ``torch.profiler`` and prints one JSON line per
-configuration: device time per kernel name (``q_prep``, ``q_scan``,
-``q_emit``, copies, the rest), the wall time of the window, the device's
+length window of the device sample, the 10 s time window with
+min/max/stdDev, the 10 s timeBatch and the lossyFrequent fraud query)
+through ``DeviceStreamRuntime`` for ``--steps`` full batches under
+``torch.profiler`` and prints one JSON line per configuration: device time
+per kernel name (``q_prep``, ``q_scan``, ``q_emit``, ``q_walk``, copies,
+the rest), the wall time of the window, the device's
 busy share of it (device time summed over kernels and copies, divided by
 wall time; 1 - busy is the idle share), and the host clock split over the
 layers of the feed (``append_columns``, ``emit``, the step call with its
@@ -25,6 +26,7 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+KERNELS = ("q_prep", "q_scan", "q_emit", "q_walk")
 
 
 def profile(name: str, steps: int, seed: int) -> dict:
@@ -71,12 +73,12 @@ def profile(name: str, steps: int, seed: int) -> dict:
         if dev_us <= 0:
             continue
         key = ev.key
-        for k in ("q_prep", "q_scan", "q_emit"):
+        for k in KERNELS:
             if k in key:
                 key = k
         if "emcpy" in key or "Memcpy" in key:
             key = "copies"
-        elif key not in ("q_prep", "q_scan", "q_emit"):
+        elif key not in KERNELS:
             key = "other"
         d = per.setdefault(key, {"device_ms": 0.0, "calls": 0})
         d["device_ms"] += dev_us / 1e3

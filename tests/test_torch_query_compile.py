@@ -9,8 +9,9 @@ the tolerances stated in ``test_torch_query_shapes.py``: exact except float32
 sums/avgs and Kahan/Welford leaves (``2**-20`` of a sum of |x| that
 bounds every prefix either side reads, each side carrying its own state:
 ``next_scale``; an avg's limit divided by its row's count) and stdDev. Also here: the port refuses exactly what the reference refuses
-(same message), plus the nine windows of the next slice, at construction;
-and ``avalanche`` is the reference's splitmix64 bit for bit.
+(same message) at construction, and compiles one small query per tumbling,
+hopping and scan-walked window with its kernel plan linked; and
+``avalanche`` is the reference's splitmix64 bit for bit.
 """
 
 import jax
@@ -26,7 +27,6 @@ from siddhi_tpu_torch.compiler import parse as tparse
 from siddhi_tpu_torch.gpu.backend import avalanche
 from siddhi_tpu_torch.gpu.expr_compile import DeviceCompileError as TError
 from siddhi_tpu_torch.gpu.query_compile import (
-    NOT_PORTED,
     CompiledStreamQuery as TQuery,
     stream_step_plain,
 )
@@ -98,13 +98,13 @@ def test_refuses_what_the_reference_refuses(text):
 
 
 @pytest.mark.parametrize("window", sorted(STAGED))
-def test_next_slice_windows_refused_at_construction(window):
-    assert window in NOT_PORTED
+def test_slice_windows_compile_and_link(window):
     text = f"from S{STAGED[window]} insert into O;"
-    _build("jax", text)
-    with pytest.raises(TError, match=f"^window '{window}' is not yet ported "
-                                     f"to siddhi_tpu_torch$"):
-        _build("torch", text)
+    jq = _build("jax", text)
+    q = _build("torch", text)
+    assert q.plan.link_error is None
+    assert q.window_kind == jq.window_kind
+    assert q.window_name == window
 
 
 @pytest.mark.parametrize("text", ACCEPTED)

@@ -1,9 +1,12 @@
 """The single-stream query shapes, wire batches and tolerances shared by the
 query tests.
 
-``tests/test_torch_query_compile.py`` runs every case through the JAX
-package and the port; ``chip_smoke.py`` runs the same cases on the card
-(kernel against plain version). This module imports only the port, never
+``tests/test_torch_query_compile.py`` (``CASES``) and
+``tests/test_torch_query_windows.py`` (``WINDOW_CASES``: the tumbling,
+hopping and scan-walked windows) run every case through the JAX package and
+the port; ``chip_smoke.py`` runs the same cases on the card (kernel against
+plain version), and ``CARD_CASES``, wider windows whose every kernel pass
+spans several chunks of a block, there only. This module imports only the port, never
 the JAX package, so the chip script can load it where JAX is not installed
 (and ``python -m pytest tests/test_torch_query_shapes.py -m cuda`` runs the
 kernel against the plain version there).
@@ -31,6 +34,9 @@ resumed from):
   arguments), largest over the lanes; min/max identities (±inf) are never
   part of it; a grouped sum reads its own bucket's prefix, which the sum
   over all buckets bounds;
+  the scan-walked windows' sums read their buffer or table
+  (``sort_fvals``, ``hh_fvals``) and the heavy hitters' running sums
+  (``hh_run_f``, held like a running sum: each side carries its own);
 - float32 avgs: that bound divided by the row's count (``max(count, 1)``,
   read from the query's ``count()`` output; without one, the count is
   taken as 1);
@@ -42,9 +48,16 @@ resumed from):
   count, so the standard deviation carries ``sqrt(u * (1 + s2) / n)``;
   with ``n >= 1``, ``|got - ref| <= 1e-6 * |ref| + sqrt(u * (1 + s2))``
   per step, where ``u`` is ``2**-20`` for the running and per-key float32
-  Welford moments and ``2**-40`` for a window's, which every
-  implementation accumulates in float64; wherever a count output shows at
-  least 4 events also ``<= 1e-5 * |ref| + 1e-4`` (``STD_RTOL``).
+  Welford moments and for ``sort``'s float32 two-pass moments over its
+  buffer, and ``2**-40`` for a window's, which every implementation
+  accumulates in float64; wherever a count output shows at least 4 events
+  also ``<= 1e-5 * |ref| + 1e-4`` (``STD_RTOL``).
+
+Every other output of the new windows is exact: the tumbling windows'
+outputs over all N + B slots (remainder and batch), hopping's flush slots,
+row order, ``ts``, and the counters ``rem_count``, ``window_drops``,
+``ts_regressions``, ``batch_base``, ``hop_next``, ``sort_n``, ``hh_total``
+and the heavy-hitter table (keys, counts, deltas, int lanes).
 
 The kernel and the plain version accumulate prefixes the same way, so on
 the card they agree within these bounds (most steps exactly).
@@ -145,8 +158,117 @@ insert into O;""", {}),
 from S#window.length(3) select sym, price insert into O;""", {}),
 }
 
+# the tumbling and scan-walked windows (their JAX parity cases are
+# tests/test_torch_query_windows.py's)
+WINDOW_QUERIES = {
+    "length_batch": ("""
+from S[price > 20.0]#window.lengthBatch(6)
+select sum(price) as t, sum(vol) as v, count() as c, avg(price) as ap,
+       min(price) as lo, max(vol) as hv, stdDev(price) as sd insert into O;""",
+                     {}),
+    "length_batch_values": ("""
+from S#window.lengthBatch(20)
+select sym, price, n, eventTimestamp() as e insert into O;""", {}),
+    "length_batch_having": ("""
+from S#window.lengthBatch(4) select sym, sum(vol) as v having v > 1500
+insert into O;""", {}),
+    "time_batch": ("""
+from S#window.timeBatch(10)
+select sum(price) as t, count() as c, max(vol) as hv, min(n) as ln,
+       stdDev(price) as sd insert into O;""", {"window_capacity": 32}),
+    "time_batch_values": ("""
+from S[vol > 100]#window.timeBatch(25)
+select sym, vol, eventTimestamp() as e insert into O;""",
+                          {"window_capacity": 3}),
+    "external_time_batch": ("""
+from S#window.externalTimeBatch(ets, 20)
+select sum(vol) as v, count() as c, avg(price) as a, ets insert into O;""",
+                            {"window_capacity": 24}),
+    "session": ("""
+from S#window.session(5)
+select sym, sum(vol) as v, count() as c, max(price) as m insert into O;""",
+                {"window_capacity": 12}),
+    "session_drops": ("""
+from S#window.session(30) select sum(price) as t, count() as c insert into O;
+""", {"window_capacity": 4}),
+    "delay": ("""
+from S[price > 30.0]#window.delay(6) select sym, price, vol insert into O;""",
+              {"window_capacity": 16}),
+    "delay_drops": ("""
+from S#window.delay(60) select sym, n, eventTimestamp() as e
+having n > 0 insert into O;""", {"window_capacity": 6}),
+    "hopping": ("""
+from S#window.hopping(20, 5)
+select sym, sum(price) as t, count() as c, min(vol) as lv,
+       stdDev(price) as sd insert into O;""", {"window_capacity": 32}),
+    "hopping_having": ("""
+from S[vol > 50]#window.hopping(40, 10)
+select sum(vol) as v, count() as c, avg(price) as a having c > 2
+insert into O;""", {"window_capacity": 16}),
+    "sort": ("""
+from S#window.sort(5, price)
+select sym, sum(price) as t, sum(vol) as v, count() as c, max(n) as mx,
+       stdDev(price) as sd insert into O;""", {}),
+    "sort_desc_int": ("""
+from S#window.sort(4, n, 'desc')
+select n, sum(vol) as v, min(price) as lo, count() as c, avg(vol) as av
+insert into O;""", {}),
+    "sort_long_sentinel": ("""
+from S[price > 10.0]#window.sort(3, vol)
+select vol, count() as c, sum(price) as t having c > 1 insert into O;""", {}),
+    "frequent": ("""
+from S#window.frequent(3, sym)
+select sym, sum(price) as t, sum(vol) as v, count() as c, avg(price) as a
+insert into O;""", {}),
+    "frequent_pair": ("""
+from S#window.frequent(4, sym, n)
+select sym, n, count() as c, sum(vol) as v insert into O;""", {}),
+    "lossy": ("""
+from S#window.lossyFrequent(0.3, 0.08, sym)
+select sym, sum(price) as t, count() as c, avg(vol) as av insert into O;""",
+              {}),
+    "lossy_default_error": ("""
+from S[vol > 100]#window.lossyFrequent(0.2, n)
+select n, sum(vol) as v, count() as c having c > 1 insert into O;""",
+                            {"window_capacity": 8}),
+}
+QUERIES.update(WINDOW_QUERIES)
+# wider windows, for the card only (kernel against plain version): every
+# scan, shift and table pass spans several chunks of a kernel's block
+CARD_QUERIES = {
+    "length_batch_wide": ("""
+from S[vol > 10]#window.lengthBatch(1500)
+select sum(price) as t, count() as c, max(vol) as hv, stdDev(price) as sd
+insert into O;""", {}),
+    "session_wide": ("""
+from S#window.session(40) select sum(price) as t, count() as c, min(n) as ln
+insert into O;""", {"window_capacity": 3000}),
+    "delay_wide": ("""
+from S#window.delay(200) select sym, price insert into O;""",
+                   {"window_capacity": 2000}),
+    "hopping_wide": ("""
+from S#window.hopping(300, 40)
+select sum(vol) as v, count() as c, max(price) as m insert into O;""",
+                     {"window_capacity": 2000}),
+    "sort_wide": ("""
+from S#window.sort(700, price)
+select sum(vol) as v, count() as c, min(n) as ln, stdDev(price) as sd
+insert into O;""", {}),
+    "frequent_wide": ("""
+from S#window.frequent(600, vol) select vol, count() as c, sum(price) as t
+insert into O;""", {}),
+    "lossy_wide": ("""
+from S#window.lossyFrequent(0.02, 0.001, vol)
+select vol, count() as c, sum(price) as t insert into O;""", {}),
+}
+QUERIES.update(CARD_QUERIES)
+# wire options per query: int extremes (the integer minimum and maximum in
+# the int/long columns) for the sort keys' sentinel and negation edges
+WIRE_EXTREMES = ("sort_desc_int", "sort_long_sentinel")
+
 # queries the reference refuses (the port must refuse them with the same
-# message), queries of the next slice's windows and queries the slice takes
+# message), one small query per tumbling and walked window, and queries of
+# the sliding half
 REFUSAL_SCHEMA = "define stream S (sym string, v double, w long, k long, n int, ets long);\n"
 REFUSED = [
     "from S#window.cron('*/2 * * * * ?') select sum(w) as s insert into O;",
@@ -177,8 +299,7 @@ REFUSED = [
     "from S#window.lengthBatch(4) select sym, sum(w) as s group by sym insert into O;",
     "from S#window.frequent(3, sym) select min(v) as m insert into O;",
 ]
-# one accepted query per window of the next slice: the reference compiles
-# it, the port refuses it with the staged message
+# one small query per window of this slice: both packages compile it
 STAGED = {
     "lengthBatch": "#window.lengthBatch(4) select sum(w) as s",
     "timeBatch": "#window.timeBatch(10) select sum(w) as s",
@@ -200,11 +321,25 @@ ACCEPTED = [
 ]
 
 # (query, batch capacity B)
-CASES = [(name, 16) for name in QUERIES] + [
+CASES = [(name, 16) for name in QUERIES
+         if name not in WINDOW_QUERIES and name not in CARD_QUERIES] + [
     ("length_filter", 5), ("time", 64), ("external_time", 7),
     ("grouped", 64), ("length_grouped", 3), ("batch", 9),
 ]
 IDS = [f"{n}-B{b}" for n, b in CASES]
+# the tumbling windows at B < N and with more hop boundaries than flush
+# slots, the walked ones at B = 64 too
+WINDOW_CASES = [(name, 16) for name in WINDOW_QUERIES] + [
+    ("length_batch", 5), ("length_batch_values", 7), ("time_batch", 64),
+    ("session", 3), ("delay_drops", 4), ("hopping", 3), ("hopping", 64),
+    ("sort", 64), ("frequent", 64), ("lossy", 64),
+]
+WINDOW_IDS = [f"{n}-B{b}" for n, b in WINDOW_CASES]
+CARD_CASES = [(name, 16) for name in CARD_QUERIES] + [
+    ("length_batch_wide", 256), ("hopping_wide", 256), ("sort_wide", 256),
+    ("frequent_wide", 256),
+]
+CARD_IDS = [f"{n}-B{b}" for n, b in CARD_CASES]
 STEPS = 5
 STD_RTOL = 1e-5
 
@@ -223,10 +358,11 @@ class Wire:
     """Seeded wire batches (``BatchBuilder.emit()`` layout) with stale
     values past each batch's count."""
 
-    def __init__(self, seed: int, B: int):
+    def __init__(self, seed: int, B: int, extremes: bool = False):
         self.rng = np.random.default_rng(seed)
         self.B = B
         self.ts = 1000
+        self.extremes = extremes
 
     def batch(self, step: int) -> dict:
         rng, B = self.rng, self.B
@@ -241,10 +377,21 @@ class Wire:
             "n": rng.integers(-2, 10, B).astype(np.int32),
             "ets": (ts + rng.integers(-40, 20, B)).astype(np.int64),
         }
+        if self.extremes:
+            for k, dt in (("n", np.int32), ("vol", np.int64)):
+                info = np.iinfo(dt)
+                pick = rng.random(B)
+                cols[k][pick < 0.15] = info.min
+                cols[k][pick > 0.9] = info.max
         valid = np.zeros(B, bool)
         valid[:count] = True
         return {"cols": cols, "ts": ts.astype(np.int64), "valid": valid,
                 "count": count}
+
+
+def wire_for(name: str, B: int) -> Wire:
+    """The seeded wire of query ``name`` at batch capacity B."""
+    return Wire(7, B, extremes=name in WIRE_EXTREMES)
 
 
 @dataclass
@@ -296,11 +443,12 @@ def carried_scale(q, state) -> Scale:
         return x * x
 
     sc = Scale(lanes("tail_fvals", AF) + lanes("key_fsums", AF)
-               + lanes("run_fsums", AF),
+               + lanes("run_fsums", AF) + lanes("sort_fvals", AF)
+               + lanes("hh_fvals", AF) + lanes("hh_run_f", AF),
                lanes("tail_svals", AS) + lanes("key_smean", AS)
-               + lanes("run_smean", AS),
+               + lanes("run_smean", AS) + lanes("sort_svals", AS),
                4.0 * lanes("tail_svals", AS, sq) + lanes("key_sm2", AS)
-               + lanes("run_sm2", AS))
+               + lanes("run_sm2", AS) + 4.0 * lanes("sort_svals", AS, sq))
     for pre in ("key", "run"):
         if f"{pre}_smean" in state and AS:
             m = state[f"{pre}_smean"].double()
@@ -321,7 +469,7 @@ def next_scale(q, sc: Scale, state, cols, ts, valid) -> Scale:
     the largest over the steps so far holds for every step; running and
     per-key sums carry each side's rounding forward, so theirs add up over
     every batch fed."""
-    if q.window_kind is None:
+    if q.window_kind in (None, "frequent", "lossyFrequent"):
         return sc + batch_scale(q, cols, ts, valid)
     st = step_scale(q, state, cols, ts, valid)
     return Scale(np.maximum(sc.s1, st.s1), np.maximum(sc.sm, st.sm),
@@ -337,14 +485,15 @@ def tolerance_kinds(q) -> dict:
         elif s.kind == "avg" and not s.acc_int:
             out[s.name] = "favg"
         elif s.kind == "stdDev":
-            out[s.name] = "std" if q.window_kind is None else "wstd"
+            out[s.name] = "std" if q.window_kind in (None, "sort") \
+                else "wstd"
         else:
             out[s.name] = "exact"
     return out
 
 
 def _leaf_kind(name: str) -> str:
-    if name.endswith(("_fsums", "_fcomp")):
+    if name.endswith(("_fsums", "_fcomp")) or name == "hh_run_f":
         return "fsum"
     if name.endswith("_smean"):
         return "smean"
@@ -431,17 +580,19 @@ def compare(q, sc: Scale, ref_state: dict, got_state: dict, ref_out: dict,
 def test_every_query_takes_the_query_kernel(name):
     q = compile_port(name, 16, "cpu")
     assert q.plan.link_error is None
-    assert q.window_kind in (None, "length", "time", "timeLength", "batch")
+    walked = q.window_kind in ("sort", "frequent", "lossyFrequent")
+    assert q.plan.LIB == ("query_walk" if walked else "query_step")
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name,B", CASES, ids=IDS)
+@pytest.mark.parametrize("name,B", CASES + WINDOW_CASES + CARD_CASES,
+                         ids=IDS + WINDOW_IDS + CARD_IDS)
 def test_kernel_matches_plain_on_card(name, B):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     q = compile_port(name, B, "cuda")
     state = q.init_state()
-    wire = Wire(7, B)
+    wire = wire_for(name, B)
     for step in range(STEPS):
         cols, ts, valid = q.batch_tensors(wire.batch(step))
         sc = step_scale(q, state, cols, ts, valid)

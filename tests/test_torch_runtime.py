@@ -2,9 +2,9 @@
 
 Rows come out of ``send``/``flush`` and the callback on both sides, from the
 same rows and timestamps: the device parity apps of ``tests/test_tpu_query.py``
-that fall in this slice (sliding windows, batch(), group-by, having,
-min/max/stdDev), and the differential-fuzz generator of
-``tests/test_device_fuzz.py`` restricted to the slice's windows, with fixed
+(sliding, tumbling, hopping, sort and heavy-hitter windows, batch(),
+group-by, having, min/max/stdDev), and the differential-fuzz generator of
+``tests/test_device_fuzz.py`` over every window it draws, with fixed
 seeds. Rows must match in number and order; every value exactly, except
 float32 sums/avgs and stdDev, held to the tolerances stated in
 ``test_torch_query_shapes.py`` (``2**-20`` of a sum of |x| that bounds
@@ -12,8 +12,8 @@ every prefix either runtime reads, ``next_scale`` over the port's steps;
 an avg's limit divided by its row's count; stdDev ``1e-5`` relative plus ``1e-4``, or the cancellation
 bound, float32 or float64 by where the moments are kept, when the window
 holds fewer than 4 events). Also: a snapshot roundtrip, resuming the
-port from the JAX runtime's mid-stream state, and the entry points' device
-rule.
+port from the JAX runtime's mid-stream state (one case per window kind),
+hopping's boundary drain, and the entry points' device rule.
 """
 
 import random
@@ -56,6 +56,29 @@ def _bursty(n, seed, gap=40):
         ts += rng.choice([0, 1, 1, 2, 5, gap])
         out.append(ts)
     return out
+
+
+def _ts_rows(n, seed, spread_ms):
+    """``tests/test_tpu_query.py::_ts_rows``: rows and timestamps with gaps
+    up to ``spread_ms``."""
+    rng, ts, rows, tss = random.Random(seed), 1000, [], []
+    for _ in range(n):
+        ts += rng.randrange(spread_ms)
+        rows.append([rng.choice("ab"), round(rng.uniform(0, 50), 2),
+                     rng.randrange(100)])
+        tss.append(ts)
+    return rows, tss
+
+
+def _vol_ts_rows(n, seed):
+    """vol doubles as a monotone external clock."""
+    rng, ts, vol, rows, tss = random.Random(seed), 1000, 100, [], []
+    for _ in range(n):
+        ts += rng.randrange(120)
+        vol += rng.randrange(30)
+        rows.append([rng.choice("ab"), round(rng.uniform(0, 50), 2), vol])
+        tss.append(ts)
+    return rows, tss
 
 
 def _ets_rows(n, seed):
@@ -169,6 +192,73 @@ select sym, sum(price) as total, count() as c, min(price) as lo insert into O;""
 define stream S (v long);
 from S#window.batch() select sum(v) as s, count() as c insert into O;""",
                      [[i] for i in range(40)], None, {"batch_capacity": 8}),
+    "length_batch": (SPB + """
+from S[price > 10.0]#window.lengthBatch(5)
+select sum(price) as total, count() as c, max(vol) as hv insert into O;""",
+                     _rows(200, 70), None, {"batch_capacity": 16}),
+    "length_batch_values": (SPB + """
+from S#window.lengthBatch(7) select sym, vol insert into O;""",
+                            _rows(100, 71), None, {"batch_capacity": 4}),
+    "time_batch": (SPB + """
+from S#window.timeBatch(1 sec)
+select sym, sum(price) as total, count() as c, avg(price) as ap,
+       min(price) as lo insert into O;""", *_ts_rows(120, 5, 400),
+                   {"batch_capacity": 32}),
+    "time_batch_sparse": (SPB + """
+from S#window.timeBatch(1 sec)
+select sym, sum(price) as total, count() as c, avg(price) as ap,
+       min(price) as lo insert into O;""", *_ts_rows(40, 7, 3000),
+                          {"batch_capacity": 8}),
+    "external_time_batch": (SPB + """
+from S#window.externalTimeBatch(vol, 50)
+select sym, sum(price) as total, count() as c insert into O;""",
+                            *_vol_ts_rows(100, 11), {"batch_capacity": 16}),
+    "session": (SPB + """
+from S#window.session(1 sec)
+select sym, sum(price) as total, count() as c, max(vol) as hv insert into O;""",
+                *_ts_rows(120, 8, 400), {"batch_capacity": 32}),
+    "delay": (SPB + """
+from S#window.delay(500) select sym, price insert into O;""",
+              *_ts_rows(100, 15, 400), {"batch_capacity": 8}),
+    "hopping": (SPB + """
+from S#window.hopping(1 sec, 400)
+select sym, sum(price) as total, count() as c, max(price) as hi
+insert into O;""", *_ts_rows(100, 24, 500), {"batch_capacity": 16}),
+    "hopping_sparse": (SPB + """
+from S#window.hopping(1 sec, 400)
+select sym, sum(price) as total, count() as c, max(price) as hi
+insert into O;""", *_ts_rows(30, 26, 4000), {"batch_capacity": 4}),
+    "sort": (SPB + """
+from S#window.sort(5, price)
+select sym, sum(price) as total, count() as c, min(price) as lo,
+       stdDev(price) as sd insert into O;""", *_ts_rows(100, 21, 50),
+             {"batch_capacity": 16}),
+    "sort_desc": (SPB + """
+from S#window.sort(4, vol, 'desc')
+select sym, sum(vol) as total, max(vol) as hi, avg(price) as ap
+insert into O;""", *_ts_rows(90, 23, 50), {"batch_capacity": 8}),
+    "frequent": ("""
+define stream S (sym string, v long);
+from S#window.frequent(4, sym)
+select sym, v, sum(v) as s, count() as c, avg(v) as a insert into O;""",
+                 _kv_rows(200, 41, "abcdefgh", 100), None,
+                 {"batch_capacity": 32}),
+    "frequent_two_key": ("""
+define stream S (sym string, v int);
+from S#window.frequent(3, sym, v) select sym, v, count() as c insert into O;""",
+                         [[r[0], r[1] % 3] for r in _kv_rows(120, 43, "ab", 3)],
+                         None, {"batch_capacity": 16}),
+    "lossy_frequent": ("""
+define stream S (sym string, v long);
+from S#window.lossyFrequent(0.3, 0.05, sym)
+select sym, v, sum(v) as s, count() as c insert into O;""",
+                       _kv_rows(200, 44, "abcdefgh", 100), None,
+                       {"batch_capacity": 32}),
+    "lossy_frequent_default_error": ("""
+define stream S (sym string, v long);
+from S#window.lossyFrequent(0.25, sym) select sym, sum(v) as s insert into O;""",
+                                     _kv_rows(120, 45, "abcd", 100), None,
+                                     {"batch_capacity": 8}),
 }
 
 
@@ -225,10 +315,16 @@ def test_runtime_rows_match_reference(name):
     assert ref, "the case emits rows"
 
 
-# ------------------------------------------------- the fuzz, slice windows
+# ------------------------------------------------------------ the fuzz
 
-WINDOWS = ["", "#window.length({n})", "#window.time({ms})",
-           "#window.timeLength({ms}, {n})"]
+WINDOWS = [
+    "", "#window.length({n})", "#window.lengthBatch({n})",
+    "#window.time({ms})", "#window.timeBatch({ms})",
+    "#window.timeLength({ms}, {n})", "#window.session({ms})",
+    "#window.sort({n}, v)", "#window.sort({n}, v, 'desc')",
+    "#window.hopping({ms}, {hop})", "#window.frequent({n}, sym)",
+    "#window.lossyFrequent(0.3, 0.08, sym)",
+]
 AGG_SETS = [
     "sum(v) as s, count() as c",
     "sum(v) as s, avg(v) as a",
@@ -240,12 +336,24 @@ FILTERS = ["", "[v > 20]", "[p < 75.0]", "[v > 10 and p > 5.0]"]
 
 
 def _shape(rng):
+    """``tests/test_device_fuzz.py::_shape``: the same draws and the same
+    adjustments for shapes the device leaves to the host."""
     win = rng.choice(WINDOWS).format(
-        n=rng.choice([2, 3, 5, 8]), ms=rng.choice([40, 90, 200]))
+        n=rng.choice([2, 3, 5, 8]), ms=rng.choice([40, 90, 200]),
+        hop=rng.choice([20, 50]))
+    aggs = rng.choice(AGG_SETS)
+    filt = rng.choice(FILTERS)
+    if "hopping" in win and "sym" in aggs:
+        aggs = "sum(v) as s, count() as c"
+    if ("sort" in win or "frequent" in win) and ("min(" in aggs
+                                                 or "stdDev" in aggs):
+        aggs = "sum(v) as s, count() as c"
+    sel = f"sym, {aggs}" if "Batch" not in win and "hopping" not in win \
+        else aggs
     return f"""
     define stream S (sym string, p double, v long);
-    from S{rng.choice(FILTERS)}{win}
-    select sym, {rng.choice(AGG_SETS)}
+    from S{filt}{win}
+    select {sel}
     insert into O;
     """
 
@@ -259,7 +367,7 @@ def _events(rng, n):
     return out
 
 
-@pytest.mark.parametrize("seed", range(16))
+@pytest.mark.parametrize("seed", range(24))
 def test_fuzz_slice_windows_match_reference(seed):
     rng = random.Random(1000 + seed)
     app = _shape(rng)
@@ -297,8 +405,10 @@ def test_snapshot_roundtrip():
     assert [r[0] for r in got] == [14, 18]
 
 
-@pytest.mark.parametrize("name", ["group_by_time", "stddev_group_by",
-                                  "minmax_time", "time_length"])
+@pytest.mark.parametrize("name", [
+    "group_by_time", "stddev_group_by", "minmax_time", "time_length",
+    "length_batch", "time_batch", "external_time_batch", "session", "delay",
+    "hopping", "sort", "frequent", "lossy_frequent_default_error"])
 def test_resume_from_reference_state(name):
     """Stop the JAX runtime mid-stream, carry its state and dictionary into
     the port, and finish there: the rows after the cut match the JAX
@@ -340,6 +450,29 @@ def test_query_state_carrier_checks_leaves():
         query_state_from_numpy(trt.compiled, tree, "cpu")
 
 
+def test_hopping_drains_boundaries():
+    """A gap spanning more hop boundaries than one step's B flush slots:
+    ``flush`` steps empty batches until the next boundary is in the
+    future, and the rows match the JAX runtime's."""
+    app = SPB + """
+    from S#window.hopping(100, 10) select sum(price) as t, count() as c
+    insert into O;"""
+    rows = _rows(12, 90)
+    tss = [1000, 1001, 1003, 1004, 1200, 1201, 1205, 2000, 2001, 2002,
+           2003, 2500]
+    ref = _feed(JRuntime(app, batch_capacity=4), rows, tss)
+    trt = TRuntime(app, batch_capacity=4, device="cpu")
+    steps = []
+    step = trt.compiled.step_tensors
+    trt.compiled.step_tensors = lambda *a: steps.append(1) or step(*a)
+    fed = _Fed(trt)
+    got = _feed(trt, rows, tss)
+    assert len(steps) > 3 * len(rows) // 4       # drain steps ran
+    assert int(trt.state["hop_next"]) > int(trt.state["last_ts"])
+    assert_rows_close(trt.compiled, ref, got, fed.scale)
+    assert len(got) > 2 * len(rows)      # several flushes per event
+
+
 def test_entry_points_default_to_the_card():
     app = PARITY["having"][0]
     if torch.cuda.is_available():
@@ -347,9 +480,11 @@ def test_entry_points_default_to_the_card():
     else:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             TRuntime(app)
-    with pytest.raises(TError, match="not yet ported"):
-        TRuntime(SPB + "from S#window.lengthBatch(3) select sum(vol) as s "
-                       "insert into O;")
+    lb = SPB + "from S#window.lengthBatch(3) select sum(vol) as s insert into O;"
+    assert TRuntime(lb, device="cpu").compiled.window_kind == "lengthBatch"
+    with pytest.raises(TError, match="has no device kernel yet"):
+        TRuntime(SPB + "from S#window.cron('*/2 * * * * ?') select sum(vol) "
+                       "as s insert into O;", device="cpu")
 
 
 def test_batch_builder_matches_reference():

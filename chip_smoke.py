@@ -71,6 +71,30 @@ Phases, one JSON line each:
                its largest share of its limit; (c)'s rows are also held to a
                numpy computation of every closed bucket, (d)'s to the
                frequency bound of lossy counting.
+  8. join_shapes — the stream-stream join kernel (``csrc/join_step.cu``)
+               against its plain PyTorch version on the card: every shape of
+               ``tests/test_torch_join_shapes.py`` (time, length and mixed
+               windows; inner, left, right and full outer joins;
+               unidirectional; within; every column type; eventTimestamp();
+               integer division by zero; J and time-ring overflow; k > W;
+               empty sides and batches), 6 steps each, every state leaf and
+               output position bitwise equal; the reference's refusals and
+               the kernel's limits refuse on the card.
+  9. join_main — two configurations at full width through
+               ``DeviceJoinRuntime`` (``MergedBatchBuilder.append_many`` per
+               same-stream run → ``flush``: step + decode), 2,000,000 events
+               each, B = W = 4096, J = 16,384, defined in
+               ``siddhi_tpu_torch/tools/join_workloads.py``: (e) the
+               reference's BASELINE config #4 market join (bids against
+               cheaper asks of the same symbol, 2 s / 3 s time windows) and
+               (f) a left outer join of sensor readings with the last 256
+               regulator states (length windows, nulls, strings, bools). A
+               timed run gives events/s and, by CUDA events, the kernel's
+               time per step (around ``lib.join_step``) and the step call's;
+               a checked run holds every step (state leaves, every output
+               position, count, drops) bitwise against the plain version on
+               the card; the first 2 steps' rows are held to a direct
+               nested-loop join in numpy; 0 join and ring drops.
 Then the card's name and power limit (nvidia-smi), the ``kernels`` line and,
 last, ``{"ok": true, "device": {...}}``. Any failure exits non-zero before
 that line. Needs one CUDA card; fails without one.
@@ -879,12 +903,20 @@ def phase_query_shapes() -> float:
             fail(f"the card accepted a query the reference refuses: {text}")
         except DeviceCompileError:
             pass
+    for text in sh.STEP_RAISES:
+        q = build(text)
+        try:
+            q.step(q.init_state(), sh.refusal_wire(8))
+            fail(f"a constant projection ran on the card: {text}")
+        except AttributeError:
+            pass
     for window, body in sh.STAGED.items():
         if build(f"from S{body} insert into O;").plan.link_error is not None:
             fail(f"window '{window}': the kernel plan does not link")
     for text in sh.ACCEPTED:
         build(text)
     emit({"phase": "query_shapes", "cases": cases, "refused": len(sh.REFUSED),
+          "step_raises": len(sh.STEP_RAISES),
           "windows_compiled": len(sh.STAGED), "accepted": len(sh.ACCEPTED),
           "max_abs_err": worst, "phase_s": time.perf_counter() - t_phase})
     return worst
@@ -1200,6 +1232,302 @@ def query_kernel_entries(q_outs: list, shapes_err: float) -> list:
     return entries
 
 
+# --------------------------------------------------- stream-stream joins
+
+def join_shapes_module():
+    """``tests/test_torch_join_shapes.py``: the join shapes, wire, refusals
+    and exact comparison of the CPU tests (it imports the port only)."""
+    import importlib.util
+    path = os.path.join(REPO, "tests", "test_torch_join_shapes.py")
+    spec = importlib.util.spec_from_file_location("test_torch_join_shapes",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_join_shapes() -> None:
+    import torch
+    from siddhi_tpu_torch.compiler import parse
+    from siddhi_tpu_torch.gpu.expr_compile import DeviceCompileError
+    from siddhi_tpu_torch.gpu.join_compile import (CompiledJoinQuery,
+                                                   join_step_plain)
+    from siddhi_tpu_torch.gpu.state_io import state_to_numpy
+    sh = join_shapes_module()
+    t_phase = time.perf_counter()
+    cases = []
+    for name in sorted(sh.JOINS):
+        cq = sh.compile_port(name, "cuda")
+        state = cq.init_state()
+        wire = sh.wire_for(name)
+        rows = 0
+        for step in range(sh.STEPS):
+            args = cq.batch_tensors(wire.batch(step))
+            ref_state, ref_out = join_step_plain(cq, state, *args)
+            state, out = cq.plan.step_cuda(state, *args)
+            torch.cuda.synchronize()
+            try:
+                sh.compare(state_to_numpy(ref_state), state_to_numpy(state),
+                           sh.out_numpy(state_to_numpy(ref_out)),
+                           sh.out_numpy(state_to_numpy(out)))
+            except AssertionError as e:
+                fail(f"join shape {name} step {step}: kernel differs from "
+                     f"the plain version: {str(e)[:400]}")
+            rows += int(out["count"])
+        cases.append({"join": name, "B": cq.B, "W": cq.W, "J": cq.J,
+                      "rows": rows, "join_drops": int(state["join_drops"]),
+                      "ring_drops": int(state["ring_drops"])})
+
+    def build(text, B, W, J):
+        app = parse(text)
+        return CompiledJoinQuery(app.queries[0], dict(app.stream_definitions),
+                                 B, W, J, device="cuda")
+
+    for text in sh.REFUSED:
+        try:
+            build(sh.REFUSAL_SCHEMA + text, *sh.REFUSAL_CAPS)
+            fail(f"the card accepted a join the reference refuses: {text}")
+        except (DeviceCompileError, TypeError):
+            pass
+    for text, B, W, J in sh.LIMITS:
+        try:
+            build(text, B, W, J)
+            fail(f"the card accepted a join over the kernel's limits: {text}")
+        except DeviceCompileError as e:
+            if not str(e).startswith("join kernel: "):
+                fail(f"a join over the kernel's limits refused as {e}")
+    emit({"phase": "join_shapes", "cases": cases, "refused": len(sh.REFUSED),
+          "limits": len(sh.LIMITS), "max_abs_err": 0.0,
+          "phase_s": time.perf_counter() - t_phase})
+
+
+def join_step_bytes(state, new_state, cols, tag, ts, ts_base, out) -> int:
+    """Bytes one step must move: the columns, tags and ts it reads, the old
+    state it reads and the new state it writes, the J output rows."""
+    def nb(ts_):
+        return sum(t.numel() * t.element_size() for t in ts_)
+    return nb((*cols.values(), tag, ts, ts_base)) + nb(state.values()) + \
+        nb(new_state.values()) + nb((*out["out"].values(), *out["null"].values(),
+                                     out["valid"], out["ts"], out["count"]))
+
+
+def join_step_ops(cq, state, tag, ts, ts_base, nvalid: int, count: int) -> int:
+    """Operations this step's data needs at the least: the condition's
+    program and a window/within compare on every live candidate pair (a
+    probe against the opposite side's entries alive at its time, in the ring
+    and earlier in the batch), and the output programs on every row
+    written. Dead ring slots cost nothing here: the rings are sorted by
+    arrival, so a kernel could skip them by a binary search."""
+    import torch
+    a = cq.plan.args
+    B, W = cq.B, cq.W
+    per_pair = (a.cond.len if a.has_cond else 0) + 2
+    per_row = sum(a.outp[o].len for o in range(a.nout)) + 2
+    t = ts_base + ts.to(torch.int64)
+    valid = torch.arange(B, device=ts.device) < nvalid
+    emits = (bool(a.emit_left), bool(a.emit_right))
+    live = 0
+    for side in (0, 1):
+        if not emits[side]:
+            continue
+        other = 1 - side
+        probes = valid & (tag == side)
+        opp = valid & (tag == other)
+        before = (torch.cumsum(opp.to(torch.int64), 0) - opp.to(torch.int64))[probes]
+        tp = t[probes]
+        ring = state["lr_ts" if other == 0 else "rr_ts"]
+        kind = a.lkind if other == 0 else a.rkind
+        par = a.lparam if other == 0 else a.rparam
+        if kind == 0:           # time: ring and batch entries with ts + D > t
+            n_ring = W - torch.searchsorted(ring, tp - par, right=True)
+            opp_ts = t[opp]
+            n_batch = before - torch.searchsorted(opp_ts, tp - par, right=True)
+        else:                   # length: the N newest arrivals before the probe
+            filled = int((ring > -(2 ** 62)).sum())
+            n_ring = torch.clamp(torch.clamp(par - before, min=0), max=filled)
+            n_batch = torch.clamp(before, max=par)
+        live += int(n_ring.clamp(min=0).sum()) + int(n_batch.clamp(min=0).sum())
+    return live * per_pair + count * per_row
+
+
+def phase_join_main(name: str, seed: int) -> dict:
+    import torch
+    from siddhi_tpu_torch.gpu.join_compile import (DeviceJoinRuntime,
+                                                   join_step_plain)
+    from siddhi_tpu_torch.gpu.join_step import JoinPlan
+    from siddhi_tpu_torch.gpu.state_io import state_to_numpy
+    from siddhi_tpu_torch.tools.join_workloads import (JOIN_MAIN, feed_join,
+                                                       join_events,
+                                                       reference_rows)
+    sh = join_shapes_module()
+    t_phase = time.perf_counter()
+    cfg = dict(JOIN_MAIN[name])
+    app = cfg.pop("app")
+    B = cfg["batch_capacity"]
+    ev = join_events(name, JOIN_EVENTS, seed)
+
+    # warm-up: build, first launches
+    rt = DeviceJoinRuntime(app, device="cuda", **cfg)
+    feed_join(rt, ev, 3 * B)
+    torch.cuda.synchronize()
+
+    def event_pair():
+        return (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+
+    # ---- timed run: the entry points alone; CUDA events around the step
+    # call (the wrapper's host work included) and around the kernels'
+    # launch call alone (``lib.join_step``)
+    rt = DeviceJoinRuntime(app, device="cuda", **cfg)
+    cq = rt.compiler
+    kstep = cq.step_tensors
+    marks, kmarks = [], []
+
+    def timed(*a):
+        e0, e1 = event_pair()
+        e0.record()
+        got = kstep(*a)
+        e1.record()
+        marks.append((e0, e1))
+        return got
+
+    lib = cq.plan._lib()
+
+    class TimedLib:
+        def __getattr__(self, attr):
+            if attr != "join_step":
+                return getattr(lib, attr)
+
+            def call(*a):
+                e0, e1 = event_pair()
+                e0.record()
+                rc = lib.join_step(*a)
+                e1.record()
+                kmarks.append((e0, e1))
+                return rc
+            return call
+
+    timed_lib = TimedLib()
+    cq.plan._lib = lambda: timed_lib
+    cq.step_tensors = timed
+    torch.cuda.synchronize()
+    JoinPlan.launches = 0                     # counts from here: main path
+    t0 = time.perf_counter()
+    rows, per_step = feed_join(rt, ev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = JoinPlan.launches
+    steps = len(marks)
+    if launches != 4 * steps or launches == 0 or len(kmarks) != steps:
+        fail(f"join_main {name}: {launches} join_step launches, "
+             f"{len(kmarks)} kernel calls over {steps} steps")
+    jd, rd = rt.drop_count, rt.ring_drop_count
+    if jd or rd:
+        fail(f"join_main {name}: {jd} join drops, {rd} ring drops")
+    step_ms = [a.elapsed_time(b) for a, b in kmarks]
+    call_ms = [a.elapsed_time(b) for a, b in marks]
+
+    # the first 2 steps' rows against a nested-loop join in numpy
+    want = reference_rows(name, ev, 2 * B)
+    n2 = sum(per_step[:2])
+    if rows[:n2] != want:
+        bad = next((i for i, (x, y) in enumerate(zip(rows[:n2], want))
+                    if x != y), min(n2, len(want)))
+        fail(f"join_main {name}: the first 2 steps give {n2} rows, numpy "
+             f"{len(want)}; first difference at row {bad}")
+
+    # ---- checked run: every step bitwise against the plain version on the
+    # card, from the same state; the bound from each step's own inputs
+    rt = DeviceJoinRuntime(app, device="cuda", **cfg)
+    cq = rt.compiler
+    kstep = cq.step_tensors
+    plain_ms, bytes_, ops = [], [], []
+
+    def checked(state, cols, tag, ts, ts_base, nvalid):
+        e0, e1 = event_pair()
+        e0.record()
+        ref_state, ref_out = join_step_plain(cq, state, cols, tag, ts,
+                                             ts_base, nvalid)
+        e1.record()
+        new, out = kstep(state, cols, tag, ts, ts_base, nvalid)
+        torch.cuda.synchronize()
+        plain_ms.append(e0.elapsed_time(e1))
+        try:
+            sh.compare(state_to_numpy(ref_state), state_to_numpy(new),
+                       sh.out_numpy(state_to_numpy(ref_out)),
+                       sh.out_numpy(state_to_numpy(out)))
+        except AssertionError as e:
+            fail(f"join_main {name} step {len(plain_ms)}: kernel differs "
+                 f"from the plain version: {str(e)[:400]}")
+        bytes_.append(join_step_bytes(state, new, cols, tag, ts, ts_base, out))
+        ops.append(join_step_ops(cq, state, tag, ts, ts_base, nvalid,
+                                 int(out["count"])))
+        return new, out
+
+    cq.step_tensors = checked
+    rows2, _ = feed_join(rt, ev)
+    if rows2 != rows:
+        fail(f"join_main {name}: the checked run's rows differ from the "
+             f"timed run's")
+    b_ms = [b / HBM_BYTES_PER_S * 1e3 for b in bytes_]
+    o_ms = [o / F32_OPS_PER_S * 1e3 for o in ops]
+    out = {
+        "phase": "join_main", "config": name, "kernel": "join_step",
+        "events": JOIN_EVENTS, "steps": steps,
+        "events_per_s": JOIN_EVENTS / wall, "wall_s": wall,
+        "launches": launches, "launches_per_step": launches / steps,
+        "kernel_step_ms_median": float(np.median(step_ms)),
+        "kernel_step_ms_min": float(np.min(step_ms)),
+        "kernel_step_ms_max": float(np.max(step_ms)),
+        "step_call_ms_median": float(np.median(call_ms)),
+        "plain_step_ms_median": float(np.median(plain_ms)),
+        "plain_device": "cuda", "checked_steps": len(plain_ms),
+        "checked": "every step", "bitwise_equal_steps": len(plain_ms),
+        "rows": len(rows), "rows_per_step_median": float(np.median(per_step)),
+        "numpy_rows_checked": n2, "join_drops": jd, "ring_drops": rd,
+        "bytes_per_step_median": float(np.median(bytes_)),
+        "ops_per_step_median": float(np.median(ops)),
+        "bound_ms_bytes": float(np.median(b_ms)),
+        "bound_ms_ops": float(np.median(o_ms)),
+        "max_abs_err": 0.0, "phase_s": time.perf_counter() - t_phase,
+    }
+    emit(out)
+    return out
+
+
+JOIN_EVENTS = 2_000_000           # events per join_main configuration
+
+
+def join_kernel_entry(j_outs: list) -> dict:
+    """The ``kernels`` line's join entry: times and bound of (e), (f)
+    beside it under ``configs``; launches over both main-path runs."""
+    e = j_outs[0]
+    return {
+        "name": "join_step",
+        "route": "cuda",
+        "source": "siddhi_tpu_torch/csrc/join_step.cu",
+        "replaces": "siddhi_tpu/tpu/join_compile.py:224",
+        "also_replaces": ["siddhi_tpu/tpu/join_compile.py:474"],
+        "launches": sum(o["launches"] for o in j_outs),
+        "max_abs_err": 0.0,
+        "ms": e["kernel_step_ms_median"],
+        "plain_ms": e["plain_step_ms_median"],
+        "bound_ms": max(e["bound_ms_bytes"], e["bound_ms_ops"]),
+        "bound_by": "bytes" if e["bound_ms_bytes"] >= e["bound_ms_ops"]
+        else "operations",
+        "library_ms": None,
+        "unit": f"one join_main step of {e['config']}: CUDA events around "
+                f"the kernels' launch call (4 launches)",
+        "step_call_ms": e["step_call_ms_median"],
+        "parity": "exact",
+        "configs": {o["config"]: {k: o[k] for k in (
+            "kernel_step_ms_median", "step_call_ms_median",
+            "plain_step_ms_median", "launches", "checked_steps",
+            "bound_ms_bytes", "bound_ms_ops", "events_per_s", "rows")}
+            for o in j_outs},
+    }
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=42)
@@ -1209,6 +1537,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         fail("no CUDA device (torch.cuda.is_available() is false)")
     sys.path.insert(0, REPO)
+    from siddhi_tpu_torch.tools.join_workloads import JOIN_MAIN
     from siddhi_tpu_torch.tools.query_workloads import QUERY_MAIN
     card = phase_device()
     shape_err = phase_shapes(args.seed)
@@ -1217,6 +1546,8 @@ def main() -> int:
     scan_out = phase_scan_main(args.seed, SCAN_EVENTS)
     query_err = phase_query_shapes()
     q_outs = [phase_query_main(name, args.seed) for name in QUERY_MAIN]
+    phase_join_shapes()
+    j_outs = [phase_join_main(name, args.seed) for name in JOIN_MAIN]
     bound = max(main_out["bound_ms_bytes"], main_out["bound_ms_ops"])
     scan_bound = max(scan_out["bound_ms_bytes"], scan_out["bound_ms_ops"])
     kernels = [{
@@ -1253,7 +1584,7 @@ def main() -> int:
         "unit": "one scan_main step (1 launch, ys zeroed in it)",
         "parity": "exact",
         "checked_steps": scan_out["checked_steps"],
-    }, *query_kernel_entries(q_outs, query_err)]
+    }, *query_kernel_entries(q_outs, query_err), join_kernel_entry(j_outs)]
     print(card, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -16,7 +16,8 @@
 // the reference's NFA steps raise KeyError('__ts__') for it.
 //
 // Also here: block_rank, the block-wide ordered rank (warp ballots + a
-// prefix over warps) that both kernels compact and insert with.
+// prefix over warps) that the kernels compact and insert with, and
+// block_reduce.
 
 #pragma once
 
@@ -267,4 +268,25 @@ __device__ __forceinline__ int block_rank(const unsigned char* flag, int* rank,
     __syncthreads();
   }
   return s_scan[nw];
+}
+
+// Block-wide reduction of one value per thread under op (every thread gets
+// the result; the reduction's order is fixed: within warps, then warps in
+// order). s_buf holds one entry per warp.
+template <typename T, class Op>
+__device__ T block_reduce(T v, Op op, T* s_buf) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = (blockDim.x + 31) >> 5;
+  const int ws = blockDim.x < 32 ? (int)blockDim.x : 32;
+  for (int d = 16; d > 0; d >>= 1) {
+    const T u = __shfl_down_sync(0xffffffffu, v, d);
+    if (lane + d < ws) v = op(v, u);
+  }
+  __syncthreads();
+  if (lane == 0) s_buf[warp] = v;
+  __syncthreads();
+  T tot = s_buf[0];
+  for (int w = 1; w < nw; ++w) tot = op(tot, s_buf[w]);
+  __syncthreads();
+  return tot;
 }

@@ -115,6 +115,7 @@ struct QArgs {
   double* incs1; double* incs2;     // [AS, M]
   long long* mP; long long* mS;     // [AM, M]
   long long* mT;                    // [AM, LV, NB]
+  int* pz;                          // [AF + 2 AS, 3] one-hot poison (grouped)
 };
 
 // ------------------------------------------------------------------ helpers
@@ -164,27 +165,6 @@ __device__ __forceinline__ int bucket_of(const QArgs& a, long long packed) {
 }
 
 __device__ __forceinline__ float f32_of(double v) { return __double2float_rn(v); }
-
-// Block-wide reduction of one value per thread under op (every thread gets
-// the result; the reduction's order is fixed: within warps, then warps in
-// order).
-template <typename T, class Op>
-__device__ T block_reduce(T v, Op op, T* s_buf) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nw = (blockDim.x + 31) >> 5;
-  const int ws = blockDim.x < 32 ? (int)blockDim.x : 32;
-  for (int d = 16; d > 0; d >>= 1) {
-    const T u = __shfl_down_sync(FULL, v, d);
-    if (lane + d < ws) v = op(v, u);
-  }
-  __syncthreads();
-  if (lane == 0) s_buf[warp] = v;
-  __syncthreads();
-  T tot = s_buf[0];
-  for (int w = 1; w < nw; ++w) tot = op(tot, s_buf[w]);
-  __syncthreads();
-  return tot;
-}
 
 // Inclusive segmented scan over s in [0, P) of get(s) under op; a segment
 // starts where head(s) is true (and at s = 0); put(s, v) receives each
@@ -241,6 +221,9 @@ struct AddOp {
 };
 struct MaxI64 {
   __device__ long long operator()(long long x, long long y) const { return x > y ? x : y; }
+};
+struct MinI64 {
+  __device__ long long operator()(long long x, long long y) const { return x < y ? x : y; }
 };
 
 // Block-wide sum of one value per thread (every thread gets the total).

@@ -467,6 +467,40 @@ __global__ void __launch_bounds__(NT) q_prep(QArgs a) {
 }
 
 // ------------------------------------------------------------ 2. q_scan
+
+// The reference's unwindowed grouped sums and stdDev moments are one-hot
+// products, onehot[m, key] * x[m]: a non-finite x[m] makes 0 * x[m] = NaN
+// in every other key's column from position m on (and in its own too where
+// the row is masked off, key -1). (Its windowed grouped sums are not: XLA
+// folds their float one-hot product into a select.)
+// For one lane over positions [0, X) this keeps, in pz[0..2], the first
+// non-finite position m0, its key k0, and the first non-finite position m1
+// of another key (INT_MAX when none): an output at position j of key kb is
+// NaN iff (m0 <= j and k0 != kb) or m1 <= j (poisoned()).
+__device__ __forceinline__ bool finite32(float f) {
+  return (__float_as_uint(f) & 0x7f800000u) != 0x7f800000u;
+}
+
+template <class Get, class Key>
+__device__ void find_poison(int X, Get get, Key key, int* pz, long long* s_buf) {
+  long long m0 = 0x7fffffff;
+  for (int p = threadIdx.x; p < X; p += blockDim.x)
+    if (!finite32(get(p))) { m0 = p; break; }
+  m0 = block_reduce<long long>(m0, MinI64(), s_buf);
+  const int k0 = m0 < X ? key((int)m0) : -1;
+  long long m1 = 0x7fffffff;
+  for (int p = threadIdx.x; p < X; p += blockDim.x)
+    if (!finite32(get(p)) && key(p) != k0) { m1 = p; break; }
+  m1 = block_reduce<long long>(m1, MinI64(), s_buf);
+  if (threadIdx.x == 0) { pz[0] = (int)m0; pz[1] = k0; pz[2] = (int)m1; }
+}
+
+__device__ __forceinline__ bool poisoned(const QArgs& a, int pl, int j, int key) {
+  const int* z = a.pz + 3 * pl;
+  return (z[0] <= j && z[1] != key) || z[2] <= j;
+}
+#define ANY_POS 0x7ffffffe            // poisoned() at any position
+#define F32_NAN __int_as_float(0x7fc00000)
 // Tasks, by blockIdx.x: AF float lanes, AI int lanes, the ones lane, AS
 // stdDev lanes, AM min/max lanes.
 
@@ -484,6 +518,9 @@ __global__ void __launch_bounds__(NT) q_scan(QArgs a) {
         P, AddOp(), [&](int s) { return (double)zf(a, l, zpos(a, s)); }, head,
         [&](int s, double v) { a.incf[(long long)l * M + s] = v; },
         (double*)s_buf, s_flag);
+    if (grp && a.wkind == W_NONE)
+      find_poison(P, [&](int p) { return zf(a, l, p); },
+                  [&](int p) { return zk(a, p); }, a.pz + 3 * l, s_buf);
     return;
   }
   t -= a.AF;
@@ -544,6 +581,19 @@ __global__ void __launch_bounds__(NT) q_scan(QArgs a) {
           P, AddOp(),
           [&](int s) { const float d = dev(s); return (double)__fmul_rn(d, d); },
           head, [&](int s, double v) { o2[s] = v; }, (double*)s_buf, s_flag);
+      if (grp) {
+        // the reference's deviations over all B rows: (x - c) * 0 for the
+        // masked-off ones, whose one-hot row is empty (key -1)
+        const int k = a.misc[0];
+        auto d_at = [&](int p) {
+          const float c = a.ckey[(long long)l * a.K + a.bkey[p]];
+          return __fmul_rn(__fsub_rn(a.bs[(long long)l * a.B + p], c), (float)a.bones[p]);
+        };
+        auto key = [&](int p) { return p < k ? a.bkey[p] : -1; };
+        find_poison(a.B, d_at, key, a.pz + 3 * (a.AF + 2 * l), s_buf);
+        find_poison(a.B, [&](int p) { const float d = d_at(p); return __fmul_rn(d, d); },
+                    key, a.pz + 3 * (a.AF + 2 * l + 1), s_buf);
+      }
     }
     return;
   }
@@ -681,6 +731,7 @@ __device__ void emit_row(const QArgs& a, int b, int k, int P) {
         fnum = __fsub_rn(f32_of(EXd(arr, r_hi)), f32_of(EXd(arr, r_lo)));
         if (carried)
           fnum = __fadd_rn(fnum, a.grouped ? a.f_in[(long long)l * a.K + key] : a.f_in[l]);
+        if (a.grouped && carried && poisoned(a, l, j, key)) fnum = F32_NAN;
       }
       if (kind == S_SUM) {
         v = a.spec_int[i] ? inum : from_f(fnum);
@@ -712,7 +763,9 @@ __device__ void emit_row(const QArgs& a, int b, int k, int P) {
         v = from_f(f32_of(sqrt(var)));
       } else {
         const long long o = a.grouped ? (long long)l * a.K + key : l;
-        const float s1 = f32_of(EXd(c1, r_hi)), s2 = f32_of(EXd(c2, r_hi));
+        float s1 = f32_of(EXd(c1, r_hi)), s2 = f32_of(EXd(c2, r_hi));
+        if (a.grouped && poisoned(a, a.AF + 2 * l, j, key)) s1 = F32_NAN;
+        if (a.grouped && poisoned(a, a.AF + 2 * l + 1, j, key)) s2 = F32_NAN;
         const long long seen = a.grouped ? r_hi : EXi(a.inco, r_hi);
         const float nsc0 = __fadd_rn(a.scnt_in[o], __ll2float_rn(seen));
         const float nsc = nsc0 > 1.0f ? nsc0 : (nsc0 != nsc0 ? nsc0 : 1.0f);
@@ -757,7 +810,8 @@ __device__ void update_carried(const QArgs& a, int q, int k, int P) {
   const int qq = a.grouped ? q : 0;
   for (int l = 0; l < a.AF; ++l) {
     const long long o = (long long)l * X + qq;
-    const float add = c > 0 ? f32_of(a.incf[l * M + s0 + c - 1]) : 0.0f;
+    float add = c > 0 ? f32_of(a.incf[l * M + s0 + c - 1]) : 0.0f;
+    if (a.grouped && poisoned(a, l, ANY_POS, q)) add = F32_NAN;
     kahan(a.f_in[o], a.fc_in[o], add, &a.f_out[o], &a.fc_out[o]);
   }
   for (int l = 0; l < a.AI; ++l) {
@@ -774,8 +828,10 @@ __device__ void update_carried(const QArgs& a, int q, int k, int P) {
   for (int l = 0; l < a.AS; ++l) {
     const long long o = (long long)l * X + qq;
     const float ck = a.ckey[o];
-    const float add1 = c > 0 ? f32_of(a.incs1[l * M + s0 + c - 1]) : 0.0f;
-    const float add2 = c > 0 ? f32_of(a.incs2[l * M + s0 + c - 1]) : 0.0f;
+    float add1 = c > 0 ? f32_of(a.incs1[l * M + s0 + c - 1]) : 0.0f;
+    float add2 = c > 0 ? f32_of(a.incs2[l * M + s0 + c - 1]) : 0.0f;
+    if (a.grouped && poisoned(a, a.AF + 2 * l, ANY_POS, q)) add1 = F32_NAN;
+    if (a.grouped && poisoned(a, a.AF + 2 * l + 1, ANY_POS, q)) add2 = F32_NAN;
     const float n_new = __fadd_rn(a.scnt_in[o], __ll2float_rn(rows));
     const float n1 = n_new > 1.0f ? n_new : 1.0f;
     const float mean_new = __fadd_rn(ck, __fdiv_rn(add1, n1));

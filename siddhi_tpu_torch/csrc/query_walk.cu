@@ -46,8 +46,16 @@
 #define NTW 512
 
 // x <= y for value slots of type ty (a sort key comparison)
-__device__ __forceinline__ bool le_slot(int ty, long long x, long long y) {
-  return ty == T_F32 ? as_f(x) <= as_f(y) : x <= y;
+// A key slot in XLA's total order (the reference's searchsorted): for f32,
+// -0 equals +0 and every NaN sorts after +inf; integers as they are.
+__device__ __forceinline__ long long total_key(int ty, long long v) {
+  if (ty != T_F32) return v;
+  unsigned u = (unsigned)(unsigned long long)v;
+  const float f = __int_as_float((int)u);
+  if (f == 0.0f) u = 0u;
+  else if (f != f) u = 0x7fc00000u;
+  const int i = (int)u;
+  return (long long)(i < 0 ? i ^ 0x7fffffff : i);
 }
 
 // Materialises row b's outputs from its aggregates; returns its validity
@@ -168,13 +176,18 @@ __device__ void walk_sort(const QArgs& a, int k, double* s_d, long long* s_l) {
     // then the insert, stable after equal keys, clamped to the occupied
     // prefix (a key equal to the empty sentinel stays in a non-full buffer;
     // in a full one, pos == N evicts the arrival itself)
+    // jnp.searchsorted(side="right") as the reference runs it: bit_length(N)
+    // halvings of [0, N) in total order, left where the key sorts strictly
+    // before the probed slot (NaN keys leave the buffer out of order, and
+    // the search lands where that search lands)
     const long long key = a.bkeyv[b];
+    const long long tk = total_key(kty, key);
     int lo = 0, hi = N;
-    while (lo < hi) {
+    for (int lv = 32 - __clz(N); lv > 0; --lv) {
       const int mid = (lo + hi) >> 1;
-      if (le_slot(kty, load_typed(a.skeys_out, kty, mid), key)) lo = mid + 1; else hi = mid;
+      if (tk < total_key(kty, load_typed(a.skeys_out, kty, mid))) hi = mid; else lo = mid;
     }
-    const int pos = lo < n ? lo : n;
+    const int pos = hi < n ? hi : n;
     if (pos < N) {
       shift_up(a.skeys_out, kty, 0, pos, N);
       for (int l = 0; l < a.AF; ++l) shift_up(a.f_out, T_F32, (long long)l * N, pos, N);

@@ -129,6 +129,12 @@ def ir_result_type(ir: list) -> int:
     return ir[-1][1]
 
 
+def cast_to(ir: list, ty: int) -> list:
+    """The program with a cast of its result to ``ty`` appended (as is
+    when it already has that type)."""
+    return _cast_ir(ir, ir_result_type(ir), ty)
+
+
 def const_bits(v, ty: int) -> int:
     """A constant as the kernel's 64-bit value slot."""
     if ty == T_BOOL:

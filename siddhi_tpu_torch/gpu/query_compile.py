@@ -52,6 +52,7 @@ from ..query_api import (
     AttributeFunction,
     Constant,
     Filter,
+    Minus,
     OutputAttribute,
     Query,
     SingleInputStream,
@@ -85,6 +86,15 @@ REMAINDER = ("lengthBatch", "timeBatch", "session", "delay")
 TAILED = SLIDING + ("lengthBatch", "timeBatch", "session", "hopping")
 # windows walked event by event over a carried table
 WALKED = ("sort", "frequent", "lossyFrequent")
+
+
+def _scalar_type(e) -> Optional[str]:
+    """The Python type a bare (or negated) constant's closure returns, which
+    the reference's step cannot take (it reads ``.dtype``/``.astype`` of
+    it); None for any other expression."""
+    while isinstance(e, Minus):
+        e = e.expr
+    return type(e.value).__name__ if isinstance(e, Constant) else None
 
 
 @dataclass
@@ -201,11 +211,14 @@ class CompiledStreamQuery:
         if sel.select_all or not attrs:
             attrs = [OutputAttribute(None, Variable(attribute=n))
                      for n in definition.attribute_names]
+        const_value, const_arg = [], []
         for oa in attrs:
             e = oa.expr
             if isinstance(e, AttributeFunction) and e.namespace is None \
                     and e.name in ("sum", "count", "avg", "min", "max",
                                    "distinctCount", "stdDev"):
+                if e.args and _scalar_type(e.args[0]):
+                    const_arg.append(_scalar_type(e.args[0]))
                 if e.name == "distinctCount":
                     raise DeviceCompileError(
                         "aggregator 'distinctCount' needs the host path")
@@ -233,6 +246,8 @@ class CompiledStreamQuery:
                                         e.name in ("sum", "avg"), ir=arg_ir))
             else:
                 fn, t, ir = compile_expression(e, resolver)
+                if _scalar_type(e):
+                    const_value.append(_scalar_type(e))
                 src = e.attribute if isinstance(e, Variable) and t == DataType.STRING \
                     else None
                 self.specs.append(_Spec(oa.name, "value", fn, t, src, ir=ir))
@@ -273,6 +288,15 @@ class CompiledStreamQuery:
             hres = _OutputResolver(self.specs, self.schema)
             self.having_fn, _, self.having_ir = compile_expression(
                 query.selector.having, hres)
+
+        # a constant projection or aggregate argument: the reference's step
+        # fails on the Python scalar (projections first); so does the port's,
+        # on every device
+        self.step_error: Optional[str] = None
+        if const_value or const_arg:
+            attr = "dtype" if const_value else "astype"
+            self.step_error = f"'{(const_value or const_arg)[0]}' object " \
+                f"has no attribute '{attr}'"
 
         from .query_step import make_plan
         self.plan = make_plan(self)       # kernel limits refuse here
@@ -741,6 +765,8 @@ def stream_step_plain(q: CompiledStreamQuery, state: dict, cols: dict,
     "count": int32}`` over the window's output axis (``O`` = B, or N + B for
     the tumbling windows; see the module docstring). The input state is not
     modified."""
+    if q.step_error is not None:
+        raise AttributeError(q.step_error)
     B = q.B
     dev = ts.device
     specs = q.specs
@@ -1181,12 +1207,39 @@ def _sum32(x: torch.Tensor, extra) -> torch.Tensor:
     return (x.double().sum(-1) + extra.double()).float()
 
 
+def _total_order(x: torch.Tensor) -> torch.Tensor:
+    """int64 keys in XLA's total order of ``x``: for floats -0 equals +0 and
+    every NaN sorts after +inf (the order of the reference's
+    ``searchsorted``); integers keep their values."""
+    if not x.is_floating_point():
+        return x.to(torch.int64)
+    bits = torch.where(x == 0, torch.zeros_like(x), x).view(torch.int32)
+    bits = torch.where(torch.isnan(x), 0x7FC00000, bits).to(torch.int64)
+    return torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
+
+
+def _search_right(keys: list, key: int) -> int:
+    """``jnp.searchsorted(keys, key, side="right")`` as the reference runs it
+    (total-order keys): ``bit_length(N)`` halvings of ``[0, N)``, going left
+    where ``key`` sorts strictly before the probed slot. On a buffer that NaN
+    keys leave out of order it lands where that search lands."""
+    lo, hi = 0, len(keys)
+    for _ in range(len(keys).bit_length()):
+        mid = (lo + hi) // 2
+        if key < keys[mid]:
+            hi = mid
+        else:
+            lo = mid
+    return hi
+
+
 def _sort_walk(q, state, k, skey, av_f, av_i, av_s, av_m, m_ismin, m_ident):
     """``sort(N, key[, order])``: a carried buffer of the N best keys, kept
     sorted, with aligned aggregate lanes, walked event by event. Each event
     first emits the aggregates over the buffer plus itself (the row still
     includes the value about to be evicted), then, if accepted, inserts at
-    ``min(searchsorted(keys, key, right), n)`` (stable after equal keys)
+    ``min(searchsorted(keys, key, right), n)`` (stable after equal keys;
+    ``_search_right``)
     and slot N - 1 falls off. Events past the accepted count emit over the
     buffer plus their fill values."""
     B, N = q.B, max(q.window_n, 1)
@@ -1229,9 +1282,10 @@ def _sort_walk(q, state, k, skey, av_f, av_i, av_s, av_m, m_ismin, m_ident):
             row[..., pos + 1:] = row[..., pos:N - 1].clone()
             row[..., pos] = v
 
+    korder = _total_order(skey).tolist()
     for b in range(k):
         emit(b)
-        pos = min(int(torch.searchsorted(keys, skey[b:b + 1], right=True)), n)
+        pos = min(_search_right(_total_order(keys).tolist(), korder[b]), n)
         insert(keys, pos, skey[b])
         insert(lanes["f"], pos, av_f[:, b])
         insert(lanes["i"], pos, av_i[:, b])
@@ -1378,16 +1432,21 @@ def _heavy_hitters(q, state, k, kcode, av_f, av_i):
 def _keyed_range_sums(z, zk, K, lo, j, keys_b):
     """Per-key sums of z [A, M] over inclusive ranges [lo, j]: one-hot
     [M, K] prefix grid per lane; output b reads its own bucket column at
-    both range bounds."""
+    both range bounds. The grid selects rather than multiplies: XLA folds
+    the reference's ``one_hot(zk) * z`` into a select, so a non-finite
+    value stays in its own key's sums (the unwindowed ``_grouped``'s
+    products do not fold, and poison every key)."""
     A = z.shape[0]
     if not A:
         return torch.zeros((0, j.shape[0]), dtype=z.dtype, device=z.device)
-    oh = F.one_hot(zk.long(), K).to(z.dtype)                  # [M, K]
+    oh = F.one_hot(zk.long(), K).bool()                       # [M, K]
     kb = keys_b.long()
     zero = torch.zeros((1, K), dtype=z.dtype, device=z.device)
     outs = []
     for a in range(A):
-        cs = torch.cat([zero, _cumsum(oh * z[a][:, None], 0).to(z.dtype)])
+        grid = torch.where(oh, z[a][:, None], torch.zeros((), dtype=z.dtype,
+                                                          device=z.device))
+        cs = torch.cat([zero, _cumsum(grid, 0).to(z.dtype)])
         outs.append(cs[j + 1, kb] - cs[lo, kb])
     return torch.stack(outs)
 

@@ -29,8 +29,8 @@ import torch
 
 from .dtypes import TORCH
 from .backend import reduce_identity
-from .expr_compile import (OP, TY_OF, DeviceCompileError, const_bits,
-                           ir_result_type, link_ir)
+from .expr_compile import (OP, TY_OF, DeviceCompileError, cast_to,
+                           const_bits, link_ir)
 from .query_compile import REMAINDER, TAILED, WALKED, CompiledStreamQuery
 
 QMAXCOL, QMAXSPEC, QMAXLANE, QMAXFILT, QMAXGK = 32, 32, 16, 8, 8
@@ -60,7 +60,8 @@ _STATE3 = ("rc", "rts", "base", "skeys", "hkeys", "hcnt", "hdelta", "runf",
 _SCRATCH = ("misc", "mask", "rank", "bf", "bi", "bs", "bm", "bones",
             "bpacked", "bkey", "bwts", "bkeyv", "bv", "lo", "hi", "oflag",
             "zt", "zseg", "firstidx", "cnt", "seg", "run", "ckey", "sorted",
-            "head", "incf", "inci", "inco", "incs1", "incs2", "mP", "mS", "mT")
+            "head", "incf", "inci", "inco", "incs1", "incs2", "mP", "mS", "mT",
+            "pz")
 
 
 def _ptrs(names, suffix):
@@ -115,11 +116,6 @@ def link_query_program(ir: list, slot: dict, ts_slot: int | None,
         return (OP["BIND"] if bind else OP["EV"]), slot[a]
 
     return link_ir(ir, operand)
-
-
-def _cast(ir: list, ty: int) -> list:
-    got = ir_result_type(ir)
-    return ir if got == ty else ir + [(OP["CAST"], ty, got, 0)]
 
 
 def _var_ir(name: str, t) -> list:
@@ -177,7 +173,7 @@ class QueryPlan:
 
         def add(ir, ty=None, env=slot, tss=ts_slot, bind=False):
             if ty is not None:
-                ir = _cast(ir, ty)
+                ir = cast_to(ir, ty)
             try:
                 prog = link_query_program(ir, env, tss, bind)
             except KeyError as e:
@@ -251,7 +247,7 @@ class QueryPlan:
         if q.having_ir is not None:
             a.has_having = 1
             out_slot = {s.name: i for i, s in enumerate(specs)}
-            a.having = add(_cast(q.having_ir, T_BOOL), env=out_slot, tss=None,
+            a.having = add(cast_to(q.having_ir, T_BOOL), env=out_slot, tss=None,
                            bind=True)
         self.code_host = np.concatenate(code) if code else \
             np.zeros((1, 4), np.int32)
@@ -311,6 +307,8 @@ class QueryPlan:
         if ts.device.type != "cuda":
             raise ValueError("step_cuda takes CUDA tensors")
         self._check(state, cols, ts, valid)
+        if self.q.step_error is not None:
+            raise AttributeError(self.q.step_error)
         if self.link_error is not None:
             raise self.link_error
         return self.launch(self._lib(), state, cols, ts, valid,
@@ -460,6 +458,7 @@ class QueryPlan:
             "inco": e(M, i64), "incs1": e(a.AS * M, f64),
             "incs2": e(a.AS * M, f64), "mP": e(a.AM * M, i64),
             "mS": e(a.AM * M, i64), "mT": e(a.AM * a.LV * a.NB, i64),
+            "pz": e(3 * (a.AF + 2 * a.AS), i32),
         }
 
 

@@ -14,7 +14,12 @@ Both packages keep the same state tree, leaf names and dtypes:
   (``key_*``) and running aggregates (``run_*``), as ``init_state`` lists
   them (``query_state_from_numpy`` checks a tree against that list, 0-d
   leaves included, so a JAX runtime stopped mid-stream resumes in the port
-  for every window).
+  for every window);
+- stream-stream join (``CompiledJoinQuery``): the two rings' timestamps
+  (``lr_ts``/``rr_ts``, int64, ``-2**62`` where empty) and referenced
+  attributes (``lr_<attr>``/``rr_<attr>``), and the 0-d int64 counters
+  ``join_drops`` and ``ring_drops`` (``join_state_from_numpy`` checks a tree
+  against ``init_state``'s leaf list the same way).
 
 The reference's partitioned runtimes stack lanes in front (``[P, C]``, ``[P]``)
 as the port does; its single-lane ``DeviceNFARuntime`` keeps ``[C]`` leaves
@@ -55,7 +60,18 @@ def query_state_from_numpy(q, tree: dict, device) -> dict:
     """A single-stream query state with numpy leaves (the JAX package's
     ``jax.device_get(rt.state)``) → the port's tensors on ``device``. Every
     leaf of ``q.init_state`` must be present with its dtype and shape."""
-    proto = q.init_state(device="cpu")
+    return _checked_from_numpy(q.init_state(device="cpu"), tree, device)
+
+
+def join_state_from_numpy(cq, tree: dict, device) -> dict:
+    """A join state with numpy leaves (the JAX package's
+    ``jax.device_get(rt.state)`` of a ``DeviceJoinRuntime``) → the port's
+    tensors on ``device``. Every leaf of ``cq.init_state``, the 0-d counters
+    included, must be present with its dtype and shape."""
+    return _checked_from_numpy(cq.init_state(device="cpu"), tree, device)
+
+
+def _checked_from_numpy(proto: dict, tree: dict, device) -> dict:
     if set(tree) != set(proto):
         raise ValueError(f"state leaves differ: {sorted(set(tree) ^ set(proto))}")
     out = state_from_numpy(tree, device)

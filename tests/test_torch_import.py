@@ -36,6 +36,8 @@ def test_import_loads_neither_jax_nor_the_reference():
         "import siddhi_tpu_torch\n"
         "import siddhi_tpu_torch.gpu.partition, siddhi_tpu_torch.gpu.state_io\n"
         "import siddhi_tpu_torch.gpu._build\n"
+        "import siddhi_tpu_torch.gpu.join_compile, siddhi_tpu_torch.gpu.join_step\n"
+        "import siddhi_tpu_torch.tools.join_workloads\n"
         "print('\\n'.join(sorted(sys.modules)))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                          capture_output=True, text=True).stdout.split()

@@ -39,6 +39,7 @@ from test_torch_query_shapes import (
     QUERIES,
     REFUSED,
     STAGED,
+    STEP_RAISES,
     STEPS,
     Scale,
     Wire,
@@ -46,6 +47,8 @@ from test_torch_query_shapes import (
     compare,
     compile_port,
     next_scale,
+    refusal_wire,
+    wire_for,
 )
 from test_torch_query_shapes import REFUSAL_SCHEMA as S
 
@@ -66,7 +69,7 @@ def _out_numpy(out) -> dict:
 def test_step_matches_reference(name, B):
     jq, tq = _jax_query(name, B), compile_port(name, B, "cpu")
     jstate, tstate = jq.init_state(), tq.init_state()
-    wire, fed = Wire(7, B), Scale()
+    wire, fed = wire_for(name, B), Scale()
     for step in range(STEPS):
         batch = wire.batch(step)
         jstate, jout = jq.step(jstate, batch)
@@ -94,6 +97,17 @@ def test_refuses_what_the_reference_refuses(text):
         _build("jax", text)
     with pytest.raises(TError) as te:
         _build("torch", text)
+    assert str(te.value) == str(je.value)
+
+
+@pytest.mark.parametrize("text", STEP_RAISES)
+def test_constant_projection_raises_at_the_step_as_in_the_reference(text):
+    jq, tq = _build("jax", text), _build("torch", text)
+    batch = refusal_wire(8)
+    with pytest.raises(AttributeError) as je:
+        jq.step(jq.init_state(), batch)
+    with pytest.raises(AttributeError) as te:
+        tq.step(tq.init_state(), batch)
     assert str(te.value) == str(je.value)
 
 

@@ -156,6 +156,21 @@ from S#window.length(5) select sym, sum(price) as t having t > 150.0
 insert into O;""", {}),
     "length_values": ("""
 from S#window.length(3) select sym, price insert into O;""", {}),
+    # inf, -inf and NaN prices (WIRE_NONFINITE): the reference's one-hot
+    # grouped sums turn them into NaN in every other key's sum
+    "grouped_nonfinite": ("""
+from S
+select sym, sum(price) as t, avg(price) as a, count() as c, max(price) as hi,
+       stdDev(price) as sd, sum(vol) as v group by sym insert into O;""",
+                          {"group_capacity": 8}),
+    "length_grouped_nonfinite": ("""
+from S#window.length(10)
+select sym, sum(price) as t, avg(price) as a, count() as c group by sym
+insert into O;""", {"group_capacity": 8}),
+    "time_grouped_nonfinite": ("""
+from S[vol > 50]#window.time(40)
+select sym, sum(price) as t, count() as c group by sym insert into O;""",
+                               {"group_capacity": 8, "window_capacity": 32}),
 }
 
 # the tumbling and scan-walked windows (their JAX parity cases are
@@ -216,6 +231,13 @@ insert into O;""", {}),
     "sort_long_sentinel": ("""
 from S[price > 10.0]#window.sort(3, vol)
 select vol, count() as c, sum(price) as t having c > 1 insert into O;""", {}),
+    "sort_nan": ("""
+from S#window.sort(40, price)
+select sym, price, sum(vol) as v, count() as c, max(n) as mx insert into O;""",
+                 {}),
+    "sort_nan_desc": ("""
+from S#window.sort(30, price, 'desc')
+select price, sum(price) as t, count() as c insert into O;""", {}),
     "frequent": ("""
 from S#window.frequent(3, sym)
 select sym, sum(price) as t, sum(vol) as v, count() as c, avg(price) as a
@@ -265,6 +287,10 @@ QUERIES.update(CARD_QUERIES)
 # wire options per query: int extremes (the integer minimum and maximum in
 # the int/long columns) for the sort keys' sentinel and negation edges
 WIRE_EXTREMES = ("sort_desc_int", "sort_long_sentinel")
+# and non-finite prices (inf, -inf, NaN)
+WIRE_NONFINITE = ("grouped_nonfinite", "length_grouped_nonfinite",
+                  "time_grouped_nonfinite", "sort_nan", "sort_nan_desc")
+
 
 # queries the reference refuses (the port must refuse them with the same
 # message), one small query per tumbling and walked window, and queries of
@@ -298,6 +324,14 @@ REFUSED = [
     "from S#window.delay(10) select sum(w) as s insert into O;",
     "from S#window.lengthBatch(4) select sym, sum(w) as s group by sym insert into O;",
     "from S#window.frequent(3, sym) select min(v) as m insert into O;",
+]
+# queries both packages compile whose every step raises AttributeError: a
+# bare constant projection or aggregate argument is a Python scalar there
+STEP_RAISES = [
+    "from S select sym, 1 as one insert into O;",
+    "from S#window.length(4) select -1 as m, sum(w) as s insert into O;",
+    "from S select sym, sum(2.0) as t, count() as c insert into O;",
+    "from S#window.sort(3, v) select true as t insert into O;",
 ]
 # one small query per window of this slice: both packages compile it
 STAGED = {
@@ -358,11 +392,13 @@ class Wire:
     """Seeded wire batches (``BatchBuilder.emit()`` layout) with stale
     values past each batch's count."""
 
-    def __init__(self, seed: int, B: int, extremes: bool = False):
+    def __init__(self, seed: int, B: int, extremes: bool = False,
+                 nonfinite: bool = False):
         self.rng = np.random.default_rng(seed)
         self.B = B
         self.ts = 1000
         self.extremes = extremes
+        self.nonfinite = nonfinite
 
     def batch(self, step: int) -> dict:
         rng, B = self.rng, self.B
@@ -383,6 +419,12 @@ class Wire:
                 pick = rng.random(B)
                 cols[k][pick < 0.15] = info.min
                 cols[k][pick > 0.9] = info.max
+        if self.nonfinite:
+            pick = rng.random(B)
+            price = cols["price"]
+            price[pick < 0.1] = np.inf
+            price[(pick >= 0.1) & (pick < 0.18)] = np.nan
+            price[(pick >= 0.18) & (pick < 0.2)] = -np.inf
         valid = np.zeros(B, bool)
         valid[:count] = True
         return {"cols": cols, "ts": ts.astype(np.int64), "valid": valid,
@@ -391,7 +433,8 @@ class Wire:
 
 def wire_for(name: str, B: int) -> Wire:
     """The seeded wire of query ``name`` at batch capacity B."""
-    return Wire(7, B, extremes=name in WIRE_EXTREMES)
+    return Wire(7, B, extremes=name in WIRE_EXTREMES,
+                nonfinite=name in WIRE_NONFINITE)
 
 
 @dataclass
@@ -419,8 +462,13 @@ def batch_scale(q, cols, ts, valid) -> Scale:
     env = {**cols, "__ts__": ts, "__device__": ts.device}
 
     def args(idx):
-        return [torch.broadcast_to(as_tensor(q.specs[i].fn(env), env),
-                                   valid.shape)[valid].double() for i in idx]
+        # non-finite values are compared exactly, never scaled
+        out = []
+        for i in idx:
+            x = torch.broadcast_to(as_tensor(q.specs[i].fn(env), env),
+                                   valid.shape)[valid].double()
+            out.append(x[torch.isfinite(x)])
+        return out
 
     f, s = args(q.fagg_idx), args(q.sagg_idx)
     return Scale(np.array([float(x.abs().sum()) for x in f]),
@@ -437,7 +485,9 @@ def carried_scale(q, state) -> Scale:
     def lanes(name, A, fn=torch.abs):
         if name not in state or not A:
             return np.zeros(A)
-        return fn(state[name].double()).reshape(A, -1).sum(1).cpu().numpy()
+        x = state[name].double()
+        x = torch.where(torch.isfinite(x), x, torch.zeros_like(x))
+        return fn(x).reshape(A, -1).sum(1).cpu().numpy()
 
     def sq(x):
         return x * x
@@ -452,6 +502,7 @@ def carried_scale(q, state) -> Scale:
     for pre in ("key", "run"):
         if f"{pre}_smean" in state and AS:
             m = state[f"{pre}_smean"].double()
+            m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
             n = state[f"{pre}_scnt"].double() + q.B
             sc.s2 = sc.s2 + 4.0 * (n * m * m).reshape(AS, -1).sum(1).cpu().numpy()
     return sc
@@ -514,8 +565,13 @@ def check_close(tag, ref, got, kind, sc: Scale, counts=None):
         assert same.all(), (tag, np.flatnonzero(~same)[:8], ref, got)
         return 0.0, 0.0
     r64, g64 = ref.astype(np.float64), got.astype(np.float64)
-    err = np.abs(r64 - g64)
-    err = np.where(np.isnan(r64) & np.isnan(g64), 0.0, err)
+    # a non-finite value on either side is compared exactly (NaN equals NaN)
+    odd = ~np.isfinite(r64) | ~np.isfinite(g64)
+    same = (r64 == g64) | (np.isnan(r64) & np.isnan(g64))
+    assert not (odd & ~same).any(), (tag, np.flatnonzero(odd & ~same)[:8],
+                                     ref[odd & ~same][:8], got[odd & ~same][:8])
+    with np.errstate(invalid="ignore"):
+        err = np.where(odd, 0.0, np.abs(r64 - g64))
     if kind == "fsum":
         tol = 2.0 ** -20 * (1.0 + sc.top("s1"))
     elif kind == "favg":
@@ -582,6 +638,31 @@ def test_every_query_takes_the_query_kernel(name):
     assert q.plan.link_error is None
     walked = q.window_kind in ("sort", "frequent", "lossyFrequent")
     assert q.plan.LIB == ("query_walk" if walked else "query_step")
+
+
+def refusal_wire(B: int) -> dict:
+    """One seeded batch over ``REFUSAL_SCHEMA``."""
+    rng = np.random.default_rng(5)
+    cols = {"sym": rng.integers(1, 4, B).astype(np.int32),
+            "v": rng.uniform(0, 10, B).astype(np.float32),
+            "w": rng.integers(0, 9, B).astype(np.int64),
+            "k": rng.integers(0, 9, B).astype(np.int64),
+            "n": rng.integers(0, 9, B).astype(np.int32),
+            "ets": np.arange(B, dtype=np.int64) + 1000}
+    return {"cols": cols, "ts": np.arange(B, dtype=np.int64) + 1000,
+            "valid": np.ones(B, bool), "count": B}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("text", STEP_RAISES)
+def test_kernel_step_raises_on_a_constant_projection(text):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    app = parse(REFUSAL_SCHEMA + text)
+    q = CompiledStreamQuery(app.queries[0], app.stream_definitions["S"], 8,
+                            device="cuda")
+    with pytest.raises(AttributeError):
+        q.step(q.init_state(), refusal_wire(8))
 
 
 @pytest.mark.cuda

@@ -95,6 +95,33 @@ Phases, one JSON line each:
                position, count, drops) bitwise against the plain version on
                the card; the first 2 steps' rows are held to a direct
                nested-loop join in numpy; 0 join and ring drops.
+ 10. agg_shapes — the incremental-aggregation kernel
+               (``csrc/aggregation_step.cu``) against its plain PyTorch
+               version on the card: every shape of
+               ``tests/test_torch_agg_shapes.py`` (each duration, months and
+               years across the calendar, no group-by, string, int + string
+               and LONG keys, filters, every aggregator over INT, LONG,
+               FLOAT, DOUBLE and a computed argument, value projections,
+               eventTimestamp(), aggregate by an attribute, NaN and ±inf, a
+               run of B events, stale padding), 5 steps each, every key and
+               [D, B] position bitwise; the reference's refusals and the
+               kernel's limits refuse on the card.
+ 11. agg_main — two configurations at full width through
+               ``AggregationRuntime``, 2,000,000 events each, B = 4096,
+               defined in ``siddhi_tpu_torch/tools/agg_workloads.py``: (g)
+               the Query Guide's trade rollup (1,000 Zipf(1.1) symbols, avg
+               and sum every sec ... year, 1 % late trades) and (h) a
+               filtered sensor rollup (64 rooms x 16 devices, min, max, avg,
+               stdDev and count every sec ... hour). A timed run stages
+               through ``append_columns`` + ``_flush_device`` and gives
+               events/s and, by CUDA events, the kernel's time per step
+               (around ``lib.aggregation_step``) and the step call's; a
+               checked run feeds every event through ``receive`` and holds
+               every step bitwise against the plain version on the card;
+               the final ``rows_for`` of every duration is held to a numpy
+               group-by of the 2,000,000 events (counts exact, min/max
+               exact against the f32 wire, the float lanes within the
+               reference test's rel 1e-4).
 Then the card's name and power limit (nvidia-smi), the ``kernels`` line and,
 last, ``{"ok": true, "device": {...}}``. Any failure exits non-zero before
 that line. Needs one CUDA card; fails without one.
@@ -1528,6 +1555,271 @@ def join_kernel_entry(j_outs: list) -> dict:
     }
 
 
+# ------------------------------------------------------------ aggregation
+
+def agg_shapes_module():
+    """``tests/test_torch_agg_shapes.py``: the aggregation shapes, wire,
+    refusals and exact comparison of the CPU tests (it imports the port
+    only)."""
+    import importlib.util
+    path = os.path.join(REPO, "tests", "test_torch_agg_shapes.py")
+    spec = importlib.util.spec_from_file_location("test_torch_agg_shapes",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_agg_shapes() -> None:
+    import torch
+    from siddhi_tpu_torch.compiler import parse
+    from siddhi_tpu_torch.gpu.aggregation_compile import (
+        CompiledAggregation, aggregation_step_plain)
+    from siddhi_tpu_torch.gpu.expr_compile import DeviceCompileError
+    sh = agg_shapes_module()
+    t_phase = time.perf_counter()
+    cases = []
+    for name in sorted(sh.AGGS):
+        ca = sh.compile_port(name, "cuda")
+        wire = sh.wire_for(name)
+        runs = 0
+        for step in range(sh.STEPS):
+            args = sh.step_inputs(ca, wire.batch(step))
+            ref = aggregation_step_plain(ca, *args)
+            got, _ = ca.plan.step_cuda(*args)
+            torch.cuda.synchronize()
+            same, _, bad = compare(ref, got)
+            if not same:
+                fail(f"aggregation shape {name} step {step}: kernel differs "
+                     f"from the plain version at {bad}")
+            runs += int(got["n_runs"].sum())
+        cases.append({"agg": name, "B": ca.B, "D": ca.D, "partial_rows": runs})
+
+    def build(text, B):
+        d, sdef = sh.definition(parse, text)
+        return CompiledAggregation(d, sdef, B, device="cuda")
+
+    for text in sh.REFUSED:
+        try:
+            build(sh.SCHEMA + "define aggregation A " + text, sh.REFUSAL_B)
+            fail(f"the card accepted a definition the reference refuses: {text}")
+        except DeviceCompileError:
+            pass
+    for text, B in sh.LIMITS:
+        try:
+            build(text, B)
+            fail(f"the card accepted a definition over the kernel's limits: "
+                 f"{text[:80]}")
+        except DeviceCompileError as e:
+            if not str(e).startswith("aggregation kernel: "):
+                fail(f"a definition over the kernel's limits refused as {e}")
+    emit({"phase": "agg_shapes", "cases": cases, "refused": len(sh.REFUSED),
+          "limits": len(sh.LIMITS), "max_abs_err": 0.0,
+          "phase_s": time.perf_counter() - t_phase})
+
+
+AGG_EVENTS = 2_000_000            # events per agg_main configuration
+
+
+def agg_step_bytes(ca, cols, ts, buckets, valid) -> int:
+    """Bytes one step must move: the columns it reads, the clock where a
+    program reads it, the valid mask and the [D, B] slab once, and every
+    output lane once."""
+    nb = sum(t.numel() * t.element_size() for t in (*cols.values(), buckets,
+                                                    valid))
+    if ca.plan.ts_slot is not None:
+        nb += ts.numel() * ts.element_size()
+    return nb + ca.plan.out_bytes
+
+
+def agg_step_ops(ca, n_accepted: int) -> int:
+    """Operations this step's data needs at the least: a comparison sort of
+    the B events per duration (B * ceil(log2 B) compares), one combine per
+    accepted event, duration and accumulating lane (three for a stdDev lane:
+    add, square, add), and the filter and argument programs once per
+    event."""
+    import math
+    from siddhi_tpu_torch.gpu.aggregation_step import LANE
+    a = ca.plan.args
+    B, D = ca.B, ca.D
+    combines = {LANE["int"]: 1, LANE["f64"]: 1, LANE["f64sq"]: 3,
+                LANE["min"]: 1, LANE["max"]: 1}
+    lanes = sum(combines.get(a.lane[k], 0) for k in range(a.S))
+    progs = (a.filt.len if a.has_filter else 0) + \
+        sum(a.prog[k].len for k in range(a.S))
+    return D * B * max(1, math.ceil(math.log2(B))) + \
+        D * n_accepted * lanes + B * progs
+
+
+def phase_agg_main(name: str, seed: int) -> dict:
+    import torch
+    from siddhi_tpu_torch.gpu.aggregation_compile import aggregation_step_plain
+    from siddhi_tpu_torch.gpu.aggregation_step import AggPlan
+    from siddhi_tpu_torch.tools import agg_workloads as aw
+    t_phase = time.perf_counter()
+    ev = aw.agg_events(name, AGG_EVENTS, seed)
+    want = aw.numpy_rollup(name, ev)
+
+    def all_rows(rt):
+        return {d.value: rt.rows_for(d) for d in rt.definition.durations}
+
+    # warm-up: build, first launches
+    rt = aw.build_runtime(name, device="cuda")
+    aw.feed_columns(rt, ev, 3 * aw.BATCH)
+    all_rows(rt)
+    torch.cuda.synchronize()
+
+    def event_pair():
+        return (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+
+    # ---- timed run: bulk staging (append_columns + _flush_device) and the
+    # final reads; CUDA events around the step call (copies both ways and
+    # the wrapper's host work included) and around the kernels' launch call
+    # alone (``lib.aggregation_step``)
+    rt = aw.build_runtime(name, device="cuda")
+    ca = rt._dev
+    kstep = ca.step
+    marks, kmarks = [], []
+
+    def timed(*a):
+        e0, e1 = event_pair()
+        e0.record()
+        got = kstep(*a)
+        e1.record()
+        marks.append((e0, e1))
+        return got
+
+    lib = ca.plan._lib()
+
+    class TimedLib:
+        def __getattr__(self, attr):
+            if attr != "aggregation_step":
+                return getattr(lib, attr)
+
+            def call(*a):
+                e0, e1 = event_pair()
+                e0.record()
+                rc = lib.aggregation_step(*a)
+                e1.record()
+                kmarks.append((e0, e1))
+                return rc
+            return call
+
+    timed_lib = TimedLib()
+    ca.plan._lib = lambda: timed_lib
+    ca.step = timed
+    torch.cuda.synchronize()
+    AggPlan.launches = 0                      # counts from here: main path
+    t0 = time.perf_counter()
+    aw.feed_columns(rt, ev)
+    rows = all_rows(rt)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = AggPlan.launches
+    steps = len(marks)
+    if launches != 4 * steps or launches == 0 or len(kmarks) != steps:
+        fail(f"agg_main {name}: {launches} aggregation_step launches, "
+             f"{len(kmarks)} kernel calls over {steps} steps")
+    step_ms = [a.elapsed_time(b) for a, b in kmarks]
+    call_ms = [a.elapsed_time(b) for a, b in marks]
+
+    # ---- checked run: every event through receive(); every step bitwise
+    # against the plain version on the card, from the same tensors; the
+    # bound from each step's own inputs
+    rt2 = aw.build_runtime(name, device="cuda")
+    ca2 = rt2._dev
+    plain_ms, bytes_, ops, partial = [], [], [], []
+
+    def checked(cols, ts, buckets, valid):
+        args = ca2.tensors(cols, ts, buckets, valid)
+        e0, e1 = event_pair()
+        e0.record()
+        ref = aggregation_step_plain(ca2, *args)
+        e1.record()
+        out, buf = ca2.plan.step_cuda(*args)
+        torch.cuda.synchronize()
+        plain_ms.append(e0.elapsed_time(e1))
+        same, _, bad = compare(ref, out)
+        if not same:
+            fail(f"agg_main {name} step {len(plain_ms)}: kernel differs from "
+                 f"the plain version at {bad}")
+        bytes_.append(agg_step_bytes(ca2, *args))
+        ops.append(agg_step_ops(ca2, int(out["count"][0].sum())))
+        partial.append(int(out["n_runs"].sum()))
+        return ca2.plan.unpack(buf.cpu().numpy())
+
+    ca2.step = checked
+    t1 = time.perf_counter()
+    aw.feed_events(rt2, ev)
+    rows2 = all_rows(rt2)
+    wall2 = time.perf_counter() - t1
+    for d in rows:
+        if sorted(rows2[d]) != sorted(rows[d]):
+            fail(f"agg_main {name}: {d} rows of the receive() run differ from "
+                 f"the bulk-staged run's")
+    try:
+        counts = aw.check_rows(name, rt2, want)
+    except AssertionError as e:
+        fail(f"agg_main {name}: rows differ from the numpy group-by: "
+             f"{str(e)[:400]}")
+    b_ms = [b / HBM_BYTES_PER_S * 1e3 for b in bytes_]
+    o_ms = [o / F32_OPS_PER_S * 1e3 for o in ops]
+    out = {
+        "phase": "agg_main", "config": name, "kernel": "aggregation_step",
+        "events": AGG_EVENTS, "steps": steps, "D": ca.D, "B": ca.B,
+        "events_per_s": AGG_EVENTS / wall, "wall_s": wall,
+        "receive_events_per_s": AGG_EVENTS / wall2,
+        "launches": launches, "launches_per_step": launches / steps,
+        "kernel_step_ms_median": float(np.median(step_ms)),
+        "kernel_step_ms_min": float(np.min(step_ms)),
+        "kernel_step_ms_max": float(np.max(step_ms)),
+        "step_call_ms_median": float(np.median(call_ms)),
+        "plain_step_ms_median": float(np.median(plain_ms)),
+        "plain_device": "cuda", "checked_steps": len(plain_ms),
+        "checked": "every step", "bitwise_equal_steps": len(plain_ms),
+        "partial_rows_per_step_median": float(np.median(partial)),
+        "rows_per_duration": counts, "numpy_groupby": "every row",
+        "bytes_per_step_median": float(np.median(bytes_)),
+        "ops_per_step_median": float(np.median(ops)),
+        "bound_ms_bytes": float(np.median(b_ms)),
+        "bound_ms_ops": float(np.median(o_ms)),
+        "max_abs_err": 0.0, "phase_s": time.perf_counter() - t_phase,
+    }
+    emit(out)
+    return out
+
+
+def agg_kernel_entry(a_outs: list) -> dict:
+    """The ``kernels`` line's aggregation entry: times and bound of (g),
+    (h) beside it under ``configs``; launches over both main-path runs."""
+    e = a_outs[0]
+    return {
+        "name": "aggregation_step",
+        "route": "cuda",
+        "source": "siddhi_tpu_torch/csrc/aggregation_step.cu",
+        "replaces": "siddhi_tpu/tpu/aggregation_compile.py:129",
+        "launches": sum(o["launches"] for o in a_outs),
+        "max_abs_err": 0.0,
+        "ms": e["kernel_step_ms_median"],
+        "plain_ms": e["plain_step_ms_median"],
+        "bound_ms": max(e["bound_ms_bytes"], e["bound_ms_ops"]),
+        "bound_by": "bytes" if e["bound_ms_bytes"] >= e["bound_ms_ops"]
+        else "operations",
+        "library_ms": None,
+        "unit": f"one agg_main step of {e['config']}: CUDA events around "
+                f"the kernels' launch call (4 launches)",
+        "step_call_ms": e["step_call_ms_median"],
+        "parity": "exact",
+        "configs": {o["config"]: {k: o[k] for k in (
+            "kernel_step_ms_median", "step_call_ms_median",
+            "plain_step_ms_median", "launches", "checked_steps",
+            "bound_ms_bytes", "bound_ms_ops", "events_per_s",
+            "partial_rows_per_step_median")}
+            for o in a_outs},
+    }
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=42)
@@ -1537,6 +1829,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         fail("no CUDA device (torch.cuda.is_available() is false)")
     sys.path.insert(0, REPO)
+    from siddhi_tpu_torch.tools.agg_workloads import AGG_MAIN
     from siddhi_tpu_torch.tools.join_workloads import JOIN_MAIN
     from siddhi_tpu_torch.tools.query_workloads import QUERY_MAIN
     card = phase_device()
@@ -1548,6 +1841,8 @@ def main() -> int:
     q_outs = [phase_query_main(name, args.seed) for name in QUERY_MAIN]
     phase_join_shapes()
     j_outs = [phase_join_main(name, args.seed) for name in JOIN_MAIN]
+    phase_agg_shapes()
+    a_outs = [phase_agg_main(name, args.seed) for name in AGG_MAIN]
     bound = max(main_out["bound_ms_bytes"], main_out["bound_ms_ops"])
     scan_bound = max(scan_out["bound_ms_bytes"], scan_out["bound_ms_ops"])
     kernels = [{
@@ -1584,7 +1879,8 @@ def main() -> int:
         "unit": "one scan_main step (1 launch, ys zeroed in it)",
         "parity": "exact",
         "checked_steps": scan_out["checked_steps"],
-    }, *query_kernel_entries(q_outs, query_err), join_kernel_entry(j_outs)]
+    }, *query_kernel_entries(q_outs, query_err), join_kernel_entry(j_outs),
+        agg_kernel_entry(a_outs)]
     print(card, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,1 +1,5 @@
-"""Host-side compile helpers shared by the device compilers."""
+"""Host-side layers: the flattening half of ``pattern.py`` the device
+compilers share, and the incremental-aggregation runtime
+(``aggregation.AggregationRuntime``) with the host closure it stands on
+(``aggregators``, ``event``, ``errors``, ``executor``, ``extension``: copies
+of the reference's modules under the same names)."""

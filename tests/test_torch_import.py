@@ -38,6 +38,14 @@ def test_import_loads_neither_jax_nor_the_reference():
         "import siddhi_tpu_torch.gpu._build\n"
         "import siddhi_tpu_torch.gpu.join_compile, siddhi_tpu_torch.gpu.join_step\n"
         "import siddhi_tpu_torch.tools.join_workloads\n"
+        "import siddhi_tpu_torch.core.errors, siddhi_tpu_torch.core.event\n"
+        "import siddhi_tpu_torch.core.aggregators, siddhi_tpu_torch.core.executor\n"
+        "import siddhi_tpu_torch.core.extension, siddhi_tpu_torch.core.aggregation\n"
+        "import siddhi_tpu_torch.gpu.aggregation_compile\n"
+        "import siddhi_tpu_torch.gpu.aggregation_step\n"
+        "import siddhi_tpu_torch.tools.agg_workloads\n"
+        "from siddhi_tpu_torch.core.aggregation import AggregationRuntime\n"
+        "from siddhi_tpu_torch.gpu import CompiledAggregation\n"
         "print('\\n'.join(sorted(sys.modules)))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                          capture_output=True, text=True).stdout.split()

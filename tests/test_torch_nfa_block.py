@@ -4,9 +4,10 @@ The same seeded wire batches (numpy) go through the JAX step (``vmap`` of
 ``make_block_step`` over lanes, on the CPU as the JAX package's own tests
 run it) and through the port's lane-batched plain version on the CPU. Every
 state leaf, both counters and every ``ys`` entry (mask, j, ts and outputs,
-masked-off positions included) must be exactly equal; f32 outputs computed
-by arithmetic are held to ``rtol=1e-6``. Batches carry stale values past
-``count`` and, in some steps, an empty lane.
+masked-off positions included) must be exactly equal, the f32 outputs
+computed by arithmetic too (the same f32 operations in the same order).
+Batches carry stale values past ``count`` and, in some steps, an empty
+lane.
 
 ``test_kernel_matches_plain_on_card`` holds the CUDA kernel against the plain
 version on the same shapes; it needs a card and skips elsewhere.
@@ -24,7 +25,6 @@ from siddhi_tpu_torch.gpu.nfa import DeviceNFACompiler as TCompiler
 from siddhi_tpu_torch.gpu.nfa_block import BlockPlan, block_step_plain
 from siddhi_tpu_torch.gpu.state_io import state_from_numpy, state_to_numpy
 
-ARITH_RTOL = 1e-6      # f32 outputs computed by arithmetic (same op order)
 
 APPS = {
     "chain2": ("""
@@ -130,19 +130,17 @@ def make_batch(rng, comp, lanes: int, empty_lane: bool):
     return cols, tag, ts, ts_base, counts
 
 
-def _assert_tree_equal(ref, got, arith=()):
+def _assert_tree_equal(ref, got):
+    """Every leaf bitwise equal (NaN equal to NaN), arithmetic outputs
+    included."""
     assert set(ref) == set(got)
     for k in ref:
         if isinstance(ref[k], dict):
-            _assert_tree_equal(ref[k], got[k], arith)
+            _assert_tree_equal(ref[k], got[k])
             continue
         a, b = np.asarray(ref[k]), np.asarray(got[k])
         assert a.dtype == b.dtype and a.shape == b.shape, (k, a.dtype, b.dtype)
-        if k in arith:
-            np.testing.assert_allclose(b, a, rtol=ARITH_RTOL, atol=0,
-                                       equal_nan=True, err_msg=k)
-        else:
-            np.testing.assert_array_equal(b, a, err_msg=k)
+        np.testing.assert_array_equal(b, a, err_msg=k)
 
 
 def _jax_lane_state(jc, lanes):
@@ -153,7 +151,7 @@ def _jax_lane_state(jc, lanes):
 
 
 def _run_parity(name, B, C, K, lanes, steps=4, seed=0):
-    app, arith = APPS[name]
+    app = APPS[name][0]
     jc, tc = _compilers(app, B, C, K)
     jstep = jax.jit(jax.vmap(jc.make_step()))
     tstep = tc.make_step()
@@ -172,7 +170,7 @@ def _run_parity(name, B, C, K, lanes, steps=4, seed=0):
         jstate = jax.tree_util.tree_map(np.asarray, jax.device_get(jstate))
         _assert_tree_equal(jstate, state_to_numpy(tstate))
         _assert_tree_equal(jax.tree_util.tree_map(np.asarray, jys),
-                           state_to_numpy(tys), arith)
+                           state_to_numpy(tys))
         advanced += int(np.asarray(jys["mask"]).sum())
     return advanced, int(np.sum(jstate["drops"]))
 
@@ -235,7 +233,7 @@ def test_linked_programs_cover_every_stage():
 def test_kernel_matches_plain_on_card(name, B, C, K, lanes):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
-    app, arith = APPS[name]
+    app = APPS[name][0]
     tapp = tparse(app)
     tc = TCompiler(tapp.queries[0], dict(tapp.stream_definitions), C, B,
                    creation_cap=K, device="cuda")
@@ -251,7 +249,7 @@ def test_kernel_matches_plain_on_card(name, B, C, K, lanes):
         state, ys = step(state, cols, *rest)
         torch.cuda.synchronize()
         _assert_tree_equal(state_to_numpy(ref_state), state_to_numpy(state))
-        _assert_tree_equal(state_to_numpy(ref_ys), state_to_numpy(ys), arith)
+        _assert_tree_equal(state_to_numpy(ref_ys), state_to_numpy(ys))
 
 
 TS_APPS = {

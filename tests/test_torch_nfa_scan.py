@@ -5,9 +5,10 @@ The same seeded wire batches (numpy) go through the JAX step (``vmap`` of
 package's own tests run it) and through the port's lane-batched
 ``scan_step_plain`` on the CPU. Every state leaf (``pending``, ``seeds``,
 ``drops``, ``matches``) and every ``ys`` entry (mask, ts, outputs and null
-masks, masked-off positions included) must be exactly equal; f32 outputs
-computed by arithmetic are held to ``rtol=1e-6``. Batches carry stale values
-past ``count`` and, in odd steps, an empty lane.
+masks, masked-off positions included) must be exactly equal, the f32
+outputs computed by arithmetic too (the same f32 operations in the same
+order). Batches carry stale values past ``count`` and, in odd steps, an
+empty lane.
 
 ``test_kernel_matches_plain_on_card`` holds the CUDA kernel against the plain
 version on the same shapes; it needs a card and skips elsewhere.
@@ -36,7 +37,6 @@ from siddhi_tpu_torch.gpu.state_io import state_from_numpy, state_to_numpy
 from test_torch_scan_shapes import AB, APPS, CASES, IDS
 
 ROOT = Path(__file__).resolve().parent.parent
-ARITH_RTOL = 1e-6      # f32 outputs computed by arithmetic (same op order)
 
 
 def _compilers(app, B, C):
@@ -84,19 +84,17 @@ def make_batch(rng, comp, lanes: int, empty_lane: bool, ts_step: int = 60,
     return cols, tag, ts, ts_base, counts
 
 
-def _assert_tree_equal(ref, got, arith=()):
+def _assert_tree_equal(ref, got):
+    """Every leaf bitwise equal (NaN equal to NaN), arithmetic outputs
+    included."""
     assert set(ref) == set(got)
     for k in ref:
         if isinstance(ref[k], dict):
-            _assert_tree_equal(ref[k], got[k], arith)
+            _assert_tree_equal(ref[k], got[k])
             continue
         a, b = np.asarray(ref[k]), np.asarray(got[k])
         assert a.dtype == b.dtype and a.shape == b.shape, (k, a.dtype, b.dtype)
-        if k in arith:
-            np.testing.assert_allclose(b, a, rtol=ARITH_RTOL, atol=0,
-                                       equal_nan=True, err_msg=k)
-        else:
-            np.testing.assert_array_equal(b, a, err_msg=k)
+        np.testing.assert_array_equal(b, a, err_msg=k)
 
 
 def _jax_lane_state(jc, lanes, start_ts=0):
@@ -112,7 +110,7 @@ def _torch_args(cols, tag, ts, base, counts, dev="cpu"):
 
 
 def _run_parity(name, B, C, lanes, ts_step, base, steps=4, seed=0):
-    app, arith = APPS[name]
+    app = APPS[name][0]
     jc, tc = _compilers(app, B, C)
     start = 0 if base is not None else 1_000_000
     jstep = jax.jit(jax.vmap(jc.make_step()))
@@ -129,7 +127,7 @@ def _run_parity(name, B, C, lanes, ts_step, base, steps=4, seed=0):
         jstate = jax.tree_util.tree_map(np.asarray, jax.device_get(jstate))
         _assert_tree_equal(jstate, state_to_numpy(tstate))
         jys = jax.tree_util.tree_map(np.asarray, jys)
-        _assert_tree_equal(jys, state_to_numpy(tys), arith)
+        _assert_tree_equal(jys, state_to_numpy(tys))
         # decoded rows, lane by lane, in the reference's order
         for lane in range(lanes):
             assert tc.decode_outputs({k: v[lane] for k, v in tys.items()}) \
@@ -294,7 +292,7 @@ def test_scan_limits_refuse_at_construction(build):
 def test_kernel_matches_plain_on_card(name, B, C, lanes, ts_step, base):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
-    app, arith = APPS[name]
+    app = APPS[name][0]
     tapp = tparse(app)
     tc = TCompiler(tapp.queries[0], dict(tapp.stream_definitions), C, B,
                    device="cuda")
@@ -311,4 +309,4 @@ def test_kernel_matches_plain_on_card(name, B, C, lanes, ts_step, base):
         state, ys = step(state, *args)
         torch.cuda.synchronize()
         _assert_tree_equal(state_to_numpy(ref_state), state_to_numpy(state))
-        _assert_tree_equal(state_to_numpy(ref_ys), state_to_numpy(ys), arith)
+        _assert_tree_equal(state_to_numpy(ref_ys), state_to_numpy(ys))

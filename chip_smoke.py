@@ -918,6 +918,15 @@ def phase_query_shapes() -> float:
             rows += int(out["valid"].sum())
         cases.append({"query": name, "B": B, "kernel": q.plan.LIB,
                       "rows": rows})
+    for label in sorted(sh.CARRIED):
+        try:
+            err, rows = sh.kernel_steps(*sh.carried_start(label, "cuda"))
+        except AssertionError as e:
+            fail(f"query walk from the carried table {label}: kernel differs "
+                 f"from the plain version: {str(e)[:400]}")
+        worst = max(worst, err)
+        cases.append({"query": label, "B": sh.CARRIED[label][1],
+                      "kernel": "query_walk", "rows": rows})
 
     def build(text):
         app = parse(sh.REFUSAL_SCHEMA + text)
@@ -967,23 +976,55 @@ def query_step_bytes(state, new_state, cols, ts, valid, out) -> int:
     return n
 
 
-def query_step_ops(q) -> int:
+HH_LOOKUP_OPS = 8   # a key's hash (three multiplies, three shift-xors), a probe
+
+
+def hh_passes(q, state, new_state) -> int:
+    """Passes over every slot that this step's data needs in the lossy walk:
+    the step's first accepted event and every change of the bucket number
+    floor(total * error) + 1 after it."""
+    if q.window_kind != "lossyFrequent":
+        return 0
+    t0, t1 = int(state["hh_total"]), int(new_state["hh_total"])
+    if t1 == t0:
+        return 0
+    err = q.lossy_error
+    return int(float(t1) * err) - int(float(t0 + 1) * err) + 1
+
+
+def query_step_ops(q, passes: int = 0) -> int:
     """Operations one step does at the least: every event runs its filter and
     argument programs; every scanned lane adds once per position of its axis;
     every output slot materialises its specs (a few operations each) and,
-    grouped or time-windowed, binary-searches its range (log2 of the axis)."""
+    grouped or time-windowed, binary-searches its range (log2 of the axis).
+    The walked heavy hitters: one key lookup and one row per event, and one
+    visit of each of the C slots per pass over the table (``passes``: the
+    lossy window's bucket changes, frequent's decrement-alls)."""
     a = q.plan.args
-    prog = sum(p.len for p in a.filt[:a.nfilt]) + \
-        sum(a.lane[c][l].len for c, n in enumerate((a.AF, a.AI, a.AS, a.AM))
-            for l in range(n)) + \
-        sum(a.proj[i].len for i in range(a.nspec)) + a.having.len
+    prog = query_prog_ops(q)
     if q.plan.LIB == "query_walk":
-        # every event looks its key up in the table and the lossy window's
-        # prune visits every slot: two passes over the C slots per event
-        return q.B * prog + q.B * 2 * a.N + q.B * 4 * a.nspec
+        return q.B * (prog + HH_LOOKUP_OPS + 4 * a.nspec) + passes * a.N
     lanes = a.AF + a.AI + 1 + 2 * a.AS + 2 * a.AM if a.has_agg else 0
     search = int(np.log2(max(a.M, 2))) * (2 if a.grouped else 1)
     return q.B * prog + a.M * lanes + a.O * (4 * a.nspec + search)
+
+
+def query_prog_ops(q) -> int:
+    """Instructions of the programs one event runs: filters, aggregate
+    arguments, projections, having."""
+    a = q.plan.args
+    return sum(p.len for p in a.filt[:a.nfilt]) + \
+        sum(a.lane[c][l].len for c, n in enumerate((a.AF, a.AI, a.AS, a.AM))
+            for l in range(n)) + \
+        sum(a.proj[i].len for i in range(a.nspec)) + a.having.len
+
+
+def walk_ops_two_passes(q) -> int:
+    """The walk's operations as the bound of its first design counted them:
+    two passes over the C slots per event (that design's work, not the
+    walk's)."""
+    a = q.plan.args
+    return q.B * query_prog_ops(q) + q.B * 2 * a.N + q.B * 4 * a.nspec
 
 
 def time_batch_reference(cols, ts) -> list:
@@ -1096,6 +1137,7 @@ def phase_query_main(name: str, seed: int) -> dict:
         marks.append((e0, e1))
         if not shapes:
             shapes["bytes"] = query_step_bytes(state, new, c, t, v, out)
+            shapes["passes"] = hh_passes(q, state, new)
         return new, out
 
     plan = type(q.plan)
@@ -1179,7 +1221,8 @@ def phase_query_main(name: str, seed: int) -> dict:
     if rows2 != rows:
         fail(f"query_main {name}: the checked run's rows differ from the "
              f"timed run's")
-    ops = query_step_ops(q)
+    ops = query_step_ops(q, shapes["passes"])
+    walked = plan is WalkPlan
     out = {
         "phase": "query_main", "config": name, "kernel": plan.LIB,
         "events": QUERY_EVENTS,
@@ -1196,6 +1239,11 @@ def phase_query_main(name: str, seed: int) -> dict:
         "bytes_per_step": shapes["bytes"], "ops_per_step": ops,
         "bound_ms_bytes": shapes["bytes"] / HBM_BYTES_PER_S * 1e3,
         "bound_ms_ops": ops / F32_OPS_PER_S * 1e3,
+        **({"table_passes_per_step": shapes["passes"],
+            "ops_per_step_two_passes_per_event": walk_ops_two_passes(q),
+            "bound_ms_ops_two_passes_per_event":
+                walk_ops_two_passes(q) / F32_OPS_PER_S * 1e3}
+           if walked else {}),
         "max_abs_err": worst, "errors_by_output": limits,
         "fsum_limit_min": float(np.min(fsum_limit)),
         "fsum_limit_max": float(np.max(fsum_limit)),
@@ -1253,8 +1301,9 @@ def query_kernel_entries(q_outs: list, shapes_err: float) -> list:
             "configs": {o["config"]: {k: o[k] for k in (
                 "kernel_step_ms_median", "step_call_ms_median",
                 "plain_step_ms_median", "launches", "checked_steps",
-                "bound_ms_bytes", "bound_ms_ops", "max_abs_err")}
-                for o in outs},
+                "bound_ms_bytes", "bound_ms_ops", "max_abs_err",
+                "table_passes_per_step", "bound_ms_ops_two_passes_per_event")
+                if k in o} for o in outs},
         })
     return entries
 
@@ -1718,7 +1767,8 @@ def phase_agg_main(name: str, seed: int) -> dict:
     wall = time.perf_counter() - t0
     launches = AggPlan.launches
     steps = len(marks)
-    if launches != 4 * steps or launches == 0 or len(kmarks) != steps:
+    if launches != AggPlan.LAUNCHES * steps or launches == 0 or \
+            len(kmarks) != steps:
         fail(f"agg_main {name}: {launches} aggregation_step launches, "
              f"{len(kmarks)} kernel calls over {steps} steps")
     step_ms = [a.elapsed_time(b) for a, b in kmarks]
@@ -1808,7 +1858,8 @@ def agg_kernel_entry(a_outs: list) -> dict:
         else "operations",
         "library_ms": None,
         "unit": f"one agg_main step of {e['config']}: CUDA events around "
-                f"the kernels' launch call (4 launches)",
+                f"the kernels' launch call ({e['launches_per_step']:g} "
+                f"launches)",
         "step_call_ms": e["step_call_ms_median"],
         "parity": "exact",
         "configs": {o["config"]: {k: o[k] for k in (

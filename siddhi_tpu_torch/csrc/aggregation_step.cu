@@ -20,40 +20,51 @@
 // over the event's columns; OP_TS (eventTimestamp()) is linked as the
 // column slot of the bucketing clock.
 //
-// The reference vmaps a full lexsort and six segment reductions over the D
-// durations. Four launches here, all on the caller's stream, nothing
-// allocated:
+// What bounds it on the H100: bytes. A step reads the referenced columns,
+// the valid mask and the [D, B] slab once and writes the [D, B] lanes once
+// (~1.2 MB for D = 6, B = 4096: ~0.4 us at 3.35 TB/s); its essential
+// operations (a sort, ~B log2 B compares per duration, and one add per
+// event, lane and duration) are ~0.4 M, nanoseconds at the card's rate.
+// What the design spends instead is latency: the sorts' passes are a
+// handful of block barriers each, and the f64 sums must add in sorted order
+// one after the other (the reference's segment_sum order, for the same
+// bits), so the longest run is a serial chain of dependent adds.
+//
+// Design: four launches on the caller's stream, nothing allocated.
 //   1. a_eval, one thread per event: the mask (valid and every filter), each
 //      select attribute's value (int64, f64 bits or the typed slot) and the
 //      group keys as int64, into scratch; each runs once, not once per
 //      duration.
-//   2. a_rank, D x ceil(B / 256) CTAs: each thread streams its duration's
-//      composite keys (bucket or 2**62, then the group keys from the last)
-//      through shared memory in tiles of 256 and counts the events ordered
-//      before its own (ties broken by arrival index), then writes
-//      order[d][rank] = i. O(D * B^2) comparisons, deterministic and
-//      stable by construction; a radix or merge sort is later work.
-//   3. a_bounds, one CTA per duration: run boundaries over the sorted
-//      order, each run's first position (block_rank), the number of runs
-//      and of accepted runs (n_runs).
-//   4. a_reduce, one thread per (d, run slot s < B): walks run s in sorted
-//      order and accumulates count, the int64 and f64 sums left to right
-//      from 0 (the reference's segment_sum order: the same bits), the
-//      squares and min/max; then gathers last_ at the run's last accepted
-//      position and g_ / bucket at its leader. Slots past the runs write
-//      the empty-segment values.
-//
-// What bounds it on the H100: bytes. A step reads the referenced columns,
-// the valid mask and the [D, B] slab once and writes the [D, B] lanes once
-// (~1.3 MB for D = 6, B = 4096 and six lanes: ~0.4 us at 3.35 TB/s); its
-// essential operations (a comparison sort, ~B log2 B compares per duration,
-// and one add per event, lane and duration) are ~0.5 M, nanoseconds at the
-// card's rate. This first version spends its time elsewhere: the rank pass
-// makes D * B^2 comparisons (~100 M at B = 4096), and a_reduce walks each
-// run serially in one thread, so the longest run (up to B events for a
-// coarse duration without group-by) sets the step's tail. Both are spread
-// over D * B threads so every SM has work; the serial walk is what keeps
-// the f64 sums in the reference's order.
+//   2. a_gsort, one CTA: the lexsort's group-key part, once for every
+//      duration. A stable LSD radix sort of the B event indices by the group
+//      keys (sign bit flipped: signed order), the first column first, so the
+//      last column is the most significant and arrival order breaks ties.
+//      4-bit digits; a digit in which every key of the batch agrees (the
+//      batch-wide AND and OR of the keys show it) is skipped, so small
+//      dictionary codes cost two or three passes. A pass counts each
+//      thread's contiguous chunk per digit, scans the counts (digit-major,
+//      then thread) and scatters each event to its rank: stable.
+//   3. a_bsort, one CTA per duration: the same sort, over the group order,
+//      by the bucket (rejected events last, as 2**62 sorts): a stable sort
+//      by the bucket of a sequence already stably sorted by the group keys
+//      is the lexsort's order. It sorts the offset from the batch's
+//      smallest bucket, so a few digits cover it; late events put buckets
+//      out of arrival order and this sort is what orders them. Then, over
+//      the sorted order: every accumulated lane written in sorted order
+//      with the mask folded in (0 or the identity where rejected), the run
+//      boundaries, each run's first position and the number of runs and of
+//      accepted runs (n_runs), from one block scan over per-thread chunks.
+//      Both sorts keep the sequence, its copy and the keys in shared memory
+//      where B <= TILE; a larger B (to 16 tiles) runs the same passes over
+//      device-memory scratch, with per-tile digit counts scanned into tile
+//      offsets.
+//   4. a_reduce, one thread per (d, run slot s < B, lane): walks run s over
+//      its sorted lane, consecutive addresses, and accumulates the int64 and
+//      f64 sums left to right from 0 (the reference's segment_sum order: the
+//      same bits), the squares or min/max, or gathers last_ at the run's
+//      last accepted position; one more thread per run slot writes count,
+//      g_ and bucket at its leader. Slots past the runs write the empty-
+//      segment values. The lanes of the longest run walk side by side.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -65,7 +76,10 @@
 #define AMAXG 8
 #define AMAXSPEC 32
 #define NT 256
-#define NTB 1024
+#define NTS 512                   // threads of a sorting CTA
+#define TILE 4096                 // positions one sorting pass counts at once
+#define MAXTILE 16                // tiles of a sort: B <= 65,536
+#define RB 16                     // bins of a 4-bit digit
 #define TS_POS (1LL << 62)
 
 enum { L_VALUE = 0, L_INT = 1, L_F64 = 2, L_F64SQ = 3, L_MIN = 4, L_MAX = 5 };
@@ -90,11 +104,13 @@ struct AArgs {
   unsigned char* mask;              // [B]
   long long* sval;                  // [S, B]
   long long* gkey;                  // [G, B]
+  int* gorder;                      // [B] events in group-key order
   int* order;                       // [D, B] sorted position -> event
   int* start;                       // [D, B] run -> first sorted position
-  unsigned char* first;             // [D, B]
-  int* rank;                        // [D, B] block_rank scratch
   int* nseg;                        // [D] runs, accepted or not
+  long long* ssv;                   // [S, D, B] lanes in sorted order
+  unsigned long long* skey;         // [1 + D, B] sort keys (B > TILE)
+  int* sbuf;                        // [1 + D, 2, B] sort sequences (B > TILE)
   // outputs
   long long* bucket;                // [D, B]
   long long* n_runs;                // [D]
@@ -137,6 +153,11 @@ __device__ __forceinline__ long long segm_of(const AArgs& a, const long long* bk
   return a.mask[i] ? bk[i] : TS_POS;
 }
 
+// int64 -> uint64 in the same order
+__device__ __forceinline__ unsigned long long flip(long long v) {
+  return (unsigned long long)v ^ (1ull << 63);
+}
+
 // ------------------------------------------------------------- 1. a_eval
 __global__ void a_eval(const AArgs a) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -161,79 +182,290 @@ __global__ void a_eval(const AArgs a) {
     a.gkey[(long long)g * a.B + i] = ev(a.g_col[g]);
 }
 
-// ------------------------------------------------------------- 2. a_rank
-__global__ void a_rank(const AArgs a) {
-  __shared__ long long s_key[(AMAXG + 1) * NT];
-  const int d = blockIdx.y, B = a.B, G = a.G, tid = threadIdx.x;
-  const int nt = blockDim.x;                 // <= NT
-  const int i = blockIdx.x * nt + tid;
-  const long long* bk = a.buckets + (long long)d * B;
-  // key k: 0 is the bucket (2**62 when rejected), k = 1..G the group keys
-  // from the last to the first (the lexsort's significance)
-  long long mine[AMAXG + 1];
-  if (i < B) {
-    mine[0] = segm_of(a, bk, i);
-    for (int k = 1; k <= G; ++k) mine[k] = a.gkey[(long long)(G - k) * B + i];
+// ------------------------------------------------------ the radix sort
+
+// Shared memory of a sorting CTA besides the sequences and keys.
+struct SortSmem {
+  int cnt[RB * NTS];                // per (digit, thread) counts, then ranks
+  int hist[MAXTILE * RB];           // per (tile, digit) counts, then offsets
+  int lb[RB];                       // one tile's digit counts
+  int wt[NTS / 32][RB / 2];         // per warp: digit-pair totals, then prefixes
+  int tot[RB / 2];                  // the tile's digit-pair totals
+  long long w[33];
+  unsigned long long red[32];
+};
+
+// Exclusive prefix of one value per thread, in thread order; *total gets
+// the block's sum. Every thread of the block calls it.
+template <typename T>
+__device__ T block_excl_scan(T v, T* s_w, T* total) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nt = blockDim.x, nw = (nt + 31) >> 5;
+  T x = v;
+  for (int d = 1; d < 32; d <<= 1) {
+    const T y = __shfl_up_sync(0xffffffffu, x, d);
+    if (lane >= d) x += y;
   }
-  int rank = 0;
-  for (int base = 0; base < B; base += nt) {
-    __syncthreads();
-    const int j = base + tid;
-    if (j < B) {
-      s_key[tid] = segm_of(a, bk, j);
-      for (int k = 1; k <= G; ++k) s_key[k * NT + tid] = a.gkey[(long long)(G - k) * B + j];
-    }
-    __syncthreads();
-    if (i >= B) continue;
-    const int n = B - base < nt ? B - base : nt;
-    for (int t = 0; t < n; ++t) {
-      int before = base + t < i;             // equal keys: arrival order
-      for (int k = 0; k <= G; ++k) {
-        const long long kj = s_key[k * NT + t];
-        if (kj != mine[k]) { before = kj < mine[k]; break; }
-      }
-      rank += before;
-    }
+  __syncthreads();
+  if (lane == 31 || tid == nt - 1) s_w[warp] = x;
+  __syncthreads();
+  T off = 0, tot = 0;
+  for (int w = 0; w < nw; ++w) {
+    if (w < warp) off += s_w[w];
+    tot += s_w[w];
   }
-  if (i < B) a.order[(long long)d * B + rank] = i;
+  *total = tot;
+  return off + x - v;
 }
 
-// ----------------------------------------------------------- 3. a_bounds
-__global__ void a_bounds(const AArgs a) {
-  __shared__ int s_scan[NTB / 32 + 1];
-  __shared__ long long s_red[NTB / 32];
-  const int d = blockIdx.x, B = a.B, G = a.G, tid = threadIdx.x;
+// Ranks one tile's digit counts: on entry cnt[r * nt + t] holds how many of
+// thread t's events have digit r; on exit the rank of the first of them,
+// base[r] plus the events of digit r in the threads before t, where base[r]
+// is off[r] (the tile's offset of digit r) or, for off null, the tile's
+// events of the digits before r. Each thread reads and writes its own
+// column (no bank conflicts); the digits go through the block scan two to
+// an int (16-bit halves: a tile holds at most TILE events). Every thread of
+// the block calls it.
+__device__ void rank_tile(SortSmem& sm, const int* off) {
+  const int tid = threadIdx.x, nt = blockDim.x, lane = tid & 31, warp = tid >> 5;
+  const int nw = (nt + 31) >> 5, NL = nt < 32 ? nt : 32;
+  int v[RB / 2], x[RB / 2];
+#pragma unroll
+  for (int i = 0; i < RB / 2; ++i) {
+    v[i] = sm.cnt[2 * i * nt + tid] | (sm.cnt[(2 * i + 1) * nt + tid] << 16);
+    x[i] = v[i];
+  }
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+#pragma unroll
+    for (int i = 0; i < RB / 2; ++i) {
+      const int y = __shfl_up_sync(0xffffffffu, x[i], d);
+      if (lane >= d) x[i] += y;
+    }
+  }
+  __syncthreads();
+  if (lane == NL - 1 || tid == nt - 1) {
+#pragma unroll
+    for (int i = 0; i < RB / 2; ++i) sm.wt[warp][i] = x[i];
+  }
+  __syncthreads();
+  if (warp == 0) {
+    for (int i = lane; i < RB / 2; i += NL) {
+      int run = 0;
+      for (int w = 0; w < nw; ++w) {
+        const int c = sm.wt[w][i];
+        sm.wt[w][i] = run;
+        run += c;
+      }
+      sm.tot[i] = run;
+    }
+  }
+  __syncthreads();
+  int start = 0;
+#pragma unroll
+  for (int r = 0; r < RB; ++r) {
+    const int i = r >> 1, sh = 16 * (r & 1);
+    const int ex = ((sm.wt[warp][i] + x[i] - v[i]) >> sh) & 0xFFFF;
+    sm.cnt[r * nt + tid] = (off ? off[r] : start) + ex;
+    start += (sm.tot[i] >> sh) & 0xFFFF;
+  }
+}
+
+// One stable counting pass: dst = src ordered by the 4-bit digit at `sh` of
+// each event's key kv[src[p]], ties in src order. Thread t owns positions
+// [t * E, t * E + E) of each tile; its counts per digit are ranked digit-
+// major, then by thread (rank_tile). With several tiles each tile's counts
+// are taken first and scanned (digit-major, then tile) into tile offsets.
+// Every thread of the block calls it.
+__device__ void radix_pass(const int* src, int* dst, int n, const unsigned long long* kv,
+                           int sh, SortSmem& sm) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int E = (TILE + nt - 1) / nt;
+  const int ntile = (n + TILE - 1) / TILE;
+  auto digit = [&](int p) { return (int)((kv[src[p]] >> sh) & (RB - 1)); };
+  if (ntile > 1) {
+    for (int tl = 0; tl < ntile; ++tl) {
+      for (int r = tid; r < RB; r += nt) sm.lb[r] = 0;
+      __syncthreads();
+      const int t1 = min(n, (tl + 1) * TILE);
+      for (int p = tl * TILE + tid; p < t1; p += nt) atomicAdd(&sm.lb[digit(p)], 1);
+      __syncthreads();
+      for (int r = tid; r < RB; r += nt) sm.hist[tl * RB + r] = sm.lb[r];
+      __syncthreads();
+    }
+    if (tid == 0) {
+      int run = 0;
+      for (int r = 0; r < RB; ++r)
+        for (int tl = 0; tl < ntile; ++tl) {
+          const int c = sm.hist[tl * RB + r];
+          sm.hist[tl * RB + r] = run;
+          run += c;
+        }
+    }
+    __syncthreads();
+  }
+  for (int tl = 0; tl < ntile; ++tl) {
+    const int t1 = min(n, (tl + 1) * TILE);
+    const int p0 = min(t1, tl * TILE + tid * E), p1 = min(t1, p0 + E);
+    for (int r = 0; r < RB; ++r) sm.cnt[r * nt + tid] = 0;
+    for (int p = p0; p < p1; ++p) sm.cnt[digit(p) * nt + tid] += 1;
+    rank_tile(sm, ntile > 1 ? sm.hist + tl * RB : nullptr);
+    for (int p = p0; p < p1; ++p) dst[sm.cnt[digit(p) * nt + tid]++] = src[p];
+    __syncthreads();
+  }
+}
+
+struct OrU64 {
+  __device__ unsigned long long operator()(unsigned long long x, unsigned long long y) const { return x | y; }
+};
+struct AndU64 {
+  __device__ unsigned long long operator()(unsigned long long x, unsigned long long y) const { return x & y; }
+};
+
+// Sorts the sequence *x (n events) stably by kv[event], least significant
+// digit first, skipping the digits in which every key agrees (or_ ^ and_
+// has no bit there); *x ends up holding the result, *y the other buffer.
+__device__ void radix_sort(int*& x, int*& y, int n, const unsigned long long* kv,
+                           unsigned long long or_, unsigned long long and_, SortSmem& sm) {
+  const unsigned long long diff = or_ ^ and_;
+  for (int sh = 0; sh < 64; sh += 4) {
+    if (((diff >> sh) & (RB - 1)) == 0) continue;
+    radix_pass(x, y, n, kv, sh, sm);
+    int* t = x;
+    x = y;
+    y = t;
+  }
+}
+
+// The sequences and keys of sort `row` (0: the group keys, 1 + d: duration
+// d): in dynamic shared memory where B <= TILE, else in device memory.
+__device__ void sort_buffers(const AArgs& a, int row, unsigned long long*& kv, int*& x, int*& y) {
+  const int B = a.B;
+  if (B <= TILE) {
+    extern __shared__ __align__(16) unsigned char s_dyn[];
+    kv = (unsigned long long*)s_dyn;
+    x = (int*)(kv + B);
+    y = x + B;
+  } else {
+    kv = a.skey + (long long)row * B;
+    x = a.sbuf + (long long)row * 2 * B;
+    y = x + B;
+  }
+}
+
+// ------------------------------------------------------------ 2. a_gsort
+__global__ void __launch_bounds__(NTS) a_gsort(const AArgs a) {
+  __shared__ SortSmem sm;
+  const int B = a.B, tid = threadIdx.x, nt = blockDim.x;
+  unsigned long long* kv;
+  int *x, *y;
+  sort_buffers(a, 0, kv, x, y);
+  for (int p = tid; p < B; p += nt) x[p] = p;
+  for (int g = 0; g < a.G; ++g) {
+    unsigned long long o = 0, n = ~0ull;
+    for (int i = tid; i < B; i += nt) {
+      const unsigned long long u = flip(a.gkey[(long long)g * B + i]);
+      kv[i] = u;
+      o |= u;
+      n &= u;
+    }
+    o = block_reduce(o, OrU64(), sm.red);
+    n = block_reduce(n, AndU64(), sm.red);
+    radix_sort(x, y, B, kv, o, n, sm);
+  }
+  for (int p = tid; p < B; p += nt) a.gorder[p] = x[p];
+}
+
+// ------------------------------------------------------------ 3. a_bsort
+__global__ void __launch_bounds__(NTS) a_bsort(const AArgs a) {
+  __shared__ SortSmem sm;
+  __shared__ long long s_red[32];
+  const int d = blockIdx.x, B = a.B, D = a.D, G = a.G, tid = threadIdx.x;
+  const int nt = blockDim.x;
   const long long row = (long long)d * B;
-  const int* ord = a.order + row;
   const long long* bk = a.buckets + row;
-  unsigned char* first = a.first + row;
-  long long acc_runs = 0;
-  for (int p = tid; p < B; p += blockDim.x) {
+  unsigned long long* kv;
+  int *x, *y;
+  sort_buffers(a, 1 + d, kv, x, y);
+  // the key: the offset from the smallest bucket (2**62 for a rejected
+  // event); rejected events take the smaller of their own offset and one
+  // past the largest accepted one, which keeps the order and the digits few
+  long long lo = TS_POS, hi = -9223372036854775807LL - 1;
+  for (int i = tid; i < B; i += nt) {
+    const long long s = segm_of(a, bk, i);
+    lo = s < lo ? s : lo;
+    if (a.mask[i]) hi = bk[i] > hi ? bk[i] : hi;
+  }
+  lo = block_reduce(lo, [](long long p, long long q) { return p < q ? p : q; }, s_red);
+  hi = block_reduce(hi, [](long long p, long long q) { return p > q ? p : q; }, s_red);
+  const unsigned long long ulo = flip(lo);
+  unsigned long long rej = flip(TS_POS) - ulo;
+  const unsigned long long past = flip(hi) - ulo;
+  if (past != ~0ull && past + 1 < rej) rej = past + 1;
+  unsigned long long o = 0, n = ~0ull;
+  for (int i = tid; i < B; i += nt) {
+    const unsigned long long u = a.mask[i] ? flip(bk[i]) - ulo : rej;
+    kv[i] = u;
+    o |= u;
+    n &= u;
+  }
+  for (int p = tid; p < B; p += nt) x[p] = a.gorder[p];
+  o = block_reduce(o, OrU64(), sm.red);
+  n = block_reduce(n, AndU64(), sm.red);
+  radix_sort(x, y, B, kv, o, n, sm);
+  const int* ord = x;
+
+  // the order, the accumulated lanes in sorted order (mask folded in)
+  for (int p = tid; p < B; p += nt) a.order[row + p] = ord[p];
+  for (int k = 0; k < a.S; ++k) {
+    const int ln = a.lane[k];
+    if (ln == L_VALUE) continue;
+    const long long* v = a.sval + (long long)k * B;
+    const long long id = (ln == L_MIN || ln == L_MAX) ? mm_ident(a.vty[k], ln == L_MIN) : 0;
+    long long* out = a.ssv + ((long long)k * D + d) * B;
+    for (int p = tid; p < B; p += nt) {
+      const int i = ord[p];
+      out[p] = a.mask[i] ? v[i] : id;
+    }
+  }
+
+  // run bounds over the sorted order: thread t's positions [q0, q1); a run
+  // starts where the key (the bucket) or a group key changes, and is
+  // accepted where its key is below the rejected events' (its bucket below
+  // 2**62)
+  const int E2 = (B + nt - 1) / nt;
+  const int q0 = min(B, tid * E2), q1 = min(B, q0 + E2);
+  int* first = y;                     // the sort's spare buffer: run heads
+  long long mine = 0;                 // runs | accepted runs << 32
+  for (int p = q0; p < q1; ++p) {
     const int i = ord[p];
-    const long long sg = segm_of(a, bk, i);
     bool f = p == 0;
     if (!f) {
       const int h = ord[p - 1];
-      f = segm_of(a, bk, h) != sg;
+      f = kv[h] != kv[i];
       for (int g = 0; g < G && !f; ++g)
         f = a.gkey[(long long)g * B + h] != a.gkey[(long long)g * B + i];
     }
     first[p] = f;
-    acc_runs += f && sg < TS_POS;
+    if (f) mine += 1 + ((long long)(kv[i] < rej) << 32);
   }
-  const int nseg = block_rank(first, a.rank + row, B, s_scan);
-  for (int p = tid; p < B; p += blockDim.x)
-    if (first[p]) a.start[row + a.rank[row + p]] = p;
-  const long long nr = block_reduce(acc_runs, [](long long x, long long y) { return x + y; }, s_red);
+  long long tot;
+  const long long ex = block_excl_scan<long long>(mine, sm.w, &tot);
+  int run = (int)(ex & 0xffffffffLL);
+  for (int p = q0; p < q1; ++p)
+    if (first[p]) a.start[row + run++] = p;
   if (tid == 0) {
-    a.nseg[d] = nseg;
-    a.n_runs[d] = nr;
+    a.nseg[d] = (int)(tot & 0xffffffffLL);
+    a.n_runs[d] = tot >> 32;
   }
 }
 
 // ----------------------------------------------------------- 4. a_reduce
+// One thread per (d, run slot s < B, lane z): z < S reduces lane z of run
+// s; z == S writes the run's bucket, count and group keys.
 __global__ void a_reduce(const AArgs a) {
-  const int d = blockIdx.y, B = a.B, s = blockIdx.x * blockDim.x + threadIdx.x;
+  const int d = blockIdx.y, k = blockIdx.z, B = a.B, D = a.D;
+  const int s = blockIdx.x * blockDim.x + threadIdx.x;
   if (s >= B) return;
   const long long row = (long long)d * B, o = row + s;
   const int* ord = a.order + row;
@@ -250,43 +482,44 @@ __global__ void a_reduce(const AArgs a) {
       cnt = en - st;
     }
   }
-  a.bucket[o] = segm_of(a, bk, ord[lead]);
-  a.count[o] = cnt;
-  for (int k = 0; k < a.S; ++k) {
-    const int ln = a.lane[k], ty = a.vty[k];
-    const long long* v = a.sval + (long long)k * B;
-    if (ln == L_VALUE) {
-      store_typed(a.o_main[k], ty, o, v[ord[lastc]]);
-    } else if (ln == L_INT) {
-      unsigned long long acc = 0;                 // wraps as int64 does
-      for (int p = st; p < en; ++p) {
-        const int i = ord[p];
-        if (a.mask[i]) acc += (unsigned long long)v[i];
-      }
-      ((long long*)a.o_main[k])[o] = (long long)acc;
-    } else if (ln == L_F64 || ln == L_F64SQ) {
-      double acc = 0.0, sq = 0.0;
-      for (int p = st; p < en; ++p) {
-        const int i = ord[p];
-        const double x = a.mask[i] ? as_d(v[i]) : 0.0;
-        acc = __dadd_rn(acc, x);
-        sq = __dadd_rn(sq, __dmul_rn(x, x));
-      }
-      ((double*)a.o_main[k])[o] = acc;
-      if (ln == L_F64SQ) ((double*)a.o_sq[k])[o] = sq;
-    } else {
-      const bool is_min = ln == L_MIN;
-      const long long id = mm_ident(ty, is_min);
-      long long acc = id;
-      for (int p = st; p < en; ++p) {
-        const int i = ord[p];
-        acc = mm_combine(acc, a.mask[i] ? v[i] : id, ty, is_min);
-      }
-      store_typed(a.o_main[k], ty, o, acc);
-    }
+  if (k == a.S) {
+    a.bucket[o] = segm_of(a, bk, ord[lead]);
+    a.count[o] = cnt;
+    for (int g = 0; g < a.G; ++g)
+      store_typed(a.o_g[g], a.g_ty[g], o, a.gkey[(long long)g * B + ord[lead]]);
+    return;
   }
-  for (int g = 0; g < a.G; ++g)
-    store_typed(a.o_g[g], a.g_ty[g], o, a.gkey[(long long)g * B + ord[lead]]);
+  const int ln = a.lane[k], ty = a.vty[k];
+  const long long* v = a.ssv + ((long long)k * D + d) * B;   // sorted, masked
+  if (ln == L_VALUE) {
+    store_typed(a.o_main[k], ty, o, a.sval[(long long)k * B + ord[lastc]]);
+  } else if (ln == L_INT) {
+    unsigned long long acc = 0;                 // wraps as int64 does
+#pragma unroll 8
+    for (int p = st; p < en; ++p) acc += (unsigned long long)v[p];
+    ((long long*)a.o_main[k])[o] = (long long)acc;
+  } else if (ln == L_F64) {
+    double acc = 0.0;
+#pragma unroll 8
+    for (int p = st; p < en; ++p) acc = __dadd_rn(acc, as_d(v[p]));
+    ((double*)a.o_main[k])[o] = acc;
+  } else if (ln == L_F64SQ) {
+    double acc = 0.0, sq = 0.0;
+#pragma unroll 8
+    for (int p = st; p < en; ++p) {
+      const double x = as_d(v[p]);
+      acc = __dadd_rn(acc, x);
+      sq = __dadd_rn(sq, __dmul_rn(x, x));
+    }
+    ((double*)a.o_main[k])[o] = acc;
+    ((double*)a.o_sq[k])[o] = sq;
+  } else {
+    const bool is_min = ln == L_MIN;
+    long long acc = mm_ident(ty, is_min);
+#pragma unroll 8
+    for (int p = st; p < en; ++p) acc = mm_combine(acc, v[p], ty, is_min);
+    store_typed(a.o_main[k], ty, o, acc);
+  }
 }
 
 // ------------------------------------------------------------ host entry
@@ -301,19 +534,28 @@ extern "C" int aggregation_step(const AArgs* args, void* stream, int* nlaunch) {
   cudaStream_t st = (cudaStream_t)stream;
   *nlaunch = 0;
   const int nb = (a.B + NT - 1) / NT;
+  // the sorts' sequences and keys: shared memory where B fits one tile
+  const int dyn = a.B <= TILE ? a.B * (int)(sizeof(unsigned long long) + 2 * sizeof(int)) : 0;
+  cudaError_t e = cudaSuccess;
+  if (dyn > 0) {
+    e = cudaFuncSetAttribute(a_gsort, cudaFuncAttributeMaxDynamicSharedMemorySize, dyn);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(a_bsort, cudaFuncAttributeMaxDynamicSharedMemorySize, dyn);
+    if (e != cudaSuccess) return (int)e;
+  }
   a_eval<<<nb, NT, 0, st>>>(a);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  *nlaunch += 1;
-  a_rank<<<dim3(nb, a.D), NT, 0, st>>>(a);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   *nlaunch += 1;
-  a_bounds<<<a.D, NTB, 0, st>>>(a);
+  a_gsort<<<1, NTS, dyn, st>>>(a);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   *nlaunch += 1;
-  a_reduce<<<dim3(nb, a.D), NT, 0, st>>>(a);
+  a_bsort<<<a.D, NTS, dyn, st>>>(a);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  *nlaunch += 1;
+  a_reduce<<<dim3(nb, a.D, a.S + 1), NT, 0, st>>>(a);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   *nlaunch += 1;

@@ -116,6 +116,11 @@ struct QArgs {
   long long* mP; long long* mS;     // [AM, M]
   long long* mT;                    // [AM, LV, NB]
   int* pz;                          // [AF + 2 AS, 3] one-hot poison (grouped)
+  int* hidx;                        // [hh_H] heavy hitters' key -> slot index
+  unsigned* hfree;                  // [(N + 31) / 32] their free-slot bits
+  int hh_H;                         // index positions: a power of two >= 2 N
+  int hh_shared;                    // set by query_walk's host entry: the
+                                    // table lives in shared memory
 };
 
 // ------------------------------------------------------------------ helpers

@@ -28,18 +28,38 @@
 // repeat the outputs of the first of them.
 //
 // Design: one launch per step, one CTA of NTW threads; the loop over the
-// batch's events runs inside the kernel. The table is the state's fresh
-// output buffers (the input state is copied there first and left as it
-// was), in global memory: per event the block makes one pass over the
-// table (the C slots, or the N buffer slots) with block-wide reductions
-// (first hit and first free slot, the evictions, the buffer sums) and a
-// top-down shift for the sort insert.
+// batch's events runs inside the kernel, since each event reads the table
+// its predecessor left. The state's input buffers are read once and left
+// as they were; the step writes fresh output buffers.
+//   - sort: per event the block makes one pass over the N buffer slots in
+//     device memory with block-wide reductions, and shifts the tail up for
+//     the insert.
+//   - frequent / lossyFrequent: the table (keys, counts, deltas) lives in
+//     dynamic shared memory for the step (C = 4096 lossy: 96 KB), with a
+//     key -> slot index (open addressing over 2 C or more positions, built
+//     in parallel, the lowest slot of a key winning as the reference's
+//     argmax does) and a free-slot bitmap with a cursor at the lowest free
+//     slot; a table too large for shared memory stays in device memory
+//     (the output buffers and the wrapper's scratch), same code. Warp 0
+//     walks the events alone: a lookup is a few probes under one ballot,
+//     an insert takes the cursor and a ballot over the bitmap finds the
+//     next free slot, and only the touched slot's value lanes are written.
+//     The block joins it, behind a barrier, only for passes over every
+//     slot: the index build, the lossy prune where the bucket number
+//     floor(total * error) + 1 changes (after a prune at bucket b every
+//     entry has f + delta >= b, and neither a hit nor an insert can lower
+//     that, so between changes no entry qualifies; the step's first event
+//     and the touched slot are still checked), and frequent's decrement-
+//     all. A pass's retractions are summed in f64 across the block in a
+//     fixed order, rounded once and subtracted, as before.
 //
-// What bounds it on the H100: in principle the bytes of the batch and the
-// table (a few hundred KB a step, well under a microsecond). This first
-// version is bound by its serial walk: a handful of block barriers per event
-// on one SM. A table in shared memory and a hashed key lookup are later
-// work.
+// What bounds it on the H100: the serial dependence from event to event.
+// Its work is one key lookup and one row per event, plus one visit of each
+// slot per bucket change or decrement-all, and the bytes of the batch and
+// the table (a few hundred KB a step): microseconds at the card's rates.
+// The walk costs a lookup's latency in shared memory per event, the rest
+// of the card idles; the sort walk still spends a few block barriers per
+// event.
 
 #include "query_common.cuh"
 
@@ -59,16 +79,17 @@ __device__ __forceinline__ long long total_key(int ty, long long v) {
 }
 
 // Materialises row b's outputs from its aggregates; returns its validity
-// after having (``ok`` is the validity before it).
-__device__ bool put_row(const QArgs& a, int b, long long cnt, const float* sf,
+// after having (``ok`` is the validity before it). Not inlined: it carries
+// the having program's interpreter, and the walks stay small.
+__device__ __noinline__ bool put_row(const QArgs& a, int b, long long cnt, const float* sf,
                         const long long* si, const long long* sm, const float* sd,
                         bool ok) {
   long long ov[QMAXSPEC];
   for (int i = 0; i < a.nspec; ++i) {
     const int kind = a.spec_kind[i], l = a.spec_lane[i];
     long long v;
-    if (kind == S_VALUE) {
-      ov[i] = load_typed(a.out[i], a.spec_ty[i], b);
+    if (kind == S_VALUE) {           // read back only for having
+      ov[i] = a.has_having ? load_typed(a.out[i], a.spec_ty[i], b) : 0;
       continue;
     }
     if (kind == S_COUNT) {
@@ -210,20 +231,12 @@ __device__ void walk_sort(const QArgs& a, int k, double* s_d, long long* s_l) {
   if (k < B) repeat_rows(a, k);
   if (tid == 0) *a.rc_out = n;
 }
-
 // ---------------------------------------------------------- heavy hitters
 
 // (first, second) packed as two non-negative 32-bit fields
 __device__ __forceinline__ long long pack2(int hi, int lo) {
   return ((long long)hi << 32) | (unsigned)lo;
 }
-struct MinMin {   // component-wise min
-  __device__ long long operator()(long long x, long long y) const {
-    const int h = (int)(x >> 32) < (int)(y >> 32) ? (int)(x >> 32) : (int)(y >> 32);
-    const int l = (int)(unsigned)x < (int)(unsigned)y ? (int)(unsigned)x : (int)(unsigned)y;
-    return pack2(h, l);
-  }
-};
 struct MinSum {   // min of the high field, sum of the low field
   __device__ long long operator()(long long x, long long y) const {
     const int h = (int)(x >> 32) < (int)(y >> 32) ? (int)(x >> 32) : (int)(y >> 32);
@@ -231,178 +244,486 @@ struct MinSum {   // min of the high field, sum of the low field
   }
 };
 
-__device__ void walk_hh(const QArgs& a, int k, double* s_d, long long* s_l) {
+// The table the walk updates: per slot its key, count and (lossy) delta; a
+// key -> slot index (open addressing, linear probing, H a power of two >=
+// 2 C, -1 where empty) and one bit per free slot. In shared memory, or in
+// device memory where it does not fit (the state's output buffers and the
+// wrapper's scratch).
+struct HTab {
+  long long* key;
+  long long* cnt;
+  long long* del;
+  int* idx;
+  unsigned* fw;
+  int C, H, nw;
+};
+
+// SH: the table in shared memory (the pointers derive from the dynamic
+// shared array, so the compiler addresses it as shared memory).
+template <bool SH>
+__device__ __forceinline__ HTab hh_table(const QArgs& a) {
+  HTab t;
+  t.C = a.N;
+  t.H = a.hh_H;
+  t.nw = (a.N + 31) >> 5;
+  if (SH) {
+    extern __shared__ __align__(16) unsigned char s_dyn[];
+    long long* p = (long long*)s_dyn;
+    const bool lossy = a.wkind == W_LOSSY;
+    t.key = p;
+    t.cnt = p + t.C;
+    t.del = lossy ? p + 2 * (long long)t.C : nullptr;
+    t.idx = (int*)(p + (lossy ? 3 : 2) * (long long)t.C);
+    t.fw = (unsigned*)(t.idx + t.H);
+  } else {
+    t.key = a.hkeys_out;
+    t.cnt = a.hcnt_out;
+    t.del = a.hdelta_out;
+    t.idx = a.hidx;
+    t.fw = a.hfree;
+  }
+  return t;
+}
+
+// Every 64 bits of the key code take part (two-key codes are pack2'd).
+__device__ __forceinline__ unsigned hh_hash(long long k) {
+  return (unsigned)avalanche64((unsigned long long)k);
+}
+
+// Rebuilds the index over the occupied slots (count > 0) and the free bits
+// over the others; a key held by two slots is indexed at the lower one, the
+// one the reference's argmax over hits picks. Returns whether some key is
+// held twice (a restored state may hold one; the walk never makes one).
+// Every thread of the block calls it.
+__device__ __forceinline__ bool hh_index(const HTab& t, int* s_flag) {
   const int tid = threadIdx.x, nt = blockDim.x;
+  const unsigned mask = (unsigned)t.H - 1u;
+  for (int p = tid; p < t.H; p += nt) t.idx[p] = -1;
+  for (int w = tid; w < t.nw; w += nt) t.fw[w] = 0u;
+  if (tid == 0) *s_flag = 0;
+  __syncthreads();
+  for (int s = tid; s < t.C; s += nt) {
+    if (t.cnt[s] <= 0) {
+      atomicOr(&t.fw[s >> 5], 1u << (s & 31));
+      continue;
+    }
+    const long long k = t.key[s];
+    for (unsigned p = hh_hash(k) & mask;; p = (p + 1) & mask) {
+      const int e = atomicCAS(&t.idx[p], -1, s);
+      if (e < 0) break;
+      if (t.key[e] == k) {
+        atomicMin(&t.idx[p], s);
+        *s_flag = 1;
+        break;
+      }
+    }
+  }
+  __syncthreads();
+  return *s_flag != 0;
+}
+
+// The walking warp's table operations. Each lane resolves its own event of
+// the chunk (NL events staged at a time, lane j holding event b0 + j).
+
+// The slot holding key k (hash h), or -1: linear probing from h.
+__device__ __forceinline__ int hh_find(const HTab& t, long long k, unsigned h) {
+  const unsigned mask = (unsigned)t.H - 1u;
+  for (unsigned p = h & mask;; p = (p + 1) & mask) {
+    const int e = t.idx[p];
+    if (e < 0) return -1;
+    if (t.key[e] == k) return e;
+  }
+}
+
+// Enters slot s under a key of hash h, absent from the index (lanes may
+// enter at once).
+__device__ __forceinline__ void hh_enter(const HTab& t, unsigned h, int s) {
+  const unsigned mask = (unsigned)t.H - 1u;
+  for (unsigned p = h & mask;; p = (p + 1) & mask)
+    if (atomicCAS(&t.idx[p], -1, s) < 0) return;
+}
+
+// The lowest free slots at or after `from`, up to NL of them, into
+// s_free[0..n) in order; returns n. Every lane of the warp calls it.
+__device__ int hh_free_list(const HTab& t, int from, int* s_free, int lane, int NL) {
+  int got = 0;
+  for (int w0 = from >> 5; w0 < t.nw && got < NL; w0 += NL) {
+    const int w = w0 + lane;
+    unsigned bits = lane < NL && w < t.nw ? t.fw[w] : 0u;
+    if (w == (from >> 5)) bits &= ~0u << (from & 31);
+    const int c = __popc(bits);
+    int x = c;
+    for (int d = 1; d < 32; d <<= 1) {
+      const int y = __shfl_up_sync(FULL, x, d);
+      if (lane >= d) x += y;
+    }
+    for (int at = got + x - c; bits && at < NL; ++at) {
+      s_free[at] = (w << 5) + __ffs(bits) - 1;
+      bits &= bits - 1u;
+    }
+    got += __shfl_sync(FULL, x, NL - 1);
+  }
+  __syncwarp();
+  return got < NL ? got : NL;
+}
+
+enum { P_NONE = 0, P_DONE, P_PRUNE, P_DEC };
+
+// One chunk of NL events as warp 0 resolved it, lane j for event b0 + j:
+// the key code, the slot its lookup found (-1: absent), the latest earlier
+// lane with the same key (-1: none), the slot the walk gave it (-1: none)
+// and whether that was a free slot still to enter the index; the free
+// slots listed for the chunk's inserts.
+struct HhChunk {
+  long long key[32];
+  int r[32], p[32], slot[32], free[32];
+  unsigned char ins[32];
+  // each event's row: the running sums, count and emission after its add
+  float rowf[QMAXLANE][32];
+  long long rowi[QMAXLANE][32];
+  long long rowc[32];
+  unsigned char rowe[32];
+};
+
+// frequent and lossyFrequent. Warp 0 prepares each chunk of NL events
+// (lane j for event b0 + j): its key codes and hashes, every lane's slot
+// as the index gives it at the chunk's start (all lanes probing at once),
+// a link from each event to the latest earlier event of the chunk with the
+// same key (a match over the lanes), and a list of the lowest free slots.
+// Lane 0 then walks the chunk's events alone: within a chunk the table
+// changes only by the chunk's own inserts, taken from the list in order and
+// entered into the index and the free bits when the chunk ends, so an
+// event's slot is its lookup's, else its linked event's, else the next
+// listed one, read from shared memory, with no warp-wide step per event.
+// Lane 0 writes nothing to device memory either (a store there costs the
+// walk about a hundred cycles): the events' rows and the values each event
+// leaves in its slot wait in shared memory, and the warp writes them out,
+// coalesced, when the chunk ends (the values also before a pass, which
+// reads them; of two events of a chunk in one slot, the later's).
+// The block joins for a pass over every slot (the index build, a lossy
+// prune where the bucket changed, a decrement-all), announced through
+// s_cmd / s_beta; after a pass the rest of the chunk is prepared again.
+// The walk records each event's running sums, count and emission (scratch
+// incf / inci / inco / oflag); the block materialises the rows from them
+// after the walk.
+template <bool SH>
+__device__ __forceinline__ void walk_hh(const QArgs& a, int k, double* s_d,
+                                        long long* s_l, int* s_cmd, long long* s_beta,
+                                        int* s_flag, float* s_vf, long long* s_vi,
+                                        HhChunk* ch, float* s_rf, long long* s_ri,
+                                        float* s_tf, long long* s_ti) {
+  const HTab t = hh_table<SH>(a);
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int NL = nt < 32 ? nt : 32, lane = tid & 31;
+  const bool walker = tid < NL;
   const int C = a.N, B = a.B;
   const bool lossy = a.wkind == W_LOSSY;
   for (int s = tid; s < C; s += nt) {
-    a.hkeys_out[s] = a.hkeys_in[s];
-    a.hcnt_out[s] = a.hcnt_in[s];
-    if (lossy) a.hdelta_out[s] = a.hdelta_in[s];
+    t.key[s] = a.hkeys_in[s];
+    t.cnt[s] = a.hcnt_in[s];
+    if (lossy) t.del[s] = a.hdelta_in[s];
     for (int l = 0; l < a.AF; ++l) a.f_out[(long long)l * C + s] = a.f_in[(long long)l * C + s];
     for (int l = 0; l < a.AI; ++l) a.i_out[(long long)l * C + s] = a.i_in[(long long)l * C + s];
   }
-  // the running sums and counters: thread 0's
-  float rf[QMAXLANE];
-  long long ri[QMAXLANE];
-  for (int l = 0; l < a.AF; ++l) rf[l] = a.runf_in[l];
-  for (int l = 0; l < a.AI; ++l) ri[l] = a.runi_in[l];
+  if (tid < 32) ch->ins[tid] = 0;
+  __syncthreads();
+  bool dup = hh_index(t, s_flag);
+  // the running sums: lane 0's, in shared memory; the counters: lane 0's
+  if (tid == 0) {
+    for (int l = 0; l < a.AF; ++l) s_rf[l] = a.runf_in[l];
+    for (int l = 0; l < a.AI; ++l) s_ri[l] = a.runi_in[l];
+  }
   long long rcnt = *a.runc_in;
   long long total = lossy ? *a.htot_in : 0, drops = lossy ? *a.drops_in : 0;
-  int emitted = 0;
-  __shared__ int s_emit;
-  __syncthreads();
+  long long bucket = 0, prev = 0;
+  long long kreg = 0;                   // lane j: event b0 + j's key code
+  unsigned hreg = 0;                    // and its hash
+  // the chunk's free list (none yet), how much of it lane 0 took, the
+  // lowest slot that may be free
+  int nfree = -1, taken = 0, from = 0;
+  int emitted = 0, b = 0, b0 = 0, nev = 0, fe = C;
+  int vlo = 0;                          // the chunk's events from here on have
+                                        // slot values still to write out
+  bool first = true, resume = false;
   const int last = k < B ? k : B - 1;
-  for (int b = 0; b <= last; ++b) {
-    const bool accept = b < k;
-    bool has = false, ins = false;
-    int idx = 0;
-    long long bucket = 0;
-    if (accept) {
-      const long long key = a.bpacked[b];
-      // the first occupied slot holding the key, the first free slot
-      int fh = C, ff = C;
-      for (int s = tid; s < C; s += nt) {
-        if (a.hcnt_out[s] > 0) { if (a.hkeys_out[s] == key && s < fh) fh = s; }
-        else if (s < ff) ff = s;
-      }
-      const long long got = block_reduce<long long>(pack2(fh, ff), MinMin(), s_l);
-      fh = (int)(got >> 32);
-      ff = (int)(unsigned)got;
-      has = fh < C;
-      const bool space = ff < C;
-      ins = !has && space;
-      idx = has ? fh : (space ? ff : 0);
-      if (lossy) {
-        total += 1;
-        bucket = (long long)((double)total * a.hh_error) + 1;
-        if (tid == 0) {
-          bool emit = false;
-          if (has || ins) {
-            const long long ef = has ? a.hcnt_out[idx] + 1 : 1;
-            const long long ed = ins ? bucket - 1 : a.hdelta_out[idx];
-            emit = (double)(ef + ed) >= (double)total * a.hh_support;
-            for (int l = 0; l < a.AF; ++l) a.f_out[(long long)l * C + idx] = a.bf[(long long)l * B + b];
-            for (int l = 0; l < a.AI; ++l) a.i_out[(long long)l * C + idx] = a.bi[(long long)l * B + b];
-            a.hkeys_out[idx] = key;
-          } else {
-            drops += 1;
-          }
-          s_emit = emit;
-        }
-        __syncthreads();
-        // counts up, the arrival's slot, then the prune: every entry with
-        // f + delta <= bucket - 1 (the one just updated included)
-        int nev = 0;
-        double pf[QMAXLANE];
-        long long pi[QMAXLANE];
-        for (int l = 0; l < a.AF; ++l) pf[l] = 0.0;
-        for (int l = 0; l < a.AI; ++l) pi[l] = 0;
-        for (int s = tid; s < C; s += nt) {
-          long long c = a.hcnt_out[s], d = a.hdelta_out[s];
-          if (has && c > 0 && a.hkeys_out[s] == key) c += 1;
-          if (ins && s == idx) { c = 1; d = bucket - 1; }
-          if (c > 0 && c + d <= bucket - 1) {
-            c = 0;
-            ++nev;
-            for (int l = 0; l < a.AF; ++l) pf[l] += (double)a.f_out[(long long)l * C + s];
-            for (int l = 0; l < a.AI; ++l) pi[l] += a.i_out[(long long)l * C + s];
-          }
-          a.hcnt_out[s] = c;
-          a.hdelta_out[s] = d;
-        }
-        const bool emit = s_emit != 0;
-        if (tid == 0) {
-          for (int l = 0; l < a.AF; ++l) rf[l] = __fadd_rn(rf[l], emit ? a.bf[(long long)l * B + b] : 0.0f);
-          for (int l = 0; l < a.AI; ++l) ri[l] += emit ? a.bi[(long long)l * B + b] : 0;
-          rcnt += emit;
-          emitted += emit;
-          put_row(a, b, rcnt, rf, ri, nullptr, nullptr, emit);
-        }
-        nev = block_sum<int>(nev, (int*)s_l);
-        if (nev > 0) {
-          for (int l = 0; l < a.AF; ++l) {
-            const float t = f32_of(block_sum<double>(pf[l], s_d));
-            if (tid == 0) rf[l] = __fsub_rn(rf[l], t);
-          }
-          for (int l = 0; l < a.AI; ++l) {
-            const long long t = block_sum<long long>(pi[l], s_l);
-            if (tid == 0) ri[l] -= t;
-          }
-          rcnt -= nev;
-        }
-        __syncthreads();
-        continue;
-      }
-      // frequent: counts up, the arrival's slot, or decrement-all
-      const bool dec = !has && !space;
-      int fe = C, nev = 0;
-      double pf[QMAXLANE];
-      long long pi[QMAXLANE];
-      for (int l = 0; l < a.AF; ++l) pf[l] = 0.0;
-      for (int l = 0; l < a.AI; ++l) pi[l] = 0;
-      for (int s = tid; s < C; s += nt) {
-        long long c = a.hcnt_out[s];
-        if (has && c > 0 && a.hkeys_out[s] == key) c += 1;
-        if (ins && s == idx) c = 1;
-        if (dec && c > 0) {
-          c -= 1;
-          if (c == 0) {
-            if (s < fe) fe = s;
-            ++nev;
-            for (int l = 0; l < a.AF; ++l) pf[l] += (double)a.f_out[(long long)l * C + s];
-            for (int l = 0; l < a.AI; ++l) pi[l] += a.i_out[(long long)l * C + s];
-          }
-        }
-        a.hcnt_out[s] = c;
-      }
-      if (dec) {
-        const long long got = block_reduce<long long>(pack2(fe, nev), MinSum(), s_l);
-        fe = (int)(got >> 32);
-        nev = (int)(unsigned)got;
-        if (nev > 0) {
-          // the evicted keys' last values leave the sums before the add
-          for (int l = 0; l < a.AF; ++l) {
-            const float t = f32_of(block_sum<double>(pf[l], s_d));
-            if (tid == 0) rf[l] = __fsub_rn(rf[l], t);
-          }
-          for (int l = 0; l < a.AI; ++l) {
-            const long long t = block_sum<long long>(pi[l], s_l);
-            if (tid == 0) ri[l] -= t;
-          }
-          rcnt -= nev;
-          idx = fe;                   // the arrival takes the first of them
-        }
-      }
-      __syncthreads();
-      const bool emit = has || ins || nev > 0;
-      if (tid == 0) {
-        if (emit) {
-          if (nev > 0) a.hcnt_out[idx] = 1;
-          for (int l = 0; l < a.AF; ++l) a.f_out[(long long)l * C + idx] = a.bf[(long long)l * B + b];
-          for (int l = 0; l < a.AI; ++l) a.i_out[(long long)l * C + idx] = a.bi[(long long)l * B + b];
-          a.hkeys_out[idx] = key;
-        }
-        for (int l = 0; l < a.AF; ++l) rf[l] = __fadd_rn(rf[l], emit ? a.bf[(long long)l * B + b] : 0.0f);
-        for (int l = 0; l < a.AI; ++l) ri[l] += emit ? a.bi[(long long)l * B + b] : 0;
-        rcnt += emit;
-        emitted += emit;
-        put_row(a, b, rcnt, rf, ri, nullptr, nullptr, emit);
-      }
-      __syncthreads();
-      continue;
+
+  auto vf = [&](int l) { return s_vf[l * 32 + (b - b0)]; };
+  auto vi = [&](int l) { return s_vi[l * 32 + (b - b0)]; };
+  // (warp) the chunk's inserts enter the index and leave the free bits
+  auto flush = [&]() {
+    if (lane < NL && ch->ins[lane]) {
+      const int s = ch->slot[lane];
+      hh_enter(t, hreg, s);
+      atomicAnd(&t.fw[s >> 5], ~(1u << (s & 31)));
+      ch->ins[lane] = 0;
     }
-    // an unaccepted slot: nothing changes, its row shows the running sums
-    if (tid == 0) {
-      for (int l = 0; l < a.AF; ++l) rf[l] = __fadd_rn(rf[l], 0.0f);
-      put_row(a, b, rcnt, rf, ri, nullptr, nullptr, false);
+    __syncwarp();
+  };
+  // (warp) the events of lanes after `after`: lookups, links, free list
+  auto resolve = [&](int after) {
+    const bool mine = lane > after && lane < NL && b0 + lane < k;
+    const int r = mine ? hh_find(t, kreg, hreg) : -1;
+    const unsigned live = __ballot_sync(FULL, mine);
+    const unsigned same = __match_any_sync(FULL, kreg) & live & ((1u << lane) - 1u);
+    if (lane > after && lane < NL) {
+      ch->r[lane] = r;
+      ch->p[lane] = same ? 31 - __clz((int)same) : -1;
+      ch->slot[lane] = -1;
     }
+    nfree = hh_free_list(t, from, ch->free, lane, NL);
+    taken = 0;
+  };
+  // (warp) the slot values of the chunk's events vlo .. upto, the latest
+  // of each slot
+  auto flush_vals = [&](int upto) {
+    const bool in = lane >= vlo && lane <= upto && lane < NL;
+    const int s = in ? ch->slot[lane] : -1;
+    const unsigned same = __match_any_sync(FULL, s);
+    if (s >= 0 && (same >> lane) == 1u) {
+      for (int l = 0; l < a.AF; ++l) a.f_out[(long long)l * C + s] = s_vf[l * 32 + lane];
+      for (int l = 0; l < a.AI; ++l) a.i_out[(long long)l * C + s] = s_vi[l * 32 + lane];
+    }
+    vlo = upto + 1;
+  };
+  // (warp) the chunk's rows, its first n events'
+  auto flush_rows = [&](int n) {
+    if (lane < n) {
+      const int r = b0 + lane;
+      for (int l = 0; l < a.AF; ++l) a.incf[(long long)l * B + r] = ch->rowf[l][lane];
+      for (int l = 0; l < a.AI; ++l) a.inci[(long long)l * B + r] = ch->rowi[l][lane];
+      a.inco[r] = ch->rowc[lane];
+      a.oflag[r] = ch->rowe[lane];
+    }
+  };
+  // (warp) the chunk ending at event b - 1 is written out
+  auto close_chunk = [&]() {
+    flush_vals(b - 1 - b0);
+    flush_rows(b - b0);
+  };
+  // (warp) the next chunk, from event b
+  auto stage = [&]() {
+    if (b > 0) close_chunk();
+    flush();
+    if (taken < nfree) from = ch->free[taken];
+    else if (nfree == NL) from = ch->free[NL - 1] + 1;
+    else if (nfree >= 0) from = C;
+    __syncwarp();
+    b0 = b;
+    vlo = 0;
+    const int j = b + lane;
+    const bool in = lane < NL && j < B;
+    kreg = in ? __ldcg(a.bpacked + j) : 0;
+    hreg = hh_hash(kreg);
+    if (lane < NL) ch->key[lane] = kreg;
+    for (int l = 0; l < a.AF; ++l)
+      s_vf[l * 32 + lane] = in ? __ldcg(a.bf + (long long)l * B + j) : 0.0f;
+    for (int l = 0; l < a.AI; ++l)
+      s_vi[l * 32 + lane] = in ? __ldcg(a.bi + (long long)l * B + j) : 0;
+    __syncwarp();
+    resolve(-1);
+  };
+  // (lane 0, below) the arrival's add (emit: it counts in the sums),
+  // recorded for its row
+  auto add_row = [&](bool emit) {
+    const int j = b - b0;
+    rcnt += emit;
+    emitted += emit;
+#pragma unroll 1
+    for (int l = 0; l < a.AF; ++l) {
+      const float v = __fadd_rn(s_rf[l], emit ? vf(l) : 0.0f);
+      s_rf[l] = v;
+      ch->rowf[l][j] = v;
+    }
+#pragma unroll 1
+    for (int l = 0; l < a.AI; ++l) {
+      const long long v = s_ri[l] + (emit ? vi(l) : 0);
+      s_ri[l] = v;
+      ch->rowi[l][j] = v;
+    }
+    ch->rowc[j] = rcnt;
+    ch->rowe[j] = emit;
+  };
+  // a pass's evicted values leave the sums
+  auto retract = [&]() {
+    for (int l = 0; l < a.AF; ++l) s_rf[l] = __fsub_rn(s_rf[l], s_tf[l]);
+    for (int l = 0; l < a.AI; ++l) s_ri[l] -= s_ti[l];
+    rcnt -= nev;
+  };
+  // the arrival takes slot idx (count c, delta d; ins: a free slot); its
+  // values follow when the chunk's slot values are written out
+  auto put_slot = [&](int idx, long long c, long long d, bool ins) {
+    const int j = b - b0;
+    t.cnt[idx] = c;
+    if (lossy) t.del[idx] = d;
+    t.key[idx] = ch->key[j];
+    ch->slot[j] = idx;
+    ch->ins[j] = ins;
+    taken += ins;
+  };
+  // a hit on a key a restored state holds twice: the other slots count up
+  auto count_dups = [&](int idx) {
+    const long long key = t.key[idx];
+    for (int s = 0; s < C; ++s)
+      if (s != idx && t.cnt[s] > 0 && t.key[s] == key) t.cnt[s] += 1;
+  };
+
+  for (;;) {
+    int cmd = P_NONE;
+    if (walker) {
+      if (resume) {                       // the event a pass interrupted
+        if (lane == 0) {
+          if (nev > 0) retract();
+          if (!lossy) {                   // the arrival takes the first evicted
+            if (nev > 0) put_slot(fe, 1, 0, true);
+            add_row(nev > 0);
+          }
+        }
+        __syncwarp();
+        from = 0;
+        flush();
+        resolve(b - b0);
+        resume = false;
+        ++b;
+      }
+      while (cmd == P_NONE) {
+        if (b > last) {
+          cmd = P_DONE;
+          break;
+        }
+        if (b == 0 || b == b0 + NL) stage();
+        __syncwarp();
+        if (lane == 0) {
+          for (; b <= last && b < b0 + NL; ++b) {
+            if (b >= k) {                 // the first unaccepted slot
+              add_row(false);
+              continue;
+            }
+            const int j = b - b0;
+            const int r = ch->r[j], pv = ch->p[j];
+            const int hit = r >= 0 ? r : (pv >= 0 ? ch->slot[pv] : -1);
+            const bool has = hit >= 0, space = taken < nfree;
+            if (!lossy) {
+              if (!has && !space) {       // decrement-all, in a pass
+                cmd = P_DEC;
+                break;
+              }
+              const int idx = has ? hit : ch->free[taken];
+              put_slot(idx, has ? t.cnt[idx] + 1 : 1, 0, !has);
+              if (has && dup) count_dups(idx);
+              add_row(true);
+              continue;
+            }
+            total += 1;
+            bucket = (long long)((double)total * a.hh_error) + 1;
+            bool emit = false, low = false;
+            if (has || space) {
+              const int idx = has ? hit : ch->free[taken];
+              const long long c = has ? t.cnt[idx] + 1 : 1;
+              const long long d = has ? t.del[idx] : bucket - 1;
+              emit = (double)(c + d) >= (double)total * a.hh_support;
+              low = c + d <= bucket - 1;
+              put_slot(idx, c, d, !has);
+              if (has && dup) count_dups(idx);
+            } else {
+              drops += 1;
+            }
+            add_row(emit);
+            // the prune, every entry with f + delta <= bucket - 1: after a
+            // prune at this bucket every entry has f + delta >= bucket, a
+            // hit raises f and an insert writes f + delta = bucket, so only
+            // a new bucket, the step's first event (a restored table need
+            // not hold that) or the touched slot itself can meet it
+            const bool pass = first || bucket != prev || low;
+            first = false;
+            prev = bucket;
+            if (pass) {
+              cmd = P_PRUNE;
+              break;
+            }
+          }
+          if (cmd != P_NONE) {
+            *s_cmd = cmd;
+            *s_beta = bucket;
+          }
+        }
+        __syncwarp();
+        b = __shfl_sync(FULL, b, 0);
+        taken = __shfl_sync(FULL, taken, 0);
+        cmd = __shfl_sync(FULL, cmd, 0);
+      }
+      if (cmd == P_DONE) {
+        close_chunk();
+        if (lane == 0) *s_cmd = P_DONE;
+      } else {                          // a pass reads the index and the values
+        flush();
+        flush_vals(b - b0);
+        if (cmd == P_DEC) vlo = b - b0; // the interrupted arrival's slot comes
+      }
+    }
+    __syncthreads();
+    cmd = *s_cmd;
+    if (cmd == P_DONE) break;
+    resume = true;
+    // ---- one visit of every slot: the prune at s_beta or the decrement-all
+    const long long beta = *s_beta;
+    int mine = 0, mfe = C;
+    double pf[QMAXLANE];
+    long long pi[QMAXLANE];
+    for (int l = 0; l < a.AF; ++l) pf[l] = 0.0;
+    for (int l = 0; l < a.AI; ++l) pi[l] = 0;
+    for (int s = tid; s < C; s += nt) {
+      long long c = t.cnt[s];
+      if (c <= 0) continue;
+      bool out;
+      if (cmd == P_PRUNE) {
+        out = c + t.del[s] <= beta - 1;
+      } else {
+        c -= 1;
+        out = c == 0;
+        t.cnt[s] = c;
+      }
+      if (!out) continue;
+      t.cnt[s] = 0;
+      if (s < mfe) mfe = s;
+      ++mine;
+      for (int l = 0; l < a.AF; ++l) pf[l] += (double)a.f_out[(long long)l * C + s];
+      for (int l = 0; l < a.AI; ++l) pi[l] += a.i_out[(long long)l * C + s];
+    }
+    const long long got = block_reduce<long long>(pack2(mfe, mine), MinSum(), s_l);
+    fe = (int)(got >> 32);
+    nev = (int)(unsigned)got;
+    if (nev > 0) {
+      for (int l = 0; l < a.AF; ++l) {
+        const float tf = f32_of(block_sum<double>(pf[l], s_d));
+        if (tid == 0) s_tf[l] = tf;
+      }
+      for (int l = 0; l < a.AI; ++l) {
+        const long long ti = block_sum<long long>(pi[l], s_l);
+        if (tid == 0) s_ti[l] = ti;
+      }
+      dup = hh_index(t, s_flag);        // (its barriers publish s_tf / s_ti)
+    }
+  }
+  // the rows, from what the walk recorded
+  for (int r = tid; r <= last; r += nt) {
+    float sf[QMAXLANE];
+    long long si[QMAXLANE];
+    for (int l = 0; l < a.AF; ++l) sf[l] = (float)a.incf[(long long)l * B + r];
+    for (int l = 0; l < a.AI; ++l) si[l] = a.inci[(long long)l * B + r];
+    put_row(a, r, a.inco[r], sf, si, nullptr, nullptr, a.oflag[r] != 0);
   }
   __syncthreads();
   if (k < B) repeat_rows(a, k);
+  if (SH) {
+    for (int s = tid; s < C; s += nt) {
+      a.hkeys_out[s] = t.key[s];
+      a.hcnt_out[s] = t.cnt[s];
+      if (lossy) a.hdelta_out[s] = t.del[s];
+    }
+  }
   if (tid == 0) {
-    for (int l = 0; l < a.AF; ++l) a.runf_out[l] = rf[l];
-    for (int l = 0; l < a.AI; ++l) a.runi_out[l] = ri[l];
+    for (int l = 0; l < a.AF; ++l) a.runf_out[l] = s_rf[l];
+    for (int l = 0; l < a.AI; ++l) a.runi_out[l] = s_ri[l];
     *a.runc_out = rcnt;
     *a.ocount = emitted;
     if (lossy) {
@@ -416,12 +737,21 @@ __global__ void __launch_bounds__(NTW) q_walk(QArgs a) {
   __shared__ int s_scan[NTW / 32 + 1];
   __shared__ double s_d[33];
   __shared__ long long s_l[33];
+  __shared__ int s_cmd, s_flag;
+  __shared__ long long s_beta;
+  __shared__ float s_vf[QMAXLANE * 32], s_rf[QMAXLANE], s_tf[QMAXLANE];
+  __shared__ long long s_vi[QMAXLANE * 32], s_ri[QMAXLANE], s_ti[QMAXLANE];
+  __shared__ HhChunk s_ch;
   const int k = compact_batch(a, 0, s_scan);
   if (a.wkind == W_SORT) {
     if (threadIdx.x == 0) *a.ocount = k;
     walk_sort(a, k, s_d, s_l);
+  } else if (a.hh_shared) {
+    walk_hh<true>(a, k, s_d, s_l, &s_cmd, &s_beta, &s_flag, s_vf, s_vi, &s_ch, s_rf, s_ri,
+                  s_tf, s_ti);
   } else {
-    walk_hh(a, k, s_d, s_l);
+    walk_hh<false>(a, k, s_d, s_l, &s_cmd, &s_beta, &s_flag, s_vf, s_vi, &s_ch, s_rf, s_ri,
+                   s_tf, s_ti);
   }
 }
 
@@ -429,11 +759,38 @@ __global__ void __launch_bounds__(NTW) q_walk(QArgs a) {
 
 extern "C" int query_walk_args_size(void) { return (int)sizeof(QArgs); }
 
+// Bytes of the heavy-hitter table in shared memory: keys, counts, (lossy)
+// deltas, the index and the free bits.
+static size_t hh_bytes(const QArgs& a) {
+  const size_t C = (size_t)a.N;
+  return C * 8 * (a.wkind == W_LOSSY ? 3 : 2) + (size_t)a.hh_H * 4 + (C + 31) / 32 * 4;
+}
+
 // Launches one step on `stream`; *nlaunch receives the number of kernel
-// launches made. Returns cudaGetLastError() (0 on success).
+// launches made. Returns the first CUDA error (0 on success). The heavy-
+// hitter table goes to shared memory where it fits beside the kernel's own,
+// else it stays in device memory.
 extern "C" int query_walk(const QArgs* args, void* stream, int* nlaunch) {
   *nlaunch = 0;
-  q_walk<<<1, NTW, 0, (cudaStream_t)stream>>>(*args);
+  QArgs a = *args;
+  size_t dyn = 0;
+  if (a.wkind != W_SORT) {
+    int dev = 0, optin = 0;
+    cudaFuncAttributes fa;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (e == cudaSuccess) e = cudaFuncGetAttributes(&fa, q_walk);
+    if (e != cudaSuccess) return (int)e;
+    const size_t need = hh_bytes(a);
+    a.hh_shared = need + fa.sharedSizeBytes <= (size_t)optin;
+    if (a.hh_shared) {
+      dyn = need;
+      e = cudaFuncSetAttribute(q_walk, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
+      if (e != cudaSuccess) return (int)e;
+    }
+  }
+  q_walk<<<1, NTW, dyn, (cudaStream_t)stream>>>(a);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   *nlaunch = 1;

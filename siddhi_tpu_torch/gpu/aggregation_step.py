@@ -11,8 +11,10 @@ reads the bucketing clock ``ts``), fills the kernel's argument block
 kernel's limits (columns, group keys, specs, stack depth, B), on every
 device, so the CPU and the card accept the same definitions.
 
-``step_cuda`` launches the kernel on the current stream (four launches a
-step, counted in ``launches``) and returns the reference's output tree as
+``step_cuda`` launches the kernels on the current stream (``a_eval``, the
+group-key sort ``a_gsort``, the per-duration bucket sort and run bounds
+``a_bsort``, ``a_reduce``: ``LAUNCHES`` a step, counted in ``launches``)
+and returns the reference's output tree as
 views into one device buffer, plus the buffer: one copy brings every lane
 to the host (``unpack``). The plain version is
 ``aggregation_compile.aggregation_step_plain``.
@@ -29,7 +31,7 @@ from .dtypes import TORCH
 from .expr_compile import OP, TY_OF, DeviceCompileError, cast_to, link_ir
 
 AMAXCOL, AMAXG, AMAXSPEC = 32, 8, 32
-MAX_B = 1 << 16             # events per step (the rank pass is O(D * B^2))
+MAX_B = 1 << 16             # events per step (the sorts count 16 tiles of 4096)
 LANE = {"value": 0, "int": 1, "f64": 2, "f64sq": 3, "min": 4, "max": 5}
 
 c_int, c_vp = ctypes.c_int, ctypes.c_void_p
@@ -39,7 +41,8 @@ class _Prog(ctypes.Structure):
     _fields_ = [("off", c_int), ("len", c_int)]
 
 
-_SCRATCH = ("mask", "sval", "gkey", "order", "start", "first", "rank", "nseg")
+_SCRATCH = ("mask", "sval", "gkey", "gorder", "order", "start", "nseg", "ssv",
+            "skey", "sbuf")
 
 
 class AArgs(ctypes.Structure):
@@ -72,6 +75,7 @@ class AggPlan:
     kernel launches."""
 
     launches = 0          # class-wide: every launch of the aggregation kernels
+    LAUNCHES = 4          # launches a step
 
     def __init__(self, ca):
         from .aggregation_compile import lane_kind
@@ -278,11 +282,16 @@ class AggPlan:
             scratch = {"mask": torch.empty(B, dtype=u8, device=dev),
                        "sval": torch.empty((S, B), dtype=i64, device=dev),
                        "gkey": torch.empty((G, B), dtype=i64, device=dev),
+                       "gorder": torch.empty(B, dtype=i32, device=dev),
                        "order": torch.empty((D, B), dtype=i32, device=dev),
                        "start": torch.empty((D, B), dtype=i32, device=dev),
-                       "first": torch.empty((D, B), dtype=u8, device=dev),
-                       "rank": torch.empty((D, B), dtype=i32, device=dev),
-                       "nseg": torch.empty(D, dtype=i32, device=dev)}
+                       "nseg": torch.empty(D, dtype=i32, device=dev),
+                       "ssv": torch.empty((S, D, B), dtype=i64, device=dev),
+                       # the sorts' keys and sequences where B exceeds a
+                       # tile of shared memory
+                       "skey": torch.empty((1 + D, B), dtype=i64, device=dev),
+                       "sbuf": torch.empty((1 + D, 2, B), dtype=i32,
+                                           device=dev)}
             a = AArgs.from_buffer_copy(self.args)
             a.code = code.data_ptr()
             for name, t in scratch.items():

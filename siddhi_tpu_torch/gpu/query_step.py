@@ -61,7 +61,7 @@ _SCRATCH = ("misc", "mask", "rank", "bf", "bi", "bs", "bm", "bones",
             "bpacked", "bkey", "bwts", "bkeyv", "bv", "lo", "hi", "oflag",
             "zt", "zseg", "firstidx", "cnt", "seg", "run", "ckey", "sorted",
             "head", "incf", "inci", "inco", "incs1", "incs2", "mP", "mS", "mT",
-            "pz")
+            "pz", "hidx", "hfree")
 
 
 def _ptrs(names, suffix):
@@ -95,6 +95,7 @@ class QArgs(ctypes.Structure):
         ("out", c_vp * QMAXSPEC), ("ovalid", c_vp), ("ots", c_vp),
         ("ocount", c_vp),
         *[(n, c_vp) for n in _SCRATCH],
+        ("hh_H", c_int), ("hh_shared", c_int),
     ]
 
 
@@ -244,6 +245,8 @@ class QueryPlan:
             a.skey = add(_var_ir(q.sort_key, q.sort_key_type), a.sort_kty)
             a.skey_fill = const_bits(reduce_identity(kdt, True), a.sort_kty)
         a.hh_support, a.hh_error = q.lossy_support, q.lossy_error
+        if kind in ("frequent", "lossyFrequent"):
+            a.hh_H = 1 << (2 * N - 1).bit_length()
         if q.having_ir is not None:
             a.has_having = 1
             out_slot = {s.name: i for i, s in enumerate(specs)}
@@ -459,6 +462,8 @@ class QueryPlan:
             "incs2": e(a.AS * M, f64), "mP": e(a.AM * M, i64),
             "mS": e(a.AM * M, i64), "mT": e(a.AM * a.LV * a.NB, i64),
             "pz": e(3 * (a.AF + 2 * a.AS), i32),
+            "hidx": e(a.hh_H, i32), "hfree": e((a.N + 31) // 32 if a.hh_H else 0,
+                                               i32),
         }
 
 

@@ -7,8 +7,8 @@ Runs each ``agg_main`` configuration (``tools/agg_workloads.py``: the trade
 rollup and the sensor rollup) through ``AggregationRuntime`` (bulk staging
 through ``append_columns`` + ``_flush_device``) for ``--steps`` full
 batches under ``torch.profiler`` and prints one JSON line per
-configuration: device time per kernel name (``a_eval``, ``a_rank``,
-``a_bounds``, ``a_reduce``, copies, the rest), the wall time of the window,
+configuration: device time per kernel name (``a_eval``, ``a_gsort``,
+``a_bsort``, ``a_reduce``, copies, the rest), the wall time of the window,
 the device's busy share of it (device time summed over kernels and copies,
 divided by wall time; 1 - busy is the idle share), and the host clock split
 over the layers of a flush (``append_columns``, ``emit``, ``bucket_slab``,
@@ -27,7 +27,7 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-KERNELS = ("a_eval", "a_rank", "a_bounds", "a_reduce")
+KERNELS = ("a_eval", "a_gsort", "a_bsort", "a_reduce")
 
 
 def profile(name: str, steps: int, seed: int) -> dict:

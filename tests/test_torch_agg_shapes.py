@@ -25,7 +25,7 @@ from siddhi_tpu_torch.gpu.aggregation_compile import (CompiledAggregation,
 from siddhi_tpu_torch.gpu.expr_compile import DeviceCompileError
 
 SCHEMA = ("define stream S (sym string, dev string, room int, price double, "
-          "vol long, qty int, f float, ets long);\n")
+          "vol long, qty int, f float, ets long, hk long, lk long, lts long);\n")
 
 # 2023-12-31 23:58:00 UTC: months and years roll over within the first steps
 BASE_TS = 1_704_067_080_000
@@ -89,7 +89,39 @@ from S select sum(price) as t, count() as c, stdDev(price) as sd,
 aggregate every sec...year;""", 512, (0, 3)),
     "count_only": ("""
 from S select count() as n group by dev aggregate every sec;""", 16, (0, 400)),
+    # the sorts' edges: LONG keys below zero, keys apart only in their high
+    # bits, 3 and 8 group keys, late events reordering every bucket, every
+    # event rejected, one run of B events, and a B of 16 sorting tiles
+    "negative_long_key": ("""
+from S select lk, sum(price) as t, count() as c, max(qty) as hi
+group by lk aggregate every sec...min;""", 64, (0, 300)),
+    "high_bit_key": ("""
+from S select hk, sum(vol) as t, count() as c
+group by hk aggregate every sec...min;""", 64, (0, 300)),
+    "three_keys": ("""
+from S select sym, room, hk, sum(price) as t, count() as c, min(f) as lo
+group by sym, room, hk aggregate every sec...hour;""", 128, (0, 200)),
+    "eight_keys": ("""
+from S select sym, dev, room, vol, qty, hk, lk, ets, sum(price) as t,
+  count() as c
+group by sym, dev, room, vol, qty, hk, lk, ets aggregate every sec...min;""",
+                   64, (0, 300)),
+    "late_buckets": ("""
+from S select sym, sum(price) as t, count() as c, max(f) as hi
+group by sym aggregate by lts every sec...hour;""", 256, (0, 100)),
+    "all_rejected": ("""
+from S[price < 0.0] select sym, sum(price) as t, count() as c, max(vol) as hi
+group by sym aggregate every sec...min;""", 64, (0, 300)),
+    "one_run_wide": ("""
+from S select sum(price) as t, count() as c, min(f) as lo, stdDev(price) as sd
+aggregate every sec...min;""", 4096, (0, 0)),
+    "tiles_65536": ("""
+from S select sym, dev, room, qty, sum(price) as t, count() as c,
+  max(vol) as hi
+group by sym, dev, room, qty aggregate every min;""", 1 << 16, (0, 1)),
 }
+# the bucketing clock of the definitions that aggregate by a column
+CLOCK = {"aggregate_by": "ets", "late_buckets": "lts"}
 STEPS = 5
 # the valid prefix per step: a random count, then full, then empty
 COUNT_RULE = ("random", "full", "random", "empty", "random")
@@ -167,6 +199,7 @@ class AggWire:
         self.B = AGGS[name][1]
         self.lo, self.hi = AGGS[name][2]
         self.rng = np.random.default_rng(seed)
+        self.rng_keys = np.random.default_rng(seed + 1000)
         self.ts = BASE_TS
 
     def batch(self, step: int) -> dict:
@@ -193,9 +226,17 @@ class AggWire:
             "f": f,
             "ets": (ts - rng.integers(0, 5_000, B)).astype(np.int64),
         }
+        # hk: keys apart only in bits 40 and up (the sign bit too); lk:
+        # LONG keys mostly below zero; lts: up to 10 minutes late
+        kr = self.rng_keys
+        high = np.array([0, 1 << 40, 1 << 52, 1 << 62, -(1 << 62), -(1 << 40),
+                         np.iinfo(np.int64).min], np.int64)
+        cols["hk"] = high[kr.integers(0, len(high), B)] | 0x5EED
+        cols["lk"] = kr.integers(-6, 2, B).astype(np.int64) * 1_000_000_000_000_007
+        cols["lts"] = (ts - kr.integers(0, 600_000, B)).astype(np.int64)
         if count:
             self.ts = int(ts[count - 1])
-        clock = cols["ets"] if self.name == "aggregate_by" else ts
+        clock = cols[CLOCK[self.name]] if self.name in CLOCK else ts
         return {"cols": cols, "ts": clock.astype(np.int64),
                 "valid": np.arange(B) < count, "count": count}
 

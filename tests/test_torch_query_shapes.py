@@ -72,7 +72,8 @@ import torch
 from siddhi_tpu_torch.compiler import parse
 from siddhi_tpu_torch.gpu.expr_compile import as_tensor
 from siddhi_tpu_torch.gpu.query_compile import CompiledStreamQuery, stream_step_plain
-from siddhi_tpu_torch.gpu.state_io import state_from_numpy, state_to_numpy
+from siddhi_tpu_torch.gpu.state_io import (query_state_from_numpy,
+                                           state_from_numpy, state_to_numpy)
 
 SCHEMA = "define stream S (sym string, price double, vol long, n int, ets long);\n"
 
@@ -253,6 +254,32 @@ select sym, sum(price) as t, count() as c, avg(vol) as av insert into O;""",
 from S[vol > 100]#window.lossyFrequent(0.2, n)
 select n, sum(vol) as v, count() as c having c > 1 insert into O;""",
                             {"window_capacity": 8}),
+    # the heavy-hitter walk's edges: a 164-slot lossy table over ~1,000 keys
+    # (a new bucket, and a prune, every 100 events; CARRIED starts it from
+    # full and nearly full tables); LONG keys equal in their low 32 bits
+    # (WIRE_HIGH_KEYS); a 5-slot frequent
+    # table over 12 keys, whose decrement-alls evict several keys at once;
+    # tables too large for the kernel's shared memory
+    "lossy_near_full": ("""
+from S#window.lossyFrequent(0.05, 0.01, vol)
+select vol, sum(price) as t, count() as c insert into O;""",
+                        {"window_capacity": 8}),
+    "lossy_high_keys": ("""
+from S#window.lossyFrequent(0.1, 0.05, vol)
+select vol, sum(price) as t, count() as c insert into O;""",
+                        {"window_capacity": 8}),
+    "frequent_high_keys": ("""
+from S#window.frequent(20, vol)
+select vol, sum(price) as t, count() as c insert into O;""", {}),
+    "frequent_evict": ("""
+from S#window.frequent(5, n)
+select n, sum(price) as t, sum(vol) as v, count() as c insert into O;""", {}),
+    "frequent_big": ("""
+from S#window.frequent(12000, vol)
+select vol, sum(price) as t, count() as c insert into O;""", {}),
+    "lossy_big": ("""
+from S#window.lossyFrequent(0.001, 0.0001, vol)
+select vol, sum(price) as t, count() as c insert into O;""", {}),
 }
 QUERIES.update(WINDOW_QUERIES)
 # wider windows, for the card only (kernel against plain version): every
@@ -290,6 +317,8 @@ WIRE_EXTREMES = ("sort_desc_int", "sort_long_sentinel")
 # and non-finite prices (inf, -inf, NaN)
 WIRE_NONFINITE = ("grouped_nonfinite", "length_grouped_nonfinite",
                   "time_grouped_nonfinite", "sort_nan", "sort_nan_desc")
+# and vol keys that differ only in their high 32 bits
+WIRE_HIGH_KEYS = ("lossy_high_keys", "frequent_high_keys")
 
 
 # queries the reference refuses (the port must refuse them with the same
@@ -366,7 +395,8 @@ IDS = [f"{n}-B{b}" for n, b in CASES]
 WINDOW_CASES = [(name, 16) for name in WINDOW_QUERIES] + [
     ("length_batch", 5), ("length_batch_values", 7), ("time_batch", 64),
     ("session", 3), ("delay_drops", 4), ("hopping", 3), ("hopping", 64),
-    ("sort", 64), ("frequent", 64), ("lossy", 64),
+    ("sort", 64), ("frequent", 64), ("lossy", 64), ("lossy_near_full", 64),
+    ("frequent_evict", 64),
 ]
 WINDOW_IDS = [f"{n}-B{b}" for n, b in WINDOW_CASES]
 CARD_CASES = [(name, 16) for name in CARD_QUERIES] + [
@@ -393,12 +423,13 @@ class Wire:
     values past each batch's count."""
 
     def __init__(self, seed: int, B: int, extremes: bool = False,
-                 nonfinite: bool = False):
+                 nonfinite: bool = False, high_keys: bool = False):
         self.rng = np.random.default_rng(seed)
         self.B = B
         self.ts = 1000
         self.extremes = extremes
         self.nonfinite = nonfinite
+        self.high_keys = high_keys
 
     def batch(self, step: int) -> dict:
         rng, B = self.rng, self.B
@@ -425,6 +456,8 @@ class Wire:
             price[pick < 0.1] = np.inf
             price[(pick >= 0.1) & (pick < 0.18)] = np.nan
             price[(pick >= 0.18) & (pick < 0.2)] = -np.inf
+        if self.high_keys:
+            cols["vol"] = ((cols["vol"] % 40) << 32) | 0x5EED
         valid = np.zeros(B, bool)
         valid[:count] = True
         return {"cols": cols, "ts": ts.astype(np.int64), "valid": valid,
@@ -434,7 +467,8 @@ class Wire:
 def wire_for(name: str, B: int) -> Wire:
     """The seeded wire of query ``name`` at batch capacity B."""
     return Wire(7, B, extremes=name in WIRE_EXTREMES,
-                nonfinite=name in WIRE_NONFINITE)
+                nonfinite=name in WIRE_NONFINITE,
+                high_keys=name in WIRE_HIGH_KEYS)
 
 
 @dataclass
@@ -632,6 +666,80 @@ def compare(q, sc: Scale, ref_state: dict, got_state: dict, ref_out: dict,
     return worst
 
 
+# walks that start from a carried lossy table (the query, B):
+# - lossy_prune_empties: every slot full at count 1 with total = 10 C, so
+#   the step's first event (a miss) is dropped and its prune empties the
+#   table, which the rest of the batch fills anew;
+# - lossy_pinned_near_full: C - 12 slots pinned at count 1,000, so the
+#   other 12 fill, misses drop and prunes free them, over several bucket
+#   changes;
+# - lossy_resumed: the table a walk left after RESUME_AFTER steps (the
+#   JAX package's against the JAX package, the plain version's on the
+#   card), carried in through gpu/state_io.py.
+CARRIED = {"lossy_prune_empties": ("lossy_near_full", 32),
+           "lossy_pinned_near_full": ("lossy_near_full", 64),
+           "lossy_resumed": ("lossy_near_full", 64)}
+RESUME_AFTER = 3
+
+
+def fill_carried(label: str, tree: dict) -> dict:
+    """The carried table of ``label`` written into a fresh state's numpy
+    tree (the wire's vol keys are below 1,000: the full table's keys, from
+    10**6 up, never hit; the pinned keys 0 .. C - 13 do, and emit)."""
+    C = tree["hh_keys"].shape[0]
+    if label == "lossy_prune_empties":
+        tree["hh_keys"][:] = 10**6 + np.arange(C)
+        tree["hh_counts"][:] = 1
+        tree["hh_fvals"][:] = 0.5
+        tree["hh_total"] = np.array(10 * C, np.int64)
+    elif label == "lossy_pinned_near_full":
+        pin = C - 12
+        tree["hh_keys"][:pin] = np.arange(pin)
+        tree["hh_counts"][:pin] = 1000
+        tree["hh_fvals"][:, :pin] = 0.25
+        tree["hh_total"] = np.array(50, np.int64)
+    return tree
+
+
+def carried_start(label: str, device):
+    """``(q, state, batches)``: the compiled query on ``device``, the carried
+    state and the batches to walk from it (for ``lossy_resumed``, the
+    plain version's table after ``RESUME_AFTER`` steps)."""
+    name, B = CARRIED[label]
+    q = compile_port(name, B, device)
+    wire = wire_for(name, B)
+    batches = [wire.batch(step) for step in range(STEPS + 1)]
+    if label == "lossy_resumed":
+        state = q.init_state()
+        for batch in batches[:RESUME_AFTER]:
+            state, _ = stream_step_plain(q, state, *q.batch_tensors(batch))
+        tree = state_to_numpy(state)
+        batches = batches[RESUME_AFTER:]
+    else:
+        tree = fill_carried(label, state_to_numpy(q.init_state()))
+    return q, query_state_from_numpy(q, tree, device), batches
+
+
+def kernel_steps(q, state, batches) -> tuple[float, int]:
+    """Steps the kernel and the plain version from the same state over
+    ``batches`` (CUDA tensors), each step held to ``compare``; returns the
+    largest error and the valid rows."""
+    worst, rows = 0.0, 0
+    for batch in batches:
+        cols, ts, valid = q.batch_tensors(batch)
+        sc = step_scale(q, state, cols, ts, valid)
+        ref_state, ref_out = stream_step_plain(
+            q, state_from_numpy(state_to_numpy(state), "cuda"), cols, ts, valid)
+        state, out = q.step_tensors(state, cols, ts, valid)
+        torch.cuda.synchronize()
+        worst = max(worst, compare(q, sc, state_to_numpy(ref_state),
+                                   state_to_numpy(state),
+                                   state_to_numpy(ref_out),
+                                   state_to_numpy(out)))
+        rows += int(out["valid"].sum())
+    return worst, rows
+
+
 @pytest.mark.parametrize("name", sorted(QUERIES))
 def test_every_query_takes_the_query_kernel(name):
     q = compile_port(name, 16, "cpu")
@@ -683,3 +791,11 @@ def test_kernel_matches_plain_on_card(name, B):
         torch.cuda.synchronize()
         compare(q, sc, state_to_numpy(ref_state), state_to_numpy(state),
                 state_to_numpy(ref_out), state_to_numpy(out))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label", sorted(CARRIED))
+def test_kernel_walks_a_carried_table_on_card(label):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    kernel_steps(*carried_start(label, "cuda"))

@@ -17,7 +17,12 @@ tolerances stated in ``test_torch_query_shapes.py`` after each of
 ``STEPS + 1`` steps, so the remainder, bucket, hop, buffer or table
 carries. ``test_lossy_full_table_drops`` starts both from one full,
 unprunable table (a lossy table sized from the error bound fills only
-under adversarial streams), so misses are dropped and counted. Sizes stay
+under adversarial streams), so misses are dropped and counted;
+``test_walk_from_a_carried_table_matches_reference`` starts both from the
+carried tables of ``CARRIED`` (one that the step's first prune empties, one
+nearly full of pinned keys, and the table the JAX walk left after
+``RESUME_AFTER`` steps, carried into the port through
+``gpu/state_io.py``). Sizes stay
 small (N <= 32, B <= 64, C <= 16, except the lossy tables, which the
 reference sizes at 64 + 1/error slots).
 """
@@ -37,7 +42,9 @@ from siddhi_tpu_torch.gpu.query_compile import (
 from siddhi_tpu_torch.gpu.state_io import query_state_from_numpy, state_to_numpy
 
 from test_torch_query_shapes import (
+    CARRIED,
     QUERIES,
+    RESUME_AFTER,
     SCHEMA,
     STEPS,
     WINDOW_CASES,
@@ -47,6 +54,7 @@ from test_torch_query_shapes import (
     carried_scale,
     compare,
     compile_port,
+    fill_carried,
     next_scale,
     wire_for,
 )
@@ -113,3 +121,42 @@ select vol, count() as c, sum(price) as t insert into O;"""
     drops = int(tstate["window_drops"])
     assert drops > 0 and rows > 0
     assert int((tstate["hh_counts"] > 0).sum()) == C
+
+
+@pytest.mark.parametrize("label", sorted(CARRIED))
+def test_walk_from_a_carried_table_matches_reference(label):
+    name, B = CARRIED[label]
+    app = jparse(app_text(name))
+    jq = JQuery(app.queries[0], app.stream_definitions["S"], B,
+                **QUERIES[name][1])
+    tq = compile_port(name, B, "cpu")
+    wire = wire_for(name, B)
+    batches = [wire.batch(step) for step in range(STEPS + 1)]
+    jstate = jq.init_state()
+    if label == "lossy_resumed":
+        for batch in batches[:RESUME_AFTER]:
+            jstate, _ = jq.step(jstate, batch)
+        batches = batches[RESUME_AFTER:]
+        tree = {k: np.asarray(v) for k, v in jax.device_get(jstate).items()}
+        assert (tree["hh_counts"] > 0).sum() > 0
+    else:
+        tree = fill_carried(label, {k: np.array(v) for k, v in
+                                    jax.device_get(jstate).items()})
+        jstate = {k: jax.numpy.asarray(v) for k, v in tree.items()}
+    tstate = query_state_from_numpy(tq, tree, "cpu")
+    C = tq.window_n
+    if label == "lossy_prune_empties":
+        # the first event is dropped and its prune leaves no carried key
+        jstate1, tstate1, _ = _run(jq, tq, jstate, tstate, batches[:1],
+                                   carried_scale(tq, tstate))
+        assert int(tstate1["window_drops"]) == 1
+        occ = tstate1["hh_counts"] > 0
+        assert not (tstate1["hh_keys"][occ] >= 10**6).any() and occ.any()
+        _run(jq, tq, jstate1, tstate1, batches[1:], carried_scale(tq, tstate1))
+        return
+    _, tstate, rows = _run(jq, tq, jstate, tstate, batches,
+                           carried_scale(tq, tstate))
+    if label == "lossy_pinned_near_full":
+        assert int(tstate["window_drops"]) > 0 and rows > 0
+        assert int((tstate["hh_counts"] >= 1000).sum()) == C - 12
+        assert int(tstate["hh_total"]) // 100 >= 3     # bucket changes

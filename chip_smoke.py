@@ -23,8 +23,10 @@ Phases, one JSON line each:
   4. scan_shapes — the per-event scan kernel against its plain PyTorch
                version on the card: every shape of
                ``tests/test_torch_scan_shapes.py`` (count, logical, absent,
-               every scopes, sequences, within, strings, overflow) lane-
-               batched, then every device-compilable case of the pattern
+               every scopes, sequences, within, strings, overflow, C = 256
+               and C = 33 slots, a long run of events no live state reads,
+               a lone lane empty at odd steps) lane-batched, then every
+               device-compilable case of the pattern
                corpus (``tests/test_pattern_corpus.py``, read as data)
                through ``DeviceNFARuntime`` on the card; every step exactly
                equal. ``eventTimestamp()`` in a pattern raises KeyError on
@@ -77,9 +79,13 @@ Phases, one JSON line each:
                windows; inner, left, right and full outer joins;
                unidirectional; within; every column type; eventTimestamp();
                integer division by zero; J and time-ring overflow; k > W;
-               empty sides and batches), 6 steps each, every state leaf and
-               output position bitwise equal; the reference's refusals and
-               the kernel's limits refuse on the card.
+               empty sides and batches; the key index on INT, LONG, BOOL and
+               string keys that collide in its buckets, as a second
+               conjunct, over decreasing ring timestamps and with J
+               overflow, and an equality under ``or`` that it must not
+               take), 6 steps each, every state leaf and output position
+               bitwise equal; the reference's refusals and the kernel's
+               limits refuse on the card.
   9. join_main — two configurations at full width through
                ``DeviceJoinRuntime`` (``MergedBatchBuilder.append_many`` per
                same-stream run → ``flush``: step + decode), 2,000,000 events
@@ -94,7 +100,10 @@ Phases, one JSON line each:
                a checked run holds every step (state leaves, every output
                position, count, drops) bitwise against the plain version on
                the card; the first 2 steps' rows are held to a direct
-               nested-loop join in numpy; 0 join and ring drops.
+               nested-loop join in numpy; 0 join and ring drops. Both
+               must take the key-indexed walk (the plan found the equality
+               conjunct); the index's share of the step's kernel time comes
+               from torch.profiler over 20 repeats of one step.
  10. agg_shapes — the incremental-aggregation kernel
                (``csrc/aggregation_step.cu``) against its plain PyTorch
                version on the card: every shape of
@@ -608,8 +617,8 @@ def phase_scan_shapes(seed: int) -> float:
         state = comp.init_state(lanes, 0 if base is not None else 1_000_000)
         emitted = 0
         for i in range(4):
-            cols, tag, ts, tb, counts = make_batch(
-                rng, comp, lanes, i % 2 == 1, ts_step, base)
+            cols, tag, ts, tb, counts = shapes.shape_batch(name, make_batch(
+                rng, comp, lanes, i % 2 == 1, ts_step, base))
             dev = {k: torch.from_numpy(v).cuda() for k, v in cols.items()}
             rest = [torch.from_numpy(a).cuda() for a in (tag, ts, tb, counts)]
             try:
@@ -1387,43 +1396,68 @@ def join_step_bytes(state, new_state, cols, tag, ts, ts_base, out) -> int:
                                      out["valid"], out["ts"], out["count"]))
 
 
-def join_step_ops(cq, state, tag, ts, ts_base, nvalid: int, count: int) -> int:
+INDEX_OPS = 8   # a candidate's key: hash (a multiply, a shift), histogram add,
+                # scan share, ordered scatter (a match, a rank, a store)
+
+
+def join_step_ops(cq, state, cols, tag, ts, ts_base, nvalid: int,
+                  count: int) -> int:
     """Operations this step's data needs at the least: the condition's
     program and a window/within compare on every live candidate pair (a
     probe against the opposite side's entries alive at its time, in the ring
-    and earlier in the batch), and the output programs on every row
-    written. Dead ring slots cost nothing here: the rings are sorted by
-    arrival, so a kernel could skip them by a binary search."""
+    and earlier in the batch) whose keys are equal where the plan has a key
+    conjunct (a keyed index visits no other), INDEX_OPS for each candidate
+    the index bins, and the output programs on every row written. Dead ring
+    slots cost nothing here: a kernel can skip them by a binary search."""
     import torch
+    from siddhi_tpu_torch.gpu.join_step import key_conjunct
     a = cq.plan.args
     B, W = cq.B, cq.W
     per_pair = (a.cond.len if a.has_cond else 0) + 2
     per_row = sum(a.outp[o].len for o in range(a.nout)) + 2
     t = ts_base + ts.to(torch.int64)
-    valid = torch.arange(B, device=ts.device) < nvalid
+    ar = torch.arange(B, device=ts.device)
+    valid = ar < nvalid
     emits = (bool(a.emit_left), bool(a.emit_right))
-    live = 0
+    keys = key_conjunct(cq.cond_ir)
+    if keys is not None:                  # each side's key: ring leaf, column
+        sides = ((cq.left_id, "lr"), (cq.right_id, "rr"))
+        key = []
+        for side, prog in enumerate(keys):
+            attr = prog[0][2].split("_", 1)[1]
+            sid, ring = sides[side]
+            key.append((state[f"{ring}_{attr}"].to(torch.int64),
+                        cols[cq.merged.col_key(sid, attr)].to(torch.int64)))
+    live, binned = 0, 0
+    w = torch.arange(W, device=ts.device)
     for side in (0, 1):
+        other = 1 - side
+        opp = valid & (tag == other)
+        ring = state["lr_ts" if other == 0 else "rr_ts"]
+        binned += int((ring > -(2 ** 62)).sum()) + int(opp.sum())
         if not emits[side]:
             continue
-        other = 1 - side
         probes = valid & (tag == side)
-        opp = valid & (tag == other)
         before = (torch.cumsum(opp.to(torch.int64), 0) - opp.to(torch.int64))[probes]
         tp = t[probes]
-        ring = state["lr_ts" if other == 0 else "rr_ts"]
         kind = a.lkind if other == 0 else a.rkind
         par = a.lparam if other == 0 else a.rparam
-        if kind == 0:           # time: ring and batch entries with ts + D > t
-            n_ring = W - torch.searchsorted(ring, tp - par, right=True)
-            opp_ts = t[opp]
-            n_batch = before - torch.searchsorted(opp_ts, tp - par, right=True)
-        else:                   # length: the N newest arrivals before the probe
-            filled = int((ring > -(2 ** 62)).sum())
-            n_ring = torch.clamp(torch.clamp(par - before, min=0), max=filled)
-            n_batch = torch.clamp(before, max=par)
-        live += int(n_ring.clamp(min=0).sum()) + int(n_batch.clamp(min=0).sum())
-    return live * per_pair + count * per_row
+        if kind == 0:       # time: entries with ts + D > t
+            ring_live = (ring > -(2 ** 62))[None, :] & (ring[None, :] + par > tp[:, None])
+            batch_live = t[None, :] + par > tp[:, None]
+        else:               # length: the N newest arrivals before the probe
+            ring_live = (ring > -(2 ** 62))[None, :] & \
+                ((W - 1 - w)[None, :] + before[:, None] < par)
+            rank = torch.cumsum(opp.to(torch.int64), 0) - 1
+            batch_live = before[:, None] - 1 - rank[None, :] < par
+        batch_live &= opp[None, :] & (ar[None, :] < ar[probes][:, None])
+        if keys is not None:
+            kp = key[side][1][probes]
+            ring_live &= key[other][0][None, :] == kp[:, None]
+            batch_live &= key[other][1][None, :] == kp[:, None]
+        live += int(ring_live.sum()) + int(batch_live.sum())
+    index_ops = INDEX_OPS * binned if keys is not None else 0
+    return live * per_pair + index_ops + count * per_row
 
 
 def phase_join_main(name: str, seed: int) -> dict:
@@ -1456,8 +1490,11 @@ def phase_join_main(name: str, seed: int) -> dict:
     # launch call alone (``lib.join_step``)
     rt = DeviceJoinRuntime(app, device="cuda", **cfg)
     cq = rt.compiler
+    if not cq.plan.indexed:
+        fail(f"join_main {name}: the plan found no key conjunct, so the "
+             f"kernel walks every candidate instead of the key index")
     kstep = cq.step_tensors
-    marks, kmarks = [], []
+    marks, kmarks, last = [], [], []
 
     def timed(*a):
         e0, e1 = event_pair()
@@ -1465,6 +1502,7 @@ def phase_join_main(name: str, seed: int) -> dict:
         got = kstep(*a)
         e1.record()
         marks.append((e0, e1))
+        last[:] = a
         return got
 
     lib = cq.plan._lib()
@@ -1494,7 +1532,8 @@ def phase_join_main(name: str, seed: int) -> dict:
     wall = time.perf_counter() - t0
     launches = JoinPlan.launches
     steps = len(marks)
-    if launches != 4 * steps or launches == 0 or len(kmarks) != steps:
+    per_launch = 5                   # j_prep, j_index, j_count, j_scan, j_emit
+    if launches != per_launch * steps or launches == 0 or len(kmarks) != steps:
         fail(f"join_main {name}: {launches} join_step launches, "
              f"{len(kmarks)} kernel calls over {steps} steps")
     jd, rd = rt.drop_count, rt.ring_drop_count
@@ -1502,6 +1541,7 @@ def phase_join_main(name: str, seed: int) -> dict:
         fail(f"join_main {name}: {jd} join drops, {rd} ring drops")
     step_ms = [a.elapsed_time(b) for a, b in kmarks]
     call_ms = [a.elapsed_time(b) for a, b in marks]
+    index = join_index_share(cq, last)
 
     # the first 2 steps' rows against a nested-loop join in numpy
     want = reference_rows(name, ev, 2 * B)
@@ -1536,7 +1576,7 @@ def phase_join_main(name: str, seed: int) -> dict:
             fail(f"join_main {name} step {len(plain_ms)}: kernel differs "
                  f"from the plain version: {str(e)[:400]}")
         bytes_.append(join_step_bytes(state, new, cols, tag, ts, ts_base, out))
-        ops.append(join_step_ops(cq, state, tag, ts, ts_base, nvalid,
+        ops.append(join_step_ops(cq, state, cols, tag, ts, ts_base, nvalid,
                                  int(out["count"])))
         return new, out
 
@@ -1565,10 +1605,37 @@ def phase_join_main(name: str, seed: int) -> dict:
         "ops_per_step_median": float(np.median(ops)),
         "bound_ms_bytes": float(np.median(b_ms)),
         "bound_ms_ops": float(np.median(o_ms)),
-        "max_abs_err": 0.0, "phase_s": time.perf_counter() - t_phase,
+        "max_abs_err": 0.0, "indexed": True, "index": index,
+        "phase_s": time.perf_counter() - t_phase,
     }
     emit(out)
     return out
+
+
+def join_index_share(cq, args, steps: int = 20) -> dict:
+    """Device time per kernel of ``steps`` repeats of one step (the last
+    batch of the timed run, from its input state) under torch.profiler,
+    and the key index's (``j_index``) share of the step's kernel time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            cq.plan.step_cuda(*args)
+        torch.cuda.synchronize()
+    us = {}
+    for e in prof.key_averages():
+        dev = getattr(e, "self_device_time_total", None)
+        if dev is None:
+            dev = getattr(e, "self_cuda_time_total", 0.0)
+        for k in ("j_prep", "j_index", "j_count", "j_scan", "j_emit"):
+            if k in e.key and dev > 0:
+                us[k] = us.get(k, 0.0) + dev / steps
+    total = sum(us.values())
+    if not total:
+        return {"device_us_per_step": None, "share": None,
+                "note": "not measured: the profiler saw no device time"}
+    return {"device_us_per_step": us, "share": us.get("j_index", 0.0) / total}
 
 
 JOIN_EVENTS = 2_000_000           # events per join_main configuration
@@ -1593,13 +1660,15 @@ def join_kernel_entry(j_outs: list) -> dict:
         else "operations",
         "library_ms": None,
         "unit": f"one join_main step of {e['config']}: CUDA events around "
-                f"the kernels' launch call (4 launches)",
+                f"the kernels' launch call (5 launches: the key index's "
+                f"included)",
         "step_call_ms": e["step_call_ms_median"],
         "parity": "exact",
         "configs": {o["config"]: {k: o[k] for k in (
             "kernel_step_ms_median", "step_call_ms_median",
             "plain_step_ms_median", "launches", "checked_steps",
-            "bound_ms_bytes", "bound_ms_ops", "events_per_s", "rows")}
+            "bound_ms_bytes", "bound_ms_ops", "events_per_s", "rows",
+            "index")}
             for o in j_outs},
     }
 

@@ -15,6 +15,8 @@
 // OP_TS (eventTimestamp()) is refused by the wrappers before any launch, as
 // the reference's NFA steps raise KeyError('__ts__') for it.
 //
+// eval_fast runs the same programs with a four-value stack in registers.
+//
 // Also here: block_rank, the block-wide ordered rank (warp ballots + a
 // prefix over warps) that the kernels compact and insert with, and
 // block_reduce.
@@ -233,6 +235,53 @@ __device__ __forceinline__ long long eval_prog(const int4* __restrict__ code,
     }
   }
   return st[0];
+}
+
+// eval_prog with the stack in four registers (top first), for programs
+// that never hold more than four values; a deeper program is evaluated
+// again by eval_prog (programs read their operands and nothing else, so
+// the result is the same). The same operations in the same order as
+// eval_prog, without its stack in local memory.
+template <class EvF, class BindF>
+__device__ __forceinline__ long long eval_fast(const int4* __restrict__ code,
+                                               Prog p, EvF ev, BindF bind) {
+  long long s0 = 0, s1 = 0, s2 = 0, s3 = 0;
+  int sp = 0;
+  for (int i = 0; i < p.len; ++i) {
+    const int4 in = code[p.off + i];
+    switch (in.x) {
+      case OP_EV: case OP_BIND: case OP_TS: case OP_CONST: {
+        if (sp == 4) return eval_prog(code, p, ev, bind);
+        long long v;
+        if (in.x == OP_EV) v = ev(in.z);
+        else if (in.x == OP_BIND) v = bind(in.z);
+        else if (in.x == OP_TS) v = 0;           // refused before launch
+        else v = (long long)(((unsigned long long)(unsigned)in.w << 32) |
+                             (unsigned long long)(unsigned)in.z);
+        s3 = s2; s2 = s1; s1 = s0; s0 = v; ++sp;
+        break;
+      }
+      case OP_CAST: s0 = cast_val(s0, in.z, in.y); break;
+      case OP_NEG:
+        if (in.y == T_F32) s0 = from_f(-as_f(s0));
+        else if (in.y == T_I32) s0 = from_i32((int)(0u - (unsigned)s0));
+        else s0 = (long long)(0ull - (unsigned long long)s0);
+        break;
+      case OP_NOT: s0 = s0 == 0; break;
+      case OP_SELECT:
+        s0 = s2 ? s1 : s0; s1 = s3; sp -= 2;
+        break;
+      default: {
+        long long r;
+        if (in.x == OP_AND) r = (s1 != 0) & (s0 != 0);
+        else if (in.x == OP_OR) r = (s1 != 0) | (s0 != 0);
+        else if (in.x >= OP_EQ && in.x <= OP_GE) r = compare(in.x, in.z, s1, s0);
+        else r = arith(in.x, in.y, s1, s0);     // ADD SUB MUL DIV MOD MAX MIN
+        s0 = r; s1 = s2; s2 = s3; --sp;
+      }
+    }
+  }
+  return s0;
 }
 
 // -------------------------------------------------------- block helpers

@@ -19,15 +19,34 @@
 // linked as EV slot 0, the probe's timestamp.
 //
 // The reference builds [B, W] and [B, B] pair grids, a [B, W + B + 1] flat
-// mask and a cumsum rank over it; none of them is built here. Four
-// launches, all on the caller's stream, nothing allocated:
+// mask and a cumsum rank over it; none of them is built here. Four launches
+// (five with a key index), all on the caller's stream, nothing allocated:
 //   1. j_prep, one CTA: absolute timestamps, each side's exclusive arrival
 //      counts and the batch position of its i-th arrival (ballot scans),
 //      k per side and the newest valid timestamp.
+//   1b. j_index, where the plan found a key (a top-level conjunct of the
+//      condition that compares a left and a right BOOL, INT, LONG or string
+//      attribute for equality): one CTA per index, four indexes (each side's
+//      ring slots that ever held an arrival, each side's batch arrivals),
+//      each a stable counting sort of the candidates by a hash of their key
+//      into NB buckets: a histogram (shared atomics, the buckets kept in
+//      shared memory), an exclusive scan of the buckets, and a scatter by
+//      one warp in candidate order (__match_any_sync ranks the equal
+//      buckets of 32 candidates), so each
+//      bucket lists its ring slots and batch positions ascending. A ring CTA
+//      also checks whether its live slots' expiry times are nondecreasing.
 //   2. j_count, one warp per probe: walks the candidates in emission order,
 //      tests liveness, within and the condition lane-parallel, and counts
 //      matches with __ballot_sync/__popc (+1 for an unmatched outer row;
-//      "matched" is taken before the J cut, as in the reference).
+//      "matched" is taken before the J cut, as in the reference). With a
+//      key index it walks only the probe's bucket: its ring slots from the
+//      first live one (a binary search where the ring's expiry times are
+//      nondecreasing, or for a length ring by opp_excl; else from the
+//      first), then its batch positions below the probe. A candidate with
+//      another key fails the equality, so the walk is the reference's
+//      emission order restricted to the candidates that can match; the full
+//      condition still decides each pair, so a hash collision costs time,
+//      never a row.
 //   3. j_scan, one CTA: the exclusive scan of the per-probe counts (row
 //      offsets, deterministic: no atomics decide positions), count =
 //      min(n_sel, J), join_drops and ring_drops.
@@ -39,14 +58,15 @@
 //      slot writes the slid rings to fresh buffers (the input state is
 //      read-only).
 //
-// What bounds it on the H100: operations. A step tests about B * (W + B/2)
-// pairs, each a few compares plus the condition's IR (~5-15 interpreted
-// instructions): ~25-35 M pair tests for B = W = 4096, while the bytes are
-// the rings, the batch and the J rows, a few MB (~1 us at 3.35 TB/s). This
-// first version interprets the IR per pair and walks every candidate twice
-// (count, then emit); both walks are warp-parallel over the candidates and
-// skip dead ring slots before evaluating anything. Compiling the condition
-// and a single pass with a decoupled look-back are later work.
+// What bounds it on the H100: operations. Without an index a step tests
+// about B * (W + B/2) pairs, each a few compares plus the condition's IR
+// (~5-15 interpreted instructions): ~25-35 M pair tests for B = W = 4096,
+// while the bytes are the rings, the batch and the J rows, a few MB (~1 us
+// at 3.35 TB/s). With an index a probe tests only its bucket's live
+// candidates (a few per probe for ~1,000 keys), and the step's device time
+// goes to the index build (one warp's ordered scatter per index) and the
+// launches. The condition is still interpreted per pair; compiling it and
+// a single pass with a decoupled look-back are later work.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -60,6 +80,9 @@
 #define NTW 256
 #define FULL 0xffffffffu
 #define TS_NEG (-(1LL << 62))
+#define NBB 12                     // log2 of the buckets of a key index
+#define NB (1 << NBB)
+#define IDX_SMEM 12288             // candidates whose buckets j_index keeps in shared memory
 
 enum { K_TIME = 0, K_LENGTH = 1 };
 
@@ -71,11 +94,13 @@ struct JArgs {
   int has_within; long long within;
   int emit_left, emit_right, un_left, un_right;
   int nvar, has_cond, nout;
+  int indexed;                      // walk the key index (keyp set)
   int var_side[JMAXVAR];            // 0 left, 1 right
   int var_ty[JMAXVAR];
   int out_ty[JMAXOUT];
   int out_null[JMAXOUT];            // bit 0: reads the left side, bit 1: right
   Prog cond;
+  Prog keyp[2];                     // each side's equality operand
   Prog outp[JMAXOUT];
   const int4* code;
   const signed char* tag; const int* ts; const long long* ts_base;
@@ -93,8 +118,12 @@ struct JArgs {
   int* cl; int* cr;                 // [B] exclusive left / right arrival counts
   int* idx;                         // [2, B] batch position of a side's i-th arrival
   int* cnt; int* off;               // [B] rows per probe, their offsets
-  int* misc;                        // [0] kl, [1] kr, [2] count
+  int* misc;                        // [0] kl, [1] kr, [2] count, [3 + side] mono
   long long* now;                   // [1] newest valid timestamp
+  // key index: index i = ring L, ring R, batch L, batch R
+  int* istart;                      // [4, NB + 1] first item of each bucket
+  int* items;                       // [2W + 2B] ring slots / batch positions
+  int* ibkt;                        // [2W + 2B] each candidate's bucket (-1: none)
 };
 
 __device__ __forceinline__ long long wadd(long long x, long long y) {
@@ -170,8 +199,79 @@ __device__ bool pair_ok(const JArgs& a, const Probe& q, bool ring, int c) {
     if (!(d <= a.within)) return false;
   }
   if (a.has_cond)
-    return eval_prog(a.code, a.cond, ProbeTs{q.t}, PairVar{&a, q.p, q.ps, ring, c}) != 0;
+    return eval_fast(a.code, a.cond, ProbeTs{q.t}, PairVar{&a, q.p, q.ps, ring, c}) != 0;
   return true;
+}
+
+// ------------------------------------------------------------ key index
+
+// side's equality operand over a candidate of that side: ring slot c, or
+// batch row c
+__device__ __forceinline__ long long key_of(const JArgs& a, int side, bool ring, int c) {
+  return eval_fast(a.code, a.keyp[side], ProbeTs{0}, PairVar{&a, 0, 1 - side, ring, c});
+}
+__device__ __forceinline__ int bucket_of(long long k) {
+  return (int)(((unsigned long long)k * 0x9E3779B97F4A7C15ull) >> (64 - NBB));
+}
+__device__ __forceinline__ const int* index_start(const JArgs& a, int i) {
+  return a.istart + (long long)i * (NB + 1);
+}
+__device__ __forceinline__ int index_base(const JArgs& a, int i) {
+  return i < 2 ? i * a.W : 2 * a.W + (i - 2) * a.B;
+}
+
+// Probe q's first live slot among the bucket's ring slots it[lo, hi)
+// (ascending): a binary search where liveness is monotone in the slot (a
+// length ring; a time ring whose live slots' expiry times are
+// nondecreasing), else lo.
+__device__ int first_live(const JArgs& a, const Probe& q, int os, const int* it,
+                          int lo, int hi) {
+  const int kind = os == 0 ? a.lkind : a.rkind;
+  const long long par = os == 0 ? a.lparam : a.rparam;
+  const long long* rts = os == 0 ? a.lts_in : a.rts_in;
+  if (kind == K_TIME && !a.misc[3 + os]) return lo;
+  while (lo < hi) {
+    const int mid = lo + (hi - lo) / 2, c = it[mid];
+    const bool live = kind == K_TIME ? wadd(rts[c], par) > q.t
+                                     : (long long)(a.W - 1 - c) + q.opp_excl < par;
+    if (live) hi = mid;
+    else lo = mid + 1;
+  }
+  return lo;
+}
+
+// walk_pairs over the probe's key bucket: its ring slots from the first
+// live one, then its batch positions below the probe, both ascending.
+template <class Hit, class Stop>
+__device__ int walk_bucket(const JArgs& a, const Probe& q, Hit hit, Stop stop) {
+  const int ws = warp_width(), lane = threadIdx.x % ws;
+  const unsigned below = (1u << lane) - 1u;
+  const int os = 1 - q.ps;
+  const int bk = bucket_of(key_of(a, q.ps, false, q.p));
+  int n = 0;
+  const int* st = index_start(a, os);
+  const int* it = a.items + index_base(a, os);
+  const int hi = st[bk + 1];
+  for (int i0 = first_live(a, q, os, it, st[bk], hi); i0 < hi && !stop(n); i0 += ws) {
+    const int i = i0 + lane;
+    const int c = i < hi ? it[i] : 0;
+    const bool ok = i < hi && pair_ok(a, q, true, c);
+    const unsigned m = __ballot_sync(FULL, ok);
+    if (ok) hit(n + __popc(m & below), true, c);
+    n += __popc(m);
+  }
+  st = index_start(a, 2 + os);
+  it = a.items + index_base(a, 2 + os);
+  const int bhi = st[bk + 1];
+  for (int i0 = st[bk]; i0 < bhi && it[i0] < q.p && !stop(n); i0 += ws) {
+    const int i = i0 + lane;
+    const int j = i < bhi ? it[i] : q.p;
+    const bool ok = j < q.p && pair_ok(a, q, false, j);
+    const unsigned m = __ballot_sync(FULL, ok);
+    if (ok) hit(n + __popc(m & below), false, j);
+    n += __popc(m);
+  }
+  return n;
 }
 
 // Walks probe q's candidates in emission order, one warp; calls
@@ -180,6 +280,7 @@ __device__ bool pair_ok(const JArgs& a, const Probe& q, bool ring, int c) {
 // number of pairs (every lane gets it).
 template <class Hit, class Stop>
 __device__ int walk_pairs(const JArgs& a, const Probe& q, Hit hit, Stop stop) {
+  if (a.indexed) return walk_bucket(a, q, hit, stop);
   const int ws = warp_width(), lane = threadIdx.x % ws;
   const unsigned below = (1u << lane) - 1u;
   const int os = 1 - q.ps;
@@ -211,7 +312,7 @@ __device__ void write_row(const JArgs& a, int r, int p, int q, bool valid) {
   const PairVar pv{&a, p, ps, ring, ring ? q : bq};
   const long long t = a.tsa[p];
   for (int o = 0; o < a.nout; ++o) {
-    store_typed(a.out[o], a.out_ty[o], r, eval_prog(a.code, a.outp[o], ProbeTs{t}, pv));
+    store_typed(a.out[o], a.out_ty[o], r, eval_fast(a.code, a.outp[o], ProbeTs{t}, pv));
     const int nm = a.out_null[o];
     a.onull[o][r] = un && (((nm & 1) && ps == 1) || ((nm & 2) && ps == 0));
   }
@@ -281,6 +382,89 @@ __global__ void __launch_bounds__(NT) j_prep(JArgs a) {
     a.misc[0] = kl;
     a.misc[1] = kr;
     *a.now = now;
+  }
+}
+
+// ------------------------------------------------------------ 1b. j_index
+// Block i builds index i (ring L, ring R, batch L, batch R): a stable
+// counting sort of its candidates by bucket. Ring candidates are the slots
+// that ever held an arrival (ts > TS_NEG: an empty slot never pairs), batch
+// candidates the side's valid arrivals, each in position order. The
+// buckets of up to IDX_SMEM candidates stay in shared memory for the
+// scatter (16 bits each), more in device memory.
+
+__global__ void __launch_bounds__(NT) j_index(JArgs a) {
+  __shared__ int s_cur[NB];
+  __shared__ unsigned short s_bkt[IDX_SMEM];
+  __shared__ int s_w[NT / 32 + 1];
+  const int tid = threadIdx.x, nt = blockDim.x, i = blockIdx.x;
+  const bool ring = i < 2;
+  const int side = i & 1;
+  const int n = ring ? a.W : a.B;
+  const bool small = n <= IDX_SMEM;
+  const long long* rts = side == 0 ? a.lts_in : a.rts_in;
+  int* bkt = a.ibkt + index_base(a, i);
+  int* items = a.items + index_base(a, i);
+  int* start = a.istart + (long long)i * (NB + 1);
+  for (int b = tid; b < NB; b += nt) s_cur[b] = 0;
+  __syncthreads();
+  // histogram
+  for (int e = tid; e < n; e += nt) {
+    int b = -1;
+    if (ring ? rts[e] > TS_NEG : (e < a.nvalid && a.tag[e] == side))
+      b = bucket_of(key_of(a, side, ring, e));
+    if (small) s_bkt[e] = (unsigned short)(b + 1);
+    else bkt[e] = b;
+    if (b >= 0) atomicAdd(&s_cur[b], 1);
+  }
+  // a time ring's live slots: contiguous, expiry times nondecreasing
+  if (ring) {
+    const long long par = side == 0 ? a.lparam : a.rparam;
+    int mono = 1;
+    for (int w = tid; w + 1 < a.W; w += nt) {
+      const bool l0 = rts[w] > TS_NEG, l1 = rts[w + 1] > TS_NEG;
+      if (l0 && (!l1 || wadd(rts[w], par) > wadd(rts[w + 1], par))) mono = 0;
+    }
+    mono = __syncthreads_and(mono);
+    if (tid == 0) a.misc[3 + side] = mono;
+  }
+  __syncthreads();
+  // exclusive scan of the buckets: NB / nt consecutive buckets a thread
+  const int per = (NB + nt - 1) / nt, b0 = tid * per;
+  int run = 0;
+  for (int b = b0; b < b0 + per && b < NB; ++b) run += s_cur[b];
+  const int ws = warp_width(), lane = tid % ws, warp = tid / ws;
+  int x = run;
+  for (int d = 1; d < ws; d <<= 1) {
+    const int y = __shfl_up_sync(FULL, x, d);
+    if (lane >= d) x += y;
+  }
+  if (lane == ws - 1 || tid == nt - 1) s_w[warp] = x;
+  __syncthreads();
+  int off = x - run;
+  for (int w = 0; w < warp; ++w) off += s_w[w];
+  for (int b = b0; b < b0 + per && b < NB; ++b) {
+    const int c = s_cur[b];
+    start[b] = off;
+    s_cur[b] = off;
+    off += c;
+  }
+  if (tid == nt - 1) start[NB] = off;
+  __syncthreads();
+  // the ordered scatter: one warp, ws candidates at a time
+  if (warp != 0) return;
+  const unsigned below = (1u << lane) - 1u;
+  for (int e0 = 0; e0 < n; e0 += ws) {
+    const int e = e0 + lane;
+    const int b = e >= n ? -1 : (small ? (int)s_bkt[e] - 1 : bkt[e]);
+    const unsigned peers = __match_any_sync(FULL, b);
+    const int base = b >= 0 ? s_cur[b] : 0;
+    __syncwarp();
+    if (b >= 0) {
+      items[base + __popc(peers & below)] = e;
+      if ((peers >> lane) == 1u) s_cur[b] = base + __popc(peers);
+    }
+    __syncwarp();
   }
 }
 
@@ -400,8 +584,8 @@ __global__ void __launch_bounds__(NTW) j_emit(JArgs a, int nprobe, int nfill) {
 
 extern "C" int join_step_args_size(void) { return (int)sizeof(JArgs); }
 
-// Launches one step on `stream`; *nlaunch receives the number of kernel
-// launches made. Returns cudaGetLastError() after each launch (0 on
+// Launches one step on `stream` (four launches, five with a key index);
+// *nlaunch receives the number of kernel launches made. Returns cudaGetLastError() after each launch (0 on
 // success).
 extern "C" int join_step(const JArgs* args, void* stream, int* nlaunch) {
   const JArgs& a = *args;
@@ -415,6 +599,12 @@ extern "C" int join_step(const JArgs* args, void* stream, int* nlaunch) {
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   *nlaunch += 1;
+  if (a.indexed) {
+    j_index<<<4, NT, 0, st>>>(a);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    *nlaunch += 1;
+  }
   j_count<<<nprobe, NTW, 0, st>>>(a);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;

@@ -11,11 +11,18 @@ with ctypes) and refuses, with ``DeviceCompileError("join kernel: ...")``,
 a join over the kernel's limits, on every device, so the CPU and the card
 accept the same joins.
 
+Where the condition has a top-level conjunct ``L.a == R.b`` over BOOL,
+INT, LONG or string attributes (``key_conjunct``), the plan links each
+side's operand as a key program and the kernel walks a key index: each
+probe visits only the candidates in its key's hash bucket (``indexed``).
+Other conditions (``or`` at the top, an equality between floats, no
+condition) walk every candidate.
+
 ``step_cuda`` launches the kernel on the current stream (four launches a
-step, counted in ``launches``) and returns the new state (fresh tensors for
-the rings and counters; the input state is left as it was) and the
-reference's output tree over ``J`` rows. The plain version is
-``join_compile.join_step_plain``.
+step, five with the index, counted in ``launches``) and returns the new
+state (fresh tensors for the rings and counters; the input state is left as
+it was) and the reference's output tree over ``J`` rows. The plain version
+is ``join_compile.join_step_plain``.
 """
 
 from __future__ import annotations
@@ -27,11 +34,12 @@ import torch
 
 from ..query_api.definition import DataType
 from .dtypes import TORCH
-from .expr_compile import OP, TY_OF, DeviceCompileError, cast_to, link_ir
+from .expr_compile import OP, T_F32, TY_OF, DeviceCompileError, cast_to, link_ir
 
 JMAXVAR, JMAXOUT = 32, 32
 JMAXSIDE = 16               # referenced attributes per side
 K_KIND = {"time": 0, "length": 1}
+NB = 1 << 12                # buckets of a key index (csrc/join_step.cu NB)
 
 c_int, c_ll, c_vp = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
 
@@ -46,10 +54,11 @@ class JArgs(ctypes.Structure):
         ("lparam", c_ll), ("rparam", c_ll),
         ("has_within", c_int), ("within", c_ll),
         *[(n, c_int) for n in ("emit_left", "emit_right", "un_left",
-                               "un_right", "nvar", "has_cond", "nout")],
+                               "un_right", "nvar", "has_cond", "nout",
+                               "indexed")],
         ("var_side", c_int * JMAXVAR), ("var_ty", c_int * JMAXVAR),
         ("out_ty", c_int * JMAXOUT), ("out_null", c_int * JMAXOUT),
-        ("cond", _Prog), ("outp", _Prog * JMAXOUT),
+        ("cond", _Prog), ("keyp", _Prog * 2), ("outp", _Prog * JMAXOUT),
         ("code", c_vp), ("tag", c_vp), ("ts", c_vp), ("ts_base", c_vp),
         ("col", c_vp * JMAXVAR), ("ring_in", c_vp * JMAXVAR),
         ("ring_out", c_vp * JMAXVAR),
@@ -57,8 +66,58 @@ class JArgs(ctypes.Structure):
                               "jd_in", "rd_in", "jd_out", "rd_out")],
         ("out", c_vp * JMAXOUT), ("onull", c_vp * JMAXOUT),
         *[(n, c_vp) for n in ("ovalid", "ots", "ocount", "tsa", "cl", "cr",
-                              "idx", "cnt", "off", "misc", "now")],
+                              "idx", "cnt", "off", "misc", "now", "istart",
+                              "items", "ibkt")],
     ]
+
+
+def _tree(ir: list):
+    """The postfix program as a tree: ``(instruction, [operand trees])``."""
+    leaves = (OP["EV"], OP["BIND"], OP["TS"], OP["CONST"])
+    unary = (OP["CAST"], OP["NEG"], OP["NOT"])
+    stack = []
+    for ins in ir:
+        n = 0 if ins[0] in leaves else 1 if ins[0] in unary else \
+            3 if ins[0] == OP["SELECT"] else 2
+        kids = stack[len(stack) - n:]
+        del stack[len(stack) - n:]
+        stack.append((ins, kids))
+    return stack[-1]
+
+
+def _side_operand(node):
+    """``(side, program)`` when the tree is one attribute of one side under
+    integer casts only (BOOL, INT, LONG or a string code), else None."""
+    ins, kids = node
+    if ins[0] == OP["BIND"] and ins[1] != T_F32:
+        return ins[2][0], [ins]
+    if ins[0] == OP["CAST"] and T_F32 not in (ins[1], ins[2]):
+        got = _side_operand(kids[0])
+        return got and (got[0], got[1] + [ins])
+    return None
+
+
+def key_conjunct(cond_ir) -> tuple | None:
+    """The first top-level conjunct of the condition that compares a left
+    and a right attribute for equality outside floats, as ``(left program,
+    right program)`` (each the attribute and its casts to the compared
+    type), or None. Every row the condition accepts has equal keys."""
+    if cond_ir is None:
+        return None
+    todo = [_tree(cond_ir)]
+    while todo:
+        ins, kids = todo.pop(0)
+        if ins[0] == OP["AND"]:
+            todo[:0] = kids
+            continue
+        if ins[0] != OP["EQ"] or ins[2] == T_F32:
+            continue
+        ops = [_side_operand(k) for k in kids]
+        if None in ops or {side for side, _ in ops} != {"L", "R"}:
+            continue
+        prog = dict(ops)
+        return prog["L"], prog["R"]
+    return None
 
 
 class JoinPlan:
@@ -135,6 +194,12 @@ class JoinPlan:
         if cq.cond_ir is not None:
             a.has_cond = 1
             a.cond = add(cq.cond_ir, TY_OF[torch.bool])
+        keys = key_conjunct(cq.cond_ir)
+        self.indexed = keys is not None
+        if keys is not None:
+            a.indexed = 1
+            for side, prog in enumerate(keys):
+                a.keyp[side] = add(prog, prog[-1][1])
         for o, spec in enumerate(cq.out_specs):
             a.out_ty[o] = TY_OF[TORCH[spec.dtype]]
             a.out_null[o] = ("L" in spec.sides) | (("R" in spec.sides) << 1)
@@ -257,8 +322,13 @@ class JoinPlan:
                        "cl": torch.empty(B, **i32), "cr": torch.empty(B, **i32),
                        "idx": torch.empty(2 * B, **i32),
                        "cnt": torch.empty(B, **i32), "off": torch.empty(B, **i32),
-                       "misc": torch.empty(4, **i32),
+                       "misc": torch.empty(8, **i32),
                        "now": torch.empty(1, dtype=torch.int64, device=dev)}
+            if self.indexed:
+                W = self.cq.W
+                scratch.update(istart=torch.empty(4 * (NB + 1), **i32),
+                               items=torch.empty(2 * (W + B), **i32),
+                               ibkt=torch.empty(2 * (W + B), **i32))
             a = JArgs.from_buffer_copy(self.args)
             a.code = code.data_ptr()
             for name, t in scratch.items():

@@ -49,6 +49,7 @@ from .expr_compile import (
     TY_OF,
     DeviceCompileError,
     T_BOOL,
+    T_I64,
     as_tensor,
     astype,
 )
@@ -991,6 +992,8 @@ MAXC = 256
 MAXSTACK = 32
 NMASK = 12
 SMEM_LIMIT = 227 * 1024
+WARP = 32             # threads per lane (one warp)
+EV_CHUNK = 32         # events staged into shared memory at a time
 
 S_KIND = {"stream": 0, "count": 1, "logical": 2, "absent": 3}
 L_TYPE = {None: 0, "and": 1, "or": 2}
@@ -1018,6 +1021,8 @@ class StDesc(ctypes.Structure):
         ("f_done", ctypes.c_int * 2), ("f_absdead", ctypes.c_int * 2),
         ("fbase", ctypes.c_int), ("nf", ctypes.c_int),
         ("pred", _Prog * 2), ("pred_prev", _Prog * 2), ("pred_seed", _Prog * 2),
+        ("cpred", _Prog * 2), ("cprev", _Prog * 2), ("cseed", _Prog * 2),
+        ("evonly", ctypes.c_int), ("pad_", ctypes.c_int),
     ]
 
 
@@ -1053,6 +1058,7 @@ class ScanArgs(ctypes.Structure):
     """Mirror of ``struct ScanArgs`` in ``csrc/nfa_scan.cu``."""
     _fields_ = [
         ("L", ctypes.c_int), ("B", ctypes.c_int),
+        ("ncode", ctypes.c_int), ("pad_", ctypes.c_int),
         ("d", ctypes.c_void_p), ("code", ctypes.c_void_p),
         ("col", ctypes.c_void_p * MAXCOL),
         *[(n, ctypes.c_void_p) for n in ("tag", "ts", "ts_base", "nvalid")],
@@ -1064,15 +1070,68 @@ class ScanArgs(ctypes.Structure):
     ]
 
 
-def smem_bytes(d: ScanDesc) -> int:
-    """Shared memory one lane needs (``smem_layout`` in the kernel)."""
+def smem_bytes(d: ScanDesc, ncode: int) -> int:
+    """Shared memory one lane needs (``smem_layout`` in the kernel): the
+    descriptor, ``ncode`` linked IR words, the tables, the emission and
+    staging space, an insert's ballots, the masks and two staged event
+    chunks."""
     def carve(n):
         return (n + 15) & ~15
+
+    def region(size):                       # ev_region
+        return carve(EV_CHUNK * size + 8)
+    size_of = {T_BOOL: 1, T_I64: 8}
+    ev = region(4) + region(1) + sum(region(size_of.get(d.col_ty[c], 4))
+                                     for c in range(d.ncol))
     C = d.C
-    return (carve(8 * d.F * C) + carve(8 * max(d.K, 1) * C)
-            + carve(8 * d.maxnf * C) + carve(8 * MAXCOL) + 3 * carve(4 * C)
-            + carve(4 * (MAXC // 32 + 1)) + carve(d.S * C)
-            + carve(NMASK * C) + carve(MAXK))
+    return (carve(ctypes.sizeof(ScanDesc)) + carve(16 * ncode)
+            + carve(8 * d.F * C) + carve(8 * max(d.K, 1) * C)
+            + carve(8 * d.maxnf * C) + carve(8 * EV_CHUNK * MAXCOL)
+            + carve(4 * 2 * (MAXC // WARP)) + carve(d.S * C)
+            + carve(NMASK * C) + carve(MAXK) + carve(2 * ev))
+
+
+_CMP_OPS = tuple(OP[n] for n in ("EQ", "NE", "LT", "LE", "GT", "GE"))
+
+
+def clause_form(rows: np.ndarray, base: int):
+    """A linked predicate (``rows`` at code offset ``base``) as a conjunction
+    of comparisons between two operands (an event column, a table field or
+    a constant, each under at most one cast): two int4 words per clause,
+    ``(compare op, compare type, x kind, x index)`` and ``(x cast, y kind,
+    y index, y cast)``, a constant's index the code row that holds it, a
+    cast ``src << 8 | dst`` or -1. None when the program has another shape.
+    The kernel evaluates these without the interpreter, with the same
+    casts and compares."""
+    stack = []
+    for i, (op, ty, a, _) in enumerate(rows.tolist()):
+        if op in (OP["EV"], OP["BIND"]):
+            stack.append(("leaf", op, a, -1))
+        elif op == OP["CONST"]:
+            stack.append(("leaf", op, base + i, -1))
+        elif op == OP["CAST"]:
+            x = stack.pop()
+            if x[0] != "leaf" or x[3] != -1:
+                return None
+            stack.append(("leaf", x[1], x[2], (a << 8) | ty))
+        elif op in _CMP_OPS:
+            y, x = stack.pop(), stack.pop()
+            if x[0] != "leaf" or y[0] != "leaf":
+                return None
+            stack.append(("and", [(op, a, x, y)]))
+        elif op == OP["AND"]:
+            y, x = stack.pop(), stack.pop()
+            if x[0] != "and" or y[0] != "and":
+                return None
+            stack.append(("and", x[1] + y[1]))
+        else:
+            return None
+    if len(stack) != 1 or stack[0][0] != "and":
+        return None
+    words = []
+    for op, cmp_ty, x, y in stack[0][1]:
+        words += [(op, cmp_ty, x[1], x[2]), (x[3], y[1], y[2], y[3])]
+    return np.array(words, dtype=np.int32).reshape(-1, 4)
 
 
 def _key_kind(q: int, key: str):
@@ -1262,13 +1321,31 @@ class ScanPlan:
             d.out_nnull[o] = len(deps)
             for i, (_, flag) in enumerate(deps):
                 d.out_null[o][i] = key_idx[flag]
-        if smem_bytes(d) > SMEM_LIMIT:
-            raise DeviceCompileError(
-                f"scan kernel: a lane needs {smem_bytes(d)} B of shared "
-                f"memory (limit {SMEM_LIMIT})")
-        self.desc = d
+        linked = np.concatenate(progs) if progs else np.zeros((0, 4), np.int32)
+        for s in range(S):
+            sd = d.st[s]
+            for bit, p in enumerate((*sd.pred, *sd.pred_prev)):
+                # a program that reads no table field: once per event
+                if not (linked[p.off:p.off + p.len, 0] == OP["BIND"]).any():
+                    sd.evonly |= 1 << bit
+            for src, dst in ((sd.pred, sd.cpred), (sd.pred_prev, sd.cprev),
+                             (sd.pred_seed, sd.cseed)):
+                for bi in range(2):
+                    words = clause_form(linked[src[bi].off:src[bi].off
+                                               + src[bi].len], src[bi].off) \
+                        if src[bi].len else None
+                    if words is not None:
+                        dst[bi] = _Prog(sum(len(c) for c in progs),
+                                        len(words) // 2)
+                        progs.append(words)
         self.code_host = np.concatenate(progs) if progs else \
             np.zeros((1, 4), np.int32)
+        need = smem_bytes(d, len(self.code_host))
+        if need > SMEM_LIMIT:
+            raise DeviceCompileError(
+                f"scan kernel: a lane needs {need} B of shared "
+                f"memory (limit {SMEM_LIMIT})")
+        self.desc = d
         self._dev = {}           # device → (desc bytes, code) uploaded
         self._checked = False
 
@@ -1350,6 +1427,7 @@ class ScanPlan:
         nfa = self.nfa
         a = ScanArgs()
         a.L, a.B = tag.shape
+        a.ncode = len(self.code_host)
         a.d, a.code = desc_ptr, code_ptr
         for c, k in enumerate(self.col_keys):
             a.col[c] = cols[k].data_ptr()
@@ -1368,7 +1446,7 @@ class ScanPlan:
         return a
 
     def step_cuda(self, state, cols, tag, ts, ts_base, nvalid):
-        """Launches the scan kernel once (one CTA per lane) on the current
+        """Launches the scan kernel once (one warp per lane) on the current
         stream. ``state`` is updated in place and returned with the ys."""
         if tag.device.type != "cuda":
             raise ValueError("step_cuda takes CUDA tensors")

@@ -6,8 +6,8 @@
 Runs each ``join_main`` configuration (``tools/join_workloads.py``: the
 market join and the sensor outer join) through ``DeviceJoinRuntime`` for
 ``--steps`` full batches under ``torch.profiler`` and prints one JSON line
-per configuration: device time per kernel name (``j_prep``, ``j_count``,
-``j_scan``, ``j_emit``, copies, the rest), the wall time of the window, the
+per configuration: device time per kernel name (``j_prep``, ``j_index``,
+``j_count``, ``j_scan``, ``j_emit``, copies, the rest), the wall time of the window, the
 device's busy share of it (device time summed over kernels and copies,
 divided by wall time; 1 - busy is the idle share), and the host clock split
 over the layers of the feed (``append_many``, ``emit``, the step call with
@@ -25,7 +25,7 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-KERNELS = ("j_prep", "j_count", "j_scan", "j_emit")
+KERNELS = ("j_prep", "j_index", "j_count", "j_scan", "j_emit")
 
 
 def profile(name: str, steps: int, seed: int) -> dict:

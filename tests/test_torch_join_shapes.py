@@ -18,6 +18,9 @@ outputs and conditions make (f32 add, multiply, compare) is correctly
 rounded on both sides.
 """
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -25,6 +28,7 @@ import torch
 from siddhi_tpu_torch.compiler import parse
 from siddhi_tpu_torch.gpu.expr_compile import DeviceCompileError
 from siddhi_tpu_torch.gpu.join_compile import CompiledJoinQuery, join_step_plain
+from siddhi_tpu_torch.gpu.join_step import NB
 from siddhi_tpu_torch.gpu.state_io import state_from_numpy, state_to_numpy
 
 SCHEMA = """
@@ -110,6 +114,38 @@ select L.v as lv, R.v as rv insert into O;""", 16, 4, 256),
     "wide_batch": ("""
 from L#window.time(80) join R#window.time(80) on L.k == R.k and L.x > R.x
 select L.x as lx, R.x as rx, R.v - L.v as dv insert into O;""", 64, 96, 2048),
+    # the key index (csrc/join_step.cu j_index): an equality conjunct on
+    # INT, LONG, BOOL or string attributes, keys drawn from KEY_POOL (many
+    # keys to one bucket) by WIRE_OPTIONS
+    "key_int": ("""
+from L#window.time(40) join R#window.length(6) on L.n == R.n
+select L.n as ln, R.n as rn, L.v as lv, R.v as rv insert into O;""",
+                16, 32, 256),
+    "key_long": ("""
+from L#window.length(7) left outer join R#window.time(50) on L.v == R.v
+select L.v as lv, R.v as rv, R.k as rk insert into O;""", 16, 32, 256),
+    "key_bool": ("""
+from L#window.time(30) full outer join R#window.time(30)
+  on L.b == R.b and L.x > R.x
+select L.b as lb, R.b as rb, L.x as lx, R.x as rx insert into O;""",
+                 16, 32, 512),
+    "key_string": ("""
+from L#window.length(5) join R#window.length(5) on L.k == R.k
+select L.k as lk, R.k as rk, L.n + R.n as nn insert into O;""", 16, 16, 256),
+    "key_second": ("""
+from L#window.time(40) join R#window.time(40) on L.x < R.x + 20.0 and L.v == R.n
+select L.v as lv, R.n as rn, L.x as lx, R.x as rx insert into O;""",
+                   16, 32, 256),
+    "key_under_or": ("""
+from L#window.time(40) join R#window.time(40) on L.k == R.k or L.v < R.v
+select L.v as lv, R.v as rv insert into O;""", 16, 32, 512),
+    "key_decreasing": ("""
+from L#window.time(30) join R#window.time(45) on L.n == R.n
+select L.n as ln, R.v as rv, eventTimestamp() as et insert into O;""",
+                       16, 32, 256),
+    "key_overflow": ("""
+from L#window.length(8) join R#window.length(8) on L.n == R.n
+select L.v as lv, R.v as rv insert into O;""", 16, 8, 10),
 }
 STEPS = 6
 # the share of right-side events per step (one side empty at steps 1, 2)
@@ -199,16 +235,51 @@ def compile_port(name: str, device) -> CompiledJoinQuery:
                              B, W, J, device=device)
 
 
+def index_bucket(key: int) -> int:
+    """The key index's bucket of an int64 key (``bucket_of`` in
+    ``csrc/join_step.cu``)."""
+    shift = 64 - (NB.bit_length() - 1)
+    return ((key * 0x9E3779B97F4A7C15) & (2 ** 64 - 1)) >> shift
+
+
+def _colliding_keys(buckets: int = 3, per: int = 4) -> list[int]:
+    """The smallest positive ints that fill ``buckets`` buckets of the key
+    index with ``per`` distinct keys each."""
+    seen: dict[int, list[int]] = {}
+    full = []
+    k = 0
+    while len(full) < buckets:
+        k += 1
+        got = seen.setdefault(index_bucket(k), [])
+        got.append(k)
+        if len(got) == per:
+            full.append(got)
+    return sorted(x for keys in full for x in keys)
+
+
+KEY_POOL = _colliding_keys()
+# JoinWire options of the cases that need them
+WIRE_OPTIONS = {"key_int": {"keys": KEY_POOL}, "key_long": {"keys": KEY_POOL},
+                "key_string": {"keys": KEY_POOL},
+                "key_second": {"keys": KEY_POOL},
+                "key_overflow": {"keys": KEY_POOL[:4]},
+                "key_decreasing": {"keys": KEY_POOL, "decreasing": True}}
+
+
 class JoinWire:
     """Seeded merged wire batches (``MergedBatchBuilder.emit()`` layout)
     over ``SCHEMA``: a random valid prefix (empty at step 3, full at step
     4), tags by ``RIGHT_SHARE``, ts deltas of 0-9 ms, and stale values
-    (tags and columns) past the prefix."""
+    (tags and columns) past the prefix. ``keys``: the k, v and n columns
+    draw from these values instead; ``decreasing``: each batch's valid
+    timestamps run backwards (negative deltas from the first)."""
 
-    def __init__(self, seed: int, B: int):
+    def __init__(self, seed: int, B: int, keys=None, decreasing=False):
         self.rng = np.random.default_rng(seed)
         self.B = B
         self.ts = 10_000
+        self.keys = None if keys is None else np.asarray(keys, np.int64)
+        self.decreasing = decreasing
 
     def batch(self, step: int) -> dict:
         rng, B = self.rng, self.B
@@ -227,6 +298,12 @@ class JoinWire:
             cols[f"s{s}_n"] = rng.integers(-2, 6, B).astype(np.int32)
             cols[f"s{s}_f"] = np.round(rng.uniform(-5, 5, B), 2).astype(np.float32)
             cols[f"s{s}_b"] = rng.random(B) < 0.5
+        if self.keys is not None:
+            for s in (0, 1):
+                for c, dt in (("k", np.int32), ("v", np.int64), ("n", np.int32)):
+                    cols[f"s{s}_{c}"] = rng.choice(self.keys, B).astype(dt)
+        if self.decreasing and count:
+            deltas[:count] = deltas[count - 1] - deltas[:count]
         base = self.ts
         if count:
             self.ts = base + int(deltas[count - 1]) + int(rng.integers(0, 20))
@@ -235,7 +312,7 @@ class JoinWire:
 
 
 def wire_for(name: str) -> JoinWire:
-    return JoinWire(11, JOINS[name][1])
+    return JoinWire(11, JOINS[name][1], **WIRE_OPTIONS.get(name, {}))
 
 
 def out_numpy(out) -> dict:
@@ -302,6 +379,32 @@ def test_plain_step_keeps_its_invariants(name):
         for k, v in cq.init_state().items():
             assert new[k].dtype == v.dtype and new[k].shape == v.shape
         state = new
+
+
+# the cases whose condition has no equality conjunct the index can take
+UNINDEXED = {"div_zero", "no_condition", "key_under_or"}
+
+
+@pytest.mark.parametrize("name", sorted(JOINS))
+def test_plan_indexes_every_equality_conjunct(name):
+    """A top-level ``L.a == R.b`` over BOOL, INT, LONG or string codes
+    gives the plan its key programs (one per side); ``or`` at the top, a
+    float or a missing equality walks every candidate."""
+    cq = compile_port(name, "cpu")
+    a = cq.plan.args
+    assert cq.plan.indexed == (name not in UNINDEXED)
+    assert a.indexed == cq.plan.indexed
+    for side in (0, 1):
+        assert (a.keyp[side].len > 0) == cq.plan.indexed
+
+
+def test_key_pool_collides_in_the_kernel_index():
+    src = (Path(__file__).resolve().parent.parent / "siddhi_tpu_torch" /
+           "csrc" / "join_step.cu").read_text()
+    nbb = int(re.search(r"#define NBB (\d+)", src).group(1))
+    assert NB == 1 << nbb
+    buckets = [index_bucket(k) for k in KEY_POOL]
+    assert len(set(buckets)) * 4 == len(KEY_POOL) == len(set(KEY_POOL))
 
 
 @pytest.mark.parametrize("i", range(len(LIMITS)))

@@ -34,7 +34,7 @@ from siddhi_tpu_torch.gpu import nfa_scan
 from siddhi_tpu_torch.gpu.nfa_scan import ScanPlan, scan_step_plain
 from siddhi_tpu_torch.gpu.partition import PartitionedNFARuntime as TPartitioned
 from siddhi_tpu_torch.gpu.state_io import state_from_numpy, state_to_numpy
-from test_torch_scan_shapes import AB, APPS, CASES, IDS
+from test_torch_scan_shapes import AB, APPS, CASES, IDS, shape_batch
 
 ROOT = Path(__file__).resolve().parent.parent
 
@@ -120,8 +120,9 @@ def _run_parity(name, B, C, lanes, ts_step, base, steps=4, seed=0):
     rng = np.random.default_rng(seed)
     emitted = 0
     for i in range(steps):
-        wire = make_batch(rng, tc, lanes, empty_lane=(i % 2 == 1),
-                          ts_step=ts_step, base=base)
+        wire = shape_batch(name, make_batch(rng, tc, lanes,
+                                            empty_lane=(i % 2 == 1),
+                                            ts_step=ts_step, base=base))
         jstate, jys = jstep(jstate, *wire)
         tstate, tys = scan_step_plain(tc, tstate, *_torch_args(*wire))
         jstate = jax.tree_util.tree_map(np.asarray, jax.device_get(jstate))
@@ -226,7 +227,7 @@ def test_scan_plan_links_every_program():
 def test_kernel_source_agrees_with_the_python_constants():
     src = (ROOT / "siddhi_tpu_torch" / "csrc" / "nfa_scan.cu").read_text()
     for name in ("MAXS", "MAXK", "MAXF", "MAXCOL", "MAXOUT", "MAXNULL",
-                 "MAXC", "MAXSTACK", "NMASK"):
+                 "MAXC", "MAXSTACK", "NMASK", "WARP", "EV_CHUNK"):
         m = re.search(rf"#define {name} (\d+)", src)
         assert int(m.group(1)) == getattr(nfa_scan, name), name
     m = re.search(r"#define SMEM_LIMIT \((\d+) \* 1024\)", src)
@@ -301,8 +302,9 @@ def test_kernel_matches_plain_on_card(name, B, C, lanes, ts_step, base):
     state = tc.init_state(lanes, start)
     rng = np.random.default_rng(11)
     for i in range(4):
-        wire = make_batch(rng, tc, lanes, empty_lane=(i % 2 == 1),
-                          ts_step=ts_step, base=base)
+        wire = shape_batch(name, make_batch(rng, tc, lanes,
+                                            empty_lane=(i % 2 == 1),
+                                            ts_step=ts_step, base=base))
         args = _torch_args(*wire, dev="cuda")
         ref_state, ref_ys = scan_step_plain(
             tc, state_from_numpy(state_to_numpy(state), "cuda"), *args)

@@ -14,7 +14,8 @@ import pytest
 
 from siddhi_tpu_torch.compiler import parse
 from siddhi_tpu_torch.gpu.nfa import DeviceNFACompiler
-from siddhi_tpu_torch.gpu.nfa_scan import ScanPlan
+from siddhi_tpu_torch.gpu.expr_compile import OP
+from siddhi_tpu_torch.gpu.nfa_scan import ScanPlan, clause_form
 
 AB = """
 define stream A (sym string, v double, n int);
@@ -129,6 +130,12 @@ from every e1=A[v > 30.0] -> e2=B[v > e1.v]<1:2> -> e3=A[v > 20.0]
   within 100 milliseconds
 select e1.v as a, e2[0].v as b, e3.v as c insert into O;
 """, ()),
+    # ---- skips: a long run of B events that no live state reads
+    "skip_run": (AB + """
+from every e1=A[v > 30.0] -> e2=A[v > e1.v]<1:2> -> e3=B[v > 90.0]
+  within 150 milliseconds
+select e1.v as a, e2[0].v as b, e3.v as c insert into O;
+""", ()),
     "string_eq": (AB + """
 from every e1=A[sym == 'x' and v > 30.0] -> e2=B[sym == e1.sym]<1:2>
   -> e3=B[v > 40.0]
@@ -164,8 +171,27 @@ CASES = [
     ("within_count", 24, 8, 3, 30, 0),     # ts from 0: the -1 sentinels
     ("string_eq", 16, 8, 3, 60, None),
     ("count_mid", 32, 4, 2, 60, None),     # slot-capacity overflow
+    ("count_mid", 32, 256, 2, 60, None),   # 8 slots a thread of the warp
+    ("or_mid", 24, 33, 2, 60, None),       # slots not a multiple of 32
+    ("skip_run", 64, 16, 2, 30, None),     # TAG_RUN: most events skip
+    ("within_count", 32, 8, 1, 30, 0),     # one lane, empty at odd steps
 ]
 IDS = [f"{c[0]}-B{c[1]}-C{c[2]}" for c in CASES]
+
+# apps whose batches carry a long run of one stream: from a quarter of the
+# way into each lane's batch, every event's tag is this stream's
+TAG_RUN = {"skip_run": 1}
+
+
+def shape_batch(name: str, wire: tuple) -> tuple:
+    """A seeded wire batch ``(cols, tag, ts, ts_base, counts)`` of app
+    ``name`` with its ``TAG_RUN`` applied (other apps: unchanged)."""
+    if name not in TAG_RUN:
+        return wire
+    cols, tag, ts, ts_base, counts = wire
+    tag = tag.copy()
+    tag[:, tag.shape[1] // 4:] = TAG_RUN[name]
+    return cols, tag, ts, ts_base, counts
 
 
 
@@ -177,3 +203,76 @@ def test_every_shape_takes_the_scan_kernel(name):
     assert not comp.blocked
     assert isinstance(comp.plan, ScanPlan) and comp.plan.link_error is None
     assert {s for s, _, _ in comp.plan.fields} == set(range(comp.S))
+
+
+def test_plan_marks_the_programs_that_read_the_event_alone():
+    """``evonly`` bit bi (2 + bi for the count-prev program) is set exactly
+    where the linked predicate reads no table field: the kernel evaluates
+    those once per event instead of once per slot."""
+    app = parse(APPS["or_mid"][0])
+    comp = DeviceNFACompiler(app.queries[0], dict(app.stream_definitions),
+                             8, 16, device="cpu")
+    plan = comp.plan
+    bind = OP["BIND"]
+    for s in range(comp.S):
+        st = plan.desc.st[s]
+        for bit, p in enumerate((*st.pred, *st.pred_prev)):
+            reads = (plan.code_host[p.off:p.off + p.len, 0] == bind).any()
+            assert bool(st.evonly >> bit & 1) == (not reads), (s, bit)
+    # e1=A[v > 70.0] reads the event; e2=A[v > e1.v] reads its table
+    assert plan.desc.st[0].evonly & 1 and not plan.desc.st[1].evonly & 1
+
+
+def _postfix(rows, base):
+    """The clause words decoded back to one postfix program per clause:
+    [x (cast), y (cast), compare] with the constant rows resolved."""
+    out = []
+    for w0, w1 in zip(rows[0::2].tolist(), rows[1::2].tolist()):
+        op, cmp_ty, xk, xi = w0
+        xc, yk, yi, yc = w1
+        prog = []
+        for kind, idx, cast in ((xk, xi, xc), (yk, yi, yc)):
+            prog.append((kind, "const", idx - base) if kind == OP["CONST"]
+                        else (kind, idx))
+            if cast >= 0:
+                prog.append(("cast", cast >> 8, cast & 255))
+        out.append(prog + [(op, cmp_ty)])
+    return out
+
+
+@pytest.mark.parametrize("name", sorted(APPS))
+def test_clause_form_is_the_predicate_conjunction(name):
+    """Where a predicate has a clause form, its clauses are exactly the
+    program's comparisons (operands, casts, constants) joined by ``and``;
+    a program with any other operation has none."""
+    app = parse(APPS[name][0])
+    comp = DeviceNFACompiler(app.queries[0], dict(app.stream_definitions),
+                             8, 16, device="cpu")
+    plan, code = comp.plan, comp.plan.code_host
+    for s in range(comp.S):
+        st = plan.desc.st[s]
+        for irs, cls in ((st.pred, st.cpred), (st.pred_prev, st.cprev),
+                         (st.pred_seed, st.cseed)):
+            for bi in range(2):
+                ir, cl = irs[bi], cls[bi]
+                rows = code[ir.off:ir.off + ir.len]
+                ops = set(rows[:, 0].tolist())
+                simple = ops <= {OP[n] for n in ("EV", "BIND", "CONST",
+                                                 "CAST", "AND", "EQ", "NE",
+                                                 "LT", "LE", "GT", "GE")}
+                if cl.len == 0:
+                    assert ir.len == 0 or not simple or \
+                        clause_form(rows, ir.off) is None
+                    continue
+                words = code[cl.off:cl.off + 2 * cl.len]
+                n_cmp = sum(op in {OP[n] for n in ("EQ", "NE", "LT", "LE",
+                                                   "GT", "GE")}
+                            for op in rows[:, 0].tolist())
+                assert simple and cl.len == n_cmp
+                for prog in _postfix(words, ir.off):
+                    for ins in prog:
+                        if ins[0] == OP["CONST"]:
+                            assert rows[ins[2], 0] == OP["CONST"]
+                        elif ins[0] in (OP["EV"], OP["BIND"]):
+                            assert ((rows[:, 0] == ins[0])
+                                    & (rows[:, 2] == ins[1])).any()

@@ -69,8 +69,11 @@ Phases, one JSON line each:
                (the first 2 for (d), whose plain version walks the events in
                Python) against the plain version on the card, with the float
                limits computed per step from the state and batch it reads
-               (``step_scale``), and prints each output's largest error and
-               its largest share of its limit; (c)'s rows are also held to a
+               (``step_scale``; a grouped float32 sum/avg row's from its own
+               bucket), and prints each output's largest error and its
+               largest share of its limit; in (a)–(c) one full-width step
+               runs twice from the same state and inputs, every output and
+               state leaf bitwise equal; (c)'s rows are also held to a
                numpy computation of every closed bucket, (d)'s to the
                frequency bound of lossy counting.
   8. join_shapes — the stream-stream join kernel (``csrc/join_step.cu``)
@@ -1103,6 +1106,26 @@ def check_query_rows(name: str, rows: list, cols, ts) -> dict:
     return extra
 
 
+def run_twice(name: str, kstep, state, c, t, v) -> dict:
+    """One full-width step run twice from the same state and inputs: every
+    output and state leaf must be bitwise equal (the kernels' float64 sums
+    associate in an order fixed by their tile layout)."""
+    import torch
+    from siddhi_tpu_torch.gpu.state_io import state_to_numpy
+    runs = [kstep(state, c, t, v) for _ in range(2)]
+    torch.cuda.synchronize()
+    (s1, o1), (s2, o2) = [(state_to_numpy(a), state_to_numpy(b)) for a, b in runs]
+    leaves = 0
+    for tag, x, y in [*((f"state.{k}", s1[k], s2[k]) for k in sorted(s1)),
+                      *((f"out.{k}", o1["out"][k], o2["out"][k]) for k in sorted(o1["out"])),
+                      *((k, o1[k], o2[k]) for k in ("valid", "ts", "count"))]:
+        if np.asarray(x).tobytes() != np.asarray(y).tobytes():
+            fail(f"query_main {name}: {tag} differs between two runs of one "
+                 f"step from the same state and inputs")
+        leaves += 1
+    return {"leaves": leaves, "equal": True}
+
+
 def phase_query_main(name: str, seed: int) -> dict:
     import torch
     from siddhi_tpu_torch.gpu.query_compile import stream_step_plain
@@ -1183,7 +1206,7 @@ def phase_query_main(name: str, seed: int) -> dict:
     step_ms = [a.elapsed_time(b) for a, b in kmarks]
     if len(kmarks) != steps:
         fail(f"query_main {name}: {len(kmarks)} kernel calls over {steps} steps")
-    per_step = 1 if plan is WalkPlan else (3 if q.agg_idx else 2)
+    per_step = q.plan.step_launches()
     if launches != steps * per_step or launches == 0 or other:
         fail(f"query_main {name}: {launches} {plan.LIB} launches over {steps} "
              f"steps ({other} of the other query kernel)")
@@ -1198,13 +1221,16 @@ def phase_query_main(name: str, seed: int) -> dict:
     q = rt.compiled
     kstep = q.step_tensors
     plain_ms, worst, equal_steps = [], 0.0, 0
-    limits, fsum_limit = {}, []
+    limits, fsum_limit, row_limit, twice = {}, [], [], []
     check_steps = QUERY_CHECK_STEPS.get(name)
 
     def checked(state, c, t, v):
         nonlocal worst, equal_steps
         if check_steps is not None and len(plain_ms) >= check_steps:
             return kstep(state, c, t, v)
+        if plan is QueryPlan and not twice and len(plain_ms) >= 9 and \
+                bool(v.all()):
+            twice.append(run_twice(name, kstep, state, c, t, v))
         e0, e1 = event_pair()
         e0.record()
         ref_state, ref_out = stream_step_plain(q, state, c, t, v)
@@ -1214,6 +1240,9 @@ def phase_query_main(name: str, seed: int) -> dict:
         plain_ms.append(e0.elapsed_time(e1))
         scale = sh.step_scale(q, state, c, t, v)
         fsum_limit.append(2.0 ** -20 * (1.0 + scale.top("s1")))
+        for r in (scale.row or {}).values():
+            row_limit.extend((2.0 ** -20 * (1.0 + float(np.min(r))),
+                              2.0 ** -20 * (1.0 + float(np.max(r)))))
         try:
             err = sh.compare(q, scale, state_to_numpy(ref_state),
                              state_to_numpy(new), state_to_numpy(ref_out),
@@ -1227,6 +1256,8 @@ def phase_query_main(name: str, seed: int) -> dict:
 
     q.step_tensors = checked
     rows2 = feed_query(rt, cols, ts)
+    if plan is QueryPlan and not twice:
+        fail(f"query_main {name}: no full-width step was run twice")
     if rows2 != rows:
         fail(f"query_main {name}: the checked run's rows differ from the "
              f"timed run's")
@@ -1256,6 +1287,9 @@ def phase_query_main(name: str, seed: int) -> dict:
         "max_abs_err": worst, "errors_by_output": limits,
         "fsum_limit_min": float(np.min(fsum_limit)),
         "fsum_limit_max": float(np.max(fsum_limit)),
+        "fsum_row_limit_min": float(np.min(row_limit)) if row_limit else None,
+        "fsum_row_limit_max": float(np.max(row_limit)) if row_limit else None,
+        "run_twice_bitwise": twice[0] if twice else None,
         "phase_s": time.perf_counter() - t_phase, **extra,
     }
     emit(out)

@@ -1,7 +1,10 @@
 // Shared by the single-stream query kernels (query_step.cu, query_walk.cu):
 // the argument block QArgs (mirrored by gpu/query_step.py with ctypes), the
-// block-wide scans and reductions, and the step's first stage, the filter
-// and the stable compaction of the accepted events (compact_batch).
+// block-wide scans and reductions, the step's first stage, the filter and
+// the stable compaction of the accepted events (compact_batch), and the
+// tile primitives of query_step.cu's device-wide passes (tile_scan,
+// fold_tiles: reduce-then-scan over tiles of TILE positions, in an order
+// fixed by the tile layout alone).
 //
 // Replaces, from the reference JAX package, the head of tpu/query_compile.py
 // ::CompiledStreamQuery._make_step (filters, compact(), agg_stack(), the
@@ -98,8 +101,9 @@ struct QArgs {
   unsigned char* ovalid; long long* ots; int* ocount;
   // scratch
   int* misc;                        // [0] k, [1] scan length P, [2] remainder
-                                    // r, [3] carry start, [4] carried count
+                                    // r, [3] valid or released slots
   unsigned char* mask; int* rank;   // [B]
+  int* ccnt;                        // [ceil(B / TN)] accepted events a CTA
   float* bf; long long* bi; float* bs; long long* bm;   // batch lanes [A, B]
   int* bones; long long* bpacked; int* bkey; long long* bwts;   // [B]
   long long* bkeyv;                 // [B] sort key slots
@@ -108,19 +112,26 @@ struct QArgs {
   unsigned char* oflag;             // [O] validity before having
   long long* zt;                    // [M] the axis clock (monotonised)
   long long* zseg;                  // [M] segment ids
-  int* firstidx; int* cnt; int* seg; int* run;   // [K]
+  int* firstidx; int* cnt; int* seg;   // [K]
   float* ckey;                      // [AS, K] (or [AS]) stdDev centres
   int* sorted; unsigned char* head; // [M]
   double* incf; long long* inci; long long* inco;   // [AF, M], [AI, M], [M]
   double* incs1; double* incs2;     // [AS, M]
   long long* mP; long long* mS;     // [AM, M]
-  long long* mT;                    // [AM, LV, NB]
+  long long* mT;                    // [AM, 7 NB + LV NC] block and chunk tables
   int* pz;                          // [AF + 2 AS, 3] one-hot poison (grouped)
+  int* gmat;                        // [nrow, K] per-row bucket counts (group-by)
+  long long* tagg;                  // [1 + ntask, 4, ntile] tile aggregates
+  int* tfl;                         // [1 + ntask, 4, ntile] their segment flags
+  int* tpz;                         // [1 + ntask, 2, 3, ntile] tiles' poison
+  long long* acc;                   // [4] step scalars of the passes
   int* hidx;                        // [hh_H] heavy hitters' key -> slot index
   unsigned* hfree;                  // [(N + 31) / 32] their free-slot bits
   int hh_H;                         // index positions: a power of two >= 2 N
   int hh_shared;                    // set by query_walk's host entry: the
                                     // table lives in shared memory
+  int ntile;                        // tiles of TILE positions over M
+  int nrow, gsub;                   // group-by sort: rows of gsub positions
 };
 
 // ------------------------------------------------------------------ helpers
@@ -247,90 +258,198 @@ __device__ __forceinline__ bool remainder_kind(int w) {
 
 // --------------------------------------------------- stage 1: compaction
 // Filters -> mask and stable rank; every accepted event b goes to slot
-// rank_b: its aggregate arguments to the batch lanes, its group or
-// heavy-hitter key code, window clock and sort key to their scratch, its
-// value projections to out[i] at voff + rank_b (to bv for hopping), its
-// timestamp to ots (where the output axis is the batch's). Slots past the
-// accepted count k hold the reference's fills. Returns k; every thread of
-// the block calls it.
-__device__ int compact_batch(const QArgs& a, int voff, int* s_scan) {
-  const int tid = threadIdx.x, nt = blockDim.x;
+// rank_b (compact_event): its aggregate arguments to the batch lanes, its
+// group or heavy-hitter key code, window clock and sort key to their
+// scratch, its value projections to out[i] at voff + rank_b (to bv for
+// hopping), its timestamp to ots (where the output axis is the batch's).
+// Slots past the accepted count k hold the reference's fills
+// (compact_fill). compact_batch runs it in one CTA; query_step.cu runs the
+// same three parts over a grid (q_mask, q_compact).
+
+__device__ __forceinline__ bool accept_event(const QArgs& a, int b) {
+  bool m = a.valid[b] != 0;
+  for (int f = 0; f < a.nfilt; ++f)
+    m = m && (eval_row(a, a.filt[f], b) != 0);
+  return m;
+}
+
+__device__ void compact_event(const QArgs& a, int b, int r, int voff) {
   const int B = a.B;
   const bool hop = a.wkind == W_HOPPING;
   const bool direct_ts = !(remainder_kind(a.wkind) || hop);
-  for (int b = tid; b < B; b += nt) {
-    bool m = a.valid[b] != 0;
-    for (int f = 0; f < a.nfilt; ++f)
-      m = m && (eval_row(a, a.filt[f], b) != 0);
-    a.mask[b] = m;
+  if (direct_ts) a.ots[r] = a.ts[b];
+  for (int i = 0; i < a.nspec; ++i)
+    if (a.spec_kind[i] == S_VALUE) {
+      const long long v = eval_row(a, a.proj[i], b);
+      if (hop) a.bv[(long long)i * B + r] = v;
+      else store_typed(a.out[i], a.spec_ty[i], voff + r, v);
+    }
+  for (int l = 0; l < a.AF; ++l)
+    a.bf[(long long)l * B + r] = as_f(eval_row(a, a.lane[L_F][l], b));
+  for (int l = 0; l < a.AI; ++l)
+    a.bi[(long long)l * B + r] = eval_row(a, a.lane[L_I][l], b);
+  for (int l = 0; l < a.AS; ++l)
+    a.bs[(long long)l * B + r] = as_f(eval_row(a, a.lane[L_S][l], b));
+  for (int l = 0; l < a.AM; ++l)
+    a.bm[(long long)l * B + r] = eval_row(a, a.lane[L_M][l], b);
+  a.bones[r] = 1;
+  if (a.ngk > 0) {
+    unsigned long long packed = (unsigned long long)eval_row(a, a.gk[0], b);
+    if (a.key_mode == KM_PAIR) {
+      packed = (packed << 32) |
+               ((unsigned long long)eval_row(a, a.gk[1], b) & 0xFFFFFFFFull);
+    } else if (a.key_mode == KM_FNV) {
+      for (int g = 1; g < a.ngk; ++g)
+        packed = packed * 0x100000001B3ull ^
+                 (unsigned long long)eval_row(a, a.gk[g], b);
+    }
+    a.bpacked[r] = (long long)packed;
   }
-  const int k = block_rank<0>(a.mask, a.rank, B, s_scan);
+  a.bwts[r] = a.has_wprog ? eval_row(a, a.wprog, b) : a.ts[b];
+  if (a.wkind == W_SORT) {
+    long long v = eval_row(a, a.skey, b);
+    if (a.sort_desc) {
+      // stored negated (ascending order is the sort order); the integer
+      // minimum has no negation and is clamped one up first
+      if (a.sort_kty == T_F32) {
+        v = from_f(-as_f(v));
+      } else if (a.sort_kty == T_I32) {
+        const int x = (int)v;
+        v = from_i32(x == INT32_MIN ? -(INT32_MIN + 1) : -x);
+      } else {
+        v = v == INT64_MIN ? -(INT64_MIN + 1) : -v;
+      }
+    }
+    a.bkeyv[r] = v;
+  }
+}
 
+__device__ void compact_fill(const QArgs& a, int s, int voff) {
+  const int B = a.B;
+  const bool hop = a.wkind == W_HOPPING;
+  const bool direct_ts = !(remainder_kind(a.wkind) || hop);
+  if (direct_ts) a.ots[s] = 0;
+  for (int i = 0; i < a.nspec; ++i)
+    if (a.spec_kind[i] == S_VALUE) {
+      if (hop) a.bv[(long long)i * B + s] = 0;
+      else store_typed(a.out[i], a.spec_ty[i], voff + s, 0);
+    }
+  for (int l = 0; l < a.AF; ++l) a.bf[(long long)l * B + s] = 0.0f;
+  for (int l = 0; l < a.AI; ++l) a.bi[(long long)l * B + s] = 0;
+  for (int l = 0; l < a.AS; ++l) a.bs[(long long)l * B + s] = 0.0f;
+  for (int l = 0; l < a.AM; ++l) a.bm[(long long)l * B + s] = a.m_ident[l];
+  a.bones[s] = 0;
+  a.bpacked[s] = 0;
+  a.bwts[s] = TS_POS;
+  a.bkeyv[s] = a.skey_fill;
+}
+
+// Returns k; every thread of the block calls it.
+__device__ int compact_batch(const QArgs& a, int voff, int* s_scan) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int B = a.B;
+  for (int b = tid; b < B; b += nt) a.mask[b] = accept_event(a, b);
+  const int k = block_rank<0>(a.mask, a.rank, B, s_scan);
   for (int b = tid; b < B; b += nt) {
     const int r = a.rank[b];
-    if (r < 0) continue;
-    if (direct_ts) a.ots[r] = a.ts[b];
-    for (int i = 0; i < a.nspec; ++i)
-      if (a.spec_kind[i] == S_VALUE) {
-        const long long v = eval_row(a, a.proj[i], b);
-        if (hop) a.bv[(long long)i * B + r] = v;
-        else store_typed(a.out[i], a.spec_ty[i], voff + r, v);
-      }
-    for (int l = 0; l < a.AF; ++l)
-      a.bf[(long long)l * B + r] = as_f(eval_row(a, a.lane[L_F][l], b));
-    for (int l = 0; l < a.AI; ++l)
-      a.bi[(long long)l * B + r] = eval_row(a, a.lane[L_I][l], b);
-    for (int l = 0; l < a.AS; ++l)
-      a.bs[(long long)l * B + r] = as_f(eval_row(a, a.lane[L_S][l], b));
-    for (int l = 0; l < a.AM; ++l)
-      a.bm[(long long)l * B + r] = eval_row(a, a.lane[L_M][l], b);
-    a.bones[r] = 1;
-    if (a.ngk > 0) {
-      unsigned long long packed = (unsigned long long)eval_row(a, a.gk[0], b);
-      if (a.key_mode == KM_PAIR) {
-        packed = (packed << 32) |
-                 ((unsigned long long)eval_row(a, a.gk[1], b) & 0xFFFFFFFFull);
-      } else if (a.key_mode == KM_FNV) {
-        for (int g = 1; g < a.ngk; ++g)
-          packed = packed * 0x100000001B3ull ^
-                   (unsigned long long)eval_row(a, a.gk[g], b);
-      }
-      a.bpacked[r] = (long long)packed;
-    }
-    a.bwts[r] = a.has_wprog ? eval_row(a, a.wprog, b) : a.ts[b];
-    if (a.wkind == W_SORT) {
-      long long v = eval_row(a, a.skey, b);
-      if (a.sort_desc) {
-        // stored negated (ascending order is the sort order); the integer
-        // minimum has no negation and is clamped one up first
-        if (a.sort_kty == T_F32) {
-          v = from_f(-as_f(v));
-        } else if (a.sort_kty == T_I32) {
-          const int x = (int)v;
-          v = from_i32(x == INT32_MIN ? -(INT32_MIN + 1) : -x);
-        } else {
-          v = v == INT64_MIN ? -(INT64_MIN + 1) : -v;
-        }
-      }
-      a.bkeyv[r] = v;
-    }
+    if (r >= 0) compact_event(a, b, r, voff);
   }
-  for (int s = k + tid; s < B; s += nt) {
-    if (direct_ts) a.ots[s] = 0;
-    for (int i = 0; i < a.nspec; ++i)
-      if (a.spec_kind[i] == S_VALUE) {
-        if (hop) a.bv[(long long)i * B + s] = 0;
-        else store_typed(a.out[i], a.spec_ty[i], voff + s, 0);
-      }
-    for (int l = 0; l < a.AF; ++l) a.bf[(long long)l * B + s] = 0.0f;
-    for (int l = 0; l < a.AI; ++l) a.bi[(long long)l * B + s] = 0;
-    for (int l = 0; l < a.AS; ++l) a.bs[(long long)l * B + s] = 0.0f;
-    for (int l = 0; l < a.AM; ++l) a.bm[(long long)l * B + s] = a.m_ident[l];
-    a.bones[s] = 0;
-    a.bpacked[s] = 0;
-    a.bwts[s] = TS_POS;
-    a.bkeyv[s] = a.skey_fill;
-  }
+  for (int s = k + tid; s < B; s += nt) compact_fill(a, s, voff);
   __syncthreads();
   return k;
+}
+
+// ------------------------------------------- tiles of the device-wide passes
+// query_step.cu's passes run as grids over tiles of TILE positions, TN
+// threads a CTA, IPT consecutive positions a thread. A scan over an axis
+// longer than one tile is a reduce-then-scan: one pass writes every tile's
+// aggregate, the next folds the aggregates of the tiles before its own
+// (fold_tiles) and rescans its tile from that carry. Every association is
+// fixed by the tile layout (a thread's items in order, the lanes of a warp,
+// the warps of the CTA, the tiles in order), never by which CTA ran first,
+// so float64 sums round alike in every run.
+
+#define TN 256
+#define IPT 8
+#define TILE (TN * IPT)
+
+// An element of a segmented scan: a value and its flags (SEG_FULL: it holds
+// a value, an empty element is the identity; SEG_HEAD: a segment starts in
+// it, so nothing before it reaches past it).
+enum { SEG_HEAD = 1, SEG_FULL = 2 };
+template <typename T> struct Seg { T v; int f; };
+
+template <typename T, class Op>
+__device__ __forceinline__ Seg<T> seg_join(Op op, Seg<T> x, Seg<T> y) {
+  if (!(y.f & SEG_FULL)) return x;
+  if (!(x.f & SEG_FULL) || (y.f & SEG_HEAD)) return Seg<T>{y.v, x.f | y.f};
+  return Seg<T>{op(x.v, y.v), x.f | y.f};
+}
+
+template <typename T>
+__device__ __forceinline__ Seg<T> seg_shfl_up(Seg<T> x, int d) {
+  return Seg<T>{__shfl_up_sync(FULL, x.v, d), __shfl_up_sync(FULL, x.f, d)};
+}
+template <typename T>
+__device__ __forceinline__ Seg<T> seg_shfl_down(Seg<T> x, int d) {
+  return Seg<T>{__shfl_down_sync(FULL, x.v, d), __shfl_down_sync(FULL, x.f, d)};
+}
+
+// Inclusive segmented scan, in place, of the CTA's tile: it[i] is item
+// threadIdx.x * IPT + i. Association: each thread's items in order, then the
+// threads of a warp (shuffles), then the warps (one warp over their totals).
+// Returns the tile's total to every thread. Every thread of the CTA calls
+// it; s_v/s_f hold TN / 32 entries.
+template <typename T, class Op>
+__device__ Seg<T> tile_scan(Op op, Seg<T> (&it)[IPT], T* s_v, int* s_f) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = (blockDim.x + 31) >> 5;
+#pragma unroll
+  for (int i = 1; i < IPT; ++i) it[i] = seg_join(op, it[i - 1], it[i]);
+  Seg<T> x = it[IPT - 1];
+  for (int d = 1; d < 32; d <<= 1) {
+    const Seg<T> u = seg_shfl_up(x, d);
+    if (lane >= d) x = seg_join(op, u, x);
+  }
+  Seg<T> ex = seg_shfl_up(x, 1);
+  if (lane == 0) ex = Seg<T>{T(), 0};
+  if (lane == 31 || threadIdx.x == blockDim.x - 1) { s_v[warp] = x.v; s_f[warp] = x.f; }
+  __syncthreads();
+  if (warp == 0) {
+    Seg<T> y = lane < nw ? Seg<T>{s_v[lane], s_f[lane]} : Seg<T>{T(), 0};
+    for (int d = 1; d < 32; d <<= 1) {
+      const Seg<T> u = seg_shfl_up(y, d);
+      if (lane >= d) y = seg_join(op, u, y);
+    }
+    if (lane < nw) { s_v[lane] = y.v; s_f[lane] = y.f; }
+  }
+  __syncthreads();
+  if (warp > 0) ex = seg_join(op, Seg<T>{s_v[warp - 1], s_f[warp - 1]}, ex);
+#pragma unroll
+  for (int i = 0; i < IPT; ++i) it[i] = seg_join(op, ex, it[i]);
+  const Seg<T> tot{s_v[nw - 1], s_f[nw - 1]};
+  __syncthreads();
+  return tot;
+}
+
+// The join of tiles [0, t)'s aggregates (get(u) -> Seg<T> of tile u), in
+// tile order: lane i of warp 0 joins a run of consecutive tiles, then the
+// lanes join in order. Every thread of the CTA calls it and gets the result.
+template <typename T, class Op, class Get>
+__device__ Seg<T> fold_tiles(Op op, int t, Get get, T* s_v, int* s_f) {
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x, ws = blockDim.x < 32 ? (int)blockDim.x : 32;
+    const int per = (t + ws - 1) / ws;
+    Seg<T> x{T(), 0};
+    for (int u = lane * per; u < t && u < (lane + 1) * per; ++u) x = seg_join(op, x, get(u));
+    for (int d = 1; d < 32; d <<= 1) {
+      const Seg<T> y = seg_shfl_up(x, d);
+      if (lane >= d) x = seg_join(op, y, x);
+    }
+    if (lane == ws - 1) { s_v[0] = x.v; s_f[0] = x.f; }
+  }
+  __syncthreads();
+  const Seg<T> r{s_v[0], s_f[0]};
+  __syncthreads();
+  return r;
 }

@@ -14,10 +14,13 @@ depth, sizes), on every device, so the CPU and the card accept the same
 queries.
 
 ``step_cuda`` launches the kernel on the current stream (``query_step.cu``:
-three launches per step, two when nothing aggregates; ``query_walk.cu``: one;
-each plan class counts its own in ``launches``) and returns the new state
-(fresh tensors for every leaf the step changes; the input state is left as
-it was) and the outputs, over the window's output axis.
+``step_launches`` a step, 4 to 10 by shape: the filter and the compaction
+over a grid, the rest of the batch's work in one CTA, the group-by's three
+sort launches, 1 to 3 passes of the tile grid, the emit;
+``query_walk.cu``: one; each plan class counts its own in ``launches``) and
+returns the new state (fresh tensors for every leaf the step changes; the
+input state is left as it was) and the outputs, over the window's output
+axis.
 """
 
 from __future__ import annotations
@@ -36,6 +39,10 @@ from .query_compile import REMAINDER, TAILED, WALKED, CompiledStreamQuery
 QMAXCOL, QMAXSPEC, QMAXLANE, QMAXFILT, QMAXGK = 32, 32, 16, 8, 8
 MAX_ROWS = 1 << 26          # largest window_capacity + batch_capacity
 MAX_K = 1 << 24             # largest group_capacity
+TN = 256                    # threads a CTA of query_step.cu's grids
+TILE = 2048                 # positions a tile of the pass grid (query_step.cu)
+SORT_ROUNDS = 4             # rounds of 32 positions a row of the group sort
+SORT_CELLS = 1 << 22        # most cells of its [rows, K] count matrix
 
 W_KIND = {None: 0, "length": 1, "time": 2, "timeLength": 3, "batch": 4,
           "lengthBatch": 5, "timeBatch": 6, "session": 7, "delay": 8,
@@ -57,11 +64,11 @@ _STATE2 = ("tts", "gkey", "owner", "owned", "last_ts", "drops", "regress",
            "coll")
 _STATE3 = ("rc", "rts", "base", "skeys", "hkeys", "hcnt", "hdelta", "runf",
            "runi", "runc", "htot")
-_SCRATCH = ("misc", "mask", "rank", "bf", "bi", "bs", "bm", "bones",
+_SCRATCH = ("misc", "mask", "rank", "ccnt", "bf", "bi", "bs", "bm", "bones",
             "bpacked", "bkey", "bwts", "bkeyv", "bv", "lo", "hi", "oflag",
-            "zt", "zseg", "firstidx", "cnt", "seg", "run", "ckey", "sorted",
+            "zt", "zseg", "firstidx", "cnt", "seg", "ckey", "sorted",
             "head", "incf", "inci", "inco", "incs1", "incs2", "mP", "mS", "mT",
-            "pz", "hidx", "hfree")
+            "pz", "gmat", "tagg", "tfl", "tpz", "acc", "hidx", "hfree")
 
 
 def _ptrs(names, suffix):
@@ -96,6 +103,7 @@ class QArgs(ctypes.Structure):
         ("ocount", c_vp),
         *[(n, c_vp) for n in _SCRATCH],
         ("hh_H", c_int), ("hh_shared", c_int),
+        ("ntile", c_int), ("nrow", c_int), ("gsub", c_int),
     ]
 
 
@@ -188,8 +196,16 @@ class QueryPlan:
                                 TY_OF[torch.float32])
         a.B, a.N, a.M, a.K = q.B, N, M, q.K
         a.O = M if kind in REMAINDER else q.B
-        nb = (a.M + 31) // 32
-        a.NB, a.LV = nb, max(nb.bit_length(), 1)
+        # min/max range tables: blocks of 32 positions, chunks of 32 blocks,
+        # LV levels of the sparse table over chunks
+        a.NB = (a.M + 31) // 32
+        a.LV = max(((a.NB + 31) // 32).bit_length(), 1)
+        a.ntile = -(-a.M // TILE)
+        # the group-by sort's rows: SORT_ROUNDS rounds of 32 positions, more
+        # where the [rows, K] count matrix would pass SORT_CELLS
+        rounds = max(SORT_ROUNDS, -(-a.M * q.K // (32 * SORT_CELLS)))
+        a.gsub = 32 * rounds
+        a.nrow = -(-a.M // a.gsub)
         a.wkind = W_KIND[kind]
         a.grouped = int(bool(q.group_keys))
         a.has_agg = int(bool(q.agg_idx))
@@ -258,6 +274,25 @@ class QueryPlan:
         self._proto = None  # the state's leaves (meta tensors)
         self._lib_checked = False
 
+    def passes(self) -> int:
+        """Launches of ``query_step.cu``'s pass grid a step makes (its
+        ``pass_count``): the lanes' reduce-then-scan 2 (3 with a windowed
+        stdDev, whose centre is the axis mean), the tumbling clock's
+        segments 3 (lengthBatch 1), the time and hopping bounds 1."""
+        a, kind = self.args, self.q.window_kind
+        n = (3 if a.AS and kind is not None else 2) if a.ntask else 0
+        if kind in ("timeBatch", "session", "delay"):
+            n = 3
+        if kind in ("lengthBatch", "time", "timeLength", "hopping"):
+            n = max(n, 1)
+        return n
+
+    def step_launches(self) -> int:
+        """Kernel launches of one step: q_mask, q_compact, q_prep, the
+        group-by sort's three, the passes, q_emit (the sort's memset is not
+        a launch)."""
+        return 4 + 3 * self.args.grouped + self.passes()
+
     # -- kernel side ---------------------------------------------------------
     def _lib(self):
         from ._build import load
@@ -273,6 +308,12 @@ class QueryPlan:
                     f"QArgs layout differs between {self.LIB}.cu "
                     f"({size()} B) and the ctypes mirror "
                     f"({ctypes.sizeof(QArgs)} B)")
+            tile = getattr(lib, self.LIB + "_tile", None)
+            if tile is not None:
+                tile.restype = c_int
+                if tile() != TILE:
+                    raise RuntimeError(f"{self.LIB}.cu tiles {tile()} positions, "
+                                       f"the plan {TILE}")
             self._lib_checked = True
         return lib
 
@@ -442,12 +483,14 @@ class QueryPlan:
         Mg = M if grouped else 1
         Mr = M if q.window_kind in REMAINDER else 1
         Bh = a.nspec * B if q.window_kind == "hopping" else 1
+        tasks = 1 + a.ntask                  # the pass grid's: axis, lanes
 
         def e(n, dt):
             return torch.empty(max(n, 1), dtype=dt, device=dev)
 
         return {
             "misc": e(8, i32), "mask": e(B, u8), "rank": e(B, i32),
+            "ccnt": e(-(-B // TN), i32),
             "bf": e(a.AF * B, f32), "bi": e(a.AI * B, i64),
             "bs": e(a.AS * B, f32), "bm": e(a.AM * B, i64),
             "bones": e(B, i32), "bpacked": e(B, i64), "bkey": e(B, i32),
@@ -455,13 +498,17 @@ class QueryPlan:
             "lo": e(O, i32), "hi": e(O, i32), "oflag": e(O, u8),
             "zt": e(Mr, i64), "zseg": e(Mr, i64),
             "firstidx": e(Kx, i32), "cnt": e(Kx, i32), "seg": e(Kx, i32),
-            "run": e(Kx, i32), "ckey": e(a.AS * Kx, f32),
+            "ckey": e(a.AS * Kx, f32),
             "sorted": e(Mg, i32), "head": e(Mg, u8),
             "incf": e(a.AF * M, f64), "inci": e(a.AI * M, i64),
             "inco": e(M, i64), "incs1": e(a.AS * M, f64),
             "incs2": e(a.AS * M, f64), "mP": e(a.AM * M, i64),
-            "mS": e(a.AM * M, i64), "mT": e(a.AM * a.LV * a.NB, i64),
+            "mS": e(a.AM * M, i64),
+            "mT": e(a.AM * (7 * a.NB + a.LV * ((a.NB + 31) // 32)), i64),
             "pz": e(3 * (a.AF + 2 * a.AS), i32),
+            "gmat": e(a.nrow * K if grouped else 0, i32),
+            "tagg": e(tasks * 4 * a.ntile, i64), "tfl": e(tasks * 4 * a.ntile, i32),
+            "tpz": e(tasks * 6 * a.ntile, i32), "acc": e(4, i64),
             "hidx": e(a.hh_H, i32), "hfree": e((a.N + 31) // 32 if a.hh_H else 0,
                                                i32),
         }

@@ -20,3 +20,7 @@ class WalkPlan(QueryPlan):
     launches = 0
     LIB = "query_walk"
     WHAT = "query walk kernel"
+
+    def step_launches(self) -> int:
+        """One launch a step: the walk."""
+        return 1

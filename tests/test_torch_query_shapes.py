@@ -71,7 +71,8 @@ import torch
 
 from siddhi_tpu_torch.compiler import parse
 from siddhi_tpu_torch.gpu.expr_compile import as_tensor
-from siddhi_tpu_torch.gpu.query_compile import CompiledStreamQuery, stream_step_plain
+from siddhi_tpu_torch.gpu.query_compile import (CompiledStreamQuery, group_bucket,
+                                                stream_step_plain)
 from siddhi_tpu_torch.gpu.state_io import (query_state_from_numpy,
                                            state_from_numpy, state_to_numpy)
 
@@ -311,6 +312,41 @@ from S#window.lossyFrequent(0.02, 0.001, vol)
 select vol, count() as c, sum(price) as t insert into O;""", {}),
 }
 QUERIES.update(CARD_QUERIES)
+# axes that span several tiles of the kernel's pass grid (2,048 positions)
+# and end inside one (N = 8,192 + B = 1,000 gives P = 9,192): a bucket of
+# the grouped sort over many tiles (K = 4), min/max ranges across chunks of
+# 1,024, a timeBatch bucket boundary and a session gap of exactly the
+# duration at the tile edges 2,048 and 4,096 (WIRE_EDGES), non-finite
+# values in the third tile only (WIRE_LATE_NONFINITE), flush ranges across
+# tiles; their wires fill every batch but step 2's, which is empty
+TILE_QUERIES = {
+    "length_grouped_tiles": ("""
+from S#window.length(8192)
+select sym, sum(price) as t, sum(vol) as v, count() as c, avg(price) as a
+group by sym insert into O;""", {"group_capacity": 4}),
+    "length_minmax_tiles": ("""
+from S#window.length(8192)
+select min(price) as lo, max(vol) as hv, stdDev(price) as sd, count() as c,
+       sum(price) as t insert into O;""", {}),
+    "grouped_nonfinite_late": ("""
+from S
+select sym, sum(price) as t, avg(price) as a, count() as c, max(price) as hi,
+       stdDev(price) as sd group by sym insert into O;""",
+                               {"group_capacity": 8}),
+    "time_batch_tiles": ("""
+from S#window.timeBatch(10)
+select sum(price) as t, count() as c, max(vol) as hv, min(n) as ln,
+       stdDev(price) as sd insert into O;""", {"window_capacity": 8192}),
+    "session_tiles": ("""
+from S#window.session(5)
+select sum(price) as t, count() as c, min(n) as ln insert into O;""",
+                      {"window_capacity": 8192}),
+    "hopping_tiles": ("""
+from S#window.hopping(2000, 300)
+select sum(price) as t, count() as c, max(vol) as hv, stdDev(price) as sd
+insert into O;""", {"window_capacity": 8192}),
+}
+QUERIES.update(TILE_QUERIES)
 # wire options per query: int extremes (the integer minimum and maximum in
 # the int/long columns) for the sort keys' sentinel and negation edges
 WIRE_EXTREMES = ("sort_desc_int", "sort_long_sentinel")
@@ -319,6 +355,14 @@ WIRE_NONFINITE = ("grouped_nonfinite", "length_grouped_nonfinite",
                   "time_grouped_nonfinite", "sort_nan", "sort_nan_desc")
 # and vol keys that differ only in their high 32 bits
 WIRE_HIGH_KEYS = ("lossy_high_keys", "frequent_high_keys")
+# and full batches (but an empty one at step 2)
+WIRE_FULL = tuple(TILE_QUERIES)
+# and exact timestamp increments at these event indexes (at step 0 every
+# event sits at its own index of the axis)
+WIRE_EDGES = {"time_batch_tiles": {2048: 10, 4096: 10},
+              "session_tiles": {2048: 5, 4096: 5}}
+# and non-finite prices from this event index on only
+WIRE_LATE_NONFINITE = {"grouped_nonfinite_late": 4200}
 
 
 # queries the reference refuses (the port must refuse them with the same
@@ -385,9 +429,12 @@ ACCEPTED = [
 
 # (query, batch capacity B)
 CASES = [(name, 16) for name in QUERIES
-         if name not in WINDOW_QUERIES and name not in CARD_QUERIES] + [
+         if name not in WINDOW_QUERIES and name not in CARD_QUERIES
+         and name not in TILE_QUERIES] + [
     ("length_filter", 5), ("time", 64), ("external_time", 7),
     ("grouped", 64), ("length_grouped", 3), ("batch", 9),
+    ("length_grouped_tiles", 1000), ("length_minmax_tiles", 1000),
+    ("grouped_nonfinite_late", 4500),
 ]
 IDS = [f"{n}-B{b}" for n, b in CASES]
 # the tumbling windows at B < N and with more hop boundaries than flush
@@ -396,7 +443,8 @@ WINDOW_CASES = [(name, 16) for name in WINDOW_QUERIES] + [
     ("length_batch", 5), ("length_batch_values", 7), ("time_batch", 64),
     ("session", 3), ("delay_drops", 4), ("hopping", 3), ("hopping", 64),
     ("sort", 64), ("frequent", 64), ("lossy", 64), ("lossy_near_full", 64),
-    ("frequent_evict", 64),
+    ("frequent_evict", 64), ("time_batch_tiles", 5000),
+    ("session_tiles", 5000), ("hopping_tiles", 1000),
 ]
 WINDOW_IDS = [f"{n}-B{b}" for n, b in WINDOW_CASES]
 CARD_CASES = [(name, 16) for name in CARD_QUERIES] + [
@@ -423,18 +471,28 @@ class Wire:
     values past each batch's count."""
 
     def __init__(self, seed: int, B: int, extremes: bool = False,
-                 nonfinite: bool = False, high_keys: bool = False):
+                 nonfinite: bool = False, high_keys: bool = False,
+                 full: bool = False, edges: dict | None = None,
+                 late_nonfinite: int | None = None):
         self.rng = np.random.default_rng(seed)
         self.B = B
         self.ts = 1000
         self.extremes = extremes
-        self.nonfinite = nonfinite
+        self.nonfinite = nonfinite or late_nonfinite is not None
+        self.late = late_nonfinite or 0
         self.high_keys = high_keys
+        self.full = full
+        self.edges = edges or {}
 
     def batch(self, step: int) -> dict:
         rng, B = self.rng, self.B
         count = 0 if step == 2 and B > 8 else int(rng.integers(B // 2, B + 1))
+        if self.full and step != 2:
+            count = B
         inc = rng.choice([0, 0, 1, 2, 5, 30], size=B)
+        for i, d in self.edges.items():
+            if i < B:
+                inc[i] = d
         ts = self.ts + np.cumsum(inc)
         self.ts = int(ts[max(count - 1, 0)]) if count else self.ts
         cols = {
@@ -452,6 +510,7 @@ class Wire:
                 cols[k][pick > 0.9] = info.max
         if self.nonfinite:
             pick = rng.random(B)
+            pick[:self.late] = 1.0
             price = cols["price"]
             price[pick < 0.1] = np.inf
             price[(pick >= 0.1) & (pick < 0.18)] = np.nan
@@ -468,7 +527,9 @@ def wire_for(name: str, B: int) -> Wire:
     """The seeded wire of query ``name`` at batch capacity B."""
     return Wire(7, B, extremes=name in WIRE_EXTREMES,
                 nonfinite=name in WIRE_NONFINITE,
-                high_keys=name in WIRE_HIGH_KEYS)
+                high_keys=name in WIRE_HIGH_KEYS, full=name in WIRE_FULL,
+                edges=WIRE_EDGES.get(name),
+                late_nonfinite=WIRE_LATE_NONFINITE.get(name))
 
 
 @dataclass
@@ -477,11 +538,14 @@ class Scale:
     module docstring), one per lane, since a prefix reads one lane: ``s1``
     over each float32 sum/avg lane, ``sm`` over each stdDev lane, ``s2``
     bounding each stdDev lane's centred second moments. A limit takes the
-    largest lane."""
+    largest lane. ``row``, where set (``bucket_rows``), holds per grouped
+    float32 sum/avg output the ``s1`` of each row's own bucket, which its
+    limit takes instead."""
 
     s1: np.ndarray | float = 0.0
     sm: np.ndarray | float = 0.0
     s2: np.ndarray | float = 0.0
+    row: dict | None = None
 
     def __add__(self, o: "Scale") -> "Scale":
         return Scale(self.s1 + o.s1, self.sm + o.sm, self.s2 + o.s2)
@@ -542,9 +606,51 @@ def carried_scale(q, state) -> Scale:
     return sc
 
 
+def bucket_rows(q, state, cols, ts, valid) -> dict | None:
+    """Per grouped float32 sum/avg output, each output row's ``s1`` over its
+    own bucket alone: the bucket's |x| over the batch's accepted events and
+    the window's tail slots, or its carried per-key sum (a row reads only
+    its bucket's prefixes). ``None`` where the query has none."""
+    if not q.group_keys or not q.fagg_idx:
+        return None
+    env = {**cols, "__ts__": ts, "__device__": ts.device}
+    mask = valid
+    for fn in q.filter_fns:
+        mask = torch.logical_and(mask, as_tensor(fn(env), env))
+    mask = torch.broadcast_to(mask, valid.shape)
+    k, B = int(mask.sum()), q.B
+
+    def compact(x):
+        out = torch.zeros(B, dtype=x.dtype, device=x.device)
+        out[:k] = x[mask]
+        return out
+
+    def finite_abs(x):
+        x = x.double()
+        return torch.where(torch.isfinite(x), x.abs(), torch.zeros_like(x))
+
+    keys = group_bucket(q, [compact(cols[g].to(torch.int64))
+                            for g in q.group_keys])[0].long()
+    rows = {}
+    for lane, i in enumerate(q.fagg_idx):
+        x = torch.broadcast_to(as_tensor(q.specs[i].fn(env), env), valid.shape)
+        per = torch.zeros(q.K, dtype=torch.float64, device=ts.device)
+        per.index_add_(0, keys, finite_abs(compact(x)))
+        if "tail_fvals" in state:
+            per.index_add_(0, state["tail_gkey"].long(),
+                           finite_abs(state["tail_fvals"][lane]))
+        if "key_fsums" in state:
+            per += finite_abs(state["key_fsums"][lane])
+        rows[q.specs[i].name] = per[keys].cpu().numpy()
+    return rows
+
+
 def step_scale(q, state, cols, ts, valid) -> Scale:
-    """The scale of one step whose both sides read ``state``."""
-    return carried_scale(q, state) + batch_scale(q, cols, ts, valid)
+    """The scale of one step whose both sides read ``state``, with the
+    grouped rows' own (``bucket_rows``)."""
+    sc = carried_scale(q, state) + batch_scale(q, cols, ts, valid)
+    sc.row = bucket_rows(q, state, cols, ts, valid)
+    return sc
 
 
 def next_scale(q, sc: Scale, state, cols, ts, valid) -> Scale:
@@ -558,7 +664,7 @@ def next_scale(q, sc: Scale, state, cols, ts, valid) -> Scale:
         return sc + batch_scale(q, cols, ts, valid)
     st = step_scale(q, state, cols, ts, valid)
     return Scale(np.maximum(sc.s1, st.s1), np.maximum(sc.sm, st.sm),
-                 np.maximum(sc.s2, st.s2))
+                 np.maximum(sc.s2, st.s2), st.row)
 
 
 def tolerance_kinds(q) -> dict:
@@ -587,9 +693,11 @@ def _leaf_kind(name: str) -> str:
     return "exact"
 
 
-def check_close(tag, ref, got, kind, sc: Scale, counts=None):
+def check_close(tag, ref, got, kind, sc: Scale, counts=None, row_s1=None):
     """Holds ``got`` to ``ref`` under the tolerance class ``kind``; returns
-    the largest absolute error and the largest error over its limit."""
+    the largest absolute error and the largest error over its limit.
+    ``row_s1``, per row, replaces the lanes' largest ``s1`` in the float32
+    sum/avg limits."""
     ref, got = np.asarray(ref), np.asarray(got)
     assert ref.dtype == got.dtype and ref.shape == got.shape, \
         (tag, ref.dtype, got.dtype, ref.shape, got.shape)
@@ -606,11 +714,12 @@ def check_close(tag, ref, got, kind, sc: Scale, counts=None):
                                      ref[odd & ~same][:8], got[odd & ~same][:8])
     with np.errstate(invalid="ignore"):
         err = np.where(odd, 0.0, np.abs(r64 - g64))
+    s1 = sc.top("s1") if row_s1 is None else row_s1
     if kind == "fsum":
-        tol = 2.0 ** -20 * (1.0 + sc.top("s1"))
+        tol = 2.0 ** -20 * (1.0 + s1)
     elif kind == "favg":
         n = 1.0 if counts is None else np.maximum(counts, 1)
-        tol = 2.0 ** -20 * (1.0 + sc.top("s1")) / n
+        tol = 2.0 ** -20 * (1.0 + s1) / n
     elif kind == "smean":
         tol = 2.0 ** -20 * (1.0 + sc.top("sm"))
     elif kind == "sm2":
@@ -662,7 +771,7 @@ def compare(q, sc: Scale, ref_state: dict, got_state: dict, ref_out: dict,
     for s in q.specs:
         keep(f"out.{s.name}", check_close(f"out.{s.name}", ref_out["out"][s.name],
                                      got_out["out"][s.name], kinds[s.name],
-                                     sc, counts))
+                                     sc, counts, (sc.row or {}).get(s.name)))
     return worst
 
 
@@ -799,3 +908,44 @@ def test_kernel_walks_a_carried_table_on_card(label):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     kernel_steps(*carried_start(label, "cuda"))
+
+
+# kernel launches a step (QueryPlan.step_launches): query_walk.cu's one;
+# query_step.cu's q_mask, q_compact, q_prep, the group-by sort's three, 1 to
+# 3 passes of the tile grid, q_emit
+STEP_LAUNCHES = {"sort": 1, "lossy": 1,
+                 "projection": 4, "length_values": 4, "length_batch_values": 5,
+                 "time_drops": 6, "running": 6, "delay": 7,
+                 "length_minmax_tiles": 7, "time_batch_tiles": 7,
+                 "session_tiles": 7, "hopping_tiles": 7,
+                 "length_grouped_tiles": 9, "grouped_nonfinite_late": 9}
+
+
+@pytest.mark.parametrize("name", sorted(STEP_LAUNCHES))
+def test_step_launches(name):
+    q = compile_port(name, 16, "cpu")
+    assert q.plan.step_launches() == STEP_LAUNCHES[name]
+
+
+def test_tile_matches_the_kernel_source():
+    import os
+    import re
+    from siddhi_tpu_torch.gpu import query_step
+    src = open(os.path.join(os.path.dirname(query_step.__file__), "..", "csrc",
+                            "query_common.cuh")).read()
+    tn, ipt = (int(re.search(rf"#define {k} (\d+)", src).group(1))
+               for k in ("TN", "IPT"))
+    assert tn == query_step.TN and tn * ipt == query_step.TILE
+
+
+@pytest.mark.parametrize("K", [4, 1024, 1 << 24])
+def test_group_sort_rows_cover_the_axis(K):
+    from siddhi_tpu_torch.gpu.query_step import SORT_CELLS
+    app = parse(SCHEMA + "from S#window.length(8192) select sym, count() as c "
+                "group by sym insert into O;")
+    q = CompiledStreamQuery(app.queries[0], app.stream_definitions["S"], 1000,
+                            device="cpu", group_capacity=K)
+    a = q.plan.args
+    assert a.gsub % 32 == 0 and a.nrow * a.gsub >= a.M
+    assert a.nrow * K <= max(SORT_CELLS, K)
+    assert a.ntile * 2048 >= a.M > (a.ntile - 1) * 2048

@@ -9,9 +9,13 @@ Phases, one JSON line each:
   2. shapes  — the blocked-NFA kernel against its plain PyTorch version on
                the card across pattern shapes (2/3/8 states, stream and
                element ``within``, creation cap set and unset, a sequence
-               through 1-lane ``DeviceNFACompiler`` steps, S == 1, two
-               streams, an empty lane, integer division by zero). State
-               leaves, counters and ys must be exactly equal.
+               through 1-lane ``DeviceNFACompiler`` steps at B up to 2048,
+               S == 1, two streams, an empty lane, integer division by
+               zero, timestamps not sorted and on a grid where ts - first
+               == within, creations too large for shared memory, which must
+               take the kernel's global scratch, and a plan too large for a
+               cluster, which takes one CTA a lane). State leaves, counters
+               and ys must be exactly equal.
   3. main    — the main path at full width: the bench app (8-state rising
                chain under ``partition with (dev of S)``, 64 lanes, lane
                batch 2048, C = 64, K = 320, 256 keys) fed through
@@ -203,15 +207,34 @@ select e1.v as a, e2.v as b insert into O;
 """,
 }
 
-# (shape, lane batch B, slots C, creation cap K, lanes)
+# (shape, lane batch B, slots C, creation cap K, lanes, ts as in TS_MODES)
 SHAPE_CASES = [
-    ("chain2", 64, 16, None, 4), ("chain2", 256, 16, 24, 8),
-    ("chain3_within", 128, 16, None, 8), ("chain3_within", 512, 32, 96, 8),
-    ("chain8", 2048, 64, 320, 8), ("chain8", 64, 8, None, 4),
-    ("element_within", 256, 16, 48, 8), ("single", 512, 8, None, 8),
-    ("two_stream", 256, 16, None, 8), ("intdiv", 128, 16, 32, 8),
-    ("sequence", 64, 8, None, 1), ("sequence", 256, 16, 24, 1),
+    ("chain2", 64, 16, None, 4, "cumsum"), ("chain2", 256, 16, 24, 8, "cumsum"),
+    ("chain3_within", 128, 16, None, 8, "cumsum"),
+    ("chain3_within", 512, 32, 96, 8, "cumsum"),
+    ("chain8", 2048, 64, 320, 8, "cumsum"), ("chain8", 64, 8, None, 4, "cumsum"),
+    ("element_within", 256, 16, 48, 8, "cumsum"),
+    ("single", 512, 8, None, 8, "cumsum"),
+    ("two_stream", 256, 16, None, 8, "cumsum"),
+    ("intdiv", 128, 16, 32, 8, "cumsum"),
+    ("sequence", 64, 8, None, 1, "cumsum"), ("sequence", 256, 16, 24, 1, "cumsum"),
+    # ts not sorted: events fall back inside `within` after it lapsed
+    ("chain3_within", 256, 16, 64, 8, "sawtooth"),
+    ("element_within", 512, 16, 48, 8, "sawtooth"),
+    # ts on a grid of 50: ts - first == within exactly
+    ("chain3_within", 128, 16, 32, 8, "grid"),
+    ("element_within", 128, 8, None, 8, "grid"),
+    # no creation cap at a large B: creations in the kernel's global scratch
+    ("chain8", 2048, 8, None, 4, "cumsum"),
+    # a 1-lane sequence at B = 2048
+    ("sequence", 2048, 16, None, 1, "cumsum"),
+    # C = 1024 and no cap: one CTA a lane (a cluster's plan does not fit),
+    # creations in global scratch and one table buffer
+    ("chain8", 2048, 1024, None, 2, "cumsum"),
 ]
+# (CTAs a lane, layout mode) where a case differs from a cluster with
+# everything in shared memory
+LAYOUTS = {("chain8", 2048, 8, None): (2, 1), ("chain8", 2048, 1024, None): (1, 3)}
 
 
 def emit(obj) -> None:
@@ -277,10 +300,28 @@ def clone(tree):
 
 # ---------------------------------------------------------------- batches
 
+def _ts_sawtooth(rng, lanes: int, B: int):
+    """Not sorted: 32-event teeth rising 40 an event over a base rising 100
+    a tooth, so a window that lapsed within a tooth reopens at the next."""
+    j = np.arange(B)
+    return (j % 32) * 40 + (j // 32) * 100 + rng.integers(0, 3, (lanes, B))
+
+
+TS_MODES = {
+    "cumsum": lambda rng, lanes, B, step: np.cumsum(
+        rng.integers(0, step, (lanes, B)), 1),
+    "sawtooth": lambda rng, lanes, B, step: _ts_sawtooth(rng, lanes, B),
+    "grid": lambda rng, lanes, B, step: 50 * np.cumsum(
+        rng.integers(0, 3, (lanes, B)), 1),
+}
+
+
 def make_batch(rng, comp, lanes: int, empty_lane: bool, ts_step: int = 60,
-               base=None):
+               base=None, ts: str = "cumsum"):
     """A seeded wire batch [lanes, B]; stale noise past each lane's count.
-    ``base`` pins every lane's ts base (else random per lane)."""
+    ``base`` pins every lane's ts base (else random per lane); ``ts`` names
+    the timestamps' shape (``TS_MODES``; ``cumsum`` steps by up to
+    ``ts_step``)."""
     B = comp.B
     cols = {}
     for k in sorted(comp.used_cols):
@@ -297,7 +338,7 @@ def make_batch(rng, comp, lanes: int, empty_lane: bool, ts_step: int = 60,
             c = rng.integers(0, 2, (lanes, B)).astype(bool)
         cols[k] = c
     tag = rng.integers(0, len(comp.merged.stream_ids), (lanes, B)).astype(np.int8)
-    ts = np.cumsum(rng.integers(0, ts_step, (lanes, B)), 1).astype(np.int32)
+    ts = TS_MODES[ts](rng, lanes, B, ts_step).astype(np.int32)
     base = rng.integers(10**6, 2 * 10**6, lanes).astype(np.int64) \
         if base is None else np.full(lanes, base, np.int64)
     counts = rng.integers(B // 2, B + 1, lanes).astype(np.int32)
@@ -328,19 +369,24 @@ def phase_shapes(seed: int) -> float:
     import torch
     from siddhi_tpu_torch.compiler import parse
     from siddhi_tpu_torch.gpu.nfa import DeviceNFACompiler
-    from siddhi_tpu_torch.gpu.nfa_block import block_step_plain
+    from siddhi_tpu_torch.gpu.nfa_block import BlockPlan, block_step_plain
     rng = np.random.default_rng(seed)
     worst, cases = 0.0, []
-    for name, B, C, K, lanes in SHAPE_CASES:
+    for name, B, C, K, lanes, ts_mode in SHAPE_CASES:
         app = parse(SHAPES[name])
         comp = DeviceNFACompiler(app.queries[0], dict(app.stream_definitions),
                                  C, B, creation_cap=K, device="cuda")
         state = comp.init_state(lanes)
         step = comp.make_step()
+        cl, mode, scratch = comp.plan.layout(comp.plan._lib())
+        if (cl, mode) != LAYOUTS.get((name, B, C, K), (BlockPlan.CLUSTER, 0)):
+            fail(f"shape {name} B={B} C={C} K={K}: {cl} CTAs a lane, layout "
+                 f"mode {mode} ({scratch} B of global scratch a lane)")
         emitted = 0
         for i in range(4):
             cols, tag, ts, base, counts = make_batch(
-                rng, comp, lanes, empty_lane=lanes > 1 and i % 2 == 1)
+                rng, comp, lanes, empty_lane=lanes > 1 and i % 2 == 1,
+                ts=ts_mode)
             dev = {k: torch.from_numpy(v).cuda() for k, v in cols.items()}
             rest = [torch.from_numpy(a).cuda() for a in (tag, ts, base, counts)]
             ref_state, ref_ys = block_step_plain(comp, clone(state), dev, *rest)
@@ -360,6 +406,8 @@ def phase_shapes(seed: int) -> float:
                      f"from the plain version at {bad1 or bad2}")
             emitted += int(ref_ys["mask"].sum())
         cases.append({"shape": name, "B": B, "C": C, "K": K, "lanes": lanes,
+                      "ts": ts_mode, "ctas": cl, "mode": mode,
+                      "scratch_per_lane": scratch,
                       "advanced": emitted, "drops": int(state["drops"].sum()),
                       "equal": True})
     emit({"phase": "shapes", "cases": cases, "max_abs_err": worst})
@@ -453,7 +501,7 @@ def phase_main(seed: int, n_events: int):
     step_ms = [a.elapsed_time(b) for a, b, _ in marks]
     fill = [int(n.sum()) for _, _, n in marks]
     timed_rows, timed_matches, timed_drops = rows, rt.match_count, rt.drop_count
-    if launches != steps * (rt.compiler.S - 1) or launches == 0:
+    if launches != steps * BlockPlan.LAUNCHES or launches == 0:
         fail(f"main path: {launches} kernel launches over {steps} steps")
 
     # ---- checked run: every step against the plain version on the card
@@ -2000,7 +2048,7 @@ def main() -> int:
     bound = max(main_out["bound_ms_bytes"], main_out["bound_ms_ops"])
     scan_bound = max(scan_out["bound_ms_bytes"], scan_out["bound_ms_ops"])
     kernels = [{
-        "name": "nfa_block_stage",
+        "name": "nfa_block",
         "route": "cuda",
         "source": "siddhi_tpu_torch/csrc/nfa_block.cu",
         "replaces": "siddhi_tpu/tpu/nfa_block.py:110",
@@ -2014,7 +2062,8 @@ def main() -> int:
         "bound_by": "bytes" if main_out["bound_ms_bytes"] >= main_out["bound_ms_ops"]
         else "operations",
         "library_ms": None,
-        "unit": "one main-path step (S-1 = 7 launches)",
+        "unit": "one main-path step (1 launch: the seed gate and S-1 = 7 "
+                "stages)",
         "parity": "exact",
     }, {
         "name": "nfa_scan_step",

@@ -16,10 +16,13 @@
 // the reference's NFA steps raise KeyError('__ts__') for it.
 //
 // eval_fast runs the same programs with a four-value stack in registers.
+// A predicate that is a conjunction of comparisons also has a clause form
+// (gpu/expr_compile.py::clause_form); clause_at, clause_operand and
+// eval_clauses below are its one reader.
 //
 // Also here: block_rank, the block-wide ordered rank (warp ballots + a
-// prefix over warps) that the kernels compact and insert with, and
-// block_reduce.
+// prefix over warps) that the kernels compact and insert with,
+// block_reduce, and warp_min / warp_max.
 
 #pragma once
 
@@ -200,6 +203,12 @@ __device__ __forceinline__ long long compare(int op, int ty, long long a, long l
   }
 }
 
+// A constant's value slot, held in an instruction's last two words.
+__device__ __forceinline__ long long const_of(const int4& in) {
+  return (long long)(((unsigned long long)(unsigned)in.w << 32) |
+                     (unsigned long long)(unsigned)in.z);
+}
+
 // Evaluates one program. ev(c) returns event column c's value slot and
 // bind(k) the k-th bound value the program was linked against.
 template <class EvF, class BindF>
@@ -213,10 +222,7 @@ __device__ __forceinline__ long long eval_prog(const int4* __restrict__ code,
       case OP_EV: st[sp++] = ev(in.z); break;
       case OP_BIND: st[sp++] = bind(in.z); break;
       case OP_TS: st[sp++] = 0; break;          // refused before launch
-      case OP_CONST:
-        st[sp++] = (long long)(((unsigned long long)(unsigned)in.w << 32) |
-                               (unsigned long long)(unsigned)in.z);
-        break;
+      case OP_CONST: st[sp++] = const_of(in); break;
       case OP_CAST: st[sp - 1] = cast_val(st[sp - 1], in.z, in.y); break;
       case OP_NEG:
         if (in.y == T_F32) st[sp - 1] = from_f(-as_f(st[sp - 1]));
@@ -256,8 +262,7 @@ __device__ __forceinline__ long long eval_fast(const int4* __restrict__ code,
         if (in.x == OP_EV) v = ev(in.z);
         else if (in.x == OP_BIND) v = bind(in.z);
         else if (in.x == OP_TS) v = 0;           // refused before launch
-        else v = (long long)(((unsigned long long)(unsigned)in.w << 32) |
-                             (unsigned long long)(unsigned)in.z);
+        else v = const_of(in);
         s3 = s2; s2 = s1; s1 = s0; s0 = v; ++sp;
         break;
       }
@@ -282,6 +287,50 @@ __device__ __forceinline__ long long eval_fast(const int4* __restrict__ code,
     }
   }
   return s0;
+}
+
+// ------------------------------------------------------------ clause form
+// A predicate that is a conjunction of comparisons, as clause_form writes
+// it: two int4 words a clause, (compare op, compare type, x kind, x index)
+// and (x cast, y kind, y index, y cast). An operand is an event column
+// (OP_EV), a bound value (OP_BIND) or a constant (OP_CONST, its index the
+// code row that holds it); a cast is src << 8 | dst, or -1. The compares
+// and casts are the program's.
+
+struct Clause { int op, ty, xk, xi, xc, yk, yi, yc; };
+
+__device__ __forceinline__ Clause clause_at(const int4* __restrict__ code, Prog p, int i) {
+  const int4 w0 = code[p.off + 2 * i], w1 = code[p.off + 2 * i + 1];
+  return Clause{w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+}
+
+__device__ __forceinline__ long long cast_opt(long long v, int cast) {
+  return cast >= 0 ? cast_val(v, cast >> 8, cast & 255) : v;
+}
+
+// An operand's value, cast: ev(c) gives event column c's value slot and
+// bind(k) the k-th bound value.
+template <class EvF, class BindF>
+__device__ __forceinline__ long long clause_operand(const int4* __restrict__ code, int kind,
+                                                    int idx, int cast, EvF ev, BindF bind) {
+  const long long v = kind == OP_EV ? ev(idx) : kind == OP_BIND ? bind(idx)
+                                                                : const_of(code[idx]);
+  return cast_opt(v, cast);
+}
+
+// True when every clause of the clause-form program p holds, as the
+// predicate's program would compute.
+template <class EvF, class BindF>
+__device__ __forceinline__ bool eval_clauses(const int4* __restrict__ code, Prog p, EvF ev,
+                                             BindF bind) {
+#pragma unroll 1
+  for (int i = 0; i < p.len; ++i) {
+    const Clause c = clause_at(code, p, i);
+    if (!compare(c.op, c.ty, clause_operand(code, c.xk, c.xi, c.xc, ev, bind),
+                 clause_operand(code, c.yk, c.yi, c.yc, ev, bind)))
+      return false;
+  }
+  return true;
 }
 
 // -------------------------------------------------------- block helpers
@@ -338,4 +387,20 @@ __device__ T block_reduce(T v, Op op, T* s_buf) {
   for (int w = 1; w < nw; ++w) tot = op(tot, s_buf[w]);
   __syncthreads();
   return tot;
+}
+
+// The minimum (maximum) of v over the 32 lanes of a full warp, to every lane.
+__device__ __forceinline__ long long warp_min(long long v) {
+  for (int o = 16; o > 0; o >>= 1) {
+    const long long u = __shfl_xor_sync(0xffffffffu, v, o);
+    v = u < v ? u : v;
+  }
+  return v;
+}
+__device__ __forceinline__ long long warp_max(long long v) {
+  for (int o = 16; o > 0; o >>= 1) {
+    const long long u = __shfl_xor_sync(0xffffffffu, v, o);
+    v = u > v ? u : v;
+  }
+  return v;
 }

@@ -45,7 +45,8 @@
 //     the reference's env for that site. A predicate that is a conjunction
 //     of comparisons between event columns, table fields and constants also
 //     comes in clause form (two words a comparison, ScanPlan's clause_form)
-//     and is evaluated from it without the interpreter's dispatch; every
+//     and is evaluated from it (expr_ir.cuh's eval_clauses, shared with
+//     nfa_block.cu) without the interpreter's dispatch; every
 //     other program runs through one non-inlined copy of the interpreter.
 //   - skips: each state's occupancy (may it hold a valid slot?) is a bit in
 //     a register, recomputed by ballot at every event for the states that
@@ -338,44 +339,6 @@ __device__ __forceinline__ void place(const unsigned* bal, const long long* stag
   __syncwarp();
 }
 
-// A predicate in clause form (ScanPlan's clause_form): true when every
-// clause's comparison holds, as the conjunction eval_slot would compute,
-// read straight from the clause words, without the interpreter's dispatch.
-__device__ __forceinline__ long long clause_operand(const int4* code, int kind, int idx,
-                                                    int cast, const long long* ev,
-                                                    const long long* X, int C, int c) {
-  long long v;
-  if (kind == OP_EV) {
-    v = ev[idx];
-  } else if (kind == OP_BIND) {
-    v = X[(long long)idx * C + c];
-  } else {
-    const int4 k = code[idx];
-    v = (long long)(((unsigned long long)(unsigned)k.w << 32) | (unsigned long long)(unsigned)k.z);
-  }
-  return cast >= 0 ? cast_val(v, cast >> 8, cast & 255) : v;
-}
-
-__device__ __forceinline__ bool eval_clauses(const int4* code, Prog p, const long long* ev,
-                                             const long long* X, int C, int c) {
-#pragma unroll 1
-  for (int i = 0; i < p.len; ++i) {
-    const int4 w0 = code[p.off + 2 * i], w1 = code[p.off + 2 * i + 1];
-    const long long x = clause_operand(code, w0.z, w0.w, w1.x, ev, X, C, c);
-    const long long y = clause_operand(code, w1.y, w1.z, w1.w, ev, X, C, c);
-    if (!compare(w0.x, w0.y, x, y)) return false;
-  }
-  return true;
-}
-
-__device__ __forceinline__ long long warp_min(long long v) {
-  for (int o = 16; o > 0; o >>= 1) {
-    const long long u = __shfl_xor_sync(FULLW, v, o);
-    v = u < v ? u : v;
-  }
-  return v;
-}
-
 // ------------------------------------------------------------ the context
 
 struct Ctx {
@@ -428,7 +391,12 @@ struct Ctx {
 
   // a predicate linked at some level: BIND operands are table fields
   __device__ bool pred(Prog p, Prog cp, int c) {
-    if (cp.len > 0) return eval_clauses(code, cp, sm.evv, sm.T, C, c);
+    if (cp.len > 0) {
+      const long long *ev = sm.evv, *X = sm.T;
+      const int C_ = C;
+      return eval_clauses(code, cp, [ev](int k) { return ev[k]; },
+                          [X, C_, c](int k) { return X[(long long)k * C_ + c]; });
+    }
     return p.len == 0 || eval_slot(code, p, sm.evv, sm.T, C, c) != 0;
   }
 

@@ -19,8 +19,9 @@ Two forms of the step live here:
   the CPU tests hold against the JAX package and what ``chip_smoke.py``
   holds the kernel against.
 - ``BlockPlan.step_cuda``: the wrapper of the hand-written kernel
-  ``csrc/nfa_block.cu`` (one launch per stage, one CTA per lane, no grid
-  materialised, tables updated in place).
+  ``csrc/nfa_block.cu`` (one launch per step: the seed gate and every
+  stage in one cluster of CTAs per lane; no grid materialised, tables
+  updated in place).
 
 ``make_block_step`` dispatches on where the tensors lie: CPU tensors run the
 plain version, CUDA tensors launch the kernel or raise.
@@ -48,6 +49,7 @@ from .expr_compile import (
     DeviceCompileError,
     as_tensor,
     astype,
+    clause_form,
     link_ir,
 )
 
@@ -59,7 +61,6 @@ MAXCOL = 32
 MAXB = 32
 MAXOUT = 32
 _TS_NONE = -(2 ** 62)
-_NF_FIXED = 5                    # creation fields before the bindings
 
 
 def blocked_eligible(nfa: "DeviceNFACompiler") -> bool:
@@ -357,32 +358,54 @@ class _Prog(ctypes.Structure):
     _fields_ = [("off", ctypes.c_int), ("len", ctypes.c_int)]
 
 
-class StageArgs(ctypes.Structure):
-    """Mirror of ``struct StageArgs`` in ``csrc/nfa_block.cu``."""
+class BlockStage(ctypes.Structure):
+    """Mirror of ``struct BlockStage`` in ``csrc/nfa_block.cu``."""
     _fields_ = [
         *[(n, ctypes.c_int) for n in (
-            "L", "B", "C", "s", "last", "pc_in", "pc_out", "compact_out",
-            "seed_compact", "K", "is_seq", "has_within", "has_ew", "has_sw")],
-        ("within", ctypes.c_longlong), ("sw", ctypes.c_longlong),
-        *[(n, ctypes.c_int) for n in (
-            "sidx0", "sidx", "ncol", "nbind", "nbind_out", "nseed_bind",
-            "nout", "cre_cap", "cre_nf")],
-        ("col_ty", ctypes.c_int * MAXCOL),
-        ("bind_ty", ctypes.c_int * MAXB),
-        ("bout_kind", ctypes.c_int * MAXB),
-        ("bout_idx", ctypes.c_int * MAXB),
-        ("seed_col", ctypes.c_int * MAXB),
-        ("out_ty", ctypes.c_int * MAXOUT),
-        ("seed", _Prog), ("pred", _Prog),
-        ("out", _Prog * MAXOUT),
-        ("col", ctypes.c_void_p * MAXCOL),
-        ("t_bind", ctypes.c_void_p * MAXB),
-        ("out_ptr", ctypes.c_void_p * MAXOUT),
-        *[(n, ctypes.c_void_p) for n in (
-            "tag", "ts", "ts_base", "nvalid", "t_valid", "t_first", "t_last",
-            "cre_in", "cre_out", "matches", "drops", "code", "y_mask", "y_j",
-            "y_ts")],
+            "sidx", "pc_in", "compact_out", "nbind", "nbind_out", "tp_off",
+            "has_sw", "pad_")],
+        ("sw", ctypes.c_longlong),
+        ("pred", _Prog), ("cpred", _Prog),
+        ("pad2_", ctypes.c_int * 2),
     ]
+
+
+class BlockDesc(ctypes.Structure):
+    """Mirror of ``struct BlockDesc`` in ``csrc/nfa_block.cu`` (followed in
+    the uploaded descriptor by one ``BlockStage`` per state)."""
+    _fields_ = [
+        *[(n, ctypes.c_int) for n in (
+            "S", "B", "C", "K", "is_seq", "has_within", "has_ew",
+            "seed_compact")],
+        ("within", ctypes.c_longlong),
+        *[(n, ctypes.c_int) for n in (
+            "sidx0", "ncol", "nbind_max", "nout", "cap", "ncode", "ntp",
+            "np")],
+        ("col_ty", ctypes.c_int * MAXCOL),
+        ("key_ty", ctypes.c_int * MAXB),
+        ("key_col", ctypes.c_int * MAXB),
+        ("out_ty", ctypes.c_int * MAXOUT),
+        ("seed", _Prog), ("cseed", _Prog),
+        ("out", _Prog * MAXOUT),
+    ]
+
+
+class BlockArgs(ctypes.Structure):
+    """Mirror of ``struct BlockArgs`` in ``csrc/nfa_block.cu``: one step's
+    pointers."""
+    _fields_ = [
+        *[(n, ctypes.c_int) for n in ("L", "mode", "cluster", "pad_")],
+        *[(n, ctypes.c_void_p) for n in ("desc", "code", "tptr", "scratch")],
+        ("col", ctypes.c_void_p * MAXCOL),
+        *[(n, ctypes.c_void_p) for n in (
+            "tag", "ts", "ts_base", "nvalid", "matches", "drops", "y_mask",
+            "y_j", "y_ts")],
+        ("out_ptr", ctypes.c_void_p * MAXOUT),
+    ]
+
+
+def _desc_head() -> int:
+    return (ctypes.sizeof(BlockDesc) + 15) & ~15
 
 
 def link_program(ir: list, col_slot: dict, bind_slot: dict,
@@ -409,10 +432,17 @@ def link_program(ir: list, col_slot: dict, bind_slot: dict,
 
 
 class BlockPlan:
-    """The compiled plan's kernel side: linked programs, per-stage argument
-    templates and the launch wrapper. ``launches`` counts kernel launches."""
+    """The compiled plan's kernel side: linked programs, the descriptor the
+    kernel reads (uploaded once per device) and the launch wrapper. One
+    launch a step; ``launches`` counts kernel launches.
 
-    launches = 0          # class-wide: every launch of the stage kernel
+    A plan is stepped on one stream at a time: the global scratch of a
+    layout that keeps its creations there is allocated once per (device,
+    lanes) and reused by every launch."""
+
+    launches = 0          # class-wide: every launch of the step kernel
+    LAUNCHES = 1          # launches a step
+    CLUSTER = 2           # CTAs a lane where their plan fits, else one
 
     def __init__(self, nfa: "DeviceNFACompiler"):
         self.nfa = nfa
@@ -431,12 +461,12 @@ class BlockPlan:
             self.pc[s] = n if K is None or n <= K else K
             n = C + self.pc[s]
         self.seed_compact = K is not None and B > K
-        self.cre_cap = max([B, *self.pc.values()])
         self.keys = {s: _binding_keys(nfa, s) for s in range(S + 1)}
+        # keys[s] is a prefix of keys[s+1] (sorted by state), so binding k
+        # is the same key at every stage that carries it
         nbind_max = max(len(self.keys[s]) for s in range(S))
         if nbind_max > MAXB:
             raise DeviceCompileError(f"more than {MAXB} bound values")
-        self.cre_nf = _NF_FIXED + nbind_max
 
         progs = []
         # eventTimestamp() reads `__ts__`, which the reference's step env
@@ -453,193 +483,271 @@ class BlockPlan:
             progs.append(code)
             return (off, len(code))
 
+        def add_clauses(prog):
+            """The clause form of a linked predicate, (0, 0) if it has none."""
+            off, n = prog
+            if not n:
+                return (0, 0)
+            words = clause_form(progs[-1], off)
+            if words is None:
+                return (0, 0)
+            coff = sum(len(p) for p in progs)
+            progs.append(words)
+            return (coff, len(words) // 2)
+
         minted = {}          # binding key → event column slot at its state
         for (q, key, t) in nfa.referenced:
             minted.setdefault(q, {})[key] = col_slot[_key_col(nfa, key)]
         self.seed = add(nfa.states[0].predicate_ir, {})
+        self.cseed = add_clauses(self.seed)
         self.stages = {}
         last = S - 1
         for s in range(1 if S > 1 else 0, S):
             bslot = {k: i for i, k in enumerate(self.keys[s])}
             info = {"pred": add(nfa.states[s].predicate_ir, bslot) if s else (0, 0)}
+            info["cpred"] = add_clauses(info["pred"])
             if s == last:
                 info["out"] = [add(ir, bslot, minted.get(s, {}))
                                for ir in nfa.out_irs]
-            else:
-                info["bout"] = [(0, bslot[k]) if k in bslot
-                                else (1, minted[s][k])
-                                for k in self.keys[s + 1]]
             self.stages[s] = info
         if len(nfa.out_irs) > MAXOUT:
             raise DeviceCompileError(f"more than {MAXOUT} outputs")
-        self.seed_cols = [minted.get(0, {})[k] for k in self.keys[1]]
         self.out_ty = [TY_OF[TORCH[t]] for (_, _, t) in nfa.out_specs]
         self.code_host = np.concatenate(progs) if progs else \
             np.zeros((1, 4), np.int32)
-        self._code = {}          # device → uploaded code
-        self._templates = None
+
+        # the descriptor: BlockDesc, then one BlockStage per state
+        d = BlockDesc()
+        d.S, d.B, d.C, d.K = S, B, C, -1 if K is None else K
+        d.is_seq = int(nfa.is_sequence)
+        d.has_within = int(nfa.within is not None)
+        d.within = nfa.within or 0
+        d.has_ew = int(self.has_ew)
+        d.seed_compact = int(self.seed_compact)
+        d.sidx0 = nfa.states[0].stream_idx
+        d.ncol = len(self.col_keys)
+        for i, ty in enumerate(self.col_ty):
+            d.col_ty[i] = ty
+        d.nbind_max = nbind_max
+        for k, key in enumerate(self.keys[S - 1]):
+            d.key_ty[k] = TY_OF[_key_dtype(nfa, key)]
+            q = int(key[1:].split("_", 1)[0])
+            d.key_col[k] = minted[q][key]
+        d.nout = len(nfa.out_irs)
+        for i, (off, n) in enumerate(self.stages[last]["out"]):
+            d.out[i] = _Prog(off, n)
+            d.out_ty[i] = self.out_ty[i]
+        d.seed, d.cseed = _Prog(*self.seed), _Prog(*self.cseed)
+        d.cap = max(self.pc.values()) if S > 1 else 0
+        d.np = max([B] + [C + n for n in self.pc.values()])
+        d.ncode = len(self.code_host)
+        stages = (BlockStage * S)()
+        tp = 0
+        for s in range(1, S):
+            st, info = stages[s], self.stages[s]
+            st.sidx = nfa.states[s].stream_idx
+            st.pc_in = self.pc[s]
+            st.compact_out = int(s < last and K is not None and C + self.pc[s] > K)
+            st.nbind = len(self.keys[s])
+            st.nbind_out = len(self.keys[s + 1]) if s < last else 0
+            st.tp_off = tp
+            tp += 3 + st.nbind            # valid, first_ts, last_ts, bindings
+            sw = nfa.states[s].within_ms
+            st.has_sw, st.sw = int(sw is not None), sw or 0
+            st.pred, st.cpred = _Prog(*info["pred"]), _Prog(*info["cpred"])
+        d.ntp = tp
+        self.desc = d
+        blob = bytes(d).ljust(_desc_head(), b"\0") + bytes(stages)
+        self.desc_host = ctypes.create_string_buffer(blob, len(blob))
+        self._desc_np = np.frombuffer(blob, dtype=np.uint8).copy()
+        # the state's leaves in the kernel's order (counters, then per stage
+        # the table fields the pointer table lists) with their checks
+        self._leaf_specs = [("matches", torch.int64, False),
+                            ("drops", torch.int64, False)]
+        for s in range(1, S):
+            fields = [("valid", torch.bool), ("first_ts", torch.int64),
+                      ("last_ts", torch.int64 if self.has_ew else None)]
+            fields += [(key, _key_dtype(nfa, key)) for key in self.keys[s]]
+            self._leaf_specs += [(f"t{s}.{k}", dt, True) for k, dt in fields]
+        self._out_groups = {}    # output dtype → [(index, name)]
+        for o, (name, _, t) in enumerate(nfa.out_specs):
+            self._out_groups.setdefault(TORCH[t], []).append((o, name))
+        self._out_groups = list(self._out_groups.items())
+        self._dev = {}           # device → (descriptor, code) uploaded
+        self._state = {}         # device → (checked leaves, their pointers)
+        self._args = {}          # (device, L) → BlockArgs template
+        self._layout = None      # layout()
+        self._checked = False
 
     # -- kernel side ---------------------------------------------------------
-    def _code_on(self, dev) -> torch.Tensor:
-        code = self._code.get(dev)
-        if code is None:
-            code = torch.from_numpy(self.code_host).to(dev)
-            self._code[dev] = code
-        return code
+    def _on(self, dev):
+        got = self._dev.get(dev)
+        if got is None:
+            got = (torch.from_numpy(self._desc_np).to(dev),
+                   torch.from_numpy(self.code_host).to(dev))
+            self._dev[dev] = got
+        return got
 
     def _lib(self):
         from ._build import load
         lib = load("nfa_block")
-        if self._templates is None:
-            lib.nfa_block_stage.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-            lib.nfa_block_stage.restype = ctypes.c_int
-            lib.nfa_block_args_size.restype = ctypes.c_int
-            if lib.nfa_block_args_size() != ctypes.sizeof(StageArgs):
-                raise RuntimeError(
-                    "StageArgs layout differs between nfa_block.cu "
-                    f"({lib.nfa_block_args_size()} B) and the ctypes mirror "
-                    f"({ctypes.sizeof(StageArgs)} B)")
-            self._templates = self._make_templates()
+        if not self._checked:
+            lib.nfa_block_step.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                           ctypes.c_void_p]
+            lib.nfa_block_step.restype = ctypes.c_int
+            lib.nfa_block_plan.argtypes = [
+                ctypes.c_void_p, ctypes.c_int,
+                ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_longlong)]
+            lib.nfa_block_plan.restype = ctypes.c_int
+            for fn, size in ((lib.nfa_block_desc_head, _desc_head()),
+                             (lib.nfa_block_stage_size,
+                              ctypes.sizeof(BlockStage)),
+                             (lib.nfa_block_args_size,
+                              ctypes.sizeof(BlockArgs))):
+                fn.restype = ctypes.c_int
+                if fn() != size:
+                    raise RuntimeError(
+                        f"{fn.__name__}: the layout differs between "
+                        f"nfa_block.cu ({fn()} B) and the ctypes mirror "
+                        f"({size} B)")
+            self._checked = True
         return lib
 
-    def _make_templates(self) -> dict:
-        nfa = self.nfa
-        out = {}
-        for s, info in self.stages.items():
-            a = StageArgs()
-            a.B, a.C, a.s = nfa.B, nfa.C, s
-            a.last = int(s == nfa.S - 1)
-            a.pc_in = self.pc.get(s, 0)
-            nxt = nfa.C + a.pc_in
-            k = nfa.creation_cap
-            a.compact_out = int(not a.last and k is not None and nxt > k)
-            a.pc_out = 0 if a.last else (k if a.compact_out else nxt)
-            a.seed_compact = int(s == 1 and self.seed_compact)
-            a.K = -1 if k is None else k
-            a.is_seq = int(nfa.is_sequence)
-            a.has_within = int(nfa.within is not None)
-            a.within = nfa.within or 0
-            a.has_ew = int(self.has_ew)
-            sw = nfa.states[s].within_ms if s else None
-            a.has_sw = int(sw is not None)
-            a.sw = sw or 0
-            a.sidx0 = nfa.states[0].stream_idx
-            a.sidx = nfa.states[s].stream_idx
-            a.ncol = len(self.col_keys)
-            for i, ty in enumerate(self.col_ty):
-                a.col_ty[i] = ty
-            keys = self.keys[s] if s else []
-            a.nbind = len(keys)
-            for i, key in enumerate(keys):
-                a.bind_ty[i] = TY_OF[_key_dtype(nfa, key)]
-            a.nseed_bind = len(self.seed_cols)
-            for i, c in enumerate(self.seed_cols):
-                a.seed_col[i] = c
-            a.seed = _Prog(*self.seed)
-            a.pred = _Prog(*info["pred"])
-            if a.last:
-                a.nout = len(info["out"])
-                for i, (off, n) in enumerate(info["out"]):
-                    a.out[i] = _Prog(off, n)
-                    a.out_ty[i] = self.out_ty[i]
+    def layout(self, lib) -> tuple:
+        """(CTAs a lane, layout mode, global scratch bytes a lane) the
+        kernel takes: ``CLUSTER`` CTAs a lane where their plan fits in
+        shared memory, else one (a cluster doubles the per-candidate
+        flags); creations in shared memory where they fit."""
+        if self._layout is None:
+            for cl in (self.CLUSTER, 1):
+                mode, scratch = ctypes.c_int(), ctypes.c_longlong()
+                if lib.nfa_block_plan(self.desc_host, cl, ctypes.byref(mode),
+                                      ctypes.byref(scratch)) == 0:
+                    self._layout = (cl, mode.value, scratch.value)
+                    break
             else:
-                a.nbind_out = len(info["bout"])
-                for i, (kind, idx) in enumerate(info["bout"]):
-                    a.bout_kind[i], a.bout_idx[i] = kind, idx
-            a.cre_cap, a.cre_nf = self.cre_cap, self.cre_nf
-            out[s] = a
-        return out
+                raise RuntimeError("nfa_block: a lane needs more shared "
+                                   "memory than a block has")
+        return self._layout
 
-    def _check(self, state, cols, tag, ts, ts_base, nvalid):
+    def _state_leaves(self, state) -> list:
+        """matches, drops, then per stage valid, first_ts, last_ts (None
+        without element-level within) and the bindings."""
+        leaves = [state["matches"], state["drops"]]
+        tables = state["tables"]
+        for s in range(1, self.nfa.S):
+            tbl = tables[f"t{s}"]
+            leaves += [tbl["valid"], tbl["first_ts"],
+                       tbl["last_ts"] if self.has_ew else None]
+            leaves += [tbl[key] for key in self.keys[s]]
+        return leaves
+
+    def _state_on(self, state, L: int, dev):
+        """Checks the state's leaves and uploads the tables' pointers (per
+        stage: valid, first_ts, last_ts, bindings); both again only when
+        the leaves are other tensors than the last step's (a step updates
+        them in place). Returns (matches, drops, pointer table)."""
+        leaves = self._state_leaves(state)
+        got = self._state.get(dev)
+        if got is None or len(got[0]) != len(leaves) or \
+                any(a is not b for a, b in zip(leaves, got[0])):
+            C = self.nfa.C
+            for t, (name, dt, per_slot) in zip(leaves, self._leaf_specs):
+                if dt is not None:
+                    _need(t, name, dt, (L, C) if per_slot else (L,), dev)
+            ptrs = [0 if t is None else t.data_ptr() for t in leaves[2:]]
+            got = (leaves, torch.tensor(ptrs or [0], dtype=torch.int64).to(dev))
+            self._state[dev] = got
+        elif leaves[0].shape[0] != L:
+            raise ValueError(f"state has {leaves[0].shape[0]} lanes, the "
+                             f"batch {L}")
+        return leaves[0], leaves[1], got[1]
+
+    def _check_batch(self, cols, tag, ts, ts_base, nvalid):
         nfa = self.nfa
         dev = tag.device
         L, B = tag.shape
         if L < 1 or B != nfa.B:
             raise ValueError(f"batch must be [L >= 1, {nfa.B}], got {tuple(tag.shape)}")
-
-        def need(t, name, dtype, shape):
-            if not isinstance(t, torch.Tensor) or t.device != dev:
-                raise ValueError(f"{name} must be a tensor on {dev}")
-            if t.dtype != dtype or tuple(t.shape) != shape:
-                raise ValueError(f"{name} must be {dtype} {shape}, got "
-                                 f"{t.dtype} {tuple(t.shape)}")
-            if not t.is_contiguous():
-                raise ValueError(f"{name} must be contiguous")
-
-        need(tag, "tag", torch.int8, (L, B))
-        need(ts, "ts", torch.int32, (L, B))
-        need(ts_base, "ts_base", torch.int64, (L,))
-        need(nvalid, "nvalid", torch.int32, (L,))
+        _need(tag, "tag", torch.int8, (L, B), dev)
+        _need(ts, "ts", torch.int32, (L, B), dev)
+        _need(ts_base, "ts_base", torch.int64, (L,), dev)
+        _need(nvalid, "nvalid", torch.int32, (L,), dev)
         for k, ty in zip(self.col_keys, self.col_ty):
             if k not in cols:
                 raise ValueError(f"missing event column '{k}'")
-            need(cols[k], f"cols[{k!r}]", DTYPE_OF[ty], (L, B))
-        need(state["matches"], "matches", torch.int64, (L,))
-        need(state["drops"], "drops", torch.int64, (L,))
-        for s in range(1, nfa.S):
-            tbl = state["tables"][f"t{s}"]
-            need(tbl["valid"], f"t{s}.valid", torch.bool, (L, nfa.C))
-            need(tbl["first_ts"], f"t{s}.first_ts", torch.int64, (L, nfa.C))
-            if self.has_ew:
-                need(tbl["last_ts"], f"t{s}.last_ts", torch.int64, (L, nfa.C))
-            for key in self.keys[s]:
-                need(tbl[key], f"t{s}.{key}", _key_dtype(nfa, key), (L, nfa.C))
+            _need(cols[k], f"cols[{k!r}]", DTYPE_OF[ty], (L, B), dev)
 
-    def step_cuda(self, state, cols, tag, ts, ts_base, nvalid):
-        """Launches the stage kernel S-1 times (once when S == 1) on the
-        current stream. ``state`` is updated in place and returned."""
-        if tag.device.type != "cuda":
-            raise ValueError("step_cuda takes CUDA tensors")
-        self._check(state, cols, tag, ts, ts_base, nvalid)
-        if self.link_error is not None:
-            raise self.link_error
-        lib = self._lib()
+    def launch(self, lib, state, cols, tag, ts, ts_base, nvalid, stream):
+        """One launch of the step kernel of ``lib`` on ``stream`` (checks
+        the batch and the state first); ``state`` is updated in place.
+        Returns (state, ys)."""
+        self._check_batch(cols, tag, ts, ts_base, nvalid)
         nfa = self.nfa
         dev = tag.device
         L, B = tag.shape
-        code = self._code_on(dev)
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        cre = [torch.empty((L, self.cre_nf, self.cre_cap), dtype=torch.int64,
-                           device=dev) for _ in range(2 if nfa.S > 2 else 1)]
-        ys = None
-        for i, (s, tmpl) in enumerate(sorted(self._templates.items())):
-            a = StageArgs.from_buffer_copy(tmpl)
-            a.L = L
-            for c, k in enumerate(self.col_keys):
-                a.col[c] = cols[k].data_ptr()
-            a.tag, a.ts = tag.data_ptr(), ts.data_ptr()
-            a.ts_base, a.nvalid = ts_base.data_ptr(), nvalid.data_ptr()
-            a.matches = state["matches"].data_ptr()
-            a.drops = state["drops"].data_ptr()
-            a.code = code.data_ptr()
-            if s >= 1:
-                tbl = state["tables"][f"t{s}"]
-                a.t_valid = tbl["valid"].data_ptr()
-                a.t_first = tbl["first_ts"].data_ptr()
-                if self.has_ew:
-                    a.t_last = tbl["last_ts"].data_ptr()
-                for k, key in enumerate(self.keys[s]):
-                    a.t_bind[k] = tbl[key].data_ptr()
-                a.cre_in = cre[i % len(cre)].data_ptr()
-                a.cre_out = cre[(i + 1) % len(cre)].data_ptr()
-            if a.last or s == 0:
-                P = B if s == 0 else nfa.C + a.pc_in
-                ys = {"mask": torch.empty((L, P), dtype=torch.bool, device=dev),
-                      "j": torch.empty((L, P), dtype=torch.int32, device=dev),
-                      "ts": torch.empty((L, P), dtype=torch.int64, device=dev)}
-                for (name, _, t) in nfa.out_specs:
-                    ys[name] = torch.empty((L, P), dtype=TORCH[t], device=dev)
-                a.y_mask, a.y_j = ys["mask"].data_ptr(), ys["j"].data_ptr()
-                a.y_ts = ys["ts"].data_ptr()
-                for o, (name, _, _) in enumerate(nfa.out_specs):
-                    a.out_ptr[o] = ys[name].data_ptr()
-            rc = lib.nfa_block_stage(ctypes.addressof(a), stream)
-            if rc != 0:
-                why = "needs more shared memory than a block has" if rc == -2 \
-                    else f"CUDA error {rc}"
-                raise RuntimeError(f"nfa_block stage {s} launch failed: {why}")
-            BlockPlan.launches += 1
+        matches, drops, tptr = self._state_on(state, L, dev)
+        tmpl = self._args.get((dev, L))
+        if tmpl is None:
+            cl, mode, per_lane = self.layout(lib)
+            desc, code = self._on(dev)
+            tmpl = BlockArgs()
+            tmpl.L, tmpl.mode, tmpl.cluster = L, mode, cl
+            tmpl.desc, tmpl.code = desc.data_ptr(), code.data_ptr()
+            if per_lane:         # kept alive by the plan with the template
+                scratch = torch.empty(L * per_lane, dtype=torch.uint8,
+                                      device=dev)
+                tmpl.scratch = scratch.data_ptr()
+                tmpl._scratch = scratch
+            self._args[(dev, L)] = tmpl
+        a = BlockArgs.from_buffer_copy(tmpl)
+        a.tptr = tptr.data_ptr()
+        for c, k in enumerate(self.col_keys):
+            a.col[c] = cols[k].data_ptr()
+        a.tag, a.ts = tag.data_ptr(), ts.data_ptr()
+        a.ts_base, a.nvalid = ts_base.data_ptr(), nvalid.data_ptr()
+        a.matches, a.drops = matches.data_ptr(), drops.data_ptr()
+        P = B if nfa.S == 1 else nfa.C + self.pc[nfa.S - 1]
+        ys = {"mask": torch.empty((L, P), dtype=torch.bool, device=dev),
+              "j": torch.empty((L, P), dtype=torch.int32, device=dev),
+              "ts": torch.empty((L, P), dtype=torch.int64, device=dev)}
+        a.y_mask, a.y_j = ys["mask"].data_ptr(), ys["j"].data_ptr()
+        a.y_ts = ys["ts"].data_ptr()
+        for dt, outs in self._out_groups:     # one allocation per dtype
+            block = torch.empty((len(outs), L, P), dtype=dt, device=dev)
+            for (o, name), t in zip(outs, block.unbind(0)):
+                ys[name] = t
+                a.out_ptr[o] = t.data_ptr()
+        rc = lib.nfa_block_step(ctypes.addressof(a), self.desc_host, stream)
+        if rc != 0:
+            why = ("needs more shared memory than a block has" if rc == -2
+                   else f"CUDA error {rc}")
+            raise RuntimeError(f"nfa_block launch failed: {why}")
         return state, ys
+
+    def step_cuda(self, state, cols, tag, ts, ts_base, nvalid):
+        """Launches the step kernel once (the seed gate and every stage, one
+        cluster of CTAs per lane) on the current stream. ``state`` is
+        updated in place and returned with the ys."""
+        if tag.device.type != "cuda":
+            raise ValueError("step_cuda takes CUDA tensors")
+        if self.link_error is not None:
+            raise self.link_error
+        lib = self._lib()
+        stream = torch.cuda.current_stream(tag.device).cuda_stream
+        out = self.launch(lib, state, cols, tag, ts, ts_base, nvalid, stream)
+        BlockPlan.launches += 1
+        return out
+
+
+def _need(t, name, dtype, shape, dev):
+    if not isinstance(t, torch.Tensor) or t.device != dev:
+        raise ValueError(f"{name} must be a tensor on {dev}")
+    if t.dtype != dtype or t.shape != shape:
+        raise ValueError(f"{name} must be {dtype} {shape}, got "
+                         f"{t.dtype} {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
 
 
 def make_block_step(nfa: "DeviceNFACompiler"):

@@ -52,6 +52,7 @@ from .expr_compile import (
     T_I64,
     as_tensor,
     astype,
+    clause_form,
 )
 
 if TYPE_CHECKING:
@@ -1089,49 +1090,6 @@ def smem_bytes(d: ScanDesc, ncode: int) -> int:
             + carve(8 * d.maxnf * C) + carve(8 * EV_CHUNK * MAXCOL)
             + carve(4 * 2 * (MAXC // WARP)) + carve(d.S * C)
             + carve(NMASK * C) + carve(MAXK) + carve(2 * ev))
-
-
-_CMP_OPS = tuple(OP[n] for n in ("EQ", "NE", "LT", "LE", "GT", "GE"))
-
-
-def clause_form(rows: np.ndarray, base: int):
-    """A linked predicate (``rows`` at code offset ``base``) as a conjunction
-    of comparisons between two operands (an event column, a table field or
-    a constant, each under at most one cast): two int4 words per clause,
-    ``(compare op, compare type, x kind, x index)`` and ``(x cast, y kind,
-    y index, y cast)``, a constant's index the code row that holds it, a
-    cast ``src << 8 | dst`` or -1. None when the program has another shape.
-    The kernel evaluates these without the interpreter, with the same
-    casts and compares."""
-    stack = []
-    for i, (op, ty, a, _) in enumerate(rows.tolist()):
-        if op in (OP["EV"], OP["BIND"]):
-            stack.append(("leaf", op, a, -1))
-        elif op == OP["CONST"]:
-            stack.append(("leaf", op, base + i, -1))
-        elif op == OP["CAST"]:
-            x = stack.pop()
-            if x[0] != "leaf" or x[3] != -1:
-                return None
-            stack.append(("leaf", x[1], x[2], (a << 8) | ty))
-        elif op in _CMP_OPS:
-            y, x = stack.pop(), stack.pop()
-            if x[0] != "leaf" or y[0] != "leaf":
-                return None
-            stack.append(("and", [(op, a, x, y)]))
-        elif op == OP["AND"]:
-            y, x = stack.pop(), stack.pop()
-            if x[0] != "and" or y[0] != "and":
-                return None
-            stack.append(("and", x[1] + y[1]))
-        else:
-            return None
-    if len(stack) != 1 or stack[0][0] != "and":
-        return None
-    words = []
-    for op, cmp_ty, x, y in stack[0][1]:
-        words += [(op, cmp_ty, x[1], x[2]), (x[3], y[1], y[2], y[3])]
-    return np.array(words, dtype=np.int32).reshape(-1, 4)
 
 
 def _key_kind(q: int, key: str):

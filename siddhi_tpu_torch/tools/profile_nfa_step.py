@@ -2,7 +2,7 @@
 """Where a pattern (NFA) step spends its time on the card.
 
     python3 siddhi_tpu_torch/tools/profile_nfa_step.py --path scan|main
-        [--steps 20] [--root ROOT]
+        [--steps 20] [--root ROOT] [--phases]
 
 Runs one of ``chip_smoke.py``'s NFA paths at full width through
 ``PartitionedNFARuntime`` (``--path main``: the 8-state rising chain, the
@@ -26,23 +26,93 @@ wrapper: checks, ys allocation, launch) and the decode of the step's rows
 ``--root`` imports ``siddhi_tpu_torch`` from ROOT (this checkout by default,
 or another commit's package unpacked there with ``git archive``), so two
 commits' kernels run on the same inputs: run A, B, B, A in one call on one
-card. The workloads are this checkout's ``chip_smoke.py``. Needs one CUDA
-card.
+card. The workloads are this checkout's ``chip_smoke.py``. The blocked
+kernel's device time is summed over every kernel whose name holds
+``nfa_block`` (one launch a step; older builds launched one a stage).
+``--phases`` (``--path main``, this checkout)
+runs a copy of ``csrc/nfa_block.cu`` built with a ``clock64()`` probe
+after each barrier marked ``// phase`` in the source: thread 0 of each CTA
+adds the cycles since its last probe to a device array, read back after
+the window; it prints the mean CTA's cycles per step in each phase (and
+per stage), and the same at the card's maximum SM clock in µs. The probes
+add an atomic a phase, so the window's kernel time is slightly longer than
+without them. Needs one CUDA card.
 """
 
 from __future__ import annotations
 
 import argparse
+import ctypes
 import importlib.util
 import json
 import os
+import re
 import subprocess
 import sys
 import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-KERNELS = {"main": "nfa_block_stage_kernel", "scan": "nfa_scan_step_kernel"}
+KERNELS = {"main": "nfa_block", "scan": "nfa_scan_step_kernel"}
 WARMUP = 3
+PHASES = ("descriptor", "batch staged", "suffix minima", "seeds")
+STAGE_PHASES = ("search", "ranks and writes")
+NSLOT = 64
+PROBE = """
+__device__ unsigned long long nfa_phase_cycles[%d];
+#define NFA_PHASE(slot) do { if (threadIdx.x == 0) { const long long t_ = clock64(); \\
+  atomicAdd(&nfa_phase_cycles[slot], (unsigned long long)(t_ - pt_)); pt_ = t_; } } while (0)
+""" % NSLOT
+READ = """
+extern "C" int nfa_block_phases(unsigned long long* out, int reset) {
+  cudaError_t e = cudaMemcpyFromSymbol(out, nfa_phase_cycles, sizeof(nfa_phase_cycles));
+  static unsigned long long zero[%d];
+  if (e == cudaSuccess && reset)
+    e = cudaMemcpyToSymbol(nfa_phase_cycles, zero, sizeof(zero));
+  return (int)e;
+}
+""" % NSLOT
+
+
+def phase_lib():
+    """Builds the probed copy of ``csrc/nfa_block.cu`` (see ``--phases``)
+    and returns it loaded."""
+    from siddhi_tpu_torch.gpu import _build
+    with open(os.path.join(_build.CSRC, "nfa_block.cu")) as f:
+        src = f.read()
+    src = src.replace('#include "expr_ir.cuh"', '#include "%s"' % os.path.join(
+        _build.CSRC, "expr_ir.cuh"))
+    src = src.replace("#define SMEM_LIMIT", PROBE + "#define SMEM_LIMIT", 1)
+    src, n0 = re.subn(r"(l = blockIdx\.x[^;]*;)", r"\1\n  long long pt_ = clock64();",
+                      src, count=1)
+    src, n1 = re.subn(r"__syncthreads\(\);\s*// phase (\d) of stage s:[^\n]*",
+                      r"__syncthreads(); NFA_PHASE(%d + %d * (s - 1) + (\1 - %d));"
+                      % (len(PHASES), len(STAGE_PHASES), len(PHASES)), src)
+    src, n2 = re.subn(r"__syncthreads\(\);\s*// phase (\d):[^\n]*",
+                      r"__syncthreads(); NFA_PHASE(\1);", src)
+    if (n0, n1, n2) != (1, len(STAGE_PHASES), len(PHASES)):
+        raise RuntimeError(f"phase markers not found: {n0} {n1} {n2}")
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    cu = os.path.join(_build.BUILD_DIR, "nfa_block_phases.cu")
+    so = os.path.join(_build.BUILD_DIR, "libnfa_block_phases.so")
+    with open(cu, "w") as f:
+        f.write(src + READ)
+    out = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", so, cu],
+                         capture_output=True, text=True)
+    if out.returncode != 0:
+        raise RuntimeError(f"nvcc failed for the probed copy:\n{out.stdout}"
+                           f"{out.stderr}")
+    lib = ctypes.CDLL(so)
+    lib.nfa_block_phases.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    lib.nfa_block_phases.restype = ctypes.c_int
+    return lib
+
+
+def read_phases(lib, reset: bool) -> list:
+    buf = (ctypes.c_ulonglong * NSLOT)()
+    rc = lib.nfa_block_phases(ctypes.addressof(buf), int(reset))
+    if rc != 0:
+        raise RuntimeError(f"reading the phase counters: CUDA error {rc}")
+    return list(buf)
 
 
 def _chip_smoke():
@@ -53,12 +123,16 @@ def _chip_smoke():
     return mod
 
 
-def profile(path: str, steps: int, seed: int) -> dict:
+def profile(path: str, steps: int, seed: int, phases=None) -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile as tprofile
 
     from siddhi_tpu_torch.gpu.partition import PartitionedNFARuntime
     cs = _chip_smoke()
+    if phases is not None:
+        from siddhi_tpu_torch.gpu import _build
+        _build.load = lambda stem, load=_build.load: \
+            phases if stem == "nfa_block" else load(stem)
     if path == "main":
         rt = PartitionedNFARuntime(cs.bench_app(), device="cuda", **cs.MAIN)
     else:
@@ -95,6 +169,8 @@ def profile(path: str, steps: int, seed: int) -> dict:
                 window["prof"] = tprofile(
                     activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
                 window["prof"].__enter__()
+                if phases is not None:
+                    read_phases(phases, reset=True)
                 host.clear()
                 window["s0"] = seen["steps"]
                 window["t0"] = time.perf_counter()
@@ -137,6 +213,19 @@ def profile(path: str, steps: int, seed: int) -> dict:
     prof = window["prof"]
     prof.__exit__(None, None, None)
     n = seen["steps"] - window["s0"]
+    split_phases = None
+    if phases is not None:
+        cycles = read_phases(phases, reset=False)
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                              "--format=csv,noheader,nounits"],
+                             capture_output=True, text=True, timeout=60)
+        mhz = float(smi.stdout.strip().splitlines()[0])
+        per = rt.P * max(n, 1)
+        names = list(PHASES) + [f"stage {s} {p}" for s in range(1, rt.compiler.S)
+                                for p in STAGE_PHASES]
+        split_phases = {"sm_clock_max_mhz": mhz, "per_lane_step": {
+            name: {"cycles": cycles[i] / per, "us_at_max_clock": cycles[i] / per / mhz}
+            for i, name in enumerate(names)}}
     per = {}
     for e in prof.key_averages():
         dev_us = getattr(e, "self_device_time_total", None)
@@ -174,7 +263,8 @@ def profile(path: str, steps: int, seed: int) -> dict:
             "kernel_launches": k["calls"], "wall_ms": wall * 1e3,
             "device_busy_ms": busy_ms,
             "device_busy_share": busy_ms / (wall * 1e3) if busy_ms else None,
-            "kernels": per, "host": split, "host_raw": host}
+            "kernels": per, "host": split, "host_raw": host,
+            "phases": split_phases}
 
 
 def main() -> int:
@@ -183,6 +273,7 @@ def main() -> int:
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--seed", type=int, default=42)
     ap.add_argument("--root", default=REPO)
+    ap.add_argument("--phases", action="store_true")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -198,7 +289,12 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
     print(smi.stdout.strip() or f"nvidia-smi: {smi.stderr.strip()}", flush=True)
-    out = profile(args.path, args.steps, args.seed)
+    if args.phases and (args.path != "main" or root != REPO):
+        print("profile_nfa_step: --phases probes this checkout's blocked "
+              "kernel (--path main, no --root)", file=sys.stderr)
+        return 2
+    out = profile(args.path, args.steps, args.seed,
+                  phase_lib() if args.phases else None)
     out["root"] = root
     print(json.dumps(out), flush=True)
     return 0

@@ -10,7 +10,11 @@ Batches carry stale values past ``count`` and, in some steps, an empty
 lane.
 
 ``test_kernel_matches_plain_on_card`` holds the CUDA kernel against the plain
-version on the same shapes; it needs a card and skips elsewhere.
+version on the same shapes; it needs a card and skips elsewhere. The cases
+reach what the kernel's early exit and memory layout depend on: timestamps
+that are not sorted, ``ts - first == within`` exactly, element-level windows
+that lapse mid-batch, creations too large for shared memory, and a 1-lane
+sequence at B = 2048.
 """
 
 import jax
@@ -75,20 +79,40 @@ define stream S (v double);
 from every e1=S[v > 10.0], e2=S[v > e1.v]
 select e1.v as a, e2.v as b insert into O;
 """
+APPS["sequence"] = (SEQ, ())
 
 CASES = [
-    # (app, B, C, K, lanes)
-    ("chain2", 16, 8, None, 3),
-    ("chain2", 64, 16, 24, 2),
-    ("chain3_within", 16, 8, None, 3),
-    ("chain3_within", 64, 16, 24, 3),
-    ("chain8", 64, 16, 24, 2),
-    ("chain8", 16, 8, None, 2),
-    ("element_within", 64, 8, 24, 3),
-    ("single", 16, 8, None, 3),
-    ("two_stream", 64, 16, None, 3),
-    ("intdiv", 16, 8, 24, 3),
+    # (app, B, C, K, lanes, ts): ts as in TS_MODES
+    ("chain2", 16, 8, None, 3, "cumsum"),
+    ("chain2", 64, 16, 24, 2, "cumsum"),
+    ("chain3_within", 16, 8, None, 3, "cumsum"),
+    ("chain3_within", 64, 16, 24, 3, "cumsum"),
+    ("chain8", 64, 16, 24, 2, "cumsum"),
+    ("chain8", 16, 8, None, 2, "cumsum"),
+    ("element_within", 64, 8, 24, 3, "cumsum"),
+    ("single", 16, 8, None, 3, "cumsum"),
+    ("two_stream", 64, 16, None, 3, "cumsum"),
+    ("intdiv", 16, 8, 24, 3, "cumsum"),
+    # ts not sorted: an event falls back inside `within` after the window
+    # lapsed (a search that stops at the first lapse would miss it)
+    ("chain3_within", 128, 16, 48, 3, "sawtooth"),
+    # an element-level window that lapses mid-batch, sorted and not
+    ("element_within", 256, 16, 48, 3, "cumsum"),
+    ("element_within", 256, 16, 48, 3, "sawtooth"),
+    # ts on a grid of 50: ts - first == within (600, 300) exactly, on
+    # matching events too
+    ("chain3_within", 64, 16, 24, 3, "grid"),
+    ("element_within", 128, 8, None, 3, "grid"),
+    # no creation cap at a large B: the kernel keeps its creations in
+    # global scratch
+    ("chain8", 2048, 8, None, 1, "cumsum"),
+    # a 1-lane sequence at B = 2048
+    ("sequence", 2048, 16, None, 1, "cumsum"),
+    # C = 1024 and no cap: too large for a cluster's plan, one CTA a lane
+    ("chain8", 2048, 1024, None, 1, "cumsum"),
 ]
+CASE_IDS = [f"{c[0]}-B{c[1]}-C{c[2]}-K{c[3]}"
+            + (f"-{c[5]}" if c[5] != "cumsum" else "") for c in CASES]
 
 
 def _compilers(app, B, C, K):
@@ -114,15 +138,30 @@ def _column(rng, t: str, n: int):
     return rng.integers(0, 2, n).astype(bool)
 
 
-def make_batch(rng, comp, lanes: int, empty_lane: bool):
-    """One seeded wire batch [lanes, B]; values past count are stale noise."""
+def _ts_sawtooth(rng, lanes: int, B: int):
+    """Not sorted: 32-event teeth rising 40 an event over a base rising 100
+    a tooth, so a window that lapsed within a tooth reopens at the next."""
+    j = np.arange(B)
+    return (j % 32) * 40 + (j // 32) * 100 + rng.integers(0, 3, (lanes, B))
+
+
+TS_MODES = {
+    "cumsum": lambda rng, lanes, B: np.cumsum(rng.integers(0, 60, (lanes, B)), 1),
+    "sawtooth": _ts_sawtooth,
+    "grid": lambda rng, lanes, B: 50 * np.cumsum(rng.integers(0, 3, (lanes, B)), 1),
+}
+
+
+def make_batch(rng, comp, lanes: int, empty_lane: bool, ts: str = "cumsum"):
+    """One seeded wire batch [lanes, B]; values past count are stale noise.
+    ``ts`` names the timestamps' shape (``TS_MODES``)."""
     B = comp.B
     n_streams = len(comp.merged.stream_ids)
     cols = {k: np.stack([_column(rng, comp.merged.columns[k].name, B)
                          for _ in range(lanes)])
             for k in sorted(comp.used_cols)}
     tag = rng.integers(0, n_streams, (lanes, B)).astype(np.int8)
-    ts = np.cumsum(rng.integers(0, 60, (lanes, B)), 1).astype(np.int32)
+    ts = TS_MODES[ts](rng, lanes, B).astype(np.int32)
     ts_base = rng.integers(10**6, 2 * 10**6, lanes).astype(np.int64)
     counts = rng.integers(B // 2, B + 1, lanes).astype(np.int32)
     if empty_lane:
@@ -150,7 +189,7 @@ def _jax_lane_state(jc, lanes):
                                   (lanes,) + np.shape(x)).copy(), single)
 
 
-def _run_parity(name, B, C, K, lanes, steps=4, seed=0):
+def _run_parity(name, B, C, K, lanes, steps=4, seed=0, ts="cumsum"):
     app = APPS[name][0]
     jc, tc = _compilers(app, B, C, K)
     jstep = jax.jit(jax.vmap(jc.make_step()))
@@ -161,11 +200,11 @@ def _run_parity(name, B, C, K, lanes, steps=4, seed=0):
     rng = np.random.default_rng(seed)
     advanced = 0
     for i in range(steps):
-        cols, tag, ts, base, counts = make_batch(rng, tc, lanes,
-                                                 empty_lane=(i % 2 == 1))
-        jstate, jys = jstep(jstate, cols, tag, ts, base, counts)
+        cols, tag, tss, base, counts = make_batch(
+            rng, tc, lanes, empty_lane=lanes > 1 and i % 2 == 1, ts=ts)
+        jstate, jys = jstep(jstate, cols, tag, tss, base, counts)
         tstate, tys = tstep(tstate, {k: torch.from_numpy(v) for k, v in cols.items()},
-                            torch.from_numpy(tag), torch.from_numpy(ts),
+                            torch.from_numpy(tag), torch.from_numpy(tss),
                             torch.from_numpy(base), torch.from_numpy(counts))
         jstate = jax.tree_util.tree_map(np.asarray, jax.device_get(jstate))
         _assert_tree_equal(jstate, state_to_numpy(tstate))
@@ -175,10 +214,9 @@ def _run_parity(name, B, C, K, lanes, steps=4, seed=0):
     return advanced, int(np.sum(jstate["drops"]))
 
 
-@pytest.mark.parametrize("name,B,C,K,lanes", CASES,
-                         ids=[f"{c[0]}-B{c[1]}-C{c[2]}-K{c[3]}" for c in CASES])
-def test_block_step_matches_jax(name, B, C, K, lanes):
-    advanced, _ = _run_parity(name, B, C, K, lanes)
+@pytest.mark.parametrize("name,B,C,K,lanes,ts", CASES, ids=CASE_IDS)
+def test_block_step_matches_jax(name, B, C, K, lanes, ts):
+    advanced, _ = _run_parity(name, B, C, K, lanes, ts=ts)
     if name != "chain8":        # 8 rising states rarely complete at this size
         assert advanced > 0, "the case must emit matches to mean anything"
 
@@ -228,9 +266,8 @@ def test_linked_programs_cover_every_stage():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name,B,C,K,lanes", CASES,
-                         ids=[f"{c[0]}-B{c[1]}-C{c[2]}-K{c[3]}" for c in CASES])
-def test_kernel_matches_plain_on_card(name, B, C, K, lanes):
+@pytest.mark.parametrize("name,B,C,K,lanes,ts", CASES, ids=CASE_IDS)
+def test_kernel_matches_plain_on_card(name, B, C, K, lanes, ts):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     app = APPS[name][0]
@@ -241,7 +278,8 @@ def test_kernel_matches_plain_on_card(name, B, C, K, lanes):
     state = tc.init_state(lanes)
     rng = np.random.default_rng(11)
     for i in range(4):
-        wire = make_batch(rng, tc, lanes, empty_lane=(i % 2 == 1))
+        wire = make_batch(rng, tc, lanes, empty_lane=lanes > 1 and i % 2 == 1,
+                          ts=ts)
         cols = {k: torch.from_numpy(v).cuda() for k, v in wire[0].items()}
         rest = [torch.from_numpy(a).cuda() for a in wire[1:]]
         ref_state, ref_ys = block_step_plain(
@@ -250,6 +288,11 @@ def test_kernel_matches_plain_on_card(name, B, C, K, lanes):
         torch.cuda.synchronize()
         _assert_tree_equal(state_to_numpy(ref_state), state_to_numpy(state))
         _assert_tree_equal(state_to_numpy(ref_ys), state_to_numpy(ys))
+    cl, mode, _ = tc.plan.layout(tc.plan._lib())
+    # creations this large leave shared memory for the kernel's scratch; a
+    # plan this large leaves the cluster for one CTA a lane
+    assert bool(mode & 1) == (name == "chain8" and B == 2048 and K is None)
+    assert (cl == 1) == (name == "chain8" and C == 1024)
 
 
 TS_APPS = {

@@ -13,9 +13,12 @@ Phases, one JSON line each:
                S == 1, two streams, an empty lane, integer division by
                zero, timestamps not sorted and on a grid where ts - first
                == within, creations too large for shared memory, which must
-               take the kernel's global scratch, and a plan too large for a
-               cluster, which takes one CTA a lane). State leaves, counters
-               and ys must be exactly equal.
+               take the kernel's global scratch, a plan too large for a
+               cluster, which takes one CTA a lane, and B = 16,384 with four
+               32-bit columns, whose batch the kernel must read from global
+               memory). State leaves, counters and ys must be exactly equal,
+               and the Python mirror of the kernel's layout plan
+               (``BlockPlan.layout_mirror``) must equal the kernel's own.
   3. main    — the main path at full width: the bench app (8-state rising
                chain under ``partition with (dev of S)``, 64 lanes, lane
                batch 2048, C = 64, K = 320, 256 keys) fed through
@@ -24,6 +27,28 @@ Phases, one JSON line each:
                step's state leaves, decoded rows, match and drop counts
                against the plain version stepped on the card from the same
                state.
+     native_main — the same app and events through the native route, as
+               the bench feeds it: CSV lines ``dev,v,ts`` (built untimed)
+               through ``enable_native_ingress`` → ``ingest_csv`` →
+               ``flush_native(decode=True)`` (the C++ loader parses,
+               dictionary-encodes, routes by crc32 and packs the lanes). A
+               timed run gives events/s, the kernel's step time and the
+               host time of each part (parse, packing, H2D, step call,
+               decode); a checked run holds every step against the plain
+               version on the card. No parse error, no clamped timestamp,
+               one row a match, every row a rising chain, the two runs
+               equal.
+     snapshot — two one-lane ``DeviceNFARuntime`` apps on the card, the
+               8-state chain (blocked kernel) and the scan app without its
+               partition (scan kernel), B = 2048: fed half their events,
+               snapshotted with rows staged in the builder
+               (``snapshot_state`` + ``builder.snapshot()``), restored into
+               a fresh runtime and fed the rest; rows, counters and the
+               final state bitwise equal to an uninterrupted run.
+     entry   — ``siddhi_tpu_torch.entry``: ``entry()``'s step once on the
+               card, equal to the plain version, and
+               ``dryrun_multichip(1)`` (one match per lane, equal to the
+               plain version on the CPU).
   4. scan_shapes — the per-event scan kernel against its plain PyTorch
                version on the card: every shape of
                ``tests/test_torch_scan_shapes.py`` (count, logical, absent,
@@ -40,9 +65,10 @@ Phases, one JSON line each:
                stream state; 64 lanes, lane batch 2048, C = 64, 256 keys)
                fed 2,000,000 events through ``send_many``/``flush(decode=
                True)``. A timed run gives events/s and the kernel's step
-               time; a checked run holds the first steps (state leaves,
-               counters, ys, decoded rows) against the plain version on the
-               card.
+               time; a checked run holds the first 2 steps and the last one
+               a full lane triggered (state leaves, counters, ys, decoded
+               rows) against the plain version on the card, each from the
+               state the kernel reached before it.
   6. query_shapes — the single-stream query kernels against their plain
                PyTorch version on the card: every case of
                ``tests/test_torch_query_shapes.py`` (each sliding window kind,
@@ -70,8 +96,9 @@ Phases, one JSON line each:
                gives events/s and, by CUDA events, the kernels' time per
                step (around their launch call) and the step call's (the
                wrapper's host work included); a checked run holds every step
-               (the first 2 for (d), whose plain version walks the events in
-               Python) against the plain version on the card, with the float
+               (for (d), whose plain version walks the events in Python, the
+               first 2 and the last full one, each from the state the kernel
+               reached) against the plain version on the card, with the float
                limits computed per step from the state and batch it reads
                (``step_scale``; a grouped float32 sum/avg row's from its own
                bucket), and prints each output's largest error and its
@@ -205,6 +232,12 @@ define stream S (v double);
 from every e1=S[v > 10.0], e2=S[v > e1.v]
 select e1.v as a, e2.v as b insert into O;
 """,
+    "wide4": """
+define stream S (dev string, v float, n int, w float);
+from every e1=S[v > 60.0 and n > 0] -> e2=S[v > e1.v and dev == e1.dev]
+  -> e3=S[w > e2.v and n >= e1.n] within 4000
+select e1.dev as d, e1.v as a, e2.v as b, e3.w as c, e3.n as k insert into O;
+""",
 }
 
 # (shape, lane batch B, slots C, creation cap K, lanes, ts as in TS_MODES)
@@ -231,10 +264,14 @@ SHAPE_CASES = [
     # C = 1024 and no cap: one CTA a lane (a cluster's plan does not fit),
     # creations in global scratch and one table buffer
     ("chain8", 2048, 1024, None, 2, "cumsum"),
+    # B = 16,384 with four 32-bit columns: the batch cannot be staged in
+    # shared memory, so the kernel reads it from global memory
+    ("wide4", 16384, 64, 256, 2, "cumsum"),
 ]
 # (CTAs a lane, layout mode) where a case differs from a cluster with
 # everything in shared memory
-LAYOUTS = {("chain8", 2048, 8, None): (2, 1), ("chain8", 2048, 1024, None): (1, 3)}
+LAYOUTS = {("chain8", 2048, 8, None): (2, 1), ("chain8", 2048, 1024, None): (1, 3),
+           ("wide4", 16384, 64, 256): (1, 7)}
 
 
 def emit(obj) -> None:
@@ -382,6 +419,10 @@ def phase_shapes(seed: int) -> float:
         if (cl, mode) != LAYOUTS.get((name, B, C, K), (BlockPlan.CLUSTER, 0)):
             fail(f"shape {name} B={B} C={C} K={K}: {cl} CTAs a lane, layout "
                  f"mode {mode} ({scratch} B of global scratch a lane)")
+        if (cl, mode, scratch) != comp.plan.layout_mirror:
+            fail(f"shape {name} B={B} C={C} K={K}: the kernel's plan "
+                 f"{(cl, mode, scratch)}, the Python mirror's "
+                 f"{comp.plan.layout_mirror}")
         emitted = 0
         for i in range(4):
             cols, tag, ts, base, counts = make_batch(
@@ -407,7 +448,7 @@ def phase_shapes(seed: int) -> float:
             emitted += int(ref_ys["mask"].sum())
         cases.append({"shape": name, "B": B, "C": C, "K": K, "lanes": lanes,
                       "ts": ts_mode, "ctas": cl, "mode": mode,
-                      "scratch_per_lane": scratch,
+                      "scratch_per_lane": scratch, "mirror_equal": True,
                       "advanced": emitted, "drops": int(state["drops"].sum()),
                       "equal": True})
     emit({"phase": "shapes", "cases": cases, "max_abs_err": worst})
@@ -572,6 +613,315 @@ def phase_main(seed: int, n_events: int):
         "bound_ms_bytes": bound_bytes_ms, "bound_ms_ops": bound_ops_ms,
         "max_abs_err": worst, "checked_steps": len(plain_ms),
     }
+    emit(out)
+    return out
+
+
+def bench_csv(dev, v, ts) -> bytes:
+    """The events as the transport would deliver them: CSV lines
+    ``dev,v,ts`` (``bench.py``'s payload), built outside any timed
+    region."""
+    return "".join(f"{d},{x},{t}\n" for d, x, t in
+                   zip(dev.tolist(), v.tolist(), ts.tolist())).encode()
+
+
+def ingest_native(rt, csv: bytes) -> list:
+    """The native route end to end: ``enable_native_ingress`` →
+    ``ingest_csv`` (a step each time a lane fills) → ``flush_native`` for
+    what is left, rows decoded."""
+    rt.enable_native_ingress()
+    rows = rt.ingest_csv(csv, ts_last=True, decode=True)
+    rows.extend(rt.flush_native(decode=True))
+    return rows
+
+
+class HostSplit:
+    """Host seconds of the native route's parts, by wrapping a runtime's
+    methods: the C++ parse (``NativeIngress.ingest_csv``), the packing of
+    the wire feed (``emit_native_feed``), the pinned H2D copies (``_wire``),
+    the step call (``vstep``: checks and launch) and the decode (the rest
+    of ``_step_and_decode``, which waits for the step's results)."""
+
+    def __init__(self, rt):
+        self.s = {"parse": 0.0, "emit_native_feed": 0.0, "wire": 0.0,
+                  "step_call": 0.0, "decode_and_wait": 0.0}
+        self.rt = rt
+        self._wrap(rt, "emit_native_feed", "emit_native_feed")
+        self._wrap(rt, "_wire", "wire")
+        self._wrap(rt, "vstep", "step_call")
+        inner = rt._step_and_decode
+
+        def step_and_decode(*a):
+            t0 = time.perf_counter()
+            before = self.s["wire"] + self.s["step_call"]
+            out = inner(*a)
+            self.s["decode_and_wait"] += time.perf_counter() - t0 - (
+                self.s["wire"] + self.s["step_call"] - before)
+            return out
+        rt._step_and_decode = step_and_decode
+        enable = rt.enable_native_ingress
+
+        def enable_and_wrap():
+            enable()
+            self._wrap(rt._ning, "ingest_csv", "parse")
+        rt.enable_native_ingress = enable_and_wrap
+
+    def _wrap(self, obj, attr, key):
+        fn = getattr(obj, attr)
+
+        def timed(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            self.s[key] += time.perf_counter() - t0
+            return out
+        setattr(obj, attr, timed)
+
+
+def phase_native_main(seed: int, n_events: int):
+    import torch
+    from siddhi_tpu_torch.gpu.nfa_block import BlockPlan, block_step_plain
+    from siddhi_tpu_torch.gpu.partition import PartitionedNFARuntime
+    from siddhi_tpu_torch.native import native_available
+    if not native_available():
+        fail("native_main: no C++ toolchain for the native ingress")
+    dev, v, ts = gen_events(n_events, seed)
+    t0 = time.perf_counter()
+    csv = bench_csv(dev, v, ts)
+    csv_s = time.perf_counter() - t0
+
+    # warm-up (builds the C++ loader, first launches) on a throwaway runtime
+    rt = PartitionedNFARuntime(bench_app(), device="cuda", **MAIN)
+    ingest_native(rt, csv[:csv.index(b"\n", len(csv) // 50) + 1])
+    torch.cuda.synchronize()
+
+    # ---- timed run: the entry points alone, the kernel step timed by events
+    rt = PartitionedNFARuntime(bench_app(), device="cuda", **MAIN)
+    kernel_step = rt.vstep
+    marks = []
+
+    def timed(state, *args):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = kernel_step(state, *args)
+        e1.record()
+        marks.append((e0, e1, args[4]))
+        return out
+
+    rt.vstep = timed
+    split = HostSplit(rt)
+    torch.cuda.synchronize()
+    BlockPlan.launches = 0                     # counts from here: native path
+    t0 = time.perf_counter()
+    rows = ingest_native(rt, csv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = BlockPlan.launches
+    steps = len(marks)
+    step_ms = [a.elapsed_time(b) for a, b, _ in marks]
+    fill = [int(n.sum()) for _, _, n in marks]
+    if launches != steps * BlockPlan.LAUNCHES or launches == 0:
+        fail(f"native_main: {launches} kernel launches over {steps} steps")
+    errors = rt._ning.parse_errors
+    clamped = getattr(rt, "ts_clamped", 0)
+    if errors or clamped:
+        fail(f"native_main: {errors} parse errors, {clamped} clamped "
+             f"timestamps")
+    if sum(fill) != n_events:
+        fail(f"native_main: {sum(fill)} events stepped of {n_events}")
+    timed_rows, timed_matches, timed_drops = rows, rt.match_count, rt.drop_count
+
+    # ---- checked run: every step against the plain version on the card
+    rt = PartitionedNFARuntime(bench_app(), device="cuda", **MAIN)
+    kernel_step = rt.vstep
+    comp = rt.compiler
+    plain_rows, plain_ms, worst = [], [], 0.0
+
+    def checked(state, cols, tag, ts_, base, counts):
+        nonlocal worst
+        before = clone(state)
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        ref_state, ref_ys = block_step_plain(comp, before, cols, tag, ts_,
+                                             base, counts)
+        e1.record()
+        state, ys = kernel_step(state, cols, tag, ts_, base, counts)
+        torch.cuda.synchronize()
+        plain_ms.append(e0.elapsed_time(e1))
+        ok1, e_1, bad1 = compare(ref_state, state)
+        ok2, e_2, bad2 = compare(ref_ys, ys)
+        worst = max(worst, e_1, e_2)
+        if not (ok1 and ok2):
+            fail(f"native_main step {len(plain_ms)}: kernel differs from the "
+                 f"plain version at {bad1 or bad2}")
+        host = {k: x.cpu().numpy() for k, x in ref_ys.items()}
+        for lane in range(rt.P):
+            plain_rows.extend(comp.decode_outputs(
+                {k: x[lane] for k, x in host.items()}))
+        return state, ys
+
+    rt.vstep = checked
+    rows = ingest_native(rt, csv)
+    if rows != plain_rows:
+        fail("native_main: decoded rows differ from the plain version's")
+    if rows != timed_rows or rt.match_count != timed_matches \
+            or rt.drop_count != timed_drops:
+        fail("native_main: the checked run differs from the timed run")
+    if rt.match_count != len(rows):
+        fail(f"native_main: match_count {rt.match_count}, {len(rows)} rows")
+    for r in rows:
+        if len(r) != 8 or not all(np.isfinite(x) for x in r) or \
+                not (r[0] > 90.0 and all(a < b for a, b in zip(r, r[1:]))):
+            fail(f"native_main: row breaks the rising-chain contract: {r}")
+    out = {
+        "phase": "native_main", "events": int(n_events), "steps": steps,
+        "csv_bytes": len(csv), "csv_build_s": csv_s,
+        "events_per_s": n_events / wall, "wall_s": wall,
+        "host_s": split.s,
+        "kernel_step_ms_median": float(np.median(step_ms)),
+        "kernel_step_ms_all": step_ms,
+        "plain_step_ms_median": float(np.median(plain_ms)),
+        "launches": launches, "launches_per_step": launches / steps,
+        "matches": timed_matches, "drops": timed_drops, "rows": len(rows),
+        "parse_errors": errors, "ts_clamped": clamped,
+        "mean_lane_fill": float(np.mean(fill)) / (MAIN["num_partitions"] *
+                                                  MAIN["lane_batch"]),
+        "max_abs_err": worst, "checked_steps": len(plain_ms),
+    }
+    emit(out)
+    return out
+
+
+# ------------------------------------------------------- snapshots, entry
+
+SNAP_CHAIN = """
+define stream S (dev string, v double);
+from every e1=S[v > 90.0] -> e2=S[v > e1.v] -> e3=S[v > e2.v] -> e4=S[v > e3.v]
+  -> e5=S[v > e4.v] -> e6=S[v > e5.v] -> e7=S[v > e6.v] -> e8=S[v > e7.v]
+  within 4000
+select e1.dev as dev, e1.v as v1, e4.v as v4, e8.v as v8 insert into Alerts;
+"""
+SNAP_SCAN = """
+define stream Temp (dev string, v double);
+define stream Reg (dev string, action string);
+from every e1=Temp[v > 90.0] -> e2=Temp[v > e1.v] and e3=Reg[action == 'on']
+  -> e4=Temp[v > e2.v]<2:4> -> e5=Temp[v < e1.v] within 4000
+select e1.dev as dev, e1.v as v1, e3.action as a, e5.v as v5 insert into Alerts;
+"""
+SNAP_EVENTS = 60_000
+SNAP_B = 2048
+
+
+def snapshot_feed(name: str, seed: int) -> list:
+    """(stream, row, ts) of the snapshot phase's app: the main path's
+    events for the chain, the scan path's for the scan app."""
+    if name == "chain":
+        dev, v, ts = gen_events(SNAP_EVENTS, seed)
+        return [("S", [d, x], t) for d, x, t in
+                zip(dev.tolist(), v.tolist(), ts.tolist())]
+    dev, is_temp, v, action, ts = scan_events(SNAP_EVENTS, seed)
+    return [("Temp", [d, x], t) if tm else ("Reg", [d, a], t) for d, tm, x, a, t
+            in zip(dev.tolist(), is_temp.tolist(), v.tolist(), action.tolist(),
+                   ts.tolist())]
+
+
+def run_resumed(app: str, events: list, cut):
+    """Feeds ``events`` through a ``DeviceNFARuntime`` on the card; with a
+    ``cut``, snapshots there (``snapshot_state`` + ``builder.snapshot()``),
+    restores into a fresh runtime and feeds the rest. Returns (rows,
+    matches, drops, final state on the host)."""
+    import torch
+    from siddhi_tpu_torch.gpu.nfa import DeviceNFARuntime
+    from siddhi_tpu_torch.gpu.state_io import state_to_numpy
+
+    def fresh():
+        rt = DeviceNFARuntime(app, slot_capacity=64, batch_capacity=SNAP_B,
+                              device="cuda")
+        rows = []
+        rt.add_callback(rows.extend)
+        return rt, rows
+
+    rt, rows = fresh()
+    staged = 0
+    for i, (sid, row, t) in enumerate(events):
+        if i == cut:
+            snap, bsnap = rt.snapshot_state(), rt.builder.snapshot()
+            staged = bsnap["n"]
+            before = rows
+            rt, rows = fresh()
+            rt.restore_state(snap)
+            rt.builder.restore(bsnap)
+            rows[:0] = before
+        rt.send(sid, row, t)
+    rt.flush()
+    torch.cuda.synchronize()
+    return rows, rt.match_count, rt.drop_count, state_to_numpy(rt.state), staged
+
+
+def phase_snapshot(seed: int) -> dict:
+    from siddhi_tpu_torch.gpu.nfa_block import BlockPlan
+    from siddhi_tpu_torch.gpu.nfa_scan import ScanPlan
+    out = {"phase": "snapshot", "apps": []}
+    BlockPlan.launches = ScanPlan.launches = 0    # counts from here
+    for name, app, plan in (("chain", SNAP_CHAIN, BlockPlan),
+                            ("scan", SNAP_SCAN, ScanPlan)):
+        events = snapshot_feed(name, seed)
+        cut = len(events) // 2 + SNAP_B // 3         # mid-batch
+        n0 = plan.launches
+        whole = run_resumed(app, events, None)
+        resumed = run_resumed(app, events, cut)
+        if resumed[4] == 0:
+            fail(f"snapshot {name}: no rows staged in the builder at the cut")
+        if whole[:3] != resumed[:3]:
+            fail(f"snapshot {name}: the resumed run's rows or counters "
+                 f"differ ({resumed[1]} matches, {resumed[2]} drops; whole "
+                 f"{whole[1]}, {whole[2]})")
+        a, b = dict(flatten(whole[3])), dict(flatten(resumed[3]))
+        if a.keys() != b.keys() or any(
+                a[k].dtype != b[k].dtype or a[k].tobytes() != b[k].tobytes()
+                for k in a):
+            fail(f"snapshot {name}: the resumed run's final state differs")
+        if not whole[1]:
+            fail(f"snapshot {name}: no match in {len(events)} events")
+        out["apps"].append({"app": name, "kernel": plan.__name__,
+                            "events": len(events), "cut": cut,
+                            "staged_at_cut": resumed[4],
+                            "launches": plan.launches - n0,
+                            "matches": whole[1], "drops": whole[2],
+                            "rows": len(whole[0]), "equal": True})
+    if not BlockPlan.launches or not ScanPlan.launches:
+        fail(f"snapshot: {BlockPlan.launches} blocked and "
+             f"{ScanPlan.launches} scan launches")
+    emit(out)
+    return out
+
+
+def phase_entry() -> dict:
+    import torch
+    from siddhi_tpu_torch.entry import dryrun_multichip, entry
+    from siddhi_tpu_torch.gpu.nfa_block import BlockPlan, block_step_plain
+    fn, args = entry()
+    comp = fn.plan.nfa
+    BlockPlan.launches = 0                        # counts from here
+    state, cols, tag, ts, base, nvalid = args
+    ref_state, ref_ys = block_step_plain(comp, clone(state), cols, tag, ts,
+                                         base, nvalid)
+    got_state, got_ys = fn(*args)
+    torch.cuda.synchronize()
+    ok1, _, bad1 = compare(ref_state, got_state)
+    ok2, _, bad2 = compare(ref_ys, got_ys)
+    if not (ok1 and ok2):
+        fail(f"entry: the step differs from the plain version at "
+             f"{bad1 or bad2}")
+    step_launches = BlockPlan.launches
+    dry = dryrun_multichip(1)
+    if step_launches != 1 or BlockPlan.launches <= step_launches:
+        fail(f"entry: {step_launches} launches for entry(), "
+             f"{BlockPlan.launches - step_launches} for the dry run")
+    out = {"phase": "entry", "entry_matches": int(got_ys["mask"].sum()),
+           "entry_launches": step_launches,
+           "dryrun_matches": dry["matches"], "dryrun_expected": dry["expected"],
+           "dryrun_launches": BlockPlan.launches - step_launches,
+           "equal": True}
     emit(out)
     return out
 
@@ -866,15 +1216,20 @@ def phase_scan_main(seed: int, n_events: int):
                 not (r[1] > 90.0 and r[3] < r[1]):
             fail(f"scan_main: row breaks the pattern's contract: {r}")
 
-    # ---- checked run: the first steps against the plain version on the card
+    # ---- checked run: the first steps and one later step (the last a full
+    # lane triggered, its tables warm) against the plain version on the
+    # card, each from the state the kernel reached before it
+    late = steps - 2 if steps > SCAN_CHECK_STEPS + 1 else None
     rt = PartitionedNFARuntime(SCAN_APP, device="cuda", **SCAN_MAIN)
     comp = rt.compiler
     kernel_step = rt.vstep
-    plain_ms, worst, checked_rows = [], 0.0, []
+    plain_ms, worst, checked_rows, checked_at, seen = [], 0.0, [], [], [0]
 
     def checked(state, cols, tag, ts_, base, counts):
         nonlocal worst
-        if len(plain_ms) >= SCAN_CHECK_STEPS:
+        i = seen[0]
+        seen[0] += 1
+        if i >= SCAN_CHECK_STEPS and i != late:
             return kernel_step(state, cols, tag, ts_, base, counts)
         before = clone(state)
         e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -885,23 +1240,26 @@ def phase_scan_main(seed: int, n_events: int):
         state, ys = kernel_step(state, cols, tag, ts_, base, counts)
         torch.cuda.synchronize()
         plain_ms.append(e0.elapsed_time(e1))
+        checked_at.append(i)
         ok1, e_1, bad1 = compare(ref_state, state)
         ok2, e_2, bad2 = compare(ref_ys, ys)
         worst = max(worst, e_1, e_2)
         if not (ok1 and ok2):
-            fail(f"scan_main step {len(plain_ms)}: kernel differs from the "
-                 f"plain version at {bad1 or bad2}")
+            fail(f"scan_main step {i}: kernel differs from the plain version "
+                 f"at {bad1 or bad2}")
         got, want = comp.decode_outputs(ys), comp.decode_outputs(ref_ys)
         if got != want:
-            fail(f"scan_main step {len(plain_ms)}: decoded rows differ")
-        checked_rows.append(got)
+            fail(f"scan_main step {i}: decoded rows differ")
+        checked_rows.append((i, got))
         return state, ys
 
     rt.vstep = checked
-    feed_scan(rt, ev, stop=lambda: len(plain_ms) >= SCAN_CHECK_STEPS)
-    if len(plain_ms) < min(SCAN_CHECK_STEPS, steps):
-        fail(f"scan_main: only {len(plain_ms)} steps checked")
-    if checked_rows != step_rows[:len(checked_rows)]:
+    feed_scan(rt, ev, stop=lambda: late is None and seen[0] >= SCAN_CHECK_STEPS)
+    want_at = list(range(min(SCAN_CHECK_STEPS, steps))) + \
+        ([late] if late is not None else [])
+    if checked_at != want_at:
+        fail(f"scan_main: steps {checked_at} checked, {want_at} wanted")
+    if any(got != step_rows[i] for i, got in checked_rows):
         fail("scan_main: the checked run's rows differ from the timed run's")
 
     L, B = SCAN_MAIN["num_partitions"], SCAN_MAIN["lane_batch"]
@@ -916,7 +1274,8 @@ def phase_scan_main(seed: int, n_events: int):
         "kernel_step_ms_all": step_ms,
         "plain_step_ms_median": float(np.median(plain_ms)),
         "plain_step_ms_all": plain_ms, "plain_device": "cuda",
-        "checked_steps": len(plain_ms), "launches": launches,
+        "checked_steps": len(plain_ms), "checked_step_indices": checked_at,
+        "launches": launches,
         "matches": matches, "drops": drops, "rows": len(rows),
         "send_many_calls": 1 + int(np.count_nonzero(ev[1][1:] != ev[1][:-1])),
         "mean_lane_fill": float(np.mean(fill)) / (L * B),
@@ -1203,7 +1562,7 @@ def phase_query_main(name: str, seed: int) -> dict:
     rt = DeviceStreamRuntime(app, device="cuda", **cfg)
     q = rt.compiled
     kstep = q.step_tensors
-    marks, kmarks, shapes = [], [], {}
+    marks, kmarks, shapes, fulls = [], [], {}, []
 
     def event_pair():
         return (torch.cuda.Event(enable_timing=True),
@@ -1215,6 +1574,7 @@ def phase_query_main(name: str, seed: int) -> dict:
         new, out = kstep(state, c, t, v)
         e1.record()
         marks.append((e0, e1))
+        fulls.append(bool(v.all()))
         if not shapes:
             shapes["bytes"] = query_step_bytes(state, new, c, t, v, out)
             shapes["passes"] = hh_passes(q, state, new)
@@ -1265,17 +1625,28 @@ def phase_query_main(name: str, seed: int) -> dict:
     extra = check_query_rows(name, rows, cols, ts)
 
     # ---- checked run: every step against the plain version on the card
+    # (where the plain version is too slow for that, the first steps and
+    # the last full one, its tables warm, each from the state the kernel
+    # reached before it)
     rt = DeviceStreamRuntime(app, device="cuda", **cfg)
     q = rt.compiled
     kstep = q.step_tensors
     plain_ms, worst, equal_steps = [], 0.0, 0
     limits, fsum_limit, row_limit, twice = {}, [], [], []
     check_steps = QUERY_CHECK_STEPS.get(name)
+    late = max((i for i, f in enumerate(fulls) if f), default=None) \
+        if check_steps is not None else None
+    if late is not None and late < check_steps:
+        late = None
+    seen, checked_at = [0], []
 
     def checked(state, c, t, v):
         nonlocal worst, equal_steps
-        if check_steps is not None and len(plain_ms) >= check_steps:
+        i = seen[0]
+        seen[0] += 1
+        if check_steps is not None and i >= check_steps and i != late:
             return kstep(state, c, t, v)
+        checked_at.append(i)
         if plan is QueryPlan and not twice and len(plain_ms) >= 9 and \
                 bool(v.all()):
             twice.append(run_twice(name, kstep, state, c, t, v))
@@ -1304,6 +1675,9 @@ def phase_query_main(name: str, seed: int) -> dict:
 
     q.step_tensors = checked
     rows2 = feed_query(rt, cols, ts)
+    if check_steps is not None and checked_at != \
+            list(range(min(check_steps, steps))) + ([late] if late is not None else []):
+        fail(f"query_main {name}: steps {checked_at} checked")
     if plan is QueryPlan and not twice:
         fail(f"query_main {name}: no full-width step was run twice")
     if rows2 != rows:
@@ -1322,6 +1696,8 @@ def phase_query_main(name: str, seed: int) -> dict:
         "step_call_ms_median": float(np.median(call_ms)),
         "plain_step_ms_median": float(np.median(plain_ms)),
         "plain_device": "cuda", "checked_steps": len(plain_ms),
+        **({"checked_step_indices": checked_at}
+           if check_steps is not None else {}),
         "bitwise_equal_steps": equal_steps,
         "rows": len(rows), "window_drops": drops, "group_collisions": coll,
         "bytes_per_step": shapes["bytes"], "ops_per_step": ops,
@@ -2037,6 +2413,9 @@ def main() -> int:
     card = phase_device()
     shape_err = phase_shapes(args.seed)
     main_out = phase_main(args.seed, args.events)
+    native_out = phase_native_main(args.seed, args.events)
+    snap_out = phase_snapshot(args.seed)
+    entry_out = phase_entry()
     scan_err = phase_scan_shapes(args.seed)
     scan_out = phase_scan_main(args.seed, SCAN_EVENTS)
     query_err = phase_query_shapes()
@@ -2065,6 +2444,12 @@ def main() -> int:
         "unit": "one main-path step (1 launch: the seed gate and S-1 = 7 "
                 "stages)",
         "parity": "exact",
+        "launches_by_path": {
+            "main": main_out["launches"], "native_main": native_out["launches"],
+            "snapshot": snap_out["apps"][0]["launches"],
+            "entry": entry_out["entry_launches"] + entry_out["dryrun_launches"]},
+        "native_main_ms": native_out["kernel_step_ms_median"],
+        "native_main_plain_ms": native_out["plain_step_ms_median"],
     }, {
         "name": "nfa_scan_step",
         "route": "cuda",
@@ -2082,6 +2467,8 @@ def main() -> int:
         "unit": "one scan_main step (1 launch, ys zeroed in it)",
         "parity": "exact",
         "checked_steps": scan_out["checked_steps"],
+        "launches_by_path": {"scan_main": scan_out["launches"],
+                             "snapshot": snap_out["apps"][1]["launches"]},
     }, *query_kernel_entries(q_outs, query_err), join_kernel_entry(j_outs),
         agg_kernel_entry(a_outs)]
     print(card, flush=True)

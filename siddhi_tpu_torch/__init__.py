@@ -9,8 +9,10 @@ JAX-free layers it needs (``query_api``, ``compiler``, the flattening half
 of ``core/pattern.py``) are kept as copies under the same names.
 
 This package imports ``torch`` and never ``jax`` or ``siddhi_tpu``. CUDA
-kernels (``csrc/``) are compiled with ``nvcc`` at first CUDA use, never on
-import.
+kernels (``csrc/``) are compiled with ``nvcc`` at first CUDA use, and the
+native CSV ingress (``native/``) with ``g++`` at first use, never on
+import. ``entry.py`` holds the entry points ``entry()`` and
+``dryrun_multichip(n)``.
 """
 
 __version__ = "0.1.0"

@@ -45,7 +45,10 @@
 //   - the lane's batch is staged once, with 16-byte cp.async copies of the
 //     lines that cover each [B] row (ts deltas as int32, tag, every used
 //     column in its own width); the old table of stage s+1 is prefetched the
-//     same way while stage s searches (double-buffered).
+//     same way while stage s searches (double-buffered). A batch too large
+//     for shared memory (a large B with several columns) is read where it
+//     lies, in the step's input tensors (MODE_BATCH_GLOBAL, the last layout
+//     tried); the chunk summaries of the early exit stay in shared memory.
 //   - the creations passed between stages stay in shared memory (two
 //     buffers of the largest stage's creation count); where they do not fit
 //     (no creation cap and a large B), the same kernel keeps them in a
@@ -103,9 +106,11 @@ static constexpr int NT = 512;           // threads a CTA
 #define TS_NONE (-(1LL << 62))
 
 // mode bits, chosen by nfa_block_plan: creations in global scratch; one
-// table buffer (no prefetch)
+// table buffer (no prefetch); the batch read where it lies, in global memory
+// (not staged: a lane's batch of a few hundred KB sits in the L2)
 #define MODE_CRE_GLOBAL 1
 #define MODE_ONE_TABLE 2
+#define MODE_BATCH_GLOBAL 4
 
 // One state's stage (s = 0 is the seed gate; its entry is unused for S > 1).
 struct BlockStage {
@@ -221,10 +226,11 @@ __host__ __device__ inline int smem_layout(const BlockDesc& d, int mode, int cl,
   y->code = carve(&off, 16LL * d.ncode);
   y->tptr = carve(&off, 8LL * d.ntp);
   y->ptrs = carve(&off, sizeof(Ptrs));
-  y->ts = carve(&off, row_room(4 * B));
-  y->tag = carve(&off, row_room(B));
+  const bool staged = !(mode & MODE_BATCH_GLOBAL);
+  y->ts = carve(&off, staged ? row_room(4 * B) : 0);
+  y->tag = carve(&off, staged ? row_room(B) : 0);
   for (int c = 0; c < MAXCOL; ++c)
-    y->col[c] = c < d.ncol ? carve(&off, row_room(B * ty_size(d.col_ty[c]))) : off;
+    y->col[c] = c < d.ncol && staged ? carve(&off, row_room(B * ty_size(d.col_ty[c]))) : off;
   y->cmin = carve(&off, 8LL * y->nck);
   y->cmax = carve(&off, 8LL * y->nck);
   y->tab[0] = carve(&off, d.S > 1 ? y->tab_bytes : 0);
@@ -549,8 +555,16 @@ nfa_block_kernel(const __grid_constant__ BlockArgs a, const __grid_constant__ La
   const bool two_tables = !(a.mode & MODE_ONE_TABLE);
   const long long lb = (long long)l * B, lc = (long long)l * C;
 
-  // ---- stage the lane's batch (and stage 1's table)
-  {
+  // ---- stage the lane's batch (and stage 1's table); MODE_BATCH_GLOBAL
+  //      reads the batch from the step's input tensors instead
+  if (a.mode & MODE_BATCH_GLOBAL) {
+    if (tid == 0) {
+      P.ts = a.ts + lb;
+      P.tag = a.tag + lb;
+      for (int c = 0; c < d.ncol; ++c)
+        P.col[c] = (const unsigned char*)a.col[c] + ty_size(d.col_ty[c]) * lb;
+    }
+  } else {
     const unsigned char* q = stage_row(smem_raw + y.ts, a.ts + lb, 4LL * B);
     if (tid == 0) P.ts = (const int*)q;
     q = stage_row(smem_raw + y.tag, a.tag + lb, B);
@@ -561,11 +575,10 @@ nfa_block_kernel(const __grid_constant__ BlockArgs a, const __grid_constant__ La
                         (long long)sz * B);
       if (tid == 0) P.col[c] = q;
     }
-    if (S > 1 && two_tables)
-      stage_table(d, st[1], tptr, y, l, smem_raw + y.tab[1], P.tab[1]);
-    cp_async_commit();
-    cp_async_wait_all();
   }
+  if (S > 1 && two_tables) stage_table(d, st[1], tptr, y, l, smem_raw + y.tab[1], P.tab[1]);
+  cp_async_commit();
+  cp_async_wait_all();
   int nv = a.nvalid[l];
   nv = nv < 0 ? 0 : (nv > B ? B : nv);
   const long long base = a.ts_base[l];
@@ -857,17 +870,24 @@ nfa_block_kernel(const __grid_constant__ BlockArgs a, const __grid_constant__ La
 extern "C" int nfa_block_desc_head(void) { return desc_head(); }
 extern "C" int nfa_block_stage_size(void) { return (int)sizeof(BlockStage); }
 extern "C" int nfa_block_args_size(void) { return (int)sizeof(BlockArgs); }
+extern "C" int nfa_block_ptrs_size(void) { return (int)sizeof(Ptrs); }
 
 // The layout mode for a plan (`desc`: BlockDesc + stages, host memory) with
-// `cluster` CTAs a lane: creations and two table buffers in shared memory
-// where they fit, else creations in global scratch, else also one table
-// buffer. Writes the mode and the scratch bytes a lane needs (0 when the
-// creations stay in shared memory); returns 0, or -2 when no mode fits.
-extern "C" int nfa_block_plan(const unsigned char* desc, int cluster, int* mode,
-                              long long* scratch_per_lane) {
+// `cluster` CTAs a lane: with batch_global == 0, creations and two table
+// buffers in shared memory where they fit, else creations in global scratch,
+// else also one table buffer; with batch_global != 0, only the mode that also
+// leaves the batch in global memory. The host tries every cluster size with
+// batch_global == 0 first, so a plan that fits without it keeps its layout.
+// Writes the mode and the scratch bytes a lane needs (0 when the creations
+// stay in shared memory); returns 0, or -2 when no mode fits.
+// gpu/nfa_block.py::block_layout mirrors this and smem_layout, and refuses a
+// plan that fits no mode when it is built.
+extern "C" int nfa_block_plan(const unsigned char* desc, int cluster, int batch_global,
+                              int* mode, long long* scratch_per_lane) {
   const BlockDesc& d = *(const BlockDesc*)desc;
-  const int modes[3] = {0, MODE_CRE_GLOBAL, MODE_CRE_GLOBAL | MODE_ONE_TABLE};
-  for (int i = 0; i < 3; ++i) {
+  const int modes[4] = {0, MODE_CRE_GLOBAL, MODE_CRE_GLOBAL | MODE_ONE_TABLE,
+                        MODE_CRE_GLOBAL | MODE_ONE_TABLE | MODE_BATCH_GLOBAL};
+  for (int i = batch_global ? 3 : 0; i < (batch_global ? 4 : 3); ++i) {
     Lay y;
     if (smem_layout(d, modes[i], cluster, &y) <= SMEM_LIMIT) {
       *mode = modes[i];

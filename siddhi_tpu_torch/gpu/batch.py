@@ -34,6 +34,11 @@ class StringDictionary:
         self._cache_len = 0
         self._sorted_vals = None
         self._sorted_codes = None
+        # bumped by every in-place restore(): translation caches keyed on it
+        # (core/columns.py::encode_dict_column) drop what they hold, since
+        # append-only growth keeps cached prefixes valid and a restore does
+        # not
+        self.generation = 0
 
     def encode(self, s: Optional[str]) -> int:
         if s is None:
@@ -49,6 +54,16 @@ class StringDictionary:
         if 0 <= code < len(self._values):
             return self._values[code]
         return None
+
+    def add(self, code: int, value: str) -> None:
+        """Registers an externally minted (code, value) pair: the entries the
+        native ingress dictionary assigned. Codes must arrive in sequence."""
+        if code != len(self._values):
+            raise ValueError(
+                f"out-of-sequence dictionary code {code} (next is "
+                f"{len(self._values)})")
+        self._codes[value] = code
+        self._values.append(value)
 
     def __len__(self) -> int:
         return len(self._values)
@@ -101,6 +116,7 @@ class StringDictionary:
         self._values = [None] + list(values)
         self._codes = {v: i + 1 for i, v in enumerate(values)}
         self._cache_len = 0          # sorted lookup rebuilt on next encode
+        self.generation += 1         # external translation caches drop
 
 
 def snapshot_dictionaries(dictionaries: dict) -> dict:
@@ -124,12 +140,14 @@ def restore_dictionaries(dictionaries: dict, snap: dict) -> None:
             d.restore(values)
 
 
-def device_state_snapshot(state: dict, dict_owner) -> dict:
-    """Device-runtime checkpoint: the state tree fetched to numpy plus the
-    string dictionary that decodes its codes. ``dict_owner`` is any object
-    with ``snapshot_dictionaries()``/``restore_dictionaries()``."""
+def device_state_snapshot(state: dict, dict_owner,
+                          single_lane: bool = False) -> dict:
+    """Device-runtime checkpoint: the state tree fetched to numpy (its lane
+    dim of 1 dropped when ``single_lane``) plus the string dictionary that
+    decodes its codes. ``dict_owner`` is any object with
+    ``snapshot_dictionaries()``/``restore_dictionaries()``."""
     from .state_io import state_to_numpy
-    return {"device": state_to_numpy(state),
+    return {"device": state_to_numpy(state, single_lane),
             "dict": dict_owner.snapshot_dictionaries()}
 
 
@@ -239,10 +257,11 @@ class BatchBuilder:
             self.append(row, ts)
 
     def append_columns(self, cols: dict, ts, start: int = 0) -> int:
-        """Bulk slice-copy of a columnar chunk (``{name: numpy array}``;
-        string columns as arrays of str, encoded through the dictionary)
-        into the staging buffers, starting at row ``start`` of the chunk;
-        returns how many rows fit (the caller emits and resumes past
+        """Bulk slice-copy of a columnar chunk (``{name: numpy array |
+        DictColumn}``; string columns as arrays of str, encoded through the
+        dictionary, or as ``DictColumn`` codes, translated through a cached
+        table) into the staging buffers, starting at row ``start`` of the
+        chunk; returns how many rows fit (the caller emits and resumes past
         them)."""
         ts = np.asarray(ts, dtype=np.int64)
         n = int(ts.shape[0]) - start
@@ -254,9 +273,17 @@ class BatchBuilder:
         if self._pack_t0 is None:
             self._pack_t0 = time.perf_counter()
         i = self._n
+        from ..core.columns import DictColumn, encode_dict_column
         for name in self.schema.names:
-            arr = cols[name][start:start + take]
+            col = cols[name]
             dst = self._cols[name]
+            if isinstance(col, DictColumn):
+                dic = self.schema.dictionaries.get(name)
+                part = col[start:start + take]
+                dst[i:i + take] = encode_dict_column(part, dic) \
+                    if dic is not None else part.codes
+                continue
+            arr = col[start:start + take]
             if not isinstance(arr, np.ndarray) or arr.dtype == object \
                     or arr.dtype.kind == "U":
                 enc = self.schema.dictionaries.get(name)

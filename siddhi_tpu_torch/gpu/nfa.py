@@ -21,6 +21,7 @@ validity the prefix ``[0, count)``.
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 from typing import Any, Callable, Optional
 
@@ -119,6 +120,9 @@ class MergedBatchBuilder:
         self._ts = np.zeros(capacity, dtype=np.int64)
         self._n = 0
         self.ts_clamped = 0        # events whose in-batch ts delta overflowed
+        # wall clock of the first append since the last emit: the flush
+        # deadline's start (a restore re-arms it)
+        self._pack_t0 = None
 
     def __len__(self):
         return self._n
@@ -129,6 +133,8 @@ class MergedBatchBuilder:
 
     def append(self, stream_id: str, row: list, ts: int) -> None:
         i = self._n
+        if self._pack_t0 is None:
+            self._pack_t0 = time.perf_counter()
         si = self.schema.stream_index[stream_id]
         d = self.stream_defs[stream_id]
         for a, v in zip(d.attributes, row):
@@ -152,6 +158,8 @@ class MergedBatchBuilder:
         take = min(n_rows, self.capacity - self._n)
         if take <= 0:
             return 0
+        if self._pack_t0 is None:
+            self._pack_t0 = time.perf_counter()
         i = self._n
         si = self.schema.stream_index[stream_id]
         d = self.stream_defs[stream_id]
@@ -187,7 +195,28 @@ class MergedBatchBuilder:
             "count": n,
         }
         self._n = 0
+        self._pack_t0 = None
         return out
+
+    def snapshot(self) -> dict:
+        """Staged but unemitted rows (a checkpoint between two steps)."""
+        n = self._n
+        return {
+            "cols": {k: v[:n].copy() for k, v in self._cols.items()},
+            "tag": self._tag[:n].copy(),
+            "ts": self._ts[:n].copy(),
+            "n": n,
+        }
+
+    def restore(self, snap: dict) -> None:
+        n = snap["n"]
+        self._n = n
+        for k, v in snap["cols"].items():
+            self._cols[k][:n] = v
+        self._tag[:n] = snap["tag"]
+        self._ts[:n] = snap["ts"]
+        if n:                   # restored rows re-arm the flush deadline
+            self._pack_t0 = time.perf_counter()
 
 
 # ---------------------------------------------------------------------------
@@ -819,3 +848,24 @@ class DeviceNFARuntime(AdaptiveFlushMixin):
     @property
     def drop_count(self) -> int:
         return int(self.state["drops"].sum())
+
+    def snapshot_state(self) -> dict:
+        """Checkpoint of the device state and its string dictionary, in the
+        JAX package's shape: ``{"device": numpy tree with [C] leaves and
+        scalar counters, "dict": {column: values}}``. Rows staged in the
+        builder are not in it (``builder.snapshot()`` holds them)."""
+        from .batch import device_state_snapshot
+        return device_state_snapshot(self.state, self.compiler.merged,
+                                     single_lane=True)
+
+    def restore_state(self, snap) -> None:
+        """Restores a ``snapshot_state`` checkpoint: the port's, or the JAX
+        package's ``DeviceNFARuntime.snapshot_state()`` (numpy leaves, the
+        same tree). Every leaf of ``init_state`` must be there with its
+        dtype and its one-lane shape."""
+        from .batch import device_state_restore
+        from .state_io import nfa_state_from_numpy
+        self.state = device_state_restore(
+            snap, self.compiler.merged,
+            lambda tree: nfa_state_from_numpy(self.compiler, tree,
+                                              self.device))

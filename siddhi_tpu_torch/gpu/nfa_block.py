@@ -44,6 +44,8 @@ from .dtypes import TORCH
 from .expr_compile import (
     DTYPE_OF,
     OP,
+    T_BOOL,
+    T_I64,
     TY_OF,
     MAXSTACK,
     DeviceCompileError,
@@ -61,6 +63,13 @@ MAXCOL = 32
 MAXB = 32
 MAXOUT = 32
 _TS_NONE = -(2 ** 62)
+# the kernel's block and its shared-memory layout modes (csrc/nfa_block.cu)
+NT = 512
+SMEM_LIMIT = 227 * 1024
+MODE_CRE_GLOBAL, MODE_ONE_TABLE, MODE_BATCH_GLOBAL = 1, 2, 4
+MODES = (0, MODE_CRE_GLOBAL, MODE_CRE_GLOBAL | MODE_ONE_TABLE,
+         MODE_CRE_GLOBAL | MODE_ONE_TABLE | MODE_BATCH_GLOBAL)
+_PTRS_BYTES = 8 * (2 + MAXCOL + 2 * (3 + MAXB) + 1)   # sizeof(struct Ptrs)
 
 
 def blocked_eligible(nfa: "DeviceNFACompiler") -> bool:
@@ -408,6 +417,58 @@ def _desc_head() -> int:
     return (ctypes.sizeof(BlockDesc) + 15) & ~15
 
 
+def smem_layout(d: "BlockDesc", mode: int, cl: int) -> tuple[int, int]:
+    """(shared-memory bytes a CTA needs, bytes of one creation buffer) for
+    descriptor ``d`` under layout ``mode`` with ``cl`` CTAs a lane: the
+    kernel's ``smem_layout``, region by region."""
+    def carve(n):
+        return (n + 15) & ~15
+
+    def room(n):                        # a row staged by 16-byte lines
+        return n + 32
+
+    def size(ty):
+        return 1 if ty == T_BOOL else (8 if ty == T_I64 else 4)
+    B, C, cap, nb = d.B, d.C, d.cap, d.nbind_max
+    cre = (carve(cap) + 2 * carve(4 * cap) + carve(8 * cap)
+           + carve(8 * cap if d.has_ew else 0) + carve(8 * cap * nb))
+    tab = (carve(room(C)) + carve(room(8 * C))
+           + carve(room(8 * C) if d.has_ew else 0)
+           + sum(carve(room(C * size(d.key_ty[k]))) for k in range(nb)))
+    off = (carve(_desc_head() + d.S * ctypes.sizeof(BlockStage))
+           + carve(16 * d.ncode) + carve(8 * d.ntp) + carve(_PTRS_BYTES))
+    if not mode & MODE_BATCH_GLOBAL:
+        off += carve(room(4 * B)) + carve(room(B)) + sum(
+            carve(room(B * size(d.col_ty[c]))) for c in range(d.ncol))
+    off += 2 * carve(8 * ((B + 31) // 32))            # cmin, cmax
+    tabs = 1 if mode & MODE_ONE_TABLE else 2
+    off += tabs * carve(tab if d.S > 1 else 0)
+    if d.S > 1 and not mode & MODE_CRE_GLOBAL:
+        off += 2 * carve(cre)
+    nfb = 2 if cl > 1 else 1
+    off += (carve(nfb * d.np) + carve(4 * nfb * d.np) + 2 * carve(4 * d.np)
+            + carve(8 * (NT // 32) * max(nb, 1)) + carve(4 * 2 * 2 * (NT // 32)))
+    return off, cre
+
+
+def block_layout(d: "BlockDesc", clusters: tuple):
+    """(CTAs a lane, layout mode, global scratch bytes a lane) of the first
+    plan that fits in a block's shared memory, in the kernel's order
+    (``nfa_block_plan``): each of ``clusters`` with the batch staged (modes
+    0, 1, 3), then each with the batch left in global memory (mode 7), so a
+    plan that fits without that mode keeps its layout; None where none
+    fits."""
+    for modes in (MODES[:-1], MODES[-1:]):
+        for cl in clusters:
+            for mode in modes:
+                need, cre = smem_layout(d, mode, cl)
+                if need <= SMEM_LIMIT:
+                    scratch = 2 * cl * cre \
+                        if mode & MODE_CRE_GLOBAL and d.S > 1 else 0
+                    return cl, mode, scratch
+    return None
+
+
 def link_program(ir: list, col_slot: dict, bind_slot: dict,
                  ev_alias: Optional[dict] = None) -> np.ndarray:
     """Resolves a pattern program's env keys to kernel slots: ``ev_<col>``
@@ -557,6 +618,15 @@ class BlockPlan:
             st.pred, st.cpred = _Prog(*info["pred"]), _Prog(*info["cpred"])
         d.ntp = tp
         self.desc = d
+        # the kernel's layout, mirrored here so that a plan no layout fits is
+        # refused when it is built, on every device, not at its first step
+        if self.layout_mirror is None:
+            need, _ = smem_layout(d, MODES[-1], 1)
+            raise DeviceCompileError(
+                f"blocked kernel: a lane needs {need} B of shared memory with "
+                f"its batch and creations in global memory, more than a "
+                f"block has ({SMEM_LIMIT} B); lower lane_batch or "
+                f"slot_capacity, or set creation_cap")
         blob = bytes(d).ljust(_desc_head(), b"\0") + bytes(stages)
         self.desc_host = ctypes.create_string_buffer(blob, len(blob))
         self._desc_np = np.frombuffer(blob, dtype=np.uint8).copy()
@@ -579,6 +649,13 @@ class BlockPlan:
         self._layout = None      # layout()
         self._checked = False
 
+    @property
+    def layout_mirror(self):
+        """The layout the kernel takes (``layout``), computed in Python:
+        (CTAs a lane, layout mode, global scratch bytes a lane), None where
+        no layout fits."""
+        return block_layout(self.desc, (self.CLUSTER, 1))
+
     # -- kernel side ---------------------------------------------------------
     def _on(self, dev):
         got = self._dev.get(dev)
@@ -596,14 +673,15 @@ class BlockPlan:
                                            ctypes.c_void_p]
             lib.nfa_block_step.restype = ctypes.c_int
             lib.nfa_block_plan.argtypes = [
-                ctypes.c_void_p, ctypes.c_int,
+                ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                 ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_longlong)]
             lib.nfa_block_plan.restype = ctypes.c_int
             for fn, size in ((lib.nfa_block_desc_head, _desc_head()),
                              (lib.nfa_block_stage_size,
                               ctypes.sizeof(BlockStage)),
                              (lib.nfa_block_args_size,
-                              ctypes.sizeof(BlockArgs))):
+                              ctypes.sizeof(BlockArgs)),
+                             (lib.nfa_block_ptrs_size, _PTRS_BYTES)):
                 fn.restype = ctypes.c_int
                 if fn() != size:
                     raise RuntimeError(
@@ -617,17 +695,24 @@ class BlockPlan:
         """(CTAs a lane, layout mode, global scratch bytes a lane) the
         kernel takes: ``CLUSTER`` CTAs a lane where their plan fits in
         shared memory, else one (a cluster doubles the per-candidate
-        flags); creations in shared memory where they fit."""
+        flags); creations in shared memory where they fit, the batch in
+        global memory only where nothing else fits. Asks the kernel's own
+        ``nfa_block_plan``, which must agree with ``layout_mirror``."""
         if self._layout is None:
-            for cl in (self.CLUSTER, 1):
+            got = None
+            for cl, bg in ((cl, bg) for bg in (0, 1)
+                           for cl in (self.CLUSTER, 1)):
                 mode, scratch = ctypes.c_int(), ctypes.c_longlong()
-                if lib.nfa_block_plan(self.desc_host, cl, ctypes.byref(mode),
+                if lib.nfa_block_plan(self.desc_host, cl, bg,
+                                      ctypes.byref(mode),
                                       ctypes.byref(scratch)) == 0:
-                    self._layout = (cl, mode.value, scratch.value)
+                    got = (cl, mode.value, scratch.value)
                     break
-            else:
-                raise RuntimeError("nfa_block: a lane needs more shared "
-                                   "memory than a block has")
+            if got != self.layout_mirror:
+                raise RuntimeError(
+                    f"nfa_block: the kernel's layout {got} differs from the "
+                    f"Python mirror's {self.layout_mirror}")
+            self._layout = got
         return self._layout
 
     def _state_leaves(self, state) -> list:

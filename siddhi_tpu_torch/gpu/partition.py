@@ -7,7 +7,12 @@ lane axis is the kernel's grid (one CTA per lane), so nothing crosses lanes.
 Both step shapes run here: the blocked chain (``nfa_block``) and the
 per-event scan (``nfa_scan``); absent states are refused under a partition,
 as the reference refuses them.
-Native CSV ingress and lanes spread over several GPUs are not ported yet.
+
+Two ingress routes feed the lanes: ``send``/``send_many`` route rows on the
+host in Python (``partition_columns``), and the native route
+(``enable_native_ingress`` → ``ingest_csv``/``emit_native_feed``) parses raw
+CSV bytes, routes them by crc32 and packs the lanes in C++
+(``native/ingress.cpp``). Lanes spread over several GPUs are not ported yet.
 """
 
 from __future__ import annotations
@@ -158,7 +163,117 @@ class PartitionedNFARuntime:
     def lane_of(self, key) -> int:
         return _hash_key(key) % self.P
 
+    # -- native (C++) CSV ingress ------------------------------------------
+    def enable_native_ingress(self) -> None:
+        """Routes raw CSV bytes through the C++ loader (no Python in the
+        per-event loop): parse → dict-encode → crc32 lane routing → SoA
+        pack. Single-input-stream patterns only."""
+        from ..native import NativeIngress, native_available
+        from ..query_api.definition import DataType
+
+        if not native_available():
+            raise RuntimeError("native ingress unavailable (no g++)")
+        if len(self.compiler.merged.stream_ids) != 1:
+            raise ValueError("native CSV ingress supports single-stream patterns")
+        sid = self.compiler.merged.stream_ids[0]
+        d = self.stream_defs[sid]
+        chars = {DataType.STRING: "s", DataType.INT: "i", DataType.LONG: "l",
+                 DataType.FLOAT: "f", DataType.DOUBLE: "d", DataType.BOOL: "b"}
+        types = "".join(chars[a.type] for a in d.attributes)
+        self._ning = NativeIngress(
+            types, key_col=d.attribute_position(self.key_attr),
+            n_lanes=self.P, capacity=self.lane_batch)
+        # replay already-assigned codes (compile-time string constants) so
+        # the native dictionary assigns identical codes from here on
+        self._shared_dict = next(
+            iter(self.compiler.merged.dictionaries.values()), None)
+        if self._shared_dict is not None:
+            for code in range(1, len(self._shared_dict)):
+                self._ning.encode(self._shared_dict.decode(code))
+        self._col_keys = [f"s0_{a.name}" for a in d.attributes]
+        self._bool_cols = [a.type == DataType.BOOL for a in d.attributes]
+
+    def ingest_csv(self, data: bytes, base_ts: int = 0, ts_last: bool = False,
+                   decode: bool = False) -> list:
+        """Feeds raw CSV bytes end to end; steps the lanes each time one
+        fills."""
+        decode = decode or self.callback is not None
+        rows: list = []
+        pos, n = 0, len(data)
+        while pos < n:
+            pos += self._ning.ingest_csv(
+                data, base_ts=base_ts, ts_last=ts_last, offset=pos)
+            if pos < n:  # a lane filled: step the lanes and resume
+                out = self.flush_native(decode=decode)
+                if decode and out:
+                    rows.extend(out)
+        return rows
+
+    def emit_native_feed(self) -> dict:
+        """Drains every native lane into one stacked [P, ...] wire feed
+        (cols/tag/ts/ts_base/counts/count) without stepping: the packing
+        half of ``flush_native``."""
+        batches = [self._ning.emit_lane(ln) for ln in range(self.P)]
+        used = self.compiler.used_cols
+        cols = {}
+        for ci, key in enumerate(self._col_keys):
+            if key not in used:
+                continue
+            stacked = np.stack([bt["cols"][ci] for bt in batches])
+            if self._bool_cols[ci]:
+                stacked = stacked.astype(bool)
+            cols[key] = stacked
+        tag = np.stack([bt["tag"] for bt in batches]).astype(np.int8)
+        # the wire's int32 deltas from the C++ int64 lane timestamps
+        ts64 = np.stack([bt["ts"] for bt in batches])
+        counts = np.array([bt["count"] for bt in batches], dtype=np.int32)
+        base = np.array(
+            [int(t[:n].min()) if n else 0 for t, n in zip(ts64, counts)],
+            dtype=np.int64)
+        deltas = ts64 - base[:, None]
+        over = int(np.sum(deltas > 2**31 - 1))
+        if over:
+            # MergedBatchBuilder.emit's policy: clamp and count, loudly
+            self.ts_clamped = getattr(self, "ts_clamped", 0) + over
+            import logging
+            logging.getLogger("siddhi_tpu_torch.device").warning(
+                "native lane ts span exceeds int32 ms; %d clamped",
+                self.ts_clamped)
+        ts = np.clip(deltas, 0, 2**31 - 1).astype(np.int32)
+        return {"cols": cols, "tag": tag, "ts": ts, "ts_base": base,
+                "counts": counts, "count": int(counts.sum())}
+
+    def flush_native(self, decode: bool = False):
+        """Steps the lanes over what the native ingress has staged (nothing
+        when every lane is empty)."""
+        decode = decode or self.callback is not None
+        if all(self._ning.lane_len(ln) == 0 for ln in range(self.P)):
+            return [] if decode else None
+        b = self.emit_native_feed()
+        if decode:
+            self._sync_dict_from_native()
+        return self._step_and_decode(b["cols"], b["tag"], b["ts"],
+                                     b["ts_base"], b["counts"], decode)
+
+    def _sync_dict_from_native(self) -> None:
+        # pull the strings the C++ dictionary minted during ingest into the
+        # shared dictionary, so decode_outputs can render them
+        d = self._shared_dict
+        if d is None:
+            return
+        for code in range(len(d), self._ning.dict_size()):
+            d.add(code, self._ning.decode(code))
+
+    def _refuse_with_native(self, call: str) -> None:
+        if getattr(self, "_ning", None) is not None:
+            # a host append would mint dictionary codes the C++ dictionary
+            # does not know, corrupting decode: one ingress owns the codes
+            raise RuntimeError(
+                f"native ingress enabled: use ingest_csv(), not {call}()")
+
+    # -- host (Python) ingress ---------------------------------------------
     def send(self, stream_id: str, row: list, timestamp: int) -> None:
+        self._refuse_with_native("send")
         d = self.stream_defs[stream_id]
         key = row[d.attribute_position(self.key_attr)]
         b = self.builders[self.lane_of(key)]
@@ -234,19 +349,37 @@ class PartitionedNFARuntime:
             return tbl[enc[self.key_attr]]
         return self.route_lanes(cols[self.key_attr])
 
-    def send_many(self, stream_id: str, cols: dict, timestamps,
-                  decode: bool = False):
-        """Bulk ingest: encode strings per distinct value, order all rows by
-        lane with ONE stable argsort, bulk-copy each non-empty lane's rows
-        into its wire builder in lane order, flushing as lanes fill.
-        ``cols`` maps attribute name to an array of values."""
+    def _route(self, stream_id: str, cols: dict, timestamps):
+        """The bulk ingest's front half, shared by ``partition_columns`` and
+        ``send_many``: encode strings per distinct value and order all rows
+        by lane with ONE stable argsort. Returns the encoded columns and
+        timestamps in lane order and each lane's bounds in them."""
         ts = np.asarray(timestamps, dtype=np.int64)
         enc = self.encode_columns(stream_id, cols)
         lanes = self._lanes_for(stream_id, cols, enc)
         order = np.argsort(lanes, kind="stable")
         bounds = np.searchsorted(lanes[order], np.arange(self.P + 1))
-        enc = {k: v[order] for k, v in enc.items()}
-        ts = ts[order]
+        return {k: v[order] for k, v in enc.items()}, ts[order], bounds
+
+    def partition_columns(self, stream_id: str, cols: dict, timestamps):
+        """Per-lane column and timestamp views of a bulk send (lane order;
+        within a lane, arrival order)."""
+        enc, ts, bounds = self._route(stream_id, cols, timestamps)
+        lane_cols, lane_ts = [], []
+        for lane in range(self.P):
+            lo, hi = int(bounds[lane]), int(bounds[lane + 1])
+            lane_cols.append({k: v[lo:hi] for k, v in enc.items()})
+            lane_ts.append(ts[lo:hi])
+        return lane_cols, lane_ts
+
+    def send_many(self, stream_id: str, cols: dict, timestamps,
+                  decode: bool = False):
+        """Bulk ingest: route with ``_route`` (``partition_columns``' front
+        half), bulk-copy each non-empty lane's rows into its wire builder
+        in lane order, flushing as lanes fill. ``cols`` maps attribute name
+        to an array of values."""
+        self._refuse_with_native("send_many")
+        enc, ts, bounds = self._route(stream_id, cols, timestamps)
         out: list = []
         for lane in np.flatnonzero(bounds[1:] > bounds[:-1]):
             lo, hi = int(bounds[lane]), int(bounds[lane + 1])
@@ -314,3 +447,9 @@ class PartitionedNFARuntime:
     @property
     def drop_count(self) -> int:
         return int(self.state["drops"].sum())
+
+    def block_until_ready(self) -> None:
+        """Waits for every step queued on the state's device."""
+        dev = self.state["matches"].device
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)

@@ -24,9 +24,10 @@ Both packages keep the same state tree, leaf names and dtypes:
 The reference's partitioned runtimes stack lanes in front (``[P, C]``, ``[P]``)
 as the port does; its single-lane ``DeviceNFARuntime`` keeps ``[C]`` leaves
 and scalar counters, which the port holds as one lane (``single_lane=True``
-adds or drops that dim). ``state_from_numpy`` takes a tree with numpy leaves
-(what ``jax.device_get(rt.state)`` returns) and makes the port's tensors;
-``state_to_numpy`` goes the other way. String dictionaries travel as the
+adds or drops that dim; ``nfa_state_from_numpy`` does so for a
+``DeviceNFARuntime`` snapshot and checks every leaf). ``state_from_numpy``
+takes a tree with numpy leaves (what ``jax.device_get(rt.state)`` returns)
+and makes the port's tensors; ``state_to_numpy`` goes the other way. String dictionaries travel as the
 plain dict ``snapshot_dictionaries`` produces
 (``MergedBatchSchema.snapshot_dictionaries`` / ``restore_dictionaries``).
 """
@@ -71,13 +72,33 @@ def join_state_from_numpy(cq, tree: dict, device) -> dict:
     return _checked_from_numpy(cq.init_state(device="cpu"), tree, device)
 
 
-def _checked_from_numpy(proto: dict, tree: dict, device) -> dict:
-    if set(tree) != set(proto):
-        raise ValueError(f"state leaves differ: {sorted(set(tree) ^ set(proto))}")
-    out = state_from_numpy(tree, device)
-    for k, p in proto.items():
-        if out[k].dtype != p.dtype or out[k].shape != p.shape:
-            raise ValueError(f"state leaf {k!r}: {out[k].dtype}"
-                             f"{tuple(out[k].shape)}, expected {p.dtype}"
-                             f"{tuple(p.shape)}")
+def nfa_state_from_numpy(comp, tree: dict, device) -> dict:
+    """A single-lane NFA state with numpy leaves (``[C]`` tables, scalar
+    counters: the JAX package's ``DeviceNFARuntime`` state) → the port's
+    one-lane tensors on ``device``. Every leaf of ``comp.init_state(1)``
+    must be present with its dtype and shape."""
+    return _checked_from_numpy(comp.init_state(1), tree, device,
+                               single_lane=True)
+
+
+def _checked_from_numpy(proto: dict, tree: dict, device,
+                        single_lane: bool = False) -> dict:
+    out = state_from_numpy(tree, device, single_lane)
+    _check_like(proto, out, "")
     return out
+
+
+def _check_like(proto: dict, got: dict, at: str) -> None:
+    if set(got) != set(proto):
+        raise ValueError(f"state leaves differ: "
+                         f"{sorted(at + k for k in set(got) ^ set(proto))}")
+    for k, p in proto.items():
+        name = at + k
+        if isinstance(p, dict):
+            if not isinstance(got[k], dict):
+                raise ValueError(f"state leaf {name!r} is not a subtree")
+            _check_like(p, got[k], name + ".")
+        elif got[k].dtype != p.dtype or got[k].shape != p.shape:
+            raise ValueError(f"state leaf {name!r}: {got[k].dtype}"
+                             f"{tuple(got[k].shape)}, expected {p.dtype}"
+                             f"{tuple(p.shape)}")

@@ -46,6 +46,8 @@ def test_import_loads_neither_jax_nor_the_reference():
         "import siddhi_tpu_torch.tools.agg_workloads\n"
         "from siddhi_tpu_torch.core.aggregation import AggregationRuntime\n"
         "from siddhi_tpu_torch.gpu import CompiledAggregation\n"
+        "import siddhi_tpu_torch.native, siddhi_tpu_torch.core.columns\n"
+        "import siddhi_tpu_torch.entry\n"
         "print('\\n'.join(sorted(sys.modules)))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                          capture_output=True, text=True).stdout.split()

@@ -295,6 +295,72 @@ def test_kernel_matches_plain_on_card(name, B, C, K, lanes, ts):
     assert (cl == 1) == (name == "chain8" and C == 1024)
 
 
+WIDE4 = """
+define stream S (dev string, v float, n int, w float);
+from every e1=S[v > 60.0 and n > 0] -> e2=S[v > e1.v and dev == e1.dev]
+  -> e3=S[w > e2.v and n >= e1.n] within 4000
+select e1.dev as d, e1.v as a, e2.v as b, e3.w as c, e3.n as k insert into O;
+"""
+
+
+def _partitioned(app: str) -> str:
+    head, query = app.strip().split("\n", 1)
+    return f"{head}\npartition with (dev of S)\nbegin\n{query}\nend;\n"
+
+
+def test_block_limits_refuse_at_construction():
+    from siddhi_tpu.tpu.nfa import DeviceNFARuntime as JNFARuntime
+    from siddhi_tpu.tpu.partition import PartitionedNFARuntime as JPRuntime
+    from siddhi_tpu_torch.gpu.expr_compile import DeviceCompileError
+    from siddhi_tpu_torch.gpu.nfa import DeviceNFARuntime as TNFARuntime
+    from siddhi_tpu_torch.gpu.nfa_block import MODE_BATCH_GLOBAL
+    from siddhi_tpu_torch.gpu.partition import PartitionedNFARuntime as TPRuntime
+
+    def compiler(app, B, C, K):
+        tapp = tparse(app)
+        return TCompiler(tapp.queries[0], dict(tapp.stream_definitions), C, B,
+                         creation_cap=K, device="cpu")
+
+    # the Python mirror of the kernel's plan: (CTAs a lane, mode, scratch)
+    main = TPRuntime(_partitioned(APPS["chain8"][0]), num_partitions=64,
+                     key_attr="dev", slot_capacity=64, lane_batch=2048,
+                     creation_cap=320, device="cpu")
+    assert main.compiler.plan.layout_mirror == (2, 0, 0)
+    assert compiler(APPS["chain8"][0], 2048, 8, None).plan.layout_mirror[:2] \
+        == (2, 1)
+    assert compiler(APPS["chain8"][0], 2048, 1024, None).plan.layout_mirror[:2] \
+        == (1, 3)
+    # B = 16,384 with four 32-bit columns: the batch cannot be staged, the
+    # kernel reads it from global memory; accepted everywhere
+    wide = compiler(WIDE4, 16384, 64, 256)
+    assert len(wide.plan.col_keys) == 4
+    cl, mode, _ = wide.plan.layout_mirror
+    assert cl == 1 and mode & MODE_BATCH_GLOBAL
+    TNFARuntime(WIDE4, slot_capacity=64, batch_capacity=16384, device="cpu")
+    TPRuntime(_partitioned(WIDE4), num_partitions=2, key_attr="dev",
+              slot_capacity=64, lane_batch=16384, creation_cap=256,
+              device="cpu")
+    # B = 32,768 fits no mode: refused when built, on every device
+    with pytest.raises(DeviceCompileError, match="blocked kernel"):
+        compiler(WIDE4, 32768, 64, 256)
+    with pytest.raises(DeviceCompileError, match="blocked kernel"):
+        TNFARuntime(WIDE4, slot_capacity=64, batch_capacity=32768,
+                    device="cpu")
+    with pytest.raises(DeviceCompileError, match="blocked kernel"):
+        TPRuntime(_partitioned(WIDE4), num_partitions=2, key_attr="dev",
+                  slot_capacity=64, lane_batch=32768, creation_cap=256,
+                  device="cpu")
+    # the reference accepts all of these
+    japp = jparse(WIDE4)
+    for B in (16384, 32768):
+        JCompiler(japp.queries[0], dict(japp.stream_definitions), 64, B,
+                  creation_cap=256)
+    JNFARuntime(WIDE4, slot_capacity=64, batch_capacity=32768)
+    JPRuntime(_partitioned(WIDE4), num_partitions=2, key_attr="dev",
+              slot_capacity=64, lane_batch=32768, creation_cap=256,
+              mesh=None)
+
+
 TS_APPS = {
     "blocked": """
 define stream S (v double);

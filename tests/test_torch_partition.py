@@ -183,3 +183,18 @@ def test_port_resumes_from_jax_mid_stream_state():
     assert trt.flush(decode=True) == jrt.flush(decode=True)
     _assert_same(jrt, trt)
     assert trt.match_count > 0
+
+
+def test_partition_columns_equals_the_reference():
+    # the bulk route's front half: per-lane views, lane order, arrival order
+    dev, v, ts = bench_events(3000, 50, 8)
+    jrt, trt = _pair(bench_app(), **BENCH_KW)
+    a = jrt.partition_columns("S", {"dev": dev, "v": v}, ts)
+    b = trt.partition_columns("S", {"dev": dev, "v": v}, ts)
+    assert len(a[0]) == len(b[0]) == BENCH_KW["num_partitions"]
+    for (jc, jt), (tc, tt) in zip(zip(*a), zip(*b)):
+        assert jt.tobytes() == tt.tobytes()
+        assert jc.keys() == tc.keys()
+        for k in jc:
+            assert jc[k].dtype == tc[k].dtype
+            assert jc[k].tobytes() == tc[k].tobytes(), k

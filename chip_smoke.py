@@ -165,6 +165,36 @@ Phases, one JSON line each:
                group-by of the 2,000,000 events (counts exact, min/max
                exact against the f32 wire, the float lanes within the
                reference test's rel 1e-4).
+ 12. engine — every device path through the engine, ``SiddhiManager()``
+               (the card) → ``create_siddhi_app_runtime(app, playback=
+               True)`` → ``InputHandler`` → junction → ``DeviceQueryBridge``
+               → kernel → ``StreamCallback``, each app ``@device(strict=
+               'true')`` with 2,000,000 seeded events
+               (``siddhi_tpu_torch/tools/engine_workloads.py``): the chain
+               of ``main`` without its partition (B1, batch 2048, slots 64)
+               and the scan app without its partition (B4), per event
+               through ``send``; (a), (c) and (d) of ``query_main`` (B5a,
+               B5b) through ``send_columns``; (e) of ``join_main`` (B6) per
+               event; (g) of ``agg_main`` as a ``define aggregation`` (B7),
+               its rows read per duration with ``rt.query``. Each app's
+               rows, in order, and its final state (bucket stores for (g))
+               must equal, bitwise, those of the same runtime class driven
+               directly on the card with the same events; a second engine
+               on the CPU (``device="cpu"``, the plain versions), fed the
+               first two micro-batches (one for the scan app), must equal
+               the card engine's rows and state at that point (the query
+               apps' float32 sums within ``tests/test_torch_query_shapes.py``'s
+               tolerances); every micro-batch must be stepped, each app's
+               kernel launched (no other), and no ERROR record logged by
+               the port (a failed step is logged and dropped). The chain
+               and (a) run once more with ``async='true'`` (the
+               double-buffered driver) and must give the same rows and
+               state; (c) is snapshotted at a micro-batch boundary
+               mid-stream, restored into a fresh engine and fed the rest,
+               equal to the uninterrupted run, its blob holding no tensor.
+               Per app: events/s, the share of the window outside the step
+               calls, the step call's median by CUDA events beside the
+               direct runtime's and the standalone phase's, launches.
 Then the card's name and power limit (nvidia-smi), the ``kernels`` line and,
 last, ``{"ok": true, "device": {...}}``. Any failure exits non-zero before
 that line. Needs one CUDA card; fails without one.
@@ -2398,6 +2428,516 @@ def agg_kernel_entry(a_outs: list) -> dict:
     }
 
 
+# ----------------------------------------------------------------- engine
+
+ENGINE_EVENTS = 2_000_000          # events per engine app
+ENGINE_CPU_STEPS = {"scan": 1}     # micro-batches the CPU engine checks (2)
+ENGINE_ASYNC = ("chain", "grouped_length")
+ENGINE_SNAPSHOT = "time_batch"       # an open bucket across the cut
+
+
+def engine_kernels() -> dict:
+    """Engine app → (the ``kernels`` line's entry, its plan class)."""
+    from siddhi_tpu_torch.gpu.aggregation_step import AggPlan
+    from siddhi_tpu_torch.gpu.join_step import JoinPlan
+    from siddhi_tpu_torch.gpu.nfa_block import BlockPlan
+    from siddhi_tpu_torch.gpu.nfa_scan import ScanPlan
+    from siddhi_tpu_torch.gpu.query_step import QueryPlan
+    from siddhi_tpu_torch.gpu.query_walk import WalkPlan
+    return {"chain": ("nfa_block", BlockPlan),
+            "scan": ("nfa_scan_step", ScanPlan),
+            "grouped_length": ("query_step", QueryPlan),
+            "time_batch": ("query_step_tumbling", QueryPlan),
+            "lossy_frequent": ("query_walk", WalkPlan),
+            "market_join": ("join_step", JoinPlan),
+            "trade_rollup": ("aggregation_step", AggPlan)}
+
+
+def reset_launches() -> None:
+    for _, plan in engine_kernels().values():
+        plan.launches = 0
+
+
+def read_launches() -> dict:
+    return {plan.__name__: plan.launches
+            for _, plan in engine_kernels().values()}
+
+
+class ErrorRecords:
+    """Every ERROR record of the port's loggers (``siddhi_tpu_torch.*``:
+    the device driver's failed steps, the junctions' failed receivers)
+    while attached."""
+
+    def __init__(self):
+        import logging
+        self.records = []
+        outer = self
+
+        class _H(logging.Handler):
+            def emit(self, record):
+                outer.records.append(f"{record.name}: {record.getMessage()}")
+
+        self.handler = _H(level=logging.ERROR)
+        logging.getLogger("siddhi_tpu_torch").addHandler(self.handler)
+
+    def check(self, where: str) -> None:
+        if self.records:
+            fail(f"engine {where}: ERROR records: {self.records[:3]}")
+
+    def close(self) -> None:
+        import logging
+        logging.getLogger("siddhi_tpu_torch").removeHandler(self.handler)
+
+
+def to_numpy(tree):
+    import torch
+    if isinstance(tree, dict):
+        return {k: to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().numpy()
+    return np.asarray(tree)
+
+
+def np_diff(a, b, at: str = "") -> str:
+    """The first leaf where two numpy trees differ ('' when bitwise equal,
+    NaN equal to NaN)."""
+    if isinstance(a, dict) or isinstance(b, dict):
+        if not (isinstance(a, dict) and isinstance(b, dict)) or \
+                a.keys() != b.keys():
+            return at or "<root>"
+        for k in sorted(a):
+            d = np_diff(a[k], b[k], f"{at}{k}.")
+            if d:
+                return d
+        return ""
+    a, b = np.asarray(a), np.asarray(b)
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return at
+    same = np.array_equal(a, b, equal_nan=a.dtype.kind in "fc")
+    return "" if same else at
+
+
+class StepProbe:
+    """Wraps one runtime's step calls (engine bridge or direct alike, at its
+    compiled plan): CUDA events around each ``step`` (the batch's copy to
+    the card and the wrapper's host work included), host seconds of
+    ``step`` and ``decode_outputs``, and the state and outputs after each
+    of the first ``keep`` steps. For an aggregation (``agg``) the step call
+    is ``CompiledAggregation.step`` and the kept state is
+    ``snapshot_state()`` after each micro-batch."""
+
+    def __init__(self, rt, keep: int = 0, agg: bool = False):
+        import pickle
+        import torch
+        self.marks, self.kept, self.rows_kept = [], [], 0
+        self.steps = self.decodes = 0
+        self.step_s = self.decode_s = 0.0
+        comp = rt._dev if agg else plan_of(rt)
+        step = comp.step
+
+        def timed_step(*a):
+            t0 = time.perf_counter()
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            got = step(*a)
+            e1.record()
+            self.marks.append((e0, e1))
+            self.step_s += time.perf_counter() - t0
+            if not agg:
+                self.steps += 1
+                if self.steps <= keep:
+                    self.kept.append({"state": to_numpy(got[0]),
+                                      "out": to_numpy(got[1])})
+            return got
+
+        comp.step = timed_step
+        if agg:
+            flush = rt._flush_device
+
+            def counted_flush():
+                n = len(rt._dev_builder)
+                flush()
+                if n:
+                    self.steps += 1
+                    if self.steps <= keep:
+                        self.kept.append(pickle.loads(pickle.dumps(
+                            rt.snapshot_state())))
+
+            rt._flush_device = counted_flush
+            return
+        decode = comp.decode_outputs
+
+        def timed_decode(out):
+            t0 = time.perf_counter()
+            rows = decode(out)
+            self.decode_s += time.perf_counter() - t0
+            self.decodes += 1
+            if self.decodes <= keep:
+                self.rows_kept += len(rows)
+            return rows
+
+        comp.decode_outputs = timed_decode
+
+    def step_ms(self) -> list:
+        return [a.elapsed_time(b) for a, b in self.marks]
+
+
+def plan_of(rt):
+    """A device runtime's compiled plan (``compiler`` of the NFA and join
+    runtimes, ``compiled`` of the query runtime and the bridge's own)."""
+    return getattr(rt, "compiler", None) or rt.compiled
+
+
+def engine_runtime(manager, cfg: dict):
+    """A started playback runtime of ``cfg``'s app whose output rows collect
+    in ``rt.got`` as ``(timestamp, data)``; the runtime ``StepProbe``
+    wraps (the bridge's or the aggregation's)."""
+    from siddhi_tpu_torch import StreamCallback
+    rt = manager.create_siddhi_app_runtime(cfg["app"], playback=True)
+    rt.got = []
+    if cfg["out"] is not None:
+        rt.add_callback(cfg["out"], StreamCallback(lambda evs: rt.got.extend(
+            (e.timestamp, list(e.data)) for e in evs)))
+    rt.start()
+    target = rt.ctx.aggregations[cfg["agg"]] if cfg["kind"] == "agg" \
+        else rt.device_bridges[0].runtime
+    return rt, target
+
+
+def engine_state(cfg: dict, target):
+    """The final state: the device state tree (numpy), or the aggregation's
+    bucket stores."""
+    if cfg["kind"] == "agg":
+        return target.snapshot_state()
+    return to_numpy(target.state)
+
+
+def agg_reads(name: str, rt=None, drt=None) -> list:
+    """The aggregation's rows per duration: through ``rt.query`` on the
+    engine, ``on_demand_find`` on the direct runtime."""
+    from siddhi_tpu_torch.compiler import parse_on_demand_query
+    from siddhi_tpu_torch.tools import engine_workloads as ew
+    agg = drt if drt is not None else \
+        next(iter(rt.ctx.aggregations.values()))
+    attrs = agg.output_definition.attribute_names
+    attrs = [a for a in attrs if a != "AGG_TIMESTAMP"]
+    out = []
+    for text in ew.on_demand_texts(name, attrs):
+        evs = rt.query(text) if rt is not None else \
+            drt.on_demand_find(parse_on_demand_query(text), 0)
+        out.append([list(e.data) for e in evs])
+    return out
+
+
+def close_rows(sh, q, sc, ref: list, got: list, tag: str) -> None:
+    """``(ts, data)`` rows: ts exact and in order, each column held to its
+    query tolerance (``tests/test_torch_query_shapes.py``)."""
+    if [t for t, _ in ref] != [t for t, _ in got]:
+        fail(f"{tag}: {len(ref)} / {len(got)} rows, timestamps differ")
+    if not ref:
+        return
+    kinds = sh.tolerance_kinds(q)
+    cnt = next((i for i, s in enumerate(q.specs) if s.kind == "count"), None)
+    counts = None if cnt is None else np.array([r[cnt] for _, r in ref])
+    for i, s in enumerate(q.specs):
+        a = np.array([r[i] for _, r in ref])
+        b = np.array([r[i] for _, r in got])
+        try:
+            sh.check_close(s.name, a, b, kinds[s.name], sc, counts)
+        except AssertionError as e:
+            fail(f"{tag}: column {s.name}: {str(e)[:300]}")
+
+
+def engine_cpu_prefix(name: str, cfg: dict, ev, card: StepProbe,
+                      card_rows: list, k: int) -> dict:
+    """A second engine on the CPU (the plain versions), fed the first ``k``
+    micro-batches: its rows and state equal the card engine's at that
+    point (exactly; the query apps' float32 sums within their tolerances)."""
+    from siddhi_tpu_torch import SiddhiManager
+    from siddhi_tpu_torch.tools import engine_workloads as ew
+    m = SiddhiManager(device="cpu")
+    rt, target = engine_runtime(m, cfg)
+    probe = StepProbe(target, keep=k, agg=cfg["kind"] == "agg")
+    scales = []
+    if cfg["kind"] == "query":
+        sh = query_shapes_module()
+        q = plan_of(target)
+        step, sc = q.step_tensors, [sh.Scale()]
+
+        def scaled(state, cols, ts, valid):
+            sc[0] = sh.next_scale(q, sc[0], state, cols, ts, valid)
+            scales.append(sc[0])
+            return step(state, cols, ts, valid)
+
+        q.step_tensors = scaled
+    t0 = time.perf_counter()
+    ew.feed_engine(rt, ev, 0, k * cfg["batch"])
+    cpu_s = time.perf_counter() - t0
+    if probe.steps != k or len(card.kept) != k:
+        fail(f"engine {name}: the CPU engine took {probe.steps} steps, the "
+             f"card kept {len(card.kept)} (expected {k})")
+    tag = f"engine {name} (CPU engine, first {k} micro-batches)"
+    if cfg["kind"] == "agg":
+        if probe.kept != card.kept:
+            fail(f"{tag}: bucket stores differ")
+    elif cfg["kind"] == "query":
+        for j in range(k):
+            c, p = card.kept[j], probe.kept[j]
+            try:
+                sh.compare(q, scales[j], c["state"], p["state"], c["out"],
+                           p["out"])
+            except AssertionError as e:
+                fail(f"{tag}: step {j}: {str(e)[:300]}")
+        close_rows(sh, q, scales[-1], card_rows[:card.rows_kept], rt.got,
+                   tag)
+    else:
+        for j in range(k):
+            d = np_diff(card.kept[j]["state"], probe.kept[j]["state"])
+            if d:
+                fail(f"{tag}: step {j}: state differs at {d}")
+        if rt.got != card_rows[:card.rows_kept]:
+            fail(f"{tag}: rows differ ({len(rt.got)} / {card.rows_kept})")
+    m.shutdown()
+    return {"steps": k, "events": k * cfg["batch"],
+            "rows": card.rows_kept, "cpu_s": cpu_s}
+
+
+def engine_run(name: str, cfg: dict, ev, records: ErrorRecords,
+               keep: int = 0, app: str | None = None):
+    """One engine run of every event on the card: the rows, the final state,
+    the probe, the wall, the launches, the rows the shutdown added and
+    the runtime."""
+    import torch
+    from siddhi_tpu_torch import SiddhiManager
+    from siddhi_tpu_torch.tools import engine_workloads as ew
+    cfg = dict(cfg, app=app or cfg["app"])
+    m = SiddhiManager()
+    rt, target = engine_runtime(m, cfg)
+    card = "cuda" if torch.cuda.is_available() else "cpu"
+    if rt.ctx.siddhi_context.device.type != card:
+        fail(f"engine {name}: SiddhiManager() chose "
+             f"{rt.ctx.siddhi_context.device}")
+    probe = StepProbe(target, keep=keep, agg=cfg["kind"] == "agg")
+    torch.cuda.synchronize()
+    reset_launches()                  # counts from here: the engine path
+    t0 = time.perf_counter()
+    ew.feed_engine(rt, ev)
+    rt.flush_device()
+    if cfg["kind"] == "agg":
+        target._flush_device()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    rows = list(rt.got)
+    reads = agg_reads(name, rt=rt) if cfg["kind"] == "agg" else None
+    state = engine_state(cfg, target)
+    driver = rt.device_bridges[0].driver if rt.device_bridges else None
+    stepped = driver.batches_stepped if driver is not None else probe.steps
+    calls, step_s, decode_s = probe.steps, probe.step_s, probe.decode_s
+    errors = sum(j.receiver_errors for j in rt.ctx.stream_junctions.values())
+    m.shutdown()                    # timeBatch: the sentinel's step
+    records.check(name)
+    if errors:
+        fail(f"engine {name}: {errors} receiver errors")
+    expected = -(-ev.n // cfg["batch"])
+    if stepped != expected or calls != expected:
+        fail(f"engine {name}: {stepped} micro-batches stepped "
+             f"({calls} step calls), expected {expected}")
+    return dict(rows=rows, reads=reads, state=state, probe=probe, wall=wall,
+                launches=launches, steps=calls, step_s=step_s,
+                decode_s=decode_s, shutdown_rows=len(rt.got) - len(rows),
+                driver=driver, rt=rt)
+
+
+def engine_app(name: str, seed: int, n_events: int, records: ErrorRecords,
+               standalone: dict) -> dict:
+    import torch
+    from siddhi_tpu_torch import SiddhiManager
+    from siddhi_tpu_torch.tools import engine_workloads as ew
+    kname, plan = engine_kernels()[name]
+    cfg = ew.engine_config(name)
+    B = cfg["batch"]
+    k = ENGINE_CPU_STEPS.get(name, 2)
+    ev = ew.EngineEvents(name, n_events, seed)
+    t_phase = time.perf_counter()
+
+    # warm-up: build, first launches (untimed)
+    m = SiddhiManager()
+    rt, _ = engine_runtime(m, cfg)
+    ew.feed_engine(rt, ev, 0, 2 * B)
+    rt.flush_device()
+    m.shutdown()
+    torch.cuda.synchronize()
+
+    # ---- the engine run
+    run = engine_run(name, cfg, ev, records, keep=k)
+    probe, launches = run["probe"], run["launches"]
+    if launches[plan.__name__] == 0 or any(
+            n for c, n in launches.items() if c != plan.__name__):
+        fail(f"engine {name}: launches {launches}: {plan.__name__} must "
+             f"launch, no other kernel")
+
+    # ---- the same runtime class driven directly with the same events
+    drt = ew.direct_runtime(name, device="cuda")
+    dprobe = StepProbe(drt, agg=cfg["kind"] == "agg")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    drows = ew.feed_direct(drt, ev, name)
+    torch.cuda.synchronize()
+    dwall = time.perf_counter() - t0
+    if cfg["kind"] == "agg":
+        if run["reads"] != agg_reads(name, drt=drt):
+            fail(f"engine {name}: rt.query rows differ from the direct "
+                 f"runtime's")
+    elif [r for _, r in run["rows"]] != drows:
+        fail(f"engine {name}: {len(run['rows'])} rows, the direct runtime "
+             f"{len(drows)}: they differ")
+    if cfg["kind"] == "agg":
+        if engine_state(cfg, drt) != run["state"]:
+            fail(f"engine {name}: the bucket stores differ from the direct "
+                 f"runtime's")
+    else:
+        d = np_diff(run["state"], engine_state(cfg, drt))
+        if d:
+            fail(f"engine {name}: final state differs from the direct "
+                 f"runtime's at {d}")
+    if dprobe.steps != run["steps"]:
+        fail(f"engine {name}: {run['steps']} steps, direct {dprobe.steps}")
+
+    # ---- the CPU engine on the first micro-batches
+    cpu = engine_cpu_prefix(name, cfg, ev, probe, run["rows"], k)
+
+    step_ms = probe.step_ms()[:run["steps"]]      # not the sentinel's
+    dstep_ms = dprobe.step_ms()
+    inside = run["step_s"] + run["decode_s"]
+    out = {
+        "phase": "engine", "app": name, "kernel": kname,
+        "events": ev.n, "batch": B, "steps": run["steps"],
+        "events_per_s": ev.n / run["wall"], "wall_s": run["wall"],
+        "step_ms_median": float(np.median(step_ms)),
+        "step_ms_min": float(np.min(step_ms)),
+        "step_ms_max": float(np.max(step_ms)),
+        "step_call_s": run["step_s"], "decode_s": run["decode_s"],
+        "outside_step_calls_share": 1.0 - inside / run["wall"],
+        "direct_events_per_s": ev.n / dwall, "direct_wall_s": dwall,
+        "direct_step_ms_median": float(np.median(dstep_ms)),
+        "direct_outside_step_calls_share":
+            1.0 - (dprobe.step_s + dprobe.decode_s) / dwall,
+        "standalone": standalone.get(name),
+        "launches": launches[plan.__name__],
+        "launches_per_step": launches[plan.__name__] / run["steps"],
+        "rows": len(run["rows"]), "shutdown_rows": run["shutdown_rows"],
+        "agg_rows_per_duration": [len(r) for r in run["reads"]]
+        if run["reads"] is not None else None,
+        "equal_to_direct": True, "cpu_engine": cpu,
+        "phase_s": time.perf_counter() - t_phase,
+    }
+    emit(out)
+    out["_run"], out["_ev"], out["_cfg"] = run, ev, cfg
+    return out
+
+
+def engine_async(name: str, base: dict, records: ErrorRecords) -> dict:
+    """The app once more with ``async='true'``: rows (timestamps included)
+    and final state equal to the synchronous engine run's."""
+    cfg, ev, run = base["_cfg"], base["_ev"], base["_run"]
+    app = cfg["app"].replace("strict='true'", "strict='true', async='true'")
+    got = engine_run(name, cfg, ev, records, app=app)
+    if got["driver"] is None or got["driver"].window != 2:
+        fail(f"engine {name}: async run without a double-buffered driver")
+    if got["rows"] != run["rows"]:
+        fail(f"engine {name}: async rows differ from the synchronous run's "
+             f"({len(got['rows'])} / {len(run['rows'])})")
+    d = np_diff(run["state"], got["state"])
+    if d:
+        fail(f"engine {name}: async final state differs at {d}")
+    return {"app": name, "events_per_s": ev.n / got["wall"],
+            "batches_stepped": got["driver"].batches_stepped,
+            "step_ms_median": float(np.median(got["probe"].step_ms())),
+            "rows": len(got["rows"]), "equal_to_sync": True}
+
+
+def engine_snapshot(name: str, base: dict, records: ErrorRecords) -> dict:
+    """One mid-stream ``snapshot`` → ``restore`` into a fresh engine, cut at
+    a micro-batch boundary: rows and final state equal to the
+    uninterrupted run's."""
+    import pickle
+    import torch
+    from siddhi_tpu_torch import SiddhiManager
+    from siddhi_tpu_torch.tools import engine_workloads as ew
+    cfg, ev, run = base["_cfg"], base["_ev"], base["_run"]
+    cut = ev.n // 2 // ew.COLUMN_CHUNK * ew.COLUMN_CHUNK
+    m1 = SiddhiManager()
+    rt1, _ = engine_runtime(m1, cfg)
+    ew.feed_engine(rt1, ev, 0, cut)
+    t0 = time.perf_counter()
+    blob = rt1.snapshot()
+    snap_s = time.perf_counter() - t0
+    rows = list(rt1.got)            # not what shutdown adds after the cut
+    m1.shutdown()
+    leaves = []
+
+    def walk(x):
+        if isinstance(x, dict):
+            for v in x.values():
+                walk(v)
+        elif isinstance(x, (list, tuple)):
+            for v in x:
+                walk(v)
+        else:
+            leaves.append(x)
+
+    walk(pickle.loads(blob))
+    if any(isinstance(x, torch.Tensor) for x in leaves):
+        fail(f"engine {name}: the snapshot blob holds a torch.Tensor")
+    m2 = SiddhiManager()
+    rt2, target = engine_runtime(m2, cfg)
+    t0 = time.perf_counter()
+    rt2.restore(blob)
+    restore_s = time.perf_counter() - t0
+    ew.feed_engine(rt2, ev, cut)
+    rt2.flush_device()
+    state = engine_state(cfg, target)
+    rows += rt2.got
+    m2.shutdown()
+    records.check(f"{name} snapshot")
+    if rows != run["rows"]:
+        fail(f"engine {name}: the resumed run's rows differ from the "
+             f"uninterrupted run's")
+    d = np_diff(run["state"], state)
+    if d:
+        fail(f"engine {name}: the resumed run's final state differs at {d}")
+    return {"app": name, "cut": cut, "blob_bytes": len(blob),
+            "snapshot_s": snap_s, "restore_s": restore_s,
+            "equal_to_uninterrupted": True}
+
+
+def phase_engine(seed: int, n_events: int, standalone: dict) -> dict:
+    """Every device path through the engine (``engine_workloads``)."""
+    from siddhi_tpu_torch.tools import engine_workloads as ew
+    records = ErrorRecords()
+    try:
+        t0 = time.perf_counter()
+        apps = {name: engine_app(name, seed, n_events, records, standalone)
+                for name in ew.ENGINE_APPS}
+        asyncs = [engine_async(n, apps[n], records) for n in ENGINE_ASYNC]
+        snap = engine_snapshot(ENGINE_SNAPSHOT, apps[ENGINE_SNAPSHOT],
+                               records)
+        records.check("phase")
+    finally:
+        records.close()
+    out = {"phase": "engine_checks", "async": asyncs, "snapshot": snap,
+           "error_records": 0, "phase_s": time.perf_counter() - t0}
+    emit(out)
+    launches = {}
+    for name, o in apps.items():
+        kname = engine_kernels()[name][0]
+        launches[kname] = launches.get(kname, 0) + o["launches"]
+    return {"apps": {n: {k: v for k, v in o.items() if not k.startswith("_")}
+                     for n, o in apps.items()}, "launches": launches}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=42)
@@ -2424,6 +2964,20 @@ def main() -> int:
     j_outs = [phase_join_main(name, args.seed) for name in JOIN_MAIN]
     phase_agg_shapes()
     a_outs = [phase_agg_main(name, args.seed) for name in AGG_MAIN]
+    by_q = {o["config"]: o for o in q_outs}
+
+    def stand(o, phase):
+        keys = ("kernel_step_ms_median", "step_call_ms_median",
+                "events_per_s")
+        return {"phase": phase, **{k: o[k] for k in keys if k in o}}
+
+    eng = phase_engine(args.seed, ENGINE_EVENTS, {
+        "chain": stand(main_out, "main (64 lanes, partitioned)"),
+        "scan": stand(scan_out, "scan_main (64 lanes, partitioned)"),
+        **{n: stand(by_q[n], "query_main") for n in
+           ("grouped_length", "time_batch", "lossy_frequent")},
+        "market_join": stand(j_outs[0], "join_main"),
+        "trade_rollup": stand(a_outs[0], "agg_main")})
     bound = max(main_out["bound_ms_bytes"], main_out["bound_ms_ops"])
     scan_bound = max(scan_out["bound_ms_bytes"], scan_out["bound_ms_ops"])
     kernels = [{
@@ -2471,6 +3025,16 @@ def main() -> int:
                              "snapshot": snap_out["apps"][1]["launches"]},
     }, *query_kernel_entries(q_outs, query_err), join_kernel_entry(j_outs),
         agg_kernel_entry(a_outs)]
+    main_path = {"query_step": "query_main", "query_step_tumbling":
+                 "query_main", "query_walk": "query_main",
+                 "join_step": "join_main", "aggregation_step": "agg_main"}
+    for k in kernels:
+        if "launches_by_path" not in k:
+            k["launches_by_path"] = {main_path[k["name"]]: k["launches"]}
+        by_path = k["launches_by_path"]
+        by_path["engine"] = eng["launches"].get(k["name"], 0)
+        if not by_path["engine"]:
+            fail(f"engine: kernel {k['name']} was not launched")
     print(card, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -13,11 +13,45 @@ kernels (``csrc/``) are compiled with ``nvcc`` at first CUDA use, and the
 native CSV ingress (``native/``) with ``g++`` at first use, never on
 import. ``entry.py`` holds the entry points ``entry()`` and
 ``dryrun_multichip(n)``.
+
+The engine: ``SiddhiManager(device=None)`` → ``create_siddhi_app_runtime``
+→ ``input_handler(...).send(...)`` / ``StreamCallback``, with ``@device`` on
+every query (``core/``). ``device=None`` is the card; ``device="cpu"`` runs
+the plain versions.
 """
 
 __version__ = "0.1.0"
 
 from . import query_api
-from .compiler import parse
+from .compiler import parse, parse_on_demand_query
+from .core import (
+    ErrorEntry,
+    ErrorStore,
+    Event,
+    FileErrorStore,
+    FileSystemPersistenceStore,
+    IncrementalFileSystemPersistenceStore,
+    IncrementalPersistenceStore,
+    InMemoryConfigManager,
+    InMemoryPersistenceStore,
+    InputHandler,
+    Level,
+    QueryCallback,
+    RecordTableHandler,
+    RecordTableHandlerManager,
+    SiddhiAppRuntime,
+    SiddhiManager,
+    StreamCallback,
+    YAMLConfigManager,
+    extension,
+)
 
-__all__ = ["parse", "query_api"]
+__all__ = [
+    "ErrorEntry", "ErrorStore", "Event", "FileErrorStore",
+    "FileSystemPersistenceStore", "IncrementalFileSystemPersistenceStore",
+    "IncrementalPersistenceStore", "InMemoryConfigManager",
+    "InMemoryPersistenceStore", "InputHandler", "Level", "QueryCallback",
+    "RecordTableHandler", "RecordTableHandlerManager", "SiddhiAppRuntime",
+    "SiddhiManager", "StreamCallback", "YAMLConfigManager", "extension",
+    "parse", "parse_on_demand_query", "query_api",
+]

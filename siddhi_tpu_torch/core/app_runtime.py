@@ -1,0 +1,567 @@
+"""SiddhiAppRuntime: build + lifecycle for one app, on the device tier.
+
+Port of the JAX package's ``core/app_runtime.py`` (reference
+``core/SiddhiAppRuntime.java`` / ``SiddhiAppRuntimeImpl.java``: start:449,
+shutdown:552, persist:686, query:309; ``util/parser/SiddhiAppParser``). It
+builds definitions, junctions (``@async``, ``@OnError``), tables, script
+functions, ``define aggregation`` (``core/aggregation.py``, ``@device``
+included) and the device tier: every query is a ``@device`` query that the
+device compilers take (``core/device_bridge.py``), its steps on the engine's
+device (``SiddhiContext.device``). Snapshots, persistence, on-demand queries,
+statistics and the playback clock are the reference's.
+
+What later engine slices bring is refused at build time with a
+``SiddhiAppCreationError`` that names its tier (``_refuse_unported``): the
+host interpreter tier (a query without ``@device``, or one the device
+compilers refuse), partitions, named windows, triggers, sources and sinks,
+the fleet and host-batch tiers, durable flow control and adaptive batching,
+and the observability and resilience subsystems.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+from ..compiler import parse_on_demand_query
+from ..query_api import Partition, Query, SiddhiApp
+from ..query_api.annotation import find_annotation
+from ..query_api.definition import DataType, StreamDefinition
+from .context import SiddhiAppContext, SiddhiContext
+from .errors import SiddhiAppCreationError
+from .event import Event
+from .extension import ScriptFunction
+from .metrics import Level, StatisticsManager
+from .on_demand import OnDemandQueryRuntime
+from .scheduler import SystemTicker
+from .snapshot import PersistenceManager, SnapshotService
+from .stream import (
+    InputHandler,
+    OnErrorAction,
+    QueryCallback,
+    StreamCallback,
+    StreamJunction,
+    _StreamCallbackReceiver,
+)
+from .table import InMemoryTable
+
+# app-level annotations whose subsystem is not ported yet → its tier
+_UNPORTED_APP_ANNOTATIONS = {
+    "fleet": "the multi-tenant fleet tier",
+    "host_batch": "the columnar host tier",
+    "wal": "durable flow control",
+    "backpressure": "durable flow control",
+    "adaptive": "adaptive micro-batching",
+    "trace": "the observability subsystem",
+    "flightrecorder": "the observability subsystem",
+    "profile": "the observability subsystem",
+    "chaos": "the resilience subsystem",
+    "resilience": "the resilience subsystem",
+}
+
+
+def _not_ported(what: str, tier: str) -> SiddhiAppCreationError:
+    return SiddhiAppCreationError(
+        f"{what} needs {tier}, which is not ported yet")
+
+
+class SiddhiAppRuntime:
+    def __init__(self, app: SiddhiApp, siddhi_context: SiddhiContext,
+                 playback: Optional[bool] = None, start_time: int = 0):
+        self.app = app
+        _refuse_unported(app)
+        app_ann = find_annotation(app.annotations, "app")
+        playback_ann = find_annotation(app.annotations, "playback")
+        if playback is None:
+            playback = playback_ann is not None or (
+                app_ann is not None and app_ann.get("playback") == "true")
+        # @app:playback(idle.time='...', increment='...') heartbeat: after
+        # idle.time of wall silence the playback clock jumps by increment
+        # (reference EventTimeBasedMillisTimestampGenerator)
+        self._heartbeat_cfg = None
+        if playback_ann is not None and playback_ann.get("idle.time"):
+            from .aggregation import parse_retention
+            idle = parse_retention(playback_ann.get("idle.time"))
+            inc = parse_retention(playback_ann.get("increment") or "1 sec")
+            self._heartbeat_cfg = (int(idle), int(inc))
+        self.name = app.name()
+        self.ctx = SiddhiAppContext(siddhi_context, self.name, playback, start_time)
+        self.ctx.runtime = self
+        self.ctx.statistics_manager = StatisticsManager(self.name)
+        # @app(statistics='true'|'detail', statistics.reporter='log',
+        # statistics.interval='30') — reference @app statistics wiring
+        if app_ann is not None:
+            stats = (app_ann.get("statistics") or "").lower()
+            if stats in ("true", "basic"):
+                self.ctx.statistics_manager.set_level(Level.BASIC)
+            elif stats == "detail":
+                self.ctx.statistics_manager.set_level(Level.DETAIL)
+            reporter = app_ann.get("statistics.reporter")
+            interval = app_ann.get("statistics.interval")
+            if reporter or interval:
+                try:
+                    self.ctx.statistics_manager.configure_reporter(
+                        reporter, float(interval) if interval else None)
+                except ValueError as e:
+                    raise SiddhiAppCreationError(str(e)) from None
+        self.input_handlers: dict[str, InputHandler] = {}
+        self.device_bridges: list = []
+        self._table_handlers: list[str] = []    # record-table handler ids
+        self._started = False
+        self._ondemand_cache: dict[str, OnDemandQueryRuntime] = {}
+
+        self.snapshot_service = SnapshotService(self.ctx)
+        self.persistence = PersistenceManager(
+            self.ctx, self.snapshot_service, siddhi_context.persistence_store)
+
+        self._build()
+
+    # ------------------------------------------------------------------ build
+    def _build(self) -> None:
+        app, ctx = self.app, self.ctx
+        # script functions
+        for fd in app.function_definitions.values():
+            ctx.script_functions[fd.id] = ScriptFunction(
+                fd.id, fd.language, fd.return_type, fd.body)
+        # tables
+        for td in app.table_definitions.values():
+            ctx.tables[td.id] = self._build_table(td)
+        # streams + junctions (+ fault streams)
+        for sd in app.stream_definitions.values():
+            self._get_junction(sd.id, define=sd)
+            # stream-level @async, or app-wide @app:async applying to every
+            # defined stream (reference AsyncTestCase.asyncTest2)
+            async_ann = find_annotation(sd.annotations, "async") \
+                or find_annotation(app.annotations, "async")
+            if async_ann is not None:
+                # Disruptor-mode analog (StreamJunction.java:279-316):
+                # producers enqueue, workers deliver under the engine lock
+                self.ctx.stream_junctions[sd.id].enable_async(
+                    buffer_size=int(async_ann.get("buffer.size") or 1024),
+                    workers=int(async_ann.get("workers") or 1),
+                    batch_size_max=int(async_ann.get("batch.size.max") or 64))
+            onerror = find_annotation(sd.annotations, "OnError")
+            if onerror is not None:
+                action = (onerror.get("action") or "log").lower()
+                junction = ctx.stream_junctions[sd.id]
+                junction.on_error_action = action
+                if action == OnErrorAction.STREAM:
+                    fault_def = StreamDefinition("!" + sd.id)
+                    for a in sd.attributes:
+                        fault_def.attribute(a.name, a.type)
+                    fault_def.attribute("_error", DataType.OBJECT)
+                    fj = self._get_junction("!" + sd.id, define=fault_def)
+                    junction.fault_junction = fj
+        # aggregations (@device ones step on the engine's device)
+        from .aggregation import AggregationRuntime
+        for ad in app.aggregation_definitions.values():
+            ctx.aggregations[ad.id] = AggregationRuntime(
+                ad, ctx, self._stream_defs(),
+                device=ctx.siddhi_context.device)
+        # queries in definition order: the device tier
+        from .device_bridge import try_build_device_query
+        q_count = 0
+        for element in app.execution_elements:
+            q_count += 1
+            name = element.name() or f"query-{q_count}"
+            bridge = try_build_device_query(
+                element, ctx, self._stream_defs(), self._get_junction, name)
+            if bridge is None:
+                raise _not_ported(
+                    f"query '{name}' has no @device annotation: it",
+                    "the host interpreter tier")
+            self.device_bridges.append(bridge)
+            for sid in bridge.stream_ids:
+                self._get_junction(sid).subscribe(bridge.receiver_for(sid))
+            self._fill_implicit(element, bridge)
+        self._wire_gauges()
+
+    def _build_table(self, td):
+        ctx = self.ctx
+        store_ann = find_annotation(td.annotations, "store")
+        if store_ann is None:
+            return InMemoryTable(td, ctx)
+        store_type = store_ann.get("type")
+        cls = ctx.siddhi_context.extensions.get(f"store:{store_type}")
+        if cls is None:
+            raise SiddhiAppCreationError(
+                f"no store extension '{store_type}' for table '{td.id}'")
+        table = cls(td, ctx)
+        table.config_reader = ctx.config_reader("store", store_type)
+        table.init(td, {e.key: e.value for e in store_ann.elements if e.key})
+        rmgr = ctx.siddhi_context.record_table_handler_manager
+        if rmgr is not None:
+            th = rmgr.generate_record_table_handler()
+            th.init(self.name, td)
+            rmgr.register_record_table_handler(th.id, th)
+            table.handler = th
+            self._table_handlers.append(th.id)
+        cache_ann = store_ann.nested("cache")
+        if cache_ann is None:
+            return table
+        from .table import CacheTable
+        # the reference requires an explicit size and rejects unknown cache
+        # keys (CacheTable config validation) — a silent 128/FIFO default
+        # would mask config typos
+        known = {"size", "cache.size", "policy", "cache.policy"}
+        bad = [e.key for e in cache_ann.elements
+               if e.key and e.key not in known]
+        if bad:
+            raise SiddhiAppCreationError(
+                f"table '{td.id}': unrecognized @cache key(s) {bad}; known: "
+                f"{sorted(known)}")
+        size_s = cache_ann.get("size") or cache_ann.get("cache.size")
+        if size_s is None:
+            raise SiddhiAppCreationError(
+                f"table '{td.id}': @cache requires a 'size'")
+        try:
+            size = int(size_s)
+        except ValueError:
+            raise SiddhiAppCreationError(
+                f"table '{td.id}': @cache size '{size_s}' is not an "
+                f"integer") from None
+        if size < 1:
+            raise SiddhiAppCreationError(
+                f"table '{td.id}': @cache size must be >= 1, got {size}")
+        try:
+            table = CacheTable(
+                td, ctx, backing=table, max_size=size,
+                policy=(cache_ann.get("cache.policy")
+                        or cache_ann.get("policy") or "FIFO"))
+        except ValueError as e:    # e.g. unknown policy name
+            raise SiddhiAppCreationError(f"table '{td.id}': {e}") from None
+        table.preload()
+        return table
+
+    def _wire_gauges(self) -> None:
+        """Buffered-events + memory gauges (reference BufferedEventsTracker /
+        SiddhiMemoryUsageMetric): async queue depths and per-element retained
+        size, device state included (the bytes of its tensors)."""
+        sm = self.ctx.statistics_manager
+        for sid, j in self.ctx.stream_junctions.items():
+            if j.dispatcher is not None:
+                sm.buffered_tracker(
+                    f"stream.{sid}", lambda d=j.dispatcher: d.buffered_events)
+        for b in self.device_bridges:
+            if b.driver is not None:
+                sm.buffered_tracker(
+                    f"device.{b.query_name}",
+                    lambda drv=b.driver: drv.pipeline_depth)
+            # device state bytes: nbytes summed over the state tensors
+            sm.memory_tracker(
+                f"device.{b.query_name}",
+                lambda rt=b.runtime: rt.state)
+        for element_id, holder in self.ctx.state_registry.items():
+            if not element_id.startswith("device-"):
+                sm.memory_tracker(element_id, lambda h=holder: h)
+        for sid, j in self.ctx.stream_junctions.items():
+            sm.gauge_tracker(f"stream.{sid}.receiver_errors",
+                             lambda jj=j: jj.receiver_errors)
+
+    def _stream_defs(self) -> dict:
+        defs = dict(self.app.stream_definitions)
+        for sid, j in self.ctx.stream_junctions.items():
+            defs.setdefault(sid, j.definition)
+        return defs
+
+    def _get_junction(self, stream_id: str, inner: bool = False,
+                      define: Optional[StreamDefinition] = None) -> StreamJunction:
+        j = self.ctx.stream_junctions.get(stream_id)
+        if j is None:
+            d = define or self.app.stream_definitions.get(stream_id) \
+                or StreamDefinition(stream_id)
+            j = StreamJunction(d, self.ctx)
+            self.ctx.stream_junctions[stream_id] = j
+        elif define is not None and not j.definition.attributes:
+            j.definition = define
+        return j
+
+    def _fill_implicit(self, query: Query, rt) -> None:
+        """``rt`` is any runtime exposing ``output_schema`` (a device
+        bridge)."""
+        from ..query_api import InsertIntoStream
+        os = query.output_stream
+        if isinstance(os, InsertIntoStream):
+            j = self.ctx.stream_junctions.get(os.target_id)
+            if j is not None and not j.definition.attributes:
+                names, types = rt.output_schema
+                d = StreamDefinition(os.target_id)
+                for n, t in zip(names, types):
+                    d.attribute(n, t)
+                j.definition = d
+
+    # -------------------------------------------------------------- public API
+    def input_handler(self, stream_id: str) -> InputHandler:
+        ih = self.input_handlers.get(stream_id)
+        if ih is None:
+            if stream_id not in self.ctx.stream_junctions:
+                raise KeyError(f"stream '{stream_id}' is not defined")
+            ih = InputHandler(stream_id, self.ctx.stream_junctions[stream_id], self.ctx)
+            self.input_handlers[stream_id] = ih
+        return ih
+
+    # reference-style alias
+    getInputHandler = input_handler
+
+    def add_callback(self, stream_id: str, callback: StreamCallback) -> None:
+        if stream_id not in self.ctx.stream_junctions:
+            raise KeyError(f"stream '{stream_id}' is not defined")
+        self.ctx.stream_junctions[stream_id].subscribe(
+            _StreamCallbackReceiver(callback))
+
+    def add_rows_callback(self, stream_id: str, fn) -> None:
+        """Columns-capable subscription: ``fn(cols, ts, n)`` receives whole
+        columnar chunks (zero per-event objects end to end when every other
+        subscriber of the stream is also columns-capable)."""
+        from .stream import RowsCallback
+        j = self.ctx.stream_junctions.get(stream_id)
+        if j is None:
+            raise KeyError(f"stream '{stream_id}' is not defined")
+        cb = RowsCallback(fn)
+        cb.names = j.definition.attribute_names
+        j.subscribe(cb)
+
+    def remove_callback(self, callback: StreamCallback) -> None:
+        """Detach a previously added stream callback (reference
+        ``SiddhiAppRuntime.removeCallback``)."""
+        for j in self.ctx.stream_junctions.values():
+            for r in list(j.receivers):
+                if isinstance(r, _StreamCallbackReceiver) \
+                        and r.callback is callback:
+                    j.unsubscribe(r)
+
+    def remove_query_callback(self, callback: QueryCallback) -> None:
+        for bridge in self.device_bridges:
+            if callback in bridge.query_callbacks:
+                bridge.query_callbacks.remove(callback)
+
+    def add_query_callback(self, query_name: str, callback: QueryCallback) -> None:
+        for bridge in self.device_bridges:
+            if bridge.query_name == query_name:
+                bridge.query_callbacks.append(callback)
+                return
+        raise KeyError(f"no query named '{query_name}'")
+
+    def start(self) -> None:
+        if self._started:
+            return
+        self._started = True
+        for j in self.ctx.stream_junctions.values():
+            if j.dispatcher is not None:
+                j.dispatcher.start()
+        self.ctx.statistics_manager.start_reporting()
+        if not self.ctx.timestamp_generator.playback:
+            self.ctx.ticker = SystemTicker(self.ctx.scheduler)
+            self.ctx.ticker.start()
+        elif self._heartbeat_cfg is not None:
+            from .scheduler import PlaybackHeartbeat
+            self._heartbeat = PlaybackHeartbeat(self.ctx,
+                                                *self._heartbeat_cfg)
+            self._heartbeat.start()
+
+    def shutdown(self) -> None:
+        self.drain_async()           # deliver queued async events
+        for b in self.device_bridges:
+            b.finalize()             # drain + close open device segments
+        for j in self.ctx.stream_junctions.values():
+            if j.dispatcher is not None:
+                j.dispatcher.stop()
+        for b in self.device_bridges:
+            if b.driver is not None:
+                b.driver.stop()
+        for agg in self.ctx.aggregations.values():
+            if getattr(agg, "persist_stores", None):
+                agg.flush_persisted()    # drain write-behind rollups
+        rmgr = self.ctx.siddhi_context.record_table_handler_manager
+        if rmgr is not None:
+            for hid in self._table_handlers:
+                rmgr.unregister_record_table_handler(hid)
+        self._table_handlers = []
+        self.ctx.statistics_manager.stop_reporting()
+        if self.ctx.ticker is not None:
+            self.ctx.ticker.stop()
+        if getattr(self, "_heartbeat", None) is not None:
+            self._heartbeat.stop()
+            self._heartbeat = None
+        self._started = False
+
+    def drain_async(self) -> None:
+        """Quiesce async junction dispatchers (ThreadBarrier analog). Must be
+        called WITHOUT holding root_lock."""
+        for j in self.ctx.stream_junctions.values():
+            if j.dispatcher is not None:
+                j.dispatcher.quiesce()
+
+    # -- time (playback) ------------------------------------------------------
+    def advance_time(self, ts: int) -> None:
+        """Advance the playback clock (fires due timers) without an event."""
+        self.flush_device()
+        self.ctx.advance_time(ts)
+
+    def flush_device(self) -> None:
+        """Drain pending micro-batches of @device-offloaded queries."""
+        for b in self.device_bridges:
+            b.flush()
+
+    # -- snapshots ------------------------------------------------------------
+    def _pre_snapshot(self) -> None:
+        """Quiesce async machinery so state walks see a stable engine (the
+        reference locks ThreadBarrier). Runs WITHOUT root_lock."""
+        self.drain_async()
+        for b in self.device_bridges:
+            if b.driver is not None:
+                b.driver.flush_sync()
+                b.driver.pause()
+
+    def _post_snapshot(self) -> None:
+        for b in self.device_bridges:
+            if b.driver is not None:
+                b.driver.resume()
+
+    def snapshot(self) -> bytes:
+        self._pre_snapshot()
+        try:
+            return self.snapshot_service.full_snapshot()
+        finally:
+            self._post_snapshot()
+
+    def restore(self, blob: bytes) -> None:
+        # quiesce + pause async machinery: a device worker step in flight
+        # would otherwise overwrite the freshly restored device state
+        self._pre_snapshot()
+        try:
+            self.snapshot_service.restore(blob)
+            self.persistence.invalidate_chain()
+        finally:
+            self._post_snapshot()
+
+    def persist(self) -> str:
+        self._pre_snapshot()
+        try:
+            return self.persistence.persist()
+        finally:
+            self._post_snapshot()
+
+    def restore_revision(self, revision: str) -> None:
+        self._pre_snapshot()
+        try:
+            self.persistence.restore_revision(revision)
+        finally:
+            self._post_snapshot()
+
+    def restore_last_revision(self) -> Optional[str]:
+        self._pre_snapshot()
+        try:
+            return self.persistence.restore_last_revision()
+        finally:
+            self._post_snapshot()
+
+    def clear_all_revisions(self) -> None:
+        self.persistence.clear_all_revisions()
+
+    # -- error-store replay ---------------------------------------------------
+    def replay_errors(self, stream_name: Optional[str] = None,
+                      min_id: Optional[int] = None,
+                      max_id: Optional[int] = None) -> dict:
+        """Re-inject this app's stored failed events ('before' entries
+        re-enter through the stream's ``InputHandler``). Returns
+        ``{"replayed", "failed", "skipped"}``."""
+        store = self.ctx.siddhi_context.error_store
+        if store is None:
+            raise ValueError("no error store configured")
+        return store.replay(self, stream_name, min_id, max_id)
+
+    # -- on-demand queries ----------------------------------------------------
+    def query(self, text: str) -> list[Event]:
+        rt = self._ondemand_cache.get(text)
+        if rt is None:
+            odq = parse_on_demand_query(text)
+            rt = OnDemandQueryRuntime(odq, self.ctx)
+            if len(self._ondemand_cache) > 100:
+                self._ondemand_cache.clear()
+            self._ondemand_cache[text] = rt
+        return rt.execute()
+
+    # -- introspection (reference SiddhiAppRuntime getter surface) ----------
+    @property
+    def stream_definition_map(self) -> dict:
+        # declared + inferred (output streams materialize junctions with
+        # their inferred definitions — the reference's map includes both)
+        return self._stream_defs()
+
+    @property
+    def table_definition_map(self) -> dict:
+        return dict(self.app.table_definitions)
+
+    @property
+    def aggregation_definition_map(self) -> dict:
+        return dict(self.app.aggregation_definitions)
+
+    @property
+    def query_names(self) -> set:
+        return {b.query_name for b in self.device_bridges}
+
+    @property
+    def tables(self) -> list:
+        return list(self.ctx.tables.values())
+
+    def table_input_handler(self, table_id: str):
+        """Direct table ingress (reference ``getTableInputHandler``)."""
+        table = self.ctx.tables.get(table_id)
+        if table is None:
+            raise KeyError(f"table '{table_id}' is not defined")
+        return _TableInputHandler(table, self.ctx)
+
+    def set_purging_enabled(self, enabled: bool) -> None:
+        """Toggle incremental-aggregation purging engine-wide (reference
+        ``setPurgingEnabled``)."""
+        for agg in self.ctx.aggregations.values():
+            was = agg.purge_enabled
+            agg.purge_enabled = enabled
+            if enabled and not was and agg.purge_interval:
+                agg._arm_purge()
+
+    def set_statistics_level(self, level: Level) -> None:
+        self.ctx.statistics_manager.set_level(level)
+
+    def set_exception_listener(self, listener) -> None:
+        self.ctx.exception_listener = listener
+
+
+def _refuse_unported(app: SiddhiApp) -> None:
+    """Raises ``SiddhiAppCreationError`` for the first element of ``app``
+    whose tier the port does not have yet."""
+    for ann in app.annotations:
+        tier = _UNPORTED_APP_ANNOTATIONS.get(ann.name.lower())
+        if tier is not None:
+            raise _not_ported(f"@app:{ann.name}", tier)
+    for sd in app.stream_definitions.values():
+        for ann in sd.annotations:
+            if ann.name.lower() in ("source", "sink"):
+                raise _not_ported(f"@{ann.name} on stream '{sd.id}'",
+                                  "the IO tier (sources, sinks, mappers)")
+    for wd in app.window_definitions.values():
+        raise _not_ported(f"define window '{wd.id}'",
+                          "the named-window tier")
+    for td in app.trigger_definitions.values():
+        raise _not_ported(f"define trigger '{td.id}'", "the trigger tier")
+    for i, element in enumerate(app.execution_elements):
+        if isinstance(element, Partition):
+            raise _not_ported(f"partition {i + 1}", "the partition tier")
+
+
+class _TableInputHandler:
+    """Direct table ingress (reference ``TableInputHandler``): rows go into
+    the table without a feeding stream/query."""
+
+    def __init__(self, table, app_context):
+        self.table = table
+        self.app_context = app_context
+
+    def send(self, rows, timestamp=None) -> None:
+        # a bare row may be a list OR a tuple (mirrors InputHandler payloads)
+        if rows and not isinstance(rows[0], (list, tuple)):
+            rows = [rows]
+        ts = timestamp if timestamp is not None \
+            else self.app_context.current_time()
+        with self.app_context.root_lock:
+            self.table.add([list(r) for r in rows], ts)

@@ -18,7 +18,7 @@ import time
 from dataclasses import asdict, dataclass
 from typing import Any, Iterable, Optional
 
-log = logging.getLogger("siddhi_tpu.errors")
+log = logging.getLogger("siddhi_tpu_torch.errors")
 
 
 class SiddhiAppCreationError(Exception):

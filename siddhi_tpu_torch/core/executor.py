@@ -553,7 +553,7 @@ def _fn_default(fns, types):
 
 def _fn_log(fns, types):
     import logging
-    logger = logging.getLogger("siddhi_tpu.log")
+    logger = logging.getLogger("siddhi_tpu_torch.log")
 
     def run(f):
         vals = [fn(f) for fn in fns]

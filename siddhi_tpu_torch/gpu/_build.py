@@ -20,6 +20,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -29,6 +30,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-shared", "-Xcompiler", "-fPIC"]
 
 _libs: dict[str, ctypes.CDLL] = {}
+# one build at a time: the engine's async drivers can reach a kernel's first
+# launch on their worker threads, and two bridges starting together must not
+# build the same library twice
+_lock = threading.Lock()
 build_seconds: dict[str, float] = {}   # per source: nvcc wall time (0.0 if reused)
 
 
@@ -84,12 +89,14 @@ def _finish(stem: str, started) -> ctypes.CDLL:
 
 
 def build_all(stems) -> dict[str, ctypes.CDLL]:
-    """Builds (or reuses) every named source, one nvcc each, in parallel."""
-    todo = [s for s in stems if s not in _libs]
-    started = {s: _start(s) for s in todo}
-    for s in todo:
-        _libs[s] = _finish(s, started[s])
-    return {s: _libs[s] for s in stems}
+    """Builds (or reuses) every named source, one nvcc each, in parallel.
+    Thread-safe: a caller that finds a build in progress waits for it."""
+    with _lock:
+        todo = [s for s in stems if s not in _libs]
+        started = {s: _start(s) for s in todo}
+        for s in todo:
+            _libs[s] = _finish(s, started[s])
+        return {s: _libs[s] for s in stems}
 
 
 def load(stem: str) -> ctypes.CDLL:

@@ -176,6 +176,11 @@ class MergedBatchBuilder:
         return take
 
     def emit(self) -> dict:
+        """The wire batch plus the reference's bookkeeping keys: the last
+        event's ts (``last_ts``, the engine stamps outputs with it), the
+        pack span since the first append (``pack_s``), the copy's own time
+        (``pack_exec_s``) and the emit instant (``_t_emit``)."""
+        t_emit0 = time.perf_counter()
         n = self._n
         base = int(self._ts[:n].min()) if n else 0
         deltas = self._ts - base
@@ -193,7 +198,13 @@ class MergedBatchBuilder:
             "ts": deltas.astype(np.int32),
             "ts_base": np.int64(base),
             "count": n,
+            "last_ts": int(self._ts[n - 1]) if n else 0,
+            "pack_s": (t_emit0 - self._pack_t0
+                       if self._pack_t0 is not None else 0.0),
         }
+        t_emit = time.perf_counter()
+        out["pack_exec_s"] = t_emit - t_emit0
+        out["_t_emit"] = t_emit
         self._n = 0
         self._pack_t0 = None
         return out
@@ -780,6 +791,8 @@ class DeviceNFARuntime(AdaptiveFlushMixin):
     version); with no card and no explicit ``"cpu"`` the constructor
     raises."""
 
+    driver = None           # AsyncDeviceDriver when an engine bridge is async
+
     def __init__(self, app_or_text, slot_capacity: int = 64,
                  batch_capacity: int = 1024, query_index: int = 0,
                  start_time: int = 0, device=None):
@@ -834,6 +847,9 @@ class DeviceNFARuntime(AdaptiveFlushMixin):
         self._seal()
         batch = self.builder.emit()
         batch["_cause"] = self._take_cause()
+        if self.driver is not None:         # the engine's async pipeline
+            self.driver.submit(batch)
+            return None
         if decode:
             rows = self._timed_process(batch)
             self.deliver(rows)

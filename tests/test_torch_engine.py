@@ -1,0 +1,356 @@
+"""The port's engine: samples, snapshots, refusals, the device rule.
+
+- The two device samples of the JAX package (``samples/device_pattern.py``,
+  ``samples/device_offload.py``: their app text read from the files, their
+  driver loops replayed) run on ``siddhi_tpu_torch.SiddhiManager(device=
+  "cpu")`` and give the reference engine's output.
+- ``snapshot``/``restore`` and ``persist``/``restore_last_revision``
+  mid-stream, in sync and async mode: cut where every bridge's builder is
+  empty, the port resumed in a fresh engine equals its uninterrupted run,
+  timestamps included; cut mid-batch (the snapshot flushes the partial
+  batch, so output timestamps move), it equals the reference engine cut at
+  the same event. A blob holds numpy arrays and no ``torch.Tensor``.
+- Every tier the port does not have yet is refused at
+  ``create_siddhi_app_runtime`` with a ``SiddhiAppCreationError`` naming it;
+  a strict ``@device`` query the compilers refuse raises
+  ``DeviceCompileError``, as in the reference.
+- ``SiddhiManager()`` runs on the card, and without one it raises.
+- Device state is sized by its tensors' bytes, never copied to the host
+  (meta tensors, which have no data); the kernels' build is one at a time
+  across threads.
+"""
+
+import ast
+import pickle
+import random
+import threading
+import time
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import siddhi_tpu
+import siddhi_tpu_torch
+from siddhi_tpu_torch.core.errors import SiddhiAppCreationError
+from siddhi_tpu_torch.gpu.expr_compile import DeviceCompileError
+
+from test_torch_device_bridge import (
+    CHAIN,
+    QUERIES,
+    _Fed,
+    _dev_v,
+    assert_query_rows,
+    port_manager,
+    ref_manager,
+    send,
+    send_columns,
+    start,
+    stream_events,
+)
+
+ROOT = Path(__file__).resolve().parent.parent
+
+
+# ------------------------------------------------------------------ samples
+
+def sample_app(name: str) -> str:
+    """The ``APP`` text of ``samples/<name>.py`` (read as data: the sample
+    imports the JAX package)."""
+    tree = ast.parse((ROOT / "samples" / f"{name}.py").read_text())
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and node.targets[0].id == "APP":
+            return ast.literal_eval(node.value)
+    raise KeyError(name)
+
+
+def _pattern_events():
+    return [("S", [v], 1000 + i * 100)
+            for i, v in enumerate([11.0, 5.0, 12.0, 13.0, 2.0, 14.0])]
+
+
+def _offload_events():
+    rng = random.Random(7)
+    return [("Ticks", [rng.choice(["a", "b"]), round(rng.uniform(0, 100), 2)],
+             1000 + i) for i in range(256)]
+
+
+SAMPLES = {"device_pattern": ("Rising", _pattern_events),
+           "device_offload": ("Stats", _offload_events)}
+
+
+def run_sample(manager, name: str):
+    """The sample's driver loop on ``manager``: rows of its output stream as
+    ``(timestamp, data)``, and the runtime."""
+    out, events = SAMPLES[name]
+    rt = start(manager, sample_app(name), out=out)
+    assert rt.device_bridges, "query compiled onto the device path"
+    port = isinstance(manager, siddhi_tpu_torch.SiddhiManager)
+    fed = _Fed(rt.device_bridges[0].runtime) \
+        if port and hasattr(rt.device_bridges[0].runtime, "compiled") \
+        else None
+    send(rt, events())
+    rt.flush_device()
+    manager.shutdown()
+    return rt.got, rt, fed
+
+
+@pytest.mark.parametrize("name", sorted(SAMPLES))
+def test_sample_runs_on_the_port(name):
+    ref, _, _ = run_sample(ref_manager(), name)
+    got, prt, fed = run_sample(port_manager(), name)
+    assert ref
+    if fed is None:             # the pattern: bitwise
+        assert got == ref
+    else:                       # grouped f32 sums: the query tolerances
+        assert_query_rows(prt, ref, got, fed)
+
+
+# ---------------------------------------------------------------- snapshots
+
+# the chain and the grouped length window, both into Out
+SNAP_APP = "@app:name('Snap')\n" + CHAIN + QUERIES["grouped_length"][0]
+TICK_COLS = ("Ticks", ["sym", "price", "vol"])
+
+
+def _snap_events():
+    chain = stream_events(12, 1280, {"S": (1, _dev_v(8, 40.0, 100.0))})
+    ticks = stream_events(13, 640, QUERIES["grouped_length"][1])
+    return chain, ticks
+
+
+def _feed(rt, chain, ticks) -> None:
+    send(rt, chain)
+    send_columns(rt, *TICK_COLS, ticks)
+
+
+def _async(app: str) -> str:
+    return app.replace("strict='true'", "strict='true', async='true'")
+
+
+def _walk_leaves(x, out: list) -> list:
+    if isinstance(x, dict):
+        for v in x.values():
+            _walk_leaves(v, out)
+    elif isinstance(x, (list, tuple)):
+        for v in x:
+            _walk_leaves(v, out)
+    else:
+        out.append(x)
+    return out
+
+
+def _resumed(app: str, chain, ticks, cut_chain: int, cut_ticks: int,
+             how: str, manager_cls):
+    """Feeds the cut's prefix, snapshots (``how``: ``snapshot`` or
+    ``persist``), resumes in a fresh engine and feeds the rest; returns the
+    rows of both halves and the blob."""
+    store = None
+    m1 = manager_cls()
+    if how == "persist":
+        store = (siddhi_tpu_torch if isinstance(m1, siddhi_tpu_torch.SiddhiManager)
+                 else siddhi_tpu).InMemoryPersistenceStore()
+        m1.set_persistence_store(store)
+    rt1 = start(m1, app)
+    _feed(rt1, chain[:cut_chain], ticks[:cut_ticks])
+    if how == "snapshot":
+        blob = rt1.snapshot()
+    else:
+        rev = rt1.persist()
+        blob = store.load("Snap", rev)
+    m1.shutdown()
+    m2 = manager_cls()
+    if store is not None:
+        m2.set_persistence_store(store)
+    rt2 = start(m2, app)
+    if how == "snapshot":
+        rt2.restore(blob)
+    else:
+        assert rt2.restore_last_revision() == rev
+    _feed(rt2, chain[cut_chain:], ticks[cut_ticks:])
+    rt2.flush_device()
+    m2.shutdown()
+    return rt1.got + rt2.got, blob
+
+
+def _uninterrupted(app: str, chain, ticks):
+    m = port_manager()
+    rt = start(m, app)
+    _feed(rt, chain, ticks)
+    rt.flush_device()
+    m.shutdown()
+    return rt.got
+
+
+@pytest.mark.parametrize("how", ["snapshot", "persist"])
+@pytest.mark.parametrize("mode", ["sync", "async"])
+def test_resume_at_a_batch_boundary_equals_uninterrupted(mode, how):
+    app = SNAP_APP if mode == "sync" else _async(SNAP_APP)
+    chain, ticks = _snap_events()
+    want = _uninterrupted(app, chain, ticks)
+    got, blob = _resumed(app, chain, ticks, 640, 320, how, port_manager)
+    # per query (the chain's rows have 4 values, the window's 5): the two
+    # halves interleave the queries' rows in another order
+    for width in (4, 5):
+        mine = [x for x in got if len(x[1]) == width]
+        assert mine, "both queries emitted"
+        assert mine == [x for x in want if len(x[1]) == width]
+    leaves = _walk_leaves(pickle.loads(blob), [])
+    assert not any(isinstance(x, torch.Tensor) for x in leaves)
+    assert any(isinstance(x, np.ndarray) for x in leaves)
+
+
+@pytest.mark.parametrize("mode", ["sync", "async"])
+def test_resume_mid_batch_matches_reference(mode):
+    app = "@app:name('Snap')\n" + (CHAIN if mode == "sync" else _async(CHAIN))
+    chain, _ = _snap_events()
+    ref, _ = _resumed(app, chain, [], 700, 0, "snapshot", ref_manager)
+    got, _ = _resumed(app, chain, [], 700, 0, "snapshot", port_manager)
+    assert ref
+    assert got == ref
+
+
+# ----------------------------------------------------------------- refusals
+
+S = "define stream S (v double);\n"
+Q = "@device(batch='16')\nfrom S[v > 1.0] select v insert into O;\n"
+REFUSALS = {
+    "no_device": (S + "from S[v > 1.0] select v insert into O;\n",
+                  "host interpreter tier"),
+    "device_refused": (S + "@device(batch='16')\nfrom S[v > 1.0] select v "
+                       "order by v insert into O;\n", "host interpreter tier"),
+    "partition": (S + "partition with (v of S) begin\n" + Q + "end;\n",
+                  "partition tier"),
+    "window": (S + "define window W (v double) length(5);\n" + Q,
+               "named-window tier"),
+    "trigger": (S + "define trigger T at every 1 sec;\n" + Q, "trigger tier"),
+    "source": ("@source(type='inMemory', topic='t', @map(type='passThrough'))"
+               "\n" + S + Q, "IO tier"),
+    "sink": ("@sink(type='inMemory', topic='t', @map(type='passThrough'))\n"
+             "define stream O (v double);\n" + S + Q, "IO tier"),
+    "fleet": ("@app:fleet(tenant='a')\n" + S + Q, "fleet tier"),
+    "host_batch": ("@app:host_batch(workers='2')\n" + S + Q,
+                   "columnar host tier"),
+    "wal": ("@app:wal(dir='w')\n" + S + Q, "durable flow control"),
+    "backpressure": ("@app:backpressure(capacity='8')\n" + S + Q,
+                     "durable flow control"),
+    "adaptive": ("@app:adaptive(target.ms='25')\n" + S + Q,
+                 "adaptive micro-batching"),
+    "trace": ("@app:trace(sample='1/1')\n" + S + Q,
+              "observability subsystem"),
+    "flightrecorder": ("@app:flightrecorder(dir='f')\n" + S + Q,
+                       "observability subsystem"),
+    "profile": ("@app:profile(enable='true')\n" + S + Q,
+                "observability subsystem"),
+    "chaos": ("@app:chaos(seed='1')\n" + S + Q, "resilience subsystem"),
+    "resilience": ("@app:resilience(device.quarantine='false')\n" + S + Q,
+                   "resilience subsystem"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(REFUSALS))
+def test_unported_tier_is_refused(name):
+    app, tier = REFUSALS[name]
+    with pytest.raises(SiddhiAppCreationError, match="not ported yet") as e:
+        port_manager().create_siddhi_app_runtime(app, playback=True)
+    assert tier in str(e.value)
+    if name == "device_refused":
+        assert "order by" in str(e.value)   # the compiler's own reason
+
+
+def test_strict_refusal_raises_device_compile_error():
+    app = S + ("@device(batch='16', strict='true')\nfrom S[v > 1.0] select v "
+               "order by v insert into O;\n")
+    with pytest.raises(DeviceCompileError, match="order by"):
+        port_manager().create_siddhi_app_runtime(app, playback=True)
+    from siddhi_tpu.tpu.expr_compile import DeviceCompileError as RefError
+    with pytest.raises(RefError, match="order by"):
+        ref_manager().create_siddhi_app_runtime(app, playback=True)
+
+
+def test_manager_without_a_card_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        siddhi_tpu_torch.SiddhiManager()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        siddhi_tpu_torch.SiddhiManager(device="cuda")
+    m = siddhi_tpu_torch.SiddhiManager(device="cpu")
+    rt = m.create_siddhi_app_runtime(CHAIN, playback=True)
+    comp = rt.device_bridges[0].runtime.compiler
+    assert m.device.type == "cpu" and comp.device.type == "cpu"
+    assert rt.device_bridges[0].runtime.state["matches"].device.type == "cpu"
+
+
+# ---------------------------------------------------------- state, builds
+
+def test_device_state_sized_by_bytes_without_a_host_copy():
+    """``_deep_size`` reads ``Tensor.nbytes``: meta tensors have no data, so
+    any copy to the host would raise."""
+    from siddhi_tpu_torch.core.metrics import StatisticsManager, _deep_size
+    state = {"tables": {"t0": {"ts": torch.empty((1, 64), dtype=torch.int64,
+                                                 device="meta"),
+                               "v": torch.empty((1, 64), device="meta")}},
+             "matches": torch.empty(1, dtype=torch.int64, device="meta")}
+    leaf = state["tables"]["t0"]["ts"]
+    assert _deep_size(leaf, set()) == leaf.nbytes == 512
+    tensors = 512 + 256 + 8
+    size = _deep_size(state, set())
+    assert tensors < size < tensors + 4096
+    sm = StatisticsManager("x")
+    assert sm.memory_tracker("device.q", lambda: state).bytes == size
+
+
+def test_engine_wires_device_state_gauge():
+    m = port_manager()
+    rt = start(m, CHAIN)
+    send(rt, stream_events(14, 200, {"S": (1, _dev_v(8, 40.0, 100.0))}))
+    st = rt.device_bridges[0].runtime.state
+    nbytes = sum(x.nbytes for x in _walk_leaves(st, []))
+    got = rt.ctx.statistics_manager.memory["device.query-1"].bytes
+    assert nbytes < got < nbytes + 8192
+    m.shutdown()
+
+
+def test_kernel_build_is_one_at_a_time(monkeypatch):
+    """Threads that reach a kernel's first launch together build it once."""
+    from siddhi_tpu_torch.gpu import _build
+    calls, active, most = [], [0], [0]
+
+    def start_build(stem):
+        active[0] += 1
+        most[0] = max(most[0], active[0])
+        calls.append(stem)
+        time.sleep(0.05)
+        return stem
+
+    def finish(stem, started):
+        active[0] -= 1
+        return f"lib:{started}"
+
+    monkeypatch.setattr(_build, "_libs", {})
+    monkeypatch.setattr(_build, "_start", start_build)
+    monkeypatch.setattr(_build, "_finish", finish)
+    libs = []
+    threads = [threading.Thread(target=lambda: libs.append(
+        _build.load("nfa_block"))) for _ in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert calls == ["nfa_block"] and most[0] == 1
+    assert libs == ["lib:nfa_block"] * 4
+
+
+@pytest.mark.cuda
+def test_cuda_state_sized_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: CUDA state tensors")
+    m = siddhi_tpu_torch.SiddhiManager()
+    rt = start(m, CHAIN)
+    st = rt.device_bridges[0].runtime.state
+    leaves = _walk_leaves(st, [])
+    assert all(x.device.type == "cuda" for x in leaves)
+    got = rt.ctx.statistics_manager.memory["device.query-1"].bytes
+    assert sum(x.nbytes for x in leaves) < got
+    m.shutdown()

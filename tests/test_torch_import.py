@@ -48,6 +48,9 @@ def test_import_loads_neither_jax_nor_the_reference():
         "from siddhi_tpu_torch.gpu import CompiledAggregation\n"
         "import siddhi_tpu_torch.native, siddhi_tpu_torch.core.columns\n"
         "import siddhi_tpu_torch.entry\n"
+        "import siddhi_tpu_torch.core.app_runtime, siddhi_tpu_torch.core.manager\n"
+        "import siddhi_tpu_torch.core.device_bridge\n"
+        "from siddhi_tpu_torch import SiddhiManager, StreamCallback\n"
         "print('\\n'.join(sorted(sys.modules)))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                          capture_output=True, text=True).stdout.split()

@@ -169,7 +169,7 @@ Phases, one JSON line each:
                (the card) → ``create_siddhi_app_runtime(app, playback=
                True)`` → ``InputHandler`` → junction → ``DeviceQueryBridge``
                → kernel → ``StreamCallback``, each app ``@device(strict=
-               'true')`` with 2,000,000 seeded events
+               'true')`` with 1,000,000 seeded events
                (``siddhi_tpu_torch/tools/engine_workloads.py``): the chain
                of ``main`` without its partition (B1, batch 2048, slots 64)
                and the scan app without its partition (B4), per event
@@ -195,6 +195,25 @@ Phases, one JSON line each:
                Per app: events/s, the share of the window outside the step
                calls, the step call's median by CUDA events beside the
                direct runtime's and the standalone phase's, launches.
+ 13. engine_host — the host interpreter and the kernels in one engine:
+               ``iot_mixed`` of ``engine_workloads`` (``ENGINE_HOST_EVENTS``
+               seeded IoT readings from 256 devices in 16 rooms, per event
+               through ``send``): an interpreter filter feeds the chain
+               (B1, batch 2048, slots 64) and a grouped length window (B5a,
+               batch 4096, K = 1024), an interpreter time window reads the
+               chain's alerts, an ``order by``/``limit`` query the device
+               compilers refuse runs on the interpreter, and a partition
+               by room keeps a per-room peak. The app runs through
+               ``SiddhiManager()`` on the card and through
+               ``SiddhiManager(device="cpu")`` (the plain versions) over
+               the same events: every output stream's rows equal in order
+               (the grouped float32 sums within
+               ``tests/test_torch_query_shapes.py``'s tolerances), exactly
+               the two device queries bridged (on the card), the others on
+               the interpreter, both kernels launched (no other), no
+               receiver error and no ERROR record. Events/s through both
+               engines, the share of the window inside the step calls,
+               rows per output stream.
 Then the card's name and power limit (nvidia-smi), the ``kernels`` line and,
 last, ``{"ok": true, "device": {...}}``. Any failure exits non-zero before
 that line. Needs one CUDA card; fails without one.
@@ -2430,7 +2449,7 @@ def agg_kernel_entry(a_outs: list) -> dict:
 
 # ----------------------------------------------------------------- engine
 
-ENGINE_EVENTS = 2_000_000          # events per engine app
+ENGINE_EVENTS = 1_000_000          # events per engine app
 ENGINE_CPU_STEPS = {"scan": 1}     # micro-batches the CPU engine checks (2)
 ENGINE_ASYNC = ("chain", "grouped_length")
 ENGINE_SNAPSHOT = "time_batch"       # an open bucket across the cut
@@ -2938,6 +2957,134 @@ def phase_engine(seed: int, n_events: int, standalone: dict) -> dict:
                      for n, o in apps.items()}, "launches": launches}
 
 
+# ------------------------------------------------------------ engine_host
+
+ENGINE_HOST_EVENTS = 500_000       # iot_mixed events
+
+
+def host_engine_run(manager, app: str, ev, card: bool) -> dict:
+    """One run of ``iot_mixed`` on ``manager``: the rows of every output
+    stream, the runtime, the wall, and on the card the step probes of the
+    two device queries; on the CPU the stats query's tolerance scale
+    (``next_scale`` over its steps, as ``engine_cpu_prefix`` keeps it)."""
+    import torch
+    from siddhi_tpu_torch import StreamCallback
+    from siddhi_tpu_torch.tools import engine_workloads as ew
+    rt = manager.create_siddhi_app_runtime(app, playback=True)
+    got = ew.collect_outputs(rt, StreamCallback)
+    rt.start()
+    by_name = {b.query_name: b for b in rt.device_bridges}
+    probes, scales = {}, []
+    if card:
+        probes = {n: StepProbe(b.runtime) for n, b in by_name.items()}
+    elif "stats" in by_name:
+        sh = query_shapes_module()
+        q = plan_of(by_name["stats"].runtime)
+        step, sc = q.step_tensors, [sh.Scale()]
+
+        def scaled(state, cols, ts, valid):
+            sc[0] = sh.next_scale(q, sc[0], state, cols, ts, valid)
+            return step(state, cols, ts, valid)
+
+        q.step_tensors = scaled
+        scales = sc
+    if card:
+        torch.cuda.synchronize()
+        reset_launches()              # counts from here: the engine path
+    t0 = time.perf_counter()
+    ew.feed_iot(rt, ev)
+    rt.flush_device()
+    if card:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches() if card else None
+    errors = sum(j.receiver_errors for j in rt.ctx.stream_junctions.values())
+    manager.shutdown()
+    return dict(rows=got, rt=rt, wall=wall, probes=probes,
+                scale=scales[0] if scales else None, launches=launches,
+                errors=errors)
+
+
+def phase_engine_host(seed: int, n_events: int) -> dict:
+    """``iot_mixed`` through the card engine and the CPU engine."""
+    import torch
+    from siddhi_tpu_torch import SiddhiManager
+    from siddhi_tpu_torch.gpu.nfa_block import BlockPlan
+    from siddhi_tpu_torch.gpu.query_step import QueryPlan
+    from siddhi_tpu_torch.tools import engine_workloads as ew
+    t_phase = time.perf_counter()
+    app = ew.iot_mixed_app()
+    ev = ew.IotEvents(n_events, seed)
+    records = ErrorRecords()
+    try:
+        # warm-up: the kernels' first launches (untimed)
+        m = SiddhiManager()
+        rt = m.create_siddhi_app_runtime(app, playback=True)
+        rt.start()
+        ew.feed_iot(rt, ev, 0, 8192)
+        rt.flush_device()
+        m.shutdown()
+        torch.cuda.synchronize()
+
+        card = host_engine_run(SiddhiManager(), app, ev, card=True)
+        cpu = host_engine_run(SiddhiManager(device="cpu"), app, ev,
+                              card=False)
+        records.check("engine_host")
+    finally:
+        records.close()
+    crt = card["rt"]
+    bridged = sorted(b.query_name for b in crt.device_bridges)
+    if bridged != ["chain", "stats"] or sorted(
+            b.query_name for b in cpu["rt"].device_bridges) != bridged:
+        fail(f"engine_host: device bridges {bridged}, expected chain, stats")
+    for b in crt.device_bridges:
+        if b.runtime.device.type != "cuda":
+            fail(f"engine_host: '{b.query_name}' runs on {b.runtime.device}")
+    if sorted(crt.query_runtimes) != ["alert_rate", "clean", "top"]:
+        fail(f"engine_host: interpreter queries {sorted(crt.query_runtimes)}")
+    inner = [q.name() for p in crt.partition_runtimes
+             for q in p.partition_ast.queries]
+    if inner != ["room_peak"]:
+        fail(f"engine_host: partition queries {inner}")
+    launches = card["launches"]
+    if launches[BlockPlan.__name__] == 0 or launches[QueryPlan.__name__] == 0 \
+            or any(n for c, n in launches.items()
+                   if c not in (BlockPlan.__name__, QueryPlan.__name__)):
+        fail(f"engine_host: launches {launches}: nfa_block and query_step "
+             f"must launch, no other kernel")
+    if card["errors"] or cpu["errors"]:
+        fail(f"engine_host: receiver errors {card['errors']} (card), "
+             f"{cpu['errors']} (CPU)")
+    for s in ("Alerts", "AlertRate", "Top", "RoomPeak"):
+        if card["rows"][s] != cpu["rows"][s]:
+            fail(f"engine_host: {s}: {len(card['rows'][s])} rows on the card, "
+                 f"{len(cpu['rows'][s])} on the CPU: they differ")
+    q = plan_of(next(b for b in crt.device_bridges
+                     if b.query_name == "stats").runtime)
+    close_rows(query_shapes_module(), q, cpu["scale"], cpu["rows"]["Stats"],
+               card["rows"]["Stats"], "engine_host Stats (card vs CPU)")
+    steps = {n: p.steps for n, p in card["probes"].items()}
+    step_ms = {n: p.step_ms() for n, p in card["probes"].items()}
+    inside = sum(p.step_s + p.decode_s for p in card["probes"].values())
+    cuda_s = sum(sum(v) for v in step_ms.values()) / 1e3
+    out = {
+        "phase": "engine_host", "app": "iot_mixed", "events": ev.n,
+        "events_per_s": ev.n / card["wall"], "wall_s": card["wall"],
+        "cpu_events_per_s": ev.n / cpu["wall"], "cpu_wall_s": cpu["wall"],
+        "steps": steps,
+        "step_ms_median": {n: float(np.median(v)) for n, v in step_ms.items()},
+        "step_calls_share_cuda": cuda_s / card["wall"],
+        "inside_step_calls_share": inside / card["wall"],
+        "launches": {"nfa_block": launches[BlockPlan.__name__],
+                     "query_step": launches[QueryPlan.__name__]},
+        "rows": {s: len(r) for s, r in card["rows"].items()},
+        "bridges": bridged, "equal_to_cpu_engine": True,
+        "error_records": 0, "phase_s": time.perf_counter() - t_phase,
+    }
+    emit(out)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=42)
@@ -2978,6 +3125,7 @@ def main() -> int:
            ("grouped_length", "time_batch", "lossy_frequent")},
         "market_join": stand(j_outs[0], "join_main"),
         "trade_rollup": stand(a_outs[0], "agg_main")})
+    host = phase_engine_host(args.seed, ENGINE_HOST_EVENTS)
     bound = max(main_out["bound_ms_bytes"], main_out["bound_ms_ops"])
     scan_bound = max(scan_out["bound_ms_bytes"], scan_out["bound_ms_ops"])
     kernels = [{
@@ -3035,6 +3183,8 @@ def main() -> int:
         by_path["engine"] = eng["launches"].get(k["name"], 0)
         if not by_path["engine"]:
             fail(f"engine: kernel {k['name']} was not launched")
+        if k["name"] in host["launches"]:
+            by_path["engine_host"] = host["launches"][k["name"]]
     print(card, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -5,8 +5,8 @@ device path on one H100: the same SiddhiQL apps, the same wire batches, the
 same state leaves and the same output rows in the same order. Layout mirrors
 the reference so every module has a findable counterpart:
 ``siddhi_tpu/tpu/<stem>.py`` → ``siddhi_tpu_torch/gpu/<stem>.py``; the
-JAX-free layers it needs (``query_api``, ``compiler``, the flattening half
-of ``core/pattern.py``) are kept as copies under the same names.
+JAX-free layers it needs (``query_api``, ``compiler``, the engine's host
+modules under ``core/``) are kept as copies under the same names.
 
 This package imports ``torch`` and never ``jax`` or ``siddhi_tpu``. CUDA
 kernels (``csrc/``) are compiled with ``nvcc`` at first CUDA use, and the
@@ -15,15 +15,17 @@ import. ``entry.py`` holds the entry points ``entry()`` and
 ``dryrun_multichip(n)``.
 
 The engine: ``SiddhiManager(device=None)`` → ``create_siddhi_app_runtime``
-→ ``input_handler(...).send(...)`` / ``StreamCallback``, with ``@device`` on
-every query (``core/``). ``device=None`` is the card; ``device="cpu"`` runs
-the plain versions.
+→ ``input_handler(...).send(...)`` / ``StreamCallback`` (``core/``), on two
+tiers: a ``@device`` query the device compilers take steps on the kernels;
+every other query, partitions, named windows and triggers run on the host
+interpreter, as in the reference. ``device=None`` is the card;
+``device="cpu"`` runs the kernels' plain versions.
 """
 
 __version__ = "0.1.0"
 
 from . import query_api
-from .compiler import parse, parse_on_demand_query
+from .compiler import SiddhiCompiler, parse, parse_on_demand_query, parse_query
 from .core import (
     ErrorEntry,
     ErrorStore,
@@ -53,5 +55,6 @@ __all__ = [
     "InMemoryPersistenceStore", "InputHandler", "Level", "QueryCallback",
     "RecordTableHandler", "RecordTableHandlerManager", "SiddhiAppRuntime",
     "SiddhiManager", "StreamCallback", "YAMLConfigManager", "extension",
-    "parse", "parse_on_demand_query", "query_api",
+    "SiddhiCompiler", "parse", "parse_on_demand_query", "parse_query",
+    "query_api",
 ]

@@ -1,21 +1,23 @@
-"""SiddhiAppRuntime: build + lifecycle for one app, on the device tier.
+"""SiddhiAppRuntime: build + lifecycle for one app, on two tiers.
 
 Port of the JAX package's ``core/app_runtime.py`` (reference
 ``core/SiddhiAppRuntime.java`` / ``SiddhiAppRuntimeImpl.java``: start:449,
 shutdown:552, persist:686, query:309; ``util/parser/SiddhiAppParser``). It
 builds definitions, junctions (``@async``, ``@OnError``), tables, script
-functions, ``define aggregation`` (``core/aggregation.py``, ``@device``
-included) and the device tier: every query is a ``@device`` query that the
-device compilers take (``core/device_bridge.py``), its steps on the engine's
-device (``SiddhiContext.device``). Snapshots, persistence, on-demand queries,
+functions, named windows, triggers, ``define aggregation``
+(``core/aggregation.py``, ``@device`` included), then the queries and
+partitions in definition order. A ``@device`` query that the device
+compilers take steps on the engine's device (``core/device_bridge.py``,
+``SiddhiContext.device``); every other query, and every partition, runs on
+the host interpreter (``core/query_runtime.py``, ``core/partition.py``), as
+in the reference. Snapshots, persistence, on-demand queries, the debugger,
 statistics and the playback clock are the reference's.
 
 What later engine slices bring is refused at build time with a
-``SiddhiAppCreationError`` that names its tier (``_refuse_unported``): the
-host interpreter tier (a query without ``@device``, or one the device
-compilers refuse), partitions, named windows, triggers, sources and sinks,
-the fleet and host-batch tiers, durable flow control and adaptive batching,
-and the observability and resilience subsystems.
+``SiddhiAppCreationError`` that names its tier (``_refuse_unported``):
+sources and sinks, the fleet and columnar host tiers (``@app:fleet``,
+``@app:host_batch`` and a query's ``@host_batch``), durable flow control
+and adaptive batching, and the observability and resilience subsystems.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ from __future__ import annotations
 from typing import Optional
 
 from ..compiler import parse_on_demand_query
-from ..query_api import Partition, Query, SiddhiApp
+from ..query_api import Partition, Query, SiddhiApp, Window
 from ..query_api.annotation import find_annotation
 from ..query_api.definition import DataType, StreamDefinition
 from .context import SiddhiAppContext, SiddhiContext
@@ -31,7 +33,10 @@ from .errors import SiddhiAppCreationError
 from .event import Event
 from .extension import ScriptFunction
 from .metrics import Level, StatisticsManager
+from .named_window import NamedWindow
 from .on_demand import OnDemandQueryRuntime
+from .partition import PartitionRuntime
+from .query_runtime import QueryRuntime, build_query_runtime, make_window_processor
 from .scheduler import SystemTicker
 from .snapshot import PersistenceManager, SnapshotService
 from .stream import (
@@ -43,6 +48,7 @@ from .stream import (
     _StreamCallbackReceiver,
 )
 from .table import InMemoryTable
+from .trigger import TriggerRuntime, trigger_stream_definition
 
 # app-level annotations whose subsystem is not ported yet → its tier
 _UNPORTED_APP_ANNOTATIONS = {
@@ -104,6 +110,9 @@ class SiddhiAppRuntime:
                 except ValueError as e:
                     raise SiddhiAppCreationError(str(e)) from None
         self.input_handlers: dict[str, InputHandler] = {}
+        self.query_runtimes: dict[str, QueryRuntime] = {}
+        self.partition_runtimes: list[PartitionRuntime] = []
+        self.trigger_runtimes: list[TriggerRuntime] = []
         self.device_bridges: list = []
         self._table_handlers: list[str] = []    # record-table handler ids
         self._started = False
@@ -151,28 +160,63 @@ class SiddhiAppRuntime:
                     fault_def.attribute("_error", DataType.OBJECT)
                     fj = self._get_junction("!" + sd.id, define=fault_def)
                     junction.fault_junction = fj
+        # named windows
+        for wd in app.window_definitions.values():
+            handler = wd.window_handler or Window(None, "length", [])
+            proc = make_window_processor(handler, wd, ctx, f"window-{wd.id}")
+            ctx.named_windows[wd.id] = NamedWindow(wd, proc, ctx)
+        # triggers
+        for td in app.trigger_definitions.values():
+            sd = trigger_stream_definition(td.id)
+            j = self._get_junction(td.id, define=sd)
+            self.trigger_runtimes.append(TriggerRuntime(td, j, ctx))
         # aggregations (@device ones step on the engine's device)
         from .aggregation import AggregationRuntime
         for ad in app.aggregation_definitions.values():
             ctx.aggregations[ad.id] = AggregationRuntime(
                 ad, ctx, self._stream_defs(),
                 device=ctx.siddhi_context.device)
-        # queries in definition order: the device tier
+        # queries & partitions in definition order
         from .device_bridge import try_build_device_query
         q_count = 0
         for element in app.execution_elements:
-            q_count += 1
-            name = element.name() or f"query-{q_count}"
-            bridge = try_build_device_query(
-                element, ctx, self._stream_defs(), self._get_junction, name)
-            if bridge is None:
-                raise _not_ported(
-                    f"query '{name}' has no @device annotation: it",
-                    "the host interpreter tier")
-            self.device_bridges.append(bridge)
-            for sid in bridge.stream_ids:
-                self._get_junction(sid).subscribe(bridge.receiver_for(sid))
-            self._fill_implicit(element, bridge)
+            if isinstance(element, Query):
+                q_count += 1
+                name = element.name() or f"query-{q_count}"
+                # @device queries step on the device when they fit its
+                # kernels' coverage; otherwise the interpreter builds below
+                bridge = try_build_device_query(
+                    element, ctx, self._stream_defs(), self._get_junction, name)
+                if bridge is not None:
+                    self.device_bridges.append(bridge)
+                    for sid in bridge.stream_ids:
+                        self._get_junction(sid).subscribe(
+                            bridge.receiver_for(sid))
+                    self._fill_implicit(element, bridge)
+                    continue
+                rt = build_query_runtime(
+                    element, ctx, self._stream_defs(), self._get_junction, name)
+                self.query_runtimes[name] = rt
+                for sid, receiver in rt.subscriptions:
+                    if sid in ctx.named_windows:
+                        ctx.named_windows[sid].subscribe(receiver)
+                    elif sid in ctx.aggregations:
+                        raise SiddhiAppCreationError(
+                            "aggregations are queried via joins/on-demand")
+                    else:
+                        self._get_junction(sid).subscribe(receiver)
+                self._fill_implicit(element, rt)
+            elif isinstance(element, Partition):
+                q_count += 1
+                name = f"partition-{q_count}"
+                # every inner query runs on the interpreter, @device ones
+                # too, as in the reference
+                prt = PartitionRuntime(element, ctx, self._stream_defs(),
+                                       lambda sid, inner=False: self._get_junction(sid),
+                                       name)
+                # pre-fill implicit defs for partition outputs
+                prt.subscribe_all(lambda sid, inner=False: self._get_junction(sid))
+                self.partition_runtimes.append(prt)
         self._wire_gauges()
 
     def _build_table(self, td):
@@ -276,8 +320,8 @@ class SiddhiAppRuntime:
         return j
 
     def _fill_implicit(self, query: Query, rt) -> None:
-        """``rt`` is any runtime exposing ``output_schema`` (a device
-        bridge)."""
+        """``rt`` is any runtime exposing ``output_schema`` (host query runtime
+        or device bridge)."""
         from ..query_api import InsertIntoStream
         os = query.output_stream
         if isinstance(os, InsertIntoStream):
@@ -330,15 +374,28 @@ class SiddhiAppRuntime:
                     j.unsubscribe(r)
 
     def remove_query_callback(self, callback: QueryCallback) -> None:
+        for rt in self.query_runtimes.values():
+            cbs = rt.callback_adapter.callbacks
+            if callback in cbs:
+                cbs.remove(callback)
         for bridge in self.device_bridges:
             if callback in bridge.query_callbacks:
                 bridge.query_callbacks.remove(callback)
 
     def add_query_callback(self, query_name: str, callback: QueryCallback) -> None:
+        rt = self.query_runtimes.get(query_name)
+        if rt is not None:
+            rt.add_callback(callback)
+            return
         for bridge in self.device_bridges:
             if bridge.query_name == query_name:
                 bridge.query_callbacks.append(callback)
                 return
+        for prt in self.partition_runtimes:
+            for q in prt.partition_ast.queries:
+                if q.name() == query_name:
+                    prt.add_query_callback(query_name, callback)
+                    return
         raise KeyError(f"no query named '{query_name}'")
 
     def start(self) -> None:
@@ -348,6 +405,10 @@ class SiddhiAppRuntime:
         for j in self.ctx.stream_junctions.values():
             if j.dispatcher is not None:
                 j.dispatcher.start()
+        for rt in self.query_runtimes.values():
+            rt.start()
+        for tr in self.trigger_runtimes:
+            tr.start()
         self.ctx.statistics_manager.start_reporting()
         if not self.ctx.timestamp_generator.playback:
             self.ctx.ticker = SystemTicker(self.ctx.scheduler)
@@ -481,6 +542,16 @@ class SiddhiAppRuntime:
             self._ondemand_cache[text] = rt
         return rt.execute()
 
+    # -- debugger -------------------------------------------------------------
+    def debug(self):
+        """Start debugging: returns the SiddhiDebugger (reference
+        ``SiddhiAppRuntime.debug():666``)."""
+        from .debugger import SiddhiDebugger
+        if getattr(self.ctx, "debugger", None) is None:
+            self.ctx.debugger = SiddhiDebugger(self.ctx)
+        self.start()
+        return self.ctx.debugger
+
     # -- introspection (reference SiddhiAppRuntime getter surface) ----------
     @property
     def stream_definition_map(self) -> dict:
@@ -493,16 +564,30 @@ class SiddhiAppRuntime:
         return dict(self.app.table_definitions)
 
     @property
+    def window_definition_map(self) -> dict:
+        return dict(self.app.window_definitions)
+
+    @property
     def aggregation_definition_map(self) -> dict:
         return dict(self.app.aggregation_definitions)
 
     @property
     def query_names(self) -> set:
-        return {b.query_name for b in self.device_bridges}
+        names = set(self.query_runtimes)
+        names.update(b.query_name for b in self.device_bridges)
+        return names
 
     @property
     def tables(self) -> list:
         return list(self.ctx.tables.values())
+
+    @property
+    def windows(self) -> list:
+        return list(self.ctx.named_windows.values())
+
+    @property
+    def triggers(self) -> list:
+        return list(self.trigger_runtimes)
 
     def table_input_handler(self, table_id: str):
         """Direct table ingress (reference ``getTableInputHandler``)."""
@@ -539,14 +624,14 @@ def _refuse_unported(app: SiddhiApp) -> None:
             if ann.name.lower() in ("source", "sink"):
                 raise _not_ported(f"@{ann.name} on stream '{sd.id}'",
                                   "the IO tier (sources, sinks, mappers)")
-    for wd in app.window_definitions.values():
-        raise _not_ported(f"define window '{wd.id}'",
-                          "the named-window tier")
-    for td in app.trigger_definitions.values():
-        raise _not_ported(f"define trigger '{td.id}'", "the trigger tier")
-    for i, element in enumerate(app.execution_elements):
-        if isinstance(element, Partition):
-            raise _not_ported(f"partition {i + 1}", "the partition tier")
+    q_count = 0
+    for element in app.execution_elements:
+        q_count += 1
+        if isinstance(element, Query) and find_annotation(
+                element.annotations, "host_batch") is not None:
+            name = element.name() or f"query-{q_count}"
+            raise _not_ported(f"@host_batch on query '{name}'",
+                              "the columnar host tier")
 
 
 class _TableInputHandler:

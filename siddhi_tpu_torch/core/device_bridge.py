@@ -14,12 +14,12 @@ junction as CURRENT events. Batching semantics: outputs surface when a
 micro-batch fills or on ``SiddhiAppRuntime.flush_device()`` (also invoked by
 playback watermark advancement).
 
-The port has no host interpreter tier yet, so ``try_build_device_query``
-refuses a query the compilers refuse: ``SiddhiAppCreationError`` carrying
-the compiler's reason, or the ``DeviceCompileError`` itself under
-``@device(strict='true')`` (the reference falls back to the host unless
-strict). It has no resilience layer either: no
-``DeviceGuard`` replays a failed step; the driver logs it on the
+A query the compilers refuse is a refusal at build time: logged on the
+``siddhi_tpu_torch.device`` logger with the compiler's reason, after which
+the engine builds the query on the host interpreter
+(``core/query_runtime.py``), as the reference does; under
+``@device(strict='true')`` the ``DeviceCompileError`` itself raises. The port
+has no resilience layer: no ``DeviceGuard`` replays a failed step; the driver logs it on the
 ``siddhi_tpu_torch.device`` logger and drops its batch, as the reference does
 without a guard.
 """
@@ -646,11 +646,11 @@ def _input_single_streams(ist) -> list[SingleInputStream]:
 def try_build_device_query(query: Query, app_context, stream_defs: dict,
                            get_junction, name: str) -> Optional[DeviceQueryBridge]:
     """Returns a bridge when the query opts in via @device AND compiles on the
-    device path; None when it carries no ``@device``. A query the device
-    compilers refuse raises: ``DeviceCompileError`` under
-    ``@device(strict='true')``, as in the reference, else
-    ``SiddhiAppCreationError`` carrying its text (the reference's host
-    fallback is not ported yet)."""
+    device path; None when it carries no ``@device``, or when the device
+    compilers refuse it: that refusal is logged on
+    ``siddhi_tpu_torch.device`` with the compiler's reason and the engine
+    builds the query on the host interpreter, as in the reference. Under
+    ``@device(strict='true')`` the refusal raises ``DeviceCompileError``."""
     ann = find_annotation(query.annotations, "device")
     if ann is None:
         return None
@@ -1000,10 +1000,8 @@ def try_build_device_query(query: Query, app_context, stream_defs: dict,
     except DeviceCompileError as e:
         if strict:
             raise
-        from .errors import SiddhiAppCreationError
-        raise SiddhiAppCreationError(
-            f"query '{name}': the device compilers refuse it ({e}); its "
-            f"fallback, the host interpreter tier, is not ported yet") from e
+        log.info("query '%s' falls back to host path: %s", name, e)
+        return None
 
     bridge.batch_capacity = batch       # pad-ratio denominator (observability)
     app_context.register_state(f"device-{name}", _BridgeState(bridge))

@@ -25,6 +25,17 @@ direct runtime with the same events, and holds the two against each other.
 The direct runtimes take the same events one by one (``send`` /
 ``receive``) or as the same column slices (``append_columns``), so string
 codes and micro-batch boundaries are the engine's own.
+
+``iot_mixed`` (``chip_smoke.py``'s ``engine_host`` phase) is per-device IoT
+telemetry in which the host interpreter and the kernels share one engine:
+an interpreter filter cleans ``Raw`` into ``S``; ``chain`` (B1) and
+``stats`` (B5a) step on the device and read ``S``; ``alert_rate`` (an
+interpreter time window) reads the chain's ``Alerts``; ``top`` asks for the
+device but its ``order by``/``limit`` send it to the interpreter; a
+partition by room keeps a per-room peak. 256 devices, 16 rooms, ``v``
+uniform on [0, 100) to 3 decimals with 1 % error readings of -1.0 that
+``clean`` drops, ``ts`` rising by 1 ms an event, fed per event through
+``InputHandler.send``.
 """
 
 from __future__ import annotations
@@ -273,3 +284,80 @@ def on_demand_texts(name: str, attrs: list[str]) -> list[str]:
     sel = ", ".join(attrs)
     return [f"from {cfg['agg']} within 0L, {BIG_TS}L per '{du.value}' "
             f"select {sel}" for du in d.durations]
+
+
+# ------------------------------------------------------------ iot_mixed
+
+IOT_DEVICES = 256
+IOT_ROOMS = 16
+IOT_ERROR_SHARE = 0.01
+IOT_OUTS = ["Alerts", "Stats", "AlertRate", "Top", "RoomPeak"]
+
+
+def iot_mixed_app(chain_batch: int = 2048, slots: int = 64,
+                  stats_batch: int = 4096, stats_window: int = 4096,
+                  top_batch: int = 4096, raw_async: bool = False) -> str:
+    """The mixed app at the engine's full widths by default; smaller
+    capacities for a run on the CPU. ``raw_async`` puts ``@async`` on
+    ``Raw``."""
+    states = " -> ".join(
+        f"e{i}=S[v > e{i-1}.v]" if i > 1 else "e1=S[v > 90.0]"
+        for i in range(1, 9))
+    sel = ", ".join(f"e{i}.v as v{i}" for i in range(1, 9))
+    raw = "@async(buffer.size='1024')\n" if raw_async else ""
+    return f"""
+{raw}define stream Raw (dev string, room int, v double);
+@info(name='clean')
+from Raw[v >= 0.0] select dev, v insert into S;
+@info(name='chain') @device(batch='{chain_batch}', slots='{slots}', strict='true')
+from every {states} within 4000
+select {sel} insert into Alerts;
+@info(name='stats') @device(batch='{stats_batch}', window='{stats_window}', strict='true')
+from S#window.length({stats_window}) select dev, sum(v) as total, count() as n
+group by dev insert into Stats;
+@info(name='alert_rate')
+from Alerts#window.time(10 sec) select count() as alerts insert into AlertRate;
+@info(name='top') @device(batch='{top_batch}')
+from Raw#window.lengthBatch({top_batch}) select dev, max(v) as peak group by dev
+order by peak desc limit 8 insert into Top;
+partition with (room of Raw) begin
+  @info(name='room_peak') from Raw#window.length(64) select room, max(v) as peak
+  insert into RoomPeak;
+end;
+"""
+
+
+class IotEvents:
+    """``n`` seeded ``Raw`` events: ``dev`` (256 devices), ``room`` (16),
+    ``v`` and ``ts`` as lists, in order."""
+
+    def __init__(self, n: int, seed: int):
+        rng = np.random.default_rng(seed)
+        names = np.array([f"dev{k}" for k in range(IOT_DEVICES)])
+        self.n = n
+        self.dev = names[rng.integers(0, IOT_DEVICES, n)].tolist()
+        self.room = rng.integers(0, IOT_ROOMS, n).tolist()
+        v = np.round(rng.uniform(0.0, 100.0, n), 3)
+        v[rng.random(n) < IOT_ERROR_SHARE] = -1.0
+        self.v = v.tolist()
+        self.ts = (1_000_000 + np.arange(n, dtype=np.int64)).tolist()
+
+
+def feed_iot(rt, ev: IotEvents, lo: int = 0, hi: int | None = None) -> None:
+    """Events ``lo:hi`` into ``Raw``, one ``InputHandler.send`` each."""
+    hi = ev.n if hi is None else min(hi, ev.n)
+    ih = rt.input_handler("Raw")
+    dev, room, v, ts = ev.dev, ev.room, ev.v, ev.ts
+    for i in range(lo, hi):
+        ih.send([dev[i], room[i], v[i]], timestamp=ts[i])
+
+
+def collect_outputs(rt, callback_cls) -> dict:
+    """``{stream: [(ts, data), ...]}`` for every output stream of
+    ``iot_mixed``, filled by ``callback_cls`` (the engine's
+    ``StreamCallback``)."""
+    got = {s: [] for s in IOT_OUTS}
+    for s in IOT_OUTS:
+        rt.add_callback(s, callback_cls(lambda evs, rows=got[s]: rows.extend(
+            (e.timestamp, list(e.data)) for e in evs)))
+    return got

@@ -50,6 +50,15 @@ def test_import_loads_neither_jax_nor_the_reference():
         "import siddhi_tpu_torch.entry\n"
         "import siddhi_tpu_torch.core.app_runtime, siddhi_tpu_torch.core.manager\n"
         "import siddhi_tpu_torch.core.device_bridge\n"
+        "import siddhi_tpu_torch.core.processors, siddhi_tpu_torch.core.output\n"
+        "import siddhi_tpu_torch.core.cron, siddhi_tpu_torch.core.windows\n"
+        "import siddhi_tpu_torch.core.expression_window\n"
+        "import siddhi_tpu_torch.core.selector, siddhi_tpu_torch.core.join\n"
+        "import siddhi_tpu_torch.core.pattern, siddhi_tpu_torch.core.debugger\n"
+        "import siddhi_tpu_torch.core.named_window\n"
+        "import siddhi_tpu_torch.core.query_runtime\n"
+        "import siddhi_tpu_torch.core.partition, siddhi_tpu_torch.core.trigger\n"
+        "import siddhi_tpu_torch.tools.engine_workloads\n"
         "from siddhi_tpu_torch import SiddhiManager, StreamCallback\n"
         "print('\\n'.join(sorted(sys.modules)))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,

@@ -214,6 +214,51 @@ Phases, one JSON line each:
                receiver error and no ERROR record. Events/s through both
                engines, the share of the window inside the step calls,
                rows per output stream.
+ 14. engine_io — the IO tier and durable flow control, on
+               ``engine_workloads``' ``IO_EVENTS`` seeded IoT readings:
+               ``iot_durable`` (an in-memory source fed ``RowsChunk``s of
+               4,096 events through ``InMemoryBroker.publish``, so the
+               chunks take ``send_columns``; a write-ahead log and a
+               blocking credit gate on the input; the chain (B1, batch
+               2048, slots 64) into a ``json`` sink and the grouped
+               ``length(4096)`` (B5a, B = 4096, K = 1024) into a
+               ``passThrough`` sink; an interpreter time window over the
+               alerts) runs three times: straight through on the card;
+               on the card with ``persist()`` after ``IO_PERSIST_AT``
+               events, the runtime abandoned after ``IO_KILL_AT`` (no
+               shutdown, no flush), a fresh runtime ``recover``ed and fed
+               the rest; straight through on ``SiddhiManager(device=
+               "cpu")``. Every sink topic's payloads and the time window's
+               rows must be equal across the three, in order (the second
+               stitched at its persist: the crashed runtime's output up to
+               it, then the recovered one's; the grouped float32 sums of
+               the card against the CPU within
+               ``tests/test_torch_query_shapes.py``'s tolerances where not
+               equal); ``recover`` must report the events after the persist
+               replayed and the kill point as the watermark; the WAL's bytes
+               must drop at the persist; no event shed or dropped.
+               ``iot_adaptive_edge`` reads the same events as CSV lines from
+               a file source (the native parse into ``send_columns``) into
+               the grouped ``length(4096)`` on the async driver under
+               ``@app:adaptive(latency.target.ms='50', min='256')``; the
+               file's last ``IO_TAIL`` lines come in a read of their own,
+               so the feed ends with a partial batch, which after an idle
+               gap the driver's deadline flush must step. It runs twice on
+               the card from a collected heap: as a user's app runs, then
+               with the objects alive before it frozen out of the
+               collector (``gc.freeze``). Each run's rows are held to the
+               same app without ``@app:adaptive`` on the CPU engine (keys
+               and counts exact, sums within the tolerances, their scale
+               computed after the run from each step's inputs, so no
+               check's work lies inside a timed step); its controller must
+               have observed steps and adjusted at least once, and the
+               ``batch_size`` gauge must read its threshold. Both kernels
+               must launch (no other). Events/s, the WAL's bytes, the
+               persist, recover and replay seconds, and per edge run the
+               controller's report, the flush causes, the step call's
+               median and p99 by CUDA events and the ``StallTrace`` (each
+               step the controller timed, split into collector pauses, the
+               worker's CPU time and waits).
 Then the card's name and power limit (nvidia-smi), the ``kernels`` line and,
 last, ``{"ok": true, "device": {...}}``. Any failure exits non-zero before
 that line. Needs one CUDA card; fails without one.
@@ -222,6 +267,7 @@ that line. Needs one CUDA card; fails without one.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import subprocess
@@ -3085,6 +3131,488 @@ def phase_engine_host(seed: int, n_events: int) -> dict:
     return out
 
 
+# ------------------------------------------------------------ engine_io
+
+IO_PERSIST_AT = 98_304             # 24 chunks of 4,096 (48 chain batches)
+IO_KILL_AT = 196_608               # 48 chunks
+IO_IDLE_S = 30.0                   # the longest wait for a deadline flush
+
+
+def io_scratch() -> str:
+    """A directory for the phase's WAL, revisions and CSV file, inside the
+    checkout (``siddhi_tpu_torch/_build/`` is git-ignored)."""
+    import tempfile
+    base = os.path.join(REPO, "siddhi_tpu_torch", "_build")
+    os.makedirs(base, exist_ok=True)
+    return tempfile.mkdtemp(prefix="engine_io-", dir=base)
+
+
+def durable_runtime(manager, wal: str, tag: str, store: str | None = None,
+                    widths: dict | None = None):
+    """A started ``iot_durable`` runtime on ``manager`` (``widths``:
+    ``iot_durable_app``'s, its full widths by default): its sink payloads
+    and the time window's rows collect in the returned dict."""
+    from siddhi_tpu_torch import InMemoryBroker, StreamCallback
+    from siddhi_tpu_torch.core import FileSystemPersistenceStore
+    from siddhi_tpu_torch.tools import engine_workloads as ew
+    if store is not None:
+        manager.set_persistence_store(FileSystemPersistenceStore(store))
+    rt = manager.create_siddhi_app_runtime(
+        ew.iot_durable_app(wal, tag, **(widths or {})), playback=True)
+    got, unsubs = ew.collect_sinks(InMemoryBroker, tag)
+    got["AlertRate"] = []
+    rt.add_callback("AlertRate", StreamCallback(
+        lambda evs: got["AlertRate"].extend(
+            (e.timestamp, list(e.data)) for e in evs)))
+    rt.start()
+    return rt, got, unsubs
+
+
+def publish_iot(ev, tag: str, lo: int, hi: int) -> None:
+    from siddhi_tpu_torch import InMemoryBroker
+    from siddhi_tpu_torch.tools import engine_workloads as ew
+    for ch in ew.iot_chunks(ev, lo, hi):
+        InMemoryBroker.publish(f"iot-raw-{tag}", ch)
+
+
+def flow_losses(rt) -> int:
+    st = rt.flow.streams["Raw"].stats
+    return st.shed + st.dropped_oldest
+
+
+def io_straight(manager, ev, scratch: str, tag: str, card: bool,
+                widths: dict | None = None) -> dict:
+    """``iot_durable`` straight through: the outputs, the wall, the losses
+    and, on the CPU, the stats query's tolerance scale (``next_scale``)."""
+    import torch
+    rt, got, unsubs = durable_runtime(manager, os.path.join(scratch, tag),
+                                      tag, widths=widths)
+    scales = []
+    if not card:
+        sh = query_shapes_module()
+        b = next(b for b in rt.device_bridges if b.query_name == "stats")
+        q = plan_of(b.runtime)
+        step, sc = q.step_tensors, [sh.Scale()]
+
+        def scaled(state, cols, ts, valid):
+            sc[0] = sh.next_scale(q, sc[0], state, cols, ts, valid)
+            return step(state, cols, ts, valid)
+
+        q.step_tensors = scaled
+        scales = sc
+    t0 = time.perf_counter()
+    publish_iot(ev, tag, 0, ev.n)
+    rt.flush_device()
+    if card:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for u in unsubs:
+        u()
+    out = dict(rows=got, wall=wall, losses=flow_losses(rt), rt=rt,
+               scale=scales[0] if scales else None,
+               bridged=sorted(b.query_name for b in rt.device_bridges))
+    manager.shutdown()
+    return out
+
+
+def io_crash_recover(ev, scratch: str, widths: dict | None = None,
+                     persist_at: int = IO_PERSIST_AT,
+                     kill_at: int = IO_KILL_AT) -> dict:
+    """``iot_durable`` on the card: persist at ``persist_at``, abandoned at
+    ``kill_at``, recovered in a fresh runtime, fed the rest."""
+    import torch
+    from siddhi_tpu_torch import SiddhiManager, recover
+    wal, store = os.path.join(scratch, "crash-wal"), \
+        os.path.join(scratch, "crash-store")
+    m1 = SiddhiManager()
+    rt1, got1, unsubs1 = durable_runtime(m1, wal, "crash1", store, widths)
+    publish_iot(ev, "crash1", 0, persist_at)
+    wal1 = rt1.flow.streams["Raw"].wal
+    wal_before = wal1.wal_bytes
+    t0 = time.perf_counter()
+    rt1.persist()
+    persist_s = time.perf_counter() - t0
+    wal_after = wal1.wal_bytes
+    at_persist = {s: len(r) for s, r in got1.items()}
+    publish_iot(ev, "crash1", persist_at, kill_at)
+    torch.cuda.synchronize()
+    losses = flow_losses(rt1)
+    for u in unsubs1:           # the crash: rt1 is abandoned, not shut down
+        u()
+    m2 = SiddhiManager()
+    rt2, got2, unsubs2 = durable_runtime(m2, wal, "crash2", store, widths)
+    replay = rt2.flow.replay
+    replay_s = [0.0]
+
+    def timed_replay():
+        t = time.perf_counter()
+        try:
+            return replay()
+        finally:
+            replay_s[0] = time.perf_counter() - t
+
+    rt2.flow.replay = timed_replay
+    t0 = time.perf_counter()
+    report = recover(rt2)
+    torch.cuda.synchronize()
+    recover_s = time.perf_counter() - t0
+    publish_iot(ev, "crash2", kill_at, ev.n)
+    rt2.flush_device()
+    torch.cuda.synchronize()
+    for u in unsubs2:
+        u()
+    losses += flow_losses(rt2)
+    m2.shutdown()
+    m1.shutdown()               # releases the abandoned runtime
+    stitched = {s: got1[s][:at_persist[s]] + got2[s] for s in got2}
+    return dict(rows=stitched, report=report, persist_s=persist_s,
+                recover_s=recover_s, replay_s=replay_s[0],
+                wal_before=wal_before, wal_after=wal_after, losses=losses,
+                at_persist=at_persist)
+
+
+class StallTrace:
+    """Where the wall of an async device step goes: each ``dispatch`` and
+    ``collect`` of the runtime (the worker thread; their sum is the latency
+    the adaptive controller observes) with the worker's thread CPU time in
+    it, each collector pause (``gc.callbacks``) and each producer
+    ``send_columns``. A step's wall splits into its collector pauses, the
+    worker's own CPU time and the rest (waits: the GIL, the card)."""
+
+    def __init__(self, rt):
+        import threading
+        self.disp, self.coll, self.prod, self.pauses = [], [], [], []
+        self._gc_t0 = None
+        self._threading = threading
+        for name, rec in (("dispatch", self.disp), ("collect", self.coll),
+                          ("send_columns", self.prod)):
+            setattr(rt, name, self._timed(getattr(rt, name), rec))
+        self.tracked = len(gc.get_objects())
+        gc.callbacks.append(self._on_gc)
+
+    @staticmethod
+    def _timed(fn, rec: list):
+        def timed(*a, **k):
+            w0, c0 = time.perf_counter(), time.thread_time()
+            try:
+                return fn(*a, **k)
+            finally:
+                rec.append((w0, time.perf_counter(), time.thread_time() - c0))
+        return timed
+
+    def _on_gc(self, phase: str, info: dict) -> None:
+        if phase == "start":
+            self._gc_t0 = time.perf_counter()
+        elif self._gc_t0 is not None:
+            self.pauses.append((self._gc_t0, time.perf_counter(),
+                                info["generation"],
+                                self._threading.current_thread().name))
+            self._gc_t0 = None
+
+    def close(self) -> None:
+        gc.callbacks.remove(self._on_gc)
+
+    def report(self, slow_ms: float) -> dict:
+        def over(iv, spans):
+            return sum(max(0.0, min(iv[1], s[1]) - max(iv[0], s[0]))
+                       for s in spans)
+
+        steps = []
+        for d, c in zip(self.disp, self.coll):
+            gcs = [g for g in self.pauses if over(d, [g]) + over(c, [g])]
+            steps.append({
+                "ms": 1e3 * ((d[1] - d[0]) + (c[1] - c[0])),
+                "cpu_ms": 1e3 * (d[2] + c[2]),
+                "gc_ms": 1e3 * (over(d, gcs) + over(c, gcs)),
+                "gc_generations": sorted({g[2] for g in gcs}),
+                "producer_ms": 1e3 * (over(d, self.prod)
+                                      + over(c, self.prod))})
+        ms = np.array([s["ms"] for s in steps]) if steps else np.zeros(1)
+        gens = {}
+        for t0, t1, g, th in self.pauses:
+            e = gens.setdefault(str(g), {"count": 0, "total_ms": 0.0,
+                                         "max_ms": 0.0, "threads": []})
+            e["count"] += 1
+            e["total_ms"] += 1e3 * (t1 - t0)
+            e["max_ms"] = max(e["max_ms"], 1e3 * (t1 - t0))
+            if th not in e["threads"]:
+                e["threads"].append(th)
+        slow = [dict(step=i, **s) for i, s in enumerate(steps)
+                if s["ms"] > slow_ms]
+        return {"tracked_objects": self.tracked, "steps": len(steps),
+                "step_ms_median": float(np.median(ms)),
+                "step_ms_p99": float(np.percentile(ms, 99)),
+                "step_ms_max": float(ms.max()),
+                "first_steps_ms": [s["ms"] for s in steps[:4]],
+                "slow_ms": slow_ms, "slow_steps": slow,
+                "slow_gc_ms": sum(s["gc_ms"] for s in slow),
+                "slow_wall_ms": sum(s["ms"] for s in slow),
+                "gc_pauses": gens,
+                "producer_s": sum(p[1] - p[0] for p in self.prod)}
+
+
+def io_edge_run(manager, csv: str, head: int, adaptive: bool, card: bool,
+                widths: dict | None = None, freeze: bool = False) -> dict:
+    """``iot_adaptive_edge`` from the CSV file: the rows, the controller,
+    the driver's deadline flushes, the flush causes, the tolerance scale
+    and, on the card, the step probe and the ``StallTrace``. On the card
+    the scale is computed after the run from each step's inputs, so the
+    steps the controller times carry no check's work. ``freeze`` keeps the
+    objects alive before the run out of the collector (``gc.freeze``)."""
+    import torch
+    from siddhi_tpu_torch import StreamCallback
+    from siddhi_tpu_torch.tools import engine_workloads as ew
+    rt = manager.create_siddhi_app_runtime(ew.iot_adaptive_edge_app(
+        csv, head, adaptive=adaptive, **(widths or {})), playback=True)
+    rows = []
+    rt.add_callback("Stats", StreamCallback(lambda evs: rows.extend(
+        (e.timestamp, list(e.data)) for e in evs)))
+    b = rt.device_bridges[0]
+    b.runtime.flush_causes = {}
+    q = plan_of(b.runtime)
+    sh = query_shapes_module()
+    step, sc, kept = q.step_tensors, [sh.Scale()], []
+
+    def scaled(state, cols, ts, valid):
+        if card:                  # a step returns fresh state tensors
+            kept.append((state, cols, ts, valid))
+        else:
+            sc[0] = sh.next_scale(q, sc[0], state, cols, ts, valid)
+        return step(state, cols, ts, valid)
+
+    q.step_tensors = scaled
+    probe = StepProbe(b.runtime) if card else None
+    if freeze:
+        gc.collect()
+        gc.freeze()
+    trace = StallTrace(b.runtime) if card else None
+    try:
+        t0 = time.perf_counter()
+        rt.start()
+        if not rt.sources[0].wait_drained(600.0):
+            fail("engine_io: the file source did not drain")
+        fed_s = time.perf_counter() - t0
+        idle_t0 = time.perf_counter()
+        while adaptive and b.driver.deadline_flushes == 0 \
+                and time.perf_counter() - idle_t0 < IO_IDLE_S:
+            time.sleep(0.005)
+        idle_s = time.perf_counter() - idle_t0
+        rt.flush_device()
+        b.driver.flush_sync()
+        if card:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        if freeze:
+            gc.unfreeze()
+        if trace is not None:
+            trace.close()
+    t_scale = time.perf_counter()
+    for args in kept:
+        sc[0] = sh.next_scale(q, sc[0], *args)
+    scale_s = time.perf_counter() - t_scale
+    kept.clear()
+    ctrl = b.runtime.batch_controller
+    gauges = rt.ctx.statistics_manager.report()["gauges"]
+    out = dict(rows=rows, wall=wall, fed_s=fed_s, idle_s=idle_s,
+               deadline=b.driver.deadline_flushes,
+               causes=dict(b.runtime.flush_causes),
+               report=None if ctrl is None else ctrl.report(),
+               current=None if ctrl is None else ctrl.current,
+               gauge=gauges.get("device.stats.batch_size"),
+               stepped=b.driver.batches_stepped, probe=probe, q=q,
+               scale=sc[0], parse_errors=rt.sources[0].mapper.parse_errors,
+               device=b.runtime.device.type, freeze=freeze,
+               stalls=None if trace is None else trace.report(
+                   ctrl.latency_target_ms / 2.0 if ctrl is not None
+                   and ctrl.latency_target_ms else 25.0),
+               scale_ms_per_step=1e3 * scale_s
+               / max(1, b.driver.batches_stepped))
+    manager.shutdown()
+    return out
+
+
+def io_edge_check(sh, n: int, edge: dict, static: dict) -> dict:
+    """Holds an ``iot_adaptive_edge`` card run to the static CPU run (keys
+    and counts exact, sums equal or within the query tolerances) and
+    checks its controller and deadline flush; returns its report."""
+    tag = "engine_io edge" + (" (frozen)" if edge["freeze"] else "")
+    rep = edge["report"]
+    if edge["device"] != "cuda" or static["device"] != "cpu":
+        fail(f"{tag}: runs on {edge['device']} / {static['device']}")
+    if rep is None or rep["observations"] == 0 or rep["adjustments"] == 0:
+        fail(f"{tag}: the adaptive controller did not adjust: {rep}; "
+             f"stalls {edge['stalls']}")
+    if edge["deadline"] < 1:
+        fail(f"{tag}: no deadline flush in {edge['idle_s']:.1f} s idle")
+    if edge["gauge"] != edge["current"]:
+        fail(f"{tag}: batch_size gauge {edge['gauge']} != controller "
+             f"{edge['current']}")
+    if edge["parse_errors"] or static["parse_errors"]:
+        fail(f"{tag}: CSV parse errors")
+    a_rows, b_rows = static["rows"], edge["rows"]
+    if len(a_rows) != len(b_rows) or [(r[0], r[2]) for _, r in a_rows] != \
+            [(r[0], r[2]) for _, r in b_rows]:
+        fail(f"{tag}: keys and counts differ from the static CPU run "
+             f"({len(b_rows)} / {len(a_rows)} rows)")
+    a, b = static["scale"], edge["scale"]
+    sc = sh.Scale(np.maximum(a.s1, b.s1), np.maximum(a.sm, b.sm),
+                  np.maximum(a.s2, b.s2))
+    # an output row carries its batch's timestamp, and the two runs batch
+    # differently: the values are compared, in order
+    if [r for _, r in a_rows] == [r for _, r in b_rows]:
+        held = "exact"
+    else:
+        close_rows(sh, edge["q"], sc, [(0, r) for _, r in a_rows],
+                   [(0, r) for _, r in b_rows], f"{tag} Stats")
+        held = "within the tolerances"
+    step_ms = edge["probe"].step_ms()
+    stalls = dict(edge["stalls"])
+    stalls["slow_steps"] = stalls["slow_steps"][:8]
+    return {
+        "gc_frozen": edge["freeze"],
+        "events_per_s": n / edge["fed_s"], "fed_s": edge["fed_s"],
+        "idle_s": edge["idle_s"], "wall_s": edge["wall"],
+        "controller": rep, "gauge_batch_size": edge["gauge"],
+        "deadline_flushes": edge["deadline"],
+        "flush_causes": edge["causes"], "steps": edge["stepped"],
+        "step_call_ms_median": float(np.median(step_ms)),
+        "step_call_ms_p99": float(np.percentile(step_ms, 99)),
+        "stalls": stalls, "check_scale_ms_per_step":
+            edge["scale_ms_per_step"],
+        "rows": len(b_rows), "rows_vs_static_cpu": held}
+
+
+def phase_engine_io(seed: int, n_events: int, widths: dict | None = None,
+                    edge_widths: dict | None = None,
+                    persist_at: int = IO_PERSIST_AT,
+                    kill_at: int = IO_KILL_AT) -> dict:
+    """``iot_durable`` straight, crashed and recovered, and on the CPU;
+    ``iot_adaptive_edge`` on the card (as a user's app runs, then with the
+    objects alive before it frozen out of the collector) against a static
+    CPU run. ``widths`` and ``edge_widths`` (``iot_durable_app``'s and
+    ``iot_adaptive_edge_app``'s, full width by default) and the cut points
+    are for a rehearsal at small sizes."""
+    import shutil
+    import torch
+    from siddhi_tpu_torch import SiddhiManager
+    from siddhi_tpu_torch.gpu.nfa_block import BlockPlan
+    from siddhi_tpu_torch.gpu.query_step import QueryPlan
+    from siddhi_tpu_torch.tools import engine_workloads as ew
+    t_phase = time.perf_counter()
+    ev = ew.IotEvents(n_events, seed)
+    scratch = io_scratch()
+    records = ErrorRecords()
+    sh = query_shapes_module()
+    try:
+        # warm-up: the kernels' first launches (untimed)
+        m = SiddhiManager()
+        rt, _, unsubs = durable_runtime(m, os.path.join(scratch, "warm"),
+                                        "warm", widths=widths)
+        publish_iot(ev, "warm", 0, 8192)
+        rt.flush_device()
+        for u in unsubs:
+            u()
+        m.shutdown()
+        torch.cuda.synchronize()
+
+        reset_launches()              # counts from here: the engine_io path
+        card = io_straight(SiddhiManager(), ev, scratch, "card", True,
+                           widths)
+        crash = io_crash_recover(ev, scratch, widths, persist_at, kill_at)
+        launches = read_launches()
+        cpu = io_straight(SiddhiManager(device="cpu"), ev, scratch, "cpu",
+                          False, widths)
+
+        csv_bytes, head = ew.iot_csv(ev)    # data generation, untimed
+        csv = os.path.join(scratch, "iot.csv")
+        with open(csv, "wb") as f:
+            f.write(csv_bytes)
+        reset_launches()
+        edges = {}
+        for frozen in (False, True):
+            gc.collect()          # each run starts from a collected heap
+            edges[frozen] = io_edge_run(SiddhiManager(), csv, head, True,
+                                        True, edge_widths, freeze=frozen)
+        edge_launches = read_launches()
+        static = io_edge_run(SiddhiManager(device="cpu"), csv, head, False,
+                             False, edge_widths)
+        records.check("engine_io")
+    finally:
+        records.close()
+        shutil.rmtree(scratch, ignore_errors=True)
+
+    # -- iot_durable
+    if card["bridged"] != ["chain", "stats"] or cpu["bridged"] != \
+            card["bridged"]:
+        fail(f"engine_io: bridges {card['bridged']} / {cpu['bridged']}, "
+             f"expected chain, stats")
+    for b in card["rt"].device_bridges:
+        if b.runtime.device.type != "cuda":
+            fail(f"engine_io: '{b.query_name}' runs on {b.runtime.device}")
+    rep = crash["report"]
+    if rep["replayed"] != {"Raw": kill_at - persist_at} \
+            or rep["watermarks"] != {"Raw": kill_at}:
+        fail(f"engine_io: recover reported {rep}")
+    if not crash["wal_after"] < crash["wal_before"]:
+        fail(f"engine_io: the WAL's bytes {crash['wal_before']} -> "
+             f"{crash['wal_after']} at the persist")
+    if card["losses"] or crash["losses"] or cpu["losses"]:
+        fail(f"engine_io: events shed or dropped: {card['losses']}, "
+             f"{crash['losses']}, {cpu['losses']}")
+    for s in ("Alerts", "AlertRate", "Stats"):
+        if not card["rows"][s]:
+            fail(f"engine_io: no {s} rows")
+        if crash["rows"][s] != card["rows"][s]:
+            fail(f"engine_io: {s}: the recovered run differs from the "
+                 f"straight one ({len(crash['rows'][s])} / "
+                 f"{len(card['rows'][s])} payloads)")
+    for s in ("Alerts", "AlertRate"):
+        if cpu["rows"][s] != card["rows"][s]:
+            fail(f"engine_io: {s}: the CPU engine differs from the card's")
+    q_stats = plan_of(next(b for b in card["rt"].device_bridges
+                           if b.query_name == "stats").runtime)
+    # the grouped float32 sums: equal, or within the tolerances
+    stats_held = "exact"
+    if cpu["rows"]["Stats"] != card["rows"]["Stats"]:
+        close_rows(sh, q_stats, cpu["scale"], cpu["rows"]["Stats"],
+                   card["rows"]["Stats"], "engine_io Stats (card vs CPU)")
+        stats_held = "within the tolerances"
+
+    # -- iot_adaptive_edge
+    edge_out = {frozen: io_edge_check(sh, ev.n, e, static)
+                for frozen, e in edges.items()}
+    total = {c: launches[c] + edge_launches[c] for c in launches}
+    if total[BlockPlan.__name__] == 0 or total[QueryPlan.__name__] == 0 \
+            or any(n for c, n in total.items()
+                   if c not in (BlockPlan.__name__, QueryPlan.__name__)):
+        fail(f"engine_io: launches {total}: nfa_block and query_step must "
+             f"launch, no other kernel")
+    out = {
+        "phase": "engine_io", "events": ev.n,
+        "iot_durable": {
+            "events_per_s": ev.n / card["wall"], "wall_s": card["wall"],
+            "cpu_events_per_s": ev.n / cpu["wall"], "cpu_wall_s": cpu["wall"],
+            "wal_bytes_before_persist": crash["wal_before"],
+            "wal_bytes_after_persist": crash["wal_after"],
+            "persist_s": crash["persist_s"], "recover_s": crash["recover_s"],
+            "replay_s": crash["replay_s"], "recover_report": {
+                "replayed": rep["replayed"], "watermarks": rep["watermarks"]},
+            "payloads": {s: len(r) for s, r in card["rows"].items()},
+            "recovered_equal": True, "cpu_equal": True,
+            "stats_card_vs_cpu": stats_held, "shed_or_dropped": 0},
+        "iot_adaptive_edge": {**edge_out[False],
+                              "cpu_static_wall_s": static["wall"],
+                              "static_steps": static["stepped"]},
+        "iot_adaptive_edge_frozen": edge_out[True],
+        "launches": {"nfa_block": total[BlockPlan.__name__],
+                     "query_step": total[QueryPlan.__name__]},
+        "error_records": 0, "phase_s": time.perf_counter() - t_phase,
+    }
+    emit(out)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=42)
@@ -3126,6 +3654,8 @@ def main() -> int:
         "market_join": stand(j_outs[0], "join_main"),
         "trade_rollup": stand(a_outs[0], "agg_main")})
     host = phase_engine_host(args.seed, ENGINE_HOST_EVENTS)
+    from siddhi_tpu_torch.tools.engine_workloads import IO_EVENTS
+    io = phase_engine_io(args.seed, IO_EVENTS)
     bound = max(main_out["bound_ms_bytes"], main_out["bound_ms_ops"])
     scan_bound = max(scan_out["bound_ms_bytes"], scan_out["bound_ms_ops"])
     kernels = [{
@@ -3185,6 +3715,10 @@ def main() -> int:
             fail(f"engine: kernel {k['name']} was not launched")
         if k["name"] in host["launches"]:
             by_path["engine_host"] = host["launches"][k["name"]]
+        if k["name"] in io["launches"]:
+            by_path["engine_io"] = io["launches"][k["name"]]
+            if not by_path["engine_io"]:
+                fail(f"engine_io: kernel {k['name']} was not launched")
     print(card, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

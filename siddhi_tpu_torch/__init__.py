@@ -19,7 +19,11 @@ The engine: ``SiddhiManager(device=None)`` → ``create_siddhi_app_runtime``
 tiers: a ``@device`` query the device compilers take steps on the kernels;
 every other query, partitions, named windows and triggers run on the host
 interpreter, as in the reference. ``device=None`` is the card;
-``device="cpu"`` runs the kernels' plain versions.
+``device="cpu"`` runs the kernels' plain versions. Sources and sinks
+(``@source``/``@sink``, ``core/io.py``, behind the sink pipeline of
+``resilience/``) feed and drain the engine, and ``flow/`` holds the
+write-ahead log, credit backpressure, crash recovery (``recover``) and the
+adaptive micro-batch controller.
 """
 
 __version__ = "0.1.0"
@@ -34,6 +38,7 @@ from .core import (
     FileSystemPersistenceStore,
     IncrementalFileSystemPersistenceStore,
     IncrementalPersistenceStore,
+    InMemoryBroker,
     InMemoryConfigManager,
     InMemoryPersistenceStore,
     InputHandler,
@@ -43,18 +48,24 @@ from .core import (
     RecordTableHandlerManager,
     SiddhiAppRuntime,
     SiddhiManager,
+    SinkHandler,
+    SinkHandlerManager,
+    SourceHandler,
+    SourceHandlerManager,
     StreamCallback,
     YAMLConfigManager,
     extension,
 )
+from .flow import recover
 
 __all__ = [
     "ErrorEntry", "ErrorStore", "Event", "FileErrorStore",
     "FileSystemPersistenceStore", "IncrementalFileSystemPersistenceStore",
-    "IncrementalPersistenceStore", "InMemoryConfigManager",
+    "IncrementalPersistenceStore", "InMemoryBroker", "InMemoryConfigManager",
     "InMemoryPersistenceStore", "InputHandler", "Level", "QueryCallback",
     "RecordTableHandler", "RecordTableHandlerManager", "SiddhiAppRuntime",
-    "SiddhiManager", "StreamCallback", "YAMLConfigManager", "extension",
-    "SiddhiCompiler", "parse", "parse_on_demand_query", "parse_query",
-    "query_api",
+    "SiddhiManager", "SinkHandler", "SinkHandlerManager", "SourceHandler",
+    "SourceHandlerManager", "StreamCallback", "YAMLConfigManager",
+    "extension", "recover", "SiddhiCompiler", "parse",
+    "parse_on_demand_query", "parse_query", "query_api",
 ]

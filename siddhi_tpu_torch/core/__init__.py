@@ -18,7 +18,8 @@ the incremental-aggregation runtime (``aggregation.AggregationRuntime``)
 and the host closure they stand on (``aggregators``, ``event``,
 ``errors``, ``executor``, ``extension``) are copies of the JAX package's
 modules. Also here: ``columns``, the columnar edge's chunks and CSV
-parser.
+parser, and the IO tier (``io.py``: the in-memory broker, sources, sinks,
+their mappers and the handler interception SPIs), also a copy.
 """
 
 from .app_runtime import SiddhiAppRuntime
@@ -26,6 +27,13 @@ from .config import ConfigManager, ConfigReader, InMemoryConfigManager, YAMLConf
 from .errors import ErrorEntry, ErrorStore, FileErrorStore
 from .event import Event, EventType, StateEvent, StreamEvent
 from .extension import ScalarFunctionExtension, StreamFunctionExtension, extension
+from .io import (
+    InMemoryBroker,
+    SinkHandler,
+    SinkHandlerManager,
+    SourceHandler,
+    SourceHandlerManager,
+)
 from .manager import SiddhiManager
 from .metrics import Level
 from .snapshot import (

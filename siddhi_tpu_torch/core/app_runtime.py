@@ -11,17 +11,25 @@ compilers take steps on the engine's device (``core/device_bridge.py``,
 ``SiddhiContext.device``); every other query, and every partition, runs on
 the host interpreter (``core/query_runtime.py``, ``core/partition.py``), as
 in the reference. Snapshots, persistence, on-demand queries, the debugger,
-statistics and the playback clock are the reference's.
+statistics and the playback clock are the reference's. So is the IO tier:
+``@source``/``@sink`` annotations wire sources, sinks and their mappers
+(``core/io.py``; every sink behind the publish pipeline of
+``resilience/``), with the handler interception managers of the engine
+context; and so is durable flow control (``flow/``: ``@app:wal``,
+``@app:backpressure``, and ``@app:adaptive``, whose controller the device
+bridges attach).
 
 What later engine slices bring is refused at build time with a
-``SiddhiAppCreationError`` that names its tier (``_refuse_unported``):
-sources and sinks, the fleet and columnar host tiers (``@app:fleet``,
-``@app:host_batch`` and a query's ``@host_batch``), durable flow control
-and adaptive batching, and the observability and resilience subsystems.
+``SiddhiAppCreationError`` that names its tier (``_refuse_unported``): the
+fleet and columnar host tiers (``@app:fleet``, ``@app:host_batch`` and a
+query's ``@host_batch``), and the observability and resilience subsystems
+(``@app:trace``, ``@app:flightrecorder``, ``@app:profile``,
+``@app:chaos``, ``@app:resilience``).
 """
 
 from __future__ import annotations
 
+import time
 from typing import Optional
 
 from ..compiler import parse_on_demand_query
@@ -32,6 +40,13 @@ from .context import SiddhiAppContext, SiddhiContext
 from .errors import SiddhiAppCreationError
 from .event import Event
 from .extension import ScriptFunction
+from .io import (
+    SINK_MAPPERS,
+    SINKS,
+    SOURCE_MAPPERS,
+    SOURCES,
+    parse_io_annotations,
+)
 from .metrics import Level, StatisticsManager
 from .named_window import NamedWindow
 from .on_demand import OnDemandQueryRuntime
@@ -54,9 +69,6 @@ from .trigger import TriggerRuntime, trigger_stream_definition
 _UNPORTED_APP_ANNOTATIONS = {
     "fleet": "the multi-tenant fleet tier",
     "host_batch": "the columnar host tier",
-    "wal": "durable flow control",
-    "backpressure": "durable flow control",
-    "adaptive": "adaptive micro-batching",
     "trace": "the observability subsystem",
     "flightrecorder": "the observability subsystem",
     "profile": "the observability subsystem",
@@ -113,14 +125,29 @@ class SiddhiAppRuntime:
         self.query_runtimes: dict[str, QueryRuntime] = {}
         self.partition_runtimes: list[PartitionRuntime] = []
         self.trigger_runtimes: list[TriggerRuntime] = []
+        self.sources: list = []
+        self.sinks: list = []
         self.device_bridges: list = []
-        self._table_handlers: list[str] = []    # record-table handler ids
+        self._io_handlers: list[tuple[str, str]] = []   # (kind, element id)
         self._started = False
         self._ondemand_cache: dict[str, OnDemandQueryRuntime] = {}
 
         self.snapshot_service = SnapshotService(self.ctx)
         self.persistence = PersistenceManager(
             self.ctx, self.snapshot_service, siddhi_context.persistence_store)
+
+        # @app:adaptive(...): device micro-batch flush thresholds adapt to
+        # observed rate/latency — parsed before _build so device bridges can
+        # attach controllers as they compile
+        adaptive_ann = find_annotation(app.annotations, "adaptive")
+        if adaptive_ann is not None:
+            from ..flow.adaptive_batch import parse_adaptive_annotation
+            self.ctx.adaptive_cfg = parse_adaptive_annotation(adaptive_ann)
+        self.flow = None                # FlowSubsystem when @app:wal/@app:backpressure
+        # sink pipelines — built BEFORE _build so sinks wrap as the IO
+        # compiles
+        from ..resilience import ResilienceSubsystem
+        self.resilience = ResilienceSubsystem(self)
 
         self._build()
 
@@ -217,6 +244,15 @@ class SiddhiAppRuntime:
                 # pre-fill implicit defs for partition outputs
                 prt.subscribe_all(lambda sid, inner=False: self._get_junction(sid))
                 self.partition_runtimes.append(prt)
+        # sources & sinks from stream annotations
+        self._wire_io()
+        # durable flow control (@app:wal / @app:backpressure) — after
+        # junctions exist and @async dispatchers are configured
+        wants_flow = find_annotation(app.annotations, "wal") is not None \
+            or find_annotation(app.annotations, "backpressure") is not None
+        if wants_flow:
+            from ..flow import build_flow
+            self.flow = build_flow(self)
         self._wire_gauges()
 
     def _build_table(self, td):
@@ -238,7 +274,7 @@ class SiddhiAppRuntime:
             th.init(self.name, td)
             rmgr.register_record_table_handler(th.id, th)
             table.handler = th
-            self._table_handlers.append(th.id)
+            self._io_handlers.append(("table", th.id))
         cache_ann = store_ann.nested("cache")
         if cache_ann is None:
             return table
@@ -297,9 +333,51 @@ class SiddhiAppRuntime:
         for element_id, holder in self.ctx.state_registry.items():
             if not element_id.startswith("device-"):
                 sm.memory_tracker(element_id, lambda h=holder: h)
+        # flow-control gauges: wal_bytes / queue_depth / credits / shed_count
+        if self.flow is not None:
+            for sid, sf in self.flow.streams.items():
+                if sf.wal is not None:
+                    sm.gauge_tracker(f"flow.{sid}.wal_bytes",
+                                     lambda w=sf.wal: w.wal_bytes)
+                if sf.gate is not None:
+                    sm.gauge_tracker(f"flow.{sid}.queue_depth",
+                                     lambda g=sf.gate: g.depth)
+                    sm.gauge_tracker(f"flow.{sid}.credits",
+                                     lambda g=sf.gate: g.credits)
+                sm.gauge_tracker(f"flow.{sid}.shed_count",
+                                 lambda s=sf.stats: s.shed)
+                sm.gauge_tracker(f"flow.{sid}.dropped_oldest",
+                                 lambda s=sf.stats: s.dropped_oldest)
+        for b in self.device_bridges:
+            ctrl = getattr(b.runtime, "batch_controller", None)
+            if ctrl is not None:
+                sm.gauge_tracker(f"device.{b.query_name}.batch_size",
+                                 lambda c=ctrl: c.current)
+        # edge-path gauges: transport bytes and parsed rows per source
+        for src in self.sources:
+            sid = getattr(getattr(src, "definition", None), "id", None)
+            if sid is None:     # exotic Source subclass skipping init()
+                continue
+            if hasattr(src, "bytes_in"):
+                sm.gauge_tracker(f"stream.{sid}.source_bytes_in",
+                                 lambda s=src: s.bytes_in)
+            mp = getattr(src, "mapper", None)
+            if mp is not None and hasattr(mp, "rows_out"):
+                sm.gauge_tracker(f"stream.{sid}.source_rows_out",
+                                 lambda m=mp: m.rows_out)
+                sm.gauge_tracker(f"stream.{sid}.source_rows_per_s",
+                                 lambda m=mp: m.rows_per_s)
+                sm.gauge_tracker(f"stream.{sid}.source_parse_errors",
+                                 lambda m=mp: m.parse_errors)
         for sid, j in self.ctx.stream_junctions.items():
             sm.gauge_tracker(f"stream.{sid}.receiver_errors",
                              lambda jj=j: jj.receiver_errors)
+        # sink circuits (sink_retries / sink_dropped register themselves as
+        # counters at wrap time)
+        for rs in self.resilience.sinks:
+            sm.gauge_tracker(
+                f"sink.{rs.stream_id}.{rs.ordinal}.circuit_state",
+                lambda s=rs: s.breaker.state_code)
 
     def _stream_defs(self) -> dict:
         defs = dict(self.app.stream_definitions)
@@ -333,6 +411,172 @@ class SiddhiAppRuntime:
                     d.attribute(n, t)
                 j.definition = d
 
+    def _with_config(self, obj, namespace: str, name: str):
+        # reference hands a ConfigReader into every extension init
+        obj.config_reader = self.ctx.config_reader(namespace, name)
+        return obj
+
+    def _wire_io(self) -> None:
+        ctx = self.ctx
+        for sd in self.app.stream_definitions.values():
+            sources, sinks = parse_io_annotations(sd)
+            for s in sources:
+                cls = SOURCES.get(s["type"]) or \
+                    ctx.siddhi_context.extensions.get(f"source:{s['type']}")
+                if cls is None:
+                    raise SiddhiAppCreationError(f"unknown source type '{s['type']}'")
+                mapper_cls = SOURCE_MAPPERS.get(s["map"]) or \
+                    ctx.siddhi_context.extensions.get(f"sourceMapper:{s['map']}")
+                if mapper_cls is None:
+                    raise SiddhiAppCreationError(
+                        f"unknown source mapper type '{s['map']}'")
+                mapper = self._with_config(mapper_cls(), "sourceMapper", s["map"])
+                mapper.init(sd, {**s["options"], **s.get("map_options", {})})
+                src = self._with_config(cls(), "source", s["type"])
+                handler = self._make_source_handler(sd.id, mapper, s["type"])
+                src.init(sd, s["options"], mapper, handler)
+                try:
+                    src.retry_delays()    # malformed retry.delays fails the
+                    # BUILD, not the first connect attempt at start
+                except ValueError as e:
+                    raise SiddhiAppCreationError(
+                        f"source on stream '{sd.id}': bad retry.delays "
+                        f"({e})") from None
+                # connect retries abort promptly once shutdown starts
+                src.shutdown_signal = self.resilience.shutdown_signal
+                self.resilience.wrap_source_connect(src, sd.id)
+                self.sources.append(src)
+            for s in sinks:
+                cls = SINKS.get(s["type"]) or \
+                    ctx.siddhi_context.extensions.get(f"sink:{s['type']}")
+                if cls is None:
+                    raise SiddhiAppCreationError(f"unknown sink type '{s['type']}'")
+                mapper_cls = SINK_MAPPERS.get(s["map"]) or \
+                    ctx.siddhi_context.extensions.get(f"sinkMapper:{s['map']}")
+                if mapper_cls is None:
+                    raise SiddhiAppCreationError(
+                        f"unknown sink mapper type '{s['map']}'")
+                dist = s.get("distribution")
+                if dist and dist["destinations"]:
+                    from .io import (
+                        BroadcastStrategy,
+                        DistributedSink,
+                        PartitionedStrategy,
+                        RoundRobinStrategy,
+                    )
+                    subs = []
+                    for dest_opts in dist["destinations"]:
+                        mapper = self._with_config(
+                            mapper_cls(), "sinkMapper", s["map"])
+                        mapper.init(sd, {**s["options"], **s.get("map_options", {})})
+                        sub = self._with_config(cls(), "sink", s["type"])
+                        merged = {**s["options"], **dest_opts}
+                        sub.init(sd, merged, mapper)
+                        # per-destination pipeline: one endpoint failing must
+                        # not take down its siblings
+                        subs.append(self.resilience.wrap_sink(sub, sd, merged))
+                    n = len(subs)
+                    strat_name = (dist["strategy"] or "roundRobin").lower()
+                    if strat_name == "partitioned":
+                        key = dist.get("partitionKey")
+                        if key is None:
+                            raise SiddhiAppCreationError(
+                                "partitioned @distribution needs partitionKey")
+                        strat = PartitionedStrategy(
+                            n, sd.attribute_position(key))
+                    elif strat_name == "broadcast":
+                        strat = BroadcastStrategy(n)
+                    else:
+                        strat = RoundRobinStrategy(n)
+                    sink = DistributedSink(subs, strat)
+                else:
+                    mapper = self._with_config(
+                        mapper_cls(), "sinkMapper", s["map"])
+                    mapper.init(sd, {**s["options"], **s.get("map_options", {})})
+                    sink = self._with_config(cls(), "sink", s["type"])
+                    sink.init(sd, s["options"], mapper)
+                    # the publish pipeline (on.error policy + circuit
+                    # breaker) wraps every wired sink
+                    sink = self.resilience.wrap_sink(sink, sd, s["options"])
+                self.sinks.append(sink)
+                smgr = ctx.siddhi_context.sink_handler_manager
+                if smgr is not None:
+                    sh = smgr.generate_sink_handler()
+                    sh.init(self.name, sd, sink.on_event,
+                            element_id=self.ctx.element_id(
+                                f"{self.name}-{sd.id}-{type(sh).__name__}"))
+                    smgr.register_sink_handler(sh.id, sh)
+                    self._io_handlers.append(("sink", sh.id))
+                    cb = StreamCallback(lambda events, h=sh: [
+                        h.handle(e) for e in events])
+                    self.add_callback(sd.id, cb)
+                else:
+                    # direct sink subscription: rows-capable sinks (mapper
+                    # map_rows + sink publish_rows) accept whole columnar
+                    # chunks — the zero-object egress; everything else
+                    # keeps the per-event Event path
+                    from .io import RowsSinkReceiver, SinkReceiver
+                    recv = RowsSinkReceiver(sink) \
+                        if getattr(sink, "rows_capable", False) \
+                        else SinkReceiver(sink)
+                    self._get_junction(sd.id).subscribe(recv)
+
+    def _make_source_handler(self, stream_id: str, mapper, source_type: str):
+        mgr = self.ctx.siddhi_context.source_handler_manager
+        sh = None
+        if mgr is not None:
+            sh = mgr.generate_source_handler(source_type)
+            sh.init(self.name, self.app.stream_definitions[stream_id],
+                    element_id=self.ctx.element_id(
+                        f"{self.name}-{stream_id}-{type(sh).__name__}"))
+            mgr.register_source_handler(sh.id, sh)
+            self._io_handlers.append(("source", sh.id))
+
+        sm = self.ctx.statistics_manager
+        parse_tracker = sm.latency_tracker(
+            f"source.{stream_id}.ingress_parse") if sm is not None else None
+        map_rows = getattr(mapper, "map_rows", None)
+
+        def handler(payload):
+            from .columns import RowsChunk
+            ih = self.input_handler(stream_id)
+            if isinstance(payload, RowsChunk):
+                if sh is None:
+                    # a columnar chunk forwards whole through the bulk
+                    # ingress instead of exploding into per-event sends
+                    # (in-memory broker rows path, socket rows frames)
+                    ih.send_columns(payload.cols, payload.ts, payload.count)
+                    return
+                # interception installed: the SourceHandler contract is
+                # per event — degrade the chunk to rows so a RowsChunk
+                # payload still flows instead of crashing the mapper
+                names = self.app.stream_definitions[stream_id] \
+                    .attribute_names
+                tss = payload.ts
+                for i, row in enumerate(payload.rows(names)):
+                    sh.send_event(
+                        Event(int(tss[i]), row) if tss is not None
+                        else row, ih)
+                return
+            if sh is None:
+                if callable(map_rows) and isinstance(
+                        payload, (bytes, bytearray, memoryview)):
+                    t0 = time.perf_counter()
+                    chunks = map_rows(payload)
+                    dt = time.perf_counter() - t0
+                    for ch in chunks:
+                        if parse_tracker is not None and ch.count:
+                            parse_tracker.record_seconds(
+                                dt / max(len(chunks), 1), ch.count)
+                        ih.send_columns(ch.cols, ch.ts, ch.count)
+                    return
+            for row in mapper.map(payload):
+                if sh is not None:
+                    sh.send_event(row, ih)
+                else:
+                    ih.send(row)
+        return self.resilience.wrap_source_handler(stream_id, handler)
+
     # -------------------------------------------------------------- public API
     def input_handler(self, stream_id: str) -> InputHandler:
         ih = self.input_handlers.get(stream_id)
@@ -340,6 +584,8 @@ class SiddhiAppRuntime:
             if stream_id not in self.ctx.stream_junctions:
                 raise KeyError(f"stream '{stream_id}' is not defined")
             ih = InputHandler(stream_id, self.ctx.stream_junctions[stream_id], self.ctx)
+            if self.flow is not None:
+                self.flow.attach(ih)
             self.input_handlers[stream_id] = ih
         return ih
 
@@ -402,6 +648,7 @@ class SiddhiAppRuntime:
         if self._started:
             return
         self._started = True
+        self.resilience.on_start()
         for j in self.ctx.stream_junctions.values():
             if j.dispatcher is not None:
                 j.dispatcher.start()
@@ -409,6 +656,9 @@ class SiddhiAppRuntime:
             rt.start()
         for tr in self.trigger_runtimes:
             tr.start()
+        if not getattr(self, "_defer_sources", False):
+            for src in self.sources:
+                src.connect_with_retry()
         self.ctx.statistics_manager.start_reporting()
         if not self.ctx.timestamp_generator.playback:
             self.ctx.ticker = SystemTicker(self.ctx.scheduler)
@@ -420,6 +670,9 @@ class SiddhiAppRuntime:
             self._heartbeat.start()
 
     def shutdown(self) -> None:
+        # signal first: WAIT backoffs and connect retries abort promptly
+        # instead of riding out their delays
+        self.resilience.on_shutdown()
         self.drain_async()           # deliver queued async events
         for b in self.device_bridges:
             b.finalize()             # drain + close open device segments
@@ -432,11 +685,20 @@ class SiddhiAppRuntime:
         for agg in self.ctx.aggregations.values():
             if getattr(agg, "persist_stores", None):
                 agg.flush_persisted()    # drain write-behind rollups
-        rmgr = self.ctx.siddhi_context.record_table_handler_manager
-        if rmgr is not None:
-            for hid in self._table_handlers:
-                rmgr.unregister_record_table_handler(hid)
-        self._table_handlers = []
+        for src in self.sources:
+            src.disconnect()
+        for sink in self.sinks:
+            sink.disconnect()
+        sc = self.ctx.siddhi_context
+        for kind, hid in self._io_handlers:
+            mgr = {"source": sc.source_handler_manager,
+                   "sink": sc.sink_handler_manager,
+                   "table": sc.record_table_handler_manager}[kind]
+            if mgr is not None:
+                getattr(mgr, f"unregister_{'record_table' if kind == 'table' else kind}_handler")(hid)
+        self._io_handlers = []
+        if self.flow is not None:
+            self.flow.close()
         self.ctx.statistics_manager.stop_reporting()
         if self.ctx.ticker is not None:
             self.ctx.ticker.stop()
@@ -462,6 +724,11 @@ class SiddhiAppRuntime:
         """Drain pending micro-batches of @device-offloaded queries."""
         for b in self.device_bridges:
             b.flush()
+
+    def flush_host(self) -> None:
+        """Drain pending micro-batches of columnar host fast-path and fleet
+        queries (the reference's surface): the port has neither tier yet,
+        so nothing is staged and there is nothing to drain."""
 
     # -- snapshots ------------------------------------------------------------
     def _pre_snapshot(self) -> None:
@@ -498,9 +765,14 @@ class SiddhiAppRuntime:
     def persist(self) -> str:
         self._pre_snapshot()
         try:
-            return self.persistence.persist()
+            revision = self.persistence.persist()
         finally:
             self._post_snapshot()
+        if self.flow is not None:
+            # the checkpoint is durable: WAL segments below its watermark
+            # are acked and can be dropped
+            self.flow.on_persisted()
+        return revision
 
     def restore_revision(self, revision: str) -> None:
         self._pre_snapshot()
@@ -605,6 +877,20 @@ class SiddhiAppRuntime:
             if enabled and not was and agg.purge_interval:
                 agg._arm_purge()
 
+    def start_without_sources(self) -> None:
+        """Start everything but the transports (reference
+        ``startWithoutSources`` — sources attach later via
+        :meth:`start_sources`)."""
+        self._defer_sources = True
+        try:
+            self.start()
+        finally:
+            self._defer_sources = False
+
+    def start_sources(self) -> None:
+        for src in self.sources:
+            src.connect_with_retry()
+
     def set_statistics_level(self, level: Level) -> None:
         self.ctx.statistics_manager.set_level(level)
 
@@ -619,11 +905,6 @@ def _refuse_unported(app: SiddhiApp) -> None:
         tier = _UNPORTED_APP_ANNOTATIONS.get(ann.name.lower())
         if tier is not None:
             raise _not_ported(f"@app:{ann.name}", tier)
-    for sd in app.stream_definitions.values():
-        for ann in sd.annotations:
-            if ann.name.lower() in ("source", "sink"):
-                raise _not_ported(f"@{ann.name} on stream '{sd.id}'",
-                                  "the IO tier (sources, sinks, mappers)")
     q_count = 0
     for element in app.execution_elements:
         q_count += 1

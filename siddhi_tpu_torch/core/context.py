@@ -33,8 +33,10 @@ class SiddhiContext:
         self.persistence_store = None
         self.config_manager = None
         self.attributes: dict[str, Any] = {}
-        # handler interception SPI (reference SiddhiContext record-table
-        # handler manager slot; the source/sink slots come with the IO tier)
+        # handler interception SPIs (reference SiddhiContext source/sink/
+        # record-table handler manager slots)
+        self.source_handler_manager = None
+        self.sink_handler_manager = None
         self.record_table_handler_manager = None
 
 

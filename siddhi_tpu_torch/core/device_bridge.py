@@ -76,10 +76,11 @@ class AsyncDeviceDriver:
     guard the batch is logged and dropped (``batches_stepped`` still counts
     it).
 
-    The reference's deadline flush of partial batches belongs to its
-    latency-mode adaptive controller (``@app:adaptive``), which the port
-    refuses until that tier is ported; a partial batch waits for capacity
-    or an explicit flush.
+    A latency-mode adaptive controller (``@app:adaptive(latency.target.ms)``)
+    adds a **deadline flush**: when the pipeline idles with a partial batch
+    staged longer than the controller's remaining latency budget, the worker
+    flushes it — detection latency stays bounded by ~fill-wait + one step
+    instead of waiting for capacity.
     """
 
     def __init__(self, rt, app_context, depth: int = 4, window: int = 2):
@@ -99,6 +100,7 @@ class AsyncDeviceDriver:
         self._paused = False
         self._stopped = False
         self.batches_stepped = 0
+        self.deadline_flushes = 0
         self.step_seconds = 0.0          # cumulative dispatch+fence time
         self.pack_seconds = 0.0          # producer pack spans (from batches)
         self.busy_wall_seconds = 0.0     # wall the pipeline was processing
@@ -186,8 +188,10 @@ class AsyncDeviceDriver:
                 self._dispatch(batch)
             elif action == "collect":
                 self._collect_oldest()
-            else:                       # 'drained'
+            elif action == "drained":
                 self._run_drained_checks()
+            else:                       # 'deadline'
+                self._deadline_flush()
 
     def _run_drained_checks(self) -> None:
         """Deferred host-sync bookkeeping (counter checks read device scalars)
@@ -229,21 +233,61 @@ class AsyncDeviceDriver:
                     return "drained", None
                 if self._stopped:
                     return "stop", None
+                wait_s = 0.5
                 staging = self._builder_staging()
+                if staging and not self._paused:
+                    due_in = self._deadline_due_in_s()
+                    if due_in is not None and due_in <= 0.0:
+                        return "deadline", None
+                    if due_in is not None:
+                        wait_s = min(wait_s, max(due_in, 0.001))
                 t0 = time.perf_counter()
-                self._cv.wait(timeout=0.5)
+                self._cv.wait(timeout=wait_s)
                 if staging:
                     # the device sat idle while a partial batch staged — the
                     # starvation the overlap accounting must charge as wall
+                    # (and, in latency mode, the deadline flush bounds)
                     self.starved_seconds += time.perf_counter() - t0
 
     def _builder_staging(self) -> bool:
         """Rows staged in the producer's builder while the worker idles —
-        time spent here is device starvation."""
+        time spent here is device starvation, in any controller mode."""
         try:
             return len(self.rt.builder) > 0
         except Exception:   # noqa: BLE001 — advisory read without the lock
             return False
+
+    def _deadline_ms(self):
+        """Wall-clock flush deadline for partial batches, or None when no
+        latency-mode controller is attached."""
+        c = getattr(self.rt, "batch_controller", None)
+        if c is None or getattr(c, "mode", "throughput") != "latency":
+            return None
+        if not self._builder_staging():
+            return None
+        return c.flush_deadline_ms
+
+    def _deadline_due_in_s(self):
+        deadline_ms = self._deadline_ms()
+        if deadline_ms is None:
+            return None
+        t0 = getattr(self.rt.builder, "_pack_t0", None)
+        if t0 is None:
+            return None
+        return deadline_ms / 1e3 - (time.perf_counter() - t0)
+
+    def _deadline_flush(self) -> None:
+        """Flush a partial batch whose staging age exceeded the latency
+        budget (worker thread, takes the engine lock like any producer)."""
+        with self.app_context.root_lock:
+            due = self._deadline_due_in_s()
+            if due is None or due > 0.0:
+                return      # raced with a producer flush — nothing to do
+            self.rt._count_flush("deadline")
+            self.deadline_flushes += 1
+            # the runtime's own flush: seal + emit + driver submit, so the
+            # deadline path can never diverge from producer-side flushes
+            self.rt.flush()
 
     def _dispatch(self, batch) -> None:
         import time
@@ -1003,6 +1047,14 @@ def try_build_device_query(query: Query, app_context, stream_defs: dict,
         log.info("query '%s' falls back to host path: %s", name, e)
         return None
 
+    if app_context.adaptive_cfg is not None:
+        # @app:adaptive: flush thresholds track observed rate/latency; the
+        # query's own batch capacity caps the adjustable range
+        from ..flow.adaptive_batch import AdaptiveBatchController
+        cfg = dict(app_context.adaptive_cfg)
+        cfg["max_batch"] = min(cfg.get("max_batch", batch), batch)
+        cfg["min_batch"] = min(cfg.get("min_batch", 64), cfg["max_batch"])
+        rt.batch_controller = AdaptiveBatchController(**cfg)
     bridge.batch_capacity = batch       # pad-ratio denominator (observability)
     app_context.register_state(f"device-{name}", _BridgeState(bridge))
     return bridge

@@ -107,6 +107,16 @@ class SiddhiManager:
         """Reference ``SiddhiManager.setConfigManager`` (ConfigManager SPI)."""
         self.context.config_manager = config_manager
 
+    def set_source_handler_manager(self, manager) -> None:
+        """Reference ``SiddhiManager.setSourceHandlerManager`` — every source
+        wired after this routes mapped rows through a generated
+        :class:`~siddhi_tpu_torch.core.io.SourceHandler`."""
+        self.context.source_handler_manager = manager
+
+    def set_sink_handler_manager(self, manager) -> None:
+        """Reference ``SiddhiManager.setSinkHandlerManager``."""
+        self.context.sink_handler_manager = manager
+
     def set_record_table_handler_manager(self, manager) -> None:
         """Reference ``SiddhiManager.setRecordTableHandlerManager`` — every
         record-store table built after this routes its ops through a

@@ -26,6 +26,18 @@ The direct runtimes take the same events one by one (``send`` /
 ``receive``) or as the same column slices (``append_columns``), so string
 codes and micro-batch boundaries are the engine's own.
 
+``iot_durable`` and ``iot_adaptive_edge`` (``chip_smoke.py``'s
+``engine_io`` phase) take ``iot_mixed``'s events through the IO and flow
+tiers: ``iot_durable`` reads ``Raw`` from an in-memory source fed
+``RowsChunk``s of ``IO_CHUNK`` events, logs it to a write-ahead log behind
+a blocking credit gate, runs the chain (B1) and the grouped
+``length(4096)`` (B5a) on the device, publishes their rows through an
+in-memory ``json`` and ``passThrough`` sink, and counts the alerts in an
+interpreter time window; ``iot_adaptive_edge`` reads the same events as CSV
+lines from a file source (the native parse into ``send_columns``) into the
+grouped ``length(4096)`` on the async driver, with a latency-mode
+``@app:adaptive`` controller setting its flush threshold.
+
 ``iot_mixed`` (``chip_smoke.py``'s ``engine_host`` phase) is per-device IoT
 telemetry in which the host interpreter and the kernels share one engine:
 an interpreter filter cleans ``Raw`` into ``S``; ``chain`` (B1) and
@@ -48,11 +60,18 @@ BIG_TS = 99_999_999_999_999   # the on-demand window's end: every bucket
 N_KEYS = 256
 
 
-def chain_app(n_states: int = 8, device: str = "") -> str:
+def chain_text(stream: str, n_states: int = 8) -> tuple[str, str]:
+    """The rising chain's states (``e1=S[v > 90.0] -> e2=S[v > e1.v] ->
+    ...``) over ``stream`` and its select list (``e1.v as v1, ...``)."""
     states = " -> ".join(
-        f"e{i}=S[v > e{i-1}.v]" if i > 1 else "e1=S[v > 90.0]"
+        f"e{i}={stream}[v > e{i-1}.v]" if i > 1 else f"e1={stream}[v > 90.0]"
         for i in range(1, n_states + 1))
-    sel = ", ".join(f"e{i}.v as v{i}" for i in range(1, n_states + 1))
+    return states, ", ".join(f"e{i}.v as v{i}"
+                             for i in range(1, n_states + 1))
+
+
+def chain_app(n_states: int = 8, device: str = "") -> str:
+    states, sel = chain_text("S", n_states)
     return f"""
 define stream S (dev string, v double);
 {device}
@@ -300,10 +319,7 @@ def iot_mixed_app(chain_batch: int = 2048, slots: int = 64,
     """The mixed app at the engine's full widths by default; smaller
     capacities for a run on the CPU. ``raw_async`` puts ``@async`` on
     ``Raw``."""
-    states = " -> ".join(
-        f"e{i}=S[v > e{i-1}.v]" if i > 1 else "e1=S[v > 90.0]"
-        for i in range(1, 9))
-    sel = ", ".join(f"e{i}.v as v{i}" for i in range(1, 9))
+    states, sel = chain_text("S")
     raw = "@async(buffer.size='1024')\n" if raw_async else ""
     return f"""
 {raw}define stream Raw (dev string, room int, v double);
@@ -361,3 +377,102 @@ def collect_outputs(rt, callback_cls) -> dict:
         rt.add_callback(s, callback_cls(lambda evs, rows=got[s]: rows.extend(
             (e.timestamp, list(e.data)) for e in evs)))
     return got
+
+
+# ------------------------------------------------------------ engine_io
+
+IO_EVENTS = 262_144           # 64 chunks of IO_CHUNK
+IO_CHUNK = 4096               # events per RowsChunk on the source's topic
+IO_SINKS = ("Alerts", "Stats")
+IO_TAIL = 100                 # events of the CSV file's last read
+
+
+def iot_durable_app(wal_dir: str, tag: str, chain_batch: int = 2048,
+                    slots: int = 64, stats_batch: int = 4096,
+                    stats_window: int = 4096, capacity: int = 16384,
+                    segment_bytes: int = 1 << 20) -> str:
+    """``iot_durable`` at the engine's full widths by default (WAL segments
+    of 1 MiB, the WAL's default). ``tag`` names the transport topics
+    (``iot-raw-<tag>``, ``iot-alerts-<tag>``, ``iot-stats-<tag>``), so an
+    abandoned runtime's source never sees a later runtime's feed."""
+    states, sel = chain_text("Raw")
+    alerts = ", ".join(f"v{i} double" for i in range(1, 9))
+    return f"""
+@app:name('iot_durable')
+@app:wal(dir='{wal_dir}', fsync='false', streams='Raw', segment.bytes='{segment_bytes}')
+@app:backpressure(capacity='{capacity}', policy='block', streams='Raw')
+@source(type='inMemory', topic='iot-raw-{tag}', @map(type='passThrough'))
+define stream Raw (dev string, room int, v double);
+@sink(type='inMemory', topic='iot-alerts-{tag}', @map(type='json'))
+define stream Alerts ({alerts});
+@sink(type='inMemory', topic='iot-stats-{tag}', @map(type='passThrough'))
+define stream Stats (dev string, total double, n long);
+@info(name='chain') @device(batch='{chain_batch}', slots='{slots}', strict='true')
+from every {states} within 4000
+select {sel} insert into Alerts;
+@info(name='stats') @device(batch='{stats_batch}', window='{stats_window}', strict='true')
+from Raw[v >= 0.0]#window.length({stats_window})
+select dev, sum(v) as total, count() as n group by dev insert into Stats;
+@info(name='alert_rate')
+from Alerts#window.time(10 sec) select count() as alerts insert into AlertRate;
+"""
+
+
+def iot_adaptive_edge_app(csv_path: str, chunk_bytes: int,
+                          adaptive: bool = True, batch: int = 4096,
+                          window: int = 4096) -> str:
+    """``iot_adaptive_edge``: the file source reads ``csv_path`` in reads of
+    ``chunk_bytes``; a latency-mode controller with a 50 ms detection
+    budget, starting at its floor of 256 events, sets the grouped
+    ``length(4096)``'s flush threshold. Without ``adaptive``, the same app
+    at its static batch (the run that checks it)."""
+    ann = "@app:adaptive(latency.target.ms='50', min='256')" \
+        if adaptive else ""
+    return f"""
+@app:name('iot_adaptive_edge')
+{ann}
+@source(type='file', file='{csv_path}', chunk.bytes='{chunk_bytes}',
+        @map(type='csv', ts.last='true'))
+define stream Raw (dev string, room int, v double);
+@info(name='stats') @device(batch='{batch}', window='{window}', strict='true', async='true')
+from Raw[v >= 0.0]#window.length({window})
+select dev, sum(v) as total, count() as n group by dev insert into Stats;
+"""
+
+
+def iot_chunks(ev: IotEvents, lo: int, hi: int, chunk: int = IO_CHUNK):
+    """Events ``lo:hi`` as ``RowsChunk``s of ``chunk`` events."""
+    from ..core.columns import RowsChunk
+    dev = np.array(ev.dev, dtype=object)
+    room = np.array(ev.room, dtype=np.int32)
+    v = np.array(ev.v, dtype=np.float64)
+    ts = np.array(ev.ts, dtype=np.int64)
+    for a in range(lo, hi, chunk):
+        b = min(a + chunk, hi)
+        yield RowsChunk({"dev": dev[a:b], "room": room[a:b], "v": v[a:b]},
+                        ts[a:b], b - a)
+
+
+def iot_csv(ev: IotEvents) -> tuple[bytes, int]:
+    """The events as CSV lines ``dev,room,v,ts`` and the byte length of all
+    but the last ``IO_TAIL`` lines: a file source reading that many bytes at
+    a time takes the tail in a read of its own, so the feed ends with a
+    batch shorter than any flush threshold."""
+    lines = [f"{d},{r},{v!r},{t}\n" for d, r, v, t in
+             zip(ev.dev, ev.room, ev.v, ev.ts)]
+    head = sum(len(x) for x in lines[:-IO_TAIL])
+    return "".join(lines).encode(), head
+
+
+def collect_sinks(broker, tag: str) -> tuple[dict, list]:
+    """``{stream: [payload, ...]}`` of ``iot_durable``'s sink topics under
+    ``tag`` (a ``json`` payload as its string, a ``passThrough`` event as
+    ``(ts, data)``), and the unsubscribe calls."""
+    got = {s: [] for s in IO_SINKS}
+    unsubs = []
+    for s in IO_SINKS:
+        def take(p, rows=got[s]):
+            rows.append(p if isinstance(p, str)
+                        else (p.timestamp, list(p.data)))
+        unsubs.append(broker.subscribe(f"iot-{s.lower()}-{tag}", take))
+    return got, unsubs

@@ -4,9 +4,10 @@
   files, their driver loops replayed) run on ``siddhi_tpu_torch.
   SiddhiManager(device="cpu")`` and give the reference engine's output:
   the two device samples (``device_pattern``, ``device_offload``) on the
-  device tier, the others on the host interpreter. ``columnar_edge`` and
-  ``interception_handlers`` stay out: they need the IO tier (sources,
-  sinks, source and sink handlers), which the port does not have yet.
+  device tier, the others on the host interpreter; ``interception_handlers``
+  through the IO tier, with the port's source and sink handler managers.
+  ``columnar_edge`` stays out: it needs the columnar host tier
+  (``@app:host_batch``), which the port does not have yet.
 - ``snapshot``/``restore`` and ``persist``/``restore_last_revision``
   mid-stream, in sync and async mode: cut where every bridge's builder is
   empty, the port resumed in a fresh engine equals its uninterrupted run,
@@ -14,7 +15,9 @@
   batch, so output timestamps move), it equals the reference engine cut at
   the same event. A blob holds numpy arrays and no ``torch.Tensor``.
 - Every tier the port does not have yet is refused at
-  ``create_siddhi_app_runtime`` with a ``SiddhiAppCreationError`` naming it;
+  ``create_siddhi_app_runtime`` with a ``SiddhiAppCreationError`` naming it,
+  and the tiers it has (sources, sinks, the WAL, backpressure, adaptive
+  batching) build and give the reference engine's rows;
   a strict ``@device`` query the compilers refuse raises
   ``DeviceCompileError``, as in the reference.
 - ``SiddhiManager()`` runs on the card, and without one it raises.
@@ -59,12 +62,17 @@ ROOT = Path(__file__).resolve().parent.parent
 # ------------------------------------------------------------------ samples
 
 def sample_app(name: str) -> str:
-    """The ``APP`` text of ``samples/<name>.py`` (read as data: the sample
+    """The ``APP`` text of ``samples/<name>.py``, or the app text its
+    ``create_siddhi_app_runtime`` call is given (read as data: the sample
     imports the JAX package)."""
     tree = ast.parse((ROOT / "samples" / f"{name}.py").read_text())
     for node in tree.body:
         if isinstance(node, ast.Assign) and node.targets[0].id == "APP":
             return ast.literal_eval(node.value)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Call) and getattr(
+                node.func, "attr", "") == "create_siddhi_app_runtime":
+            return ast.literal_eval(node.args[0])
     raise KeyError(name)
 
 
@@ -197,6 +205,44 @@ def drive_incremental_aggregation(manager, app):
     return [list(e.data) for e in rows], rt
 
 
+def drive_interception_handlers(manager, app):
+    """The sample's audit handlers on ``manager``'s package: every source
+    row and sink event they saw, and the payloads the transport got."""
+    pkg = _pkg(manager)
+    audit = []
+
+    class AuditSourceHandler(pkg.SourceHandler):
+        def send_event(self, row, input_handler):
+            audit.append(("source", self.definition.id, list(row)))
+            input_handler.send(row)
+
+    class AuditSinkHandler(pkg.SinkHandler):
+        def handle(self, event):
+            audit.append(("sink", self.definition.id, list(event.data)))
+            self.callback(event)
+
+    class AuditSourceManager(pkg.SourceHandlerManager):
+        def generate_source_handler(self, source_type):
+            return AuditSourceHandler()
+
+    class AuditSinkManager(pkg.SinkHandlerManager):
+        def generate_sink_handler(self):
+            return AuditSinkHandler()
+
+    manager.set_source_handler_manager(AuditSourceManager())
+    manager.set_sink_handler_manager(AuditSinkManager())
+    rt = manager.create_siddhi_app_runtime(app, playback=True)
+    received = []
+    unsub = pkg.InMemoryBroker.subscribe("alerts", received.append)
+    rt.add_callback("HighPrice", pkg.StreamCallback(lambda evs: None))
+    rt.start()
+    for row in [["WSO2", 55.6], ["IBM", 40.0], ["GOOG", 120.0]]:
+        pkg.InMemoryBroker.publish("ticks", row)
+    unsub()
+    manager.shutdown()
+    return audit + [("transport", list(p.data)) for p in received], rt
+
+
 # name → (output stream, events) for a sample whose loop only sends, or its
 # replayed driver loop
 SAMPLES = {
@@ -221,6 +267,7 @@ SAMPLES = {
     "async_ingestion": drive_async_ingestion,
     "perf_filter": drive_perf_filter,
     "incremental_aggregation": drive_incremental_aggregation,
+    "interception_handlers": drive_interception_handlers,
 }
 DEVICE_SAMPLES = {"device_pattern", "device_offload"}
 
@@ -367,18 +414,9 @@ def test_resume_mid_batch_matches_reference(mode):
 S = "define stream S (v double);\n"
 Q = "@device(batch='16')\nfrom S[v > 1.0] select v insert into O;\n"
 REFUSALS = {
-    "source": ("@source(type='inMemory', topic='t', @map(type='passThrough'))"
-               "\n" + S + Q, "IO tier"),
-    "sink": ("@sink(type='inMemory', topic='t', @map(type='passThrough'))\n"
-             "define stream O (v double);\n" + S + Q, "IO tier"),
     "fleet": ("@app:fleet(tenant='a')\n" + S + Q, "fleet tier"),
     "host_batch": ("@app:host_batch(workers='2')\n" + S + Q,
                    "columnar host tier"),
-    "wal": ("@app:wal(dir='w')\n" + S + Q, "durable flow control"),
-    "backpressure": ("@app:backpressure(capacity='8')\n" + S + Q,
-                     "durable flow control"),
-    "adaptive": ("@app:adaptive(target.ms='25')\n" + S + Q,
-                 "adaptive micro-batching"),
     "trace": ("@app:trace(sample='1/1')\n" + S + Q,
               "observability subsystem"),
     "flightrecorder": ("@app:flightrecorder(dir='f')\n" + S + Q,
@@ -397,6 +435,54 @@ def test_unported_tier_is_refused(name):
     with pytest.raises(SiddhiAppCreationError, match="not ported yet") as e:
         port_manager().create_siddhi_app_runtime(app, playback=True)
     assert tier in str(e.value)
+
+
+# the tiers this engine has, which it refused before: each app builds on
+# both engines, and a few events give the same rows (``{wal}`` is a fresh
+# directory per engine)
+PORTED = {
+    "source": "@source(type='inMemory', topic='{topic}', "
+              "@map(type='passThrough'))\n" + S + Q,
+    "sink": "@sink(type='inMemory', topic='{topic}', "
+            "@map(type='passThrough'))\ndefine stream O (v double);\n"
+            + S + Q,
+    "wal": "@app:wal(dir='{wal}')\n" + S + Q,
+    "backpressure": "@app:backpressure(capacity='8')\n" + S + Q,
+    "adaptive": "@app:adaptive(target.ms='25')\n" + S + Q,
+}
+
+
+def run_ported_tier(manager, app: str, topic: str) -> list:
+    """Five events into ``S`` (through the broker where ``S`` has a
+    source) → the rows of ``O`` and of the transport where ``O`` has a
+    sink."""
+    pkg = _pkg(manager)
+    rt = start(manager, app, out="O")
+    sent = []
+    unsub = pkg.InMemoryBroker.subscribe(
+        f"{topic}-out", lambda p: sent.append(list(p.data)))
+    for i, v in enumerate([0.5, 2.0, 3.5, 1.0, 4.0]):
+        if "@source" in app:
+            pkg.InMemoryBroker.publish(topic, [v])
+        else:
+            rt.input_handler("S").send([v], timestamp=1000 + i)
+    rt.flush_device()
+    unsub()
+    manager.shutdown()
+    return [d for _, d in rt.got] + sent
+
+
+@pytest.mark.parametrize("name", sorted(PORTED))
+def test_ported_tier_builds(name, tmp_path):
+    outs = []
+    for make in (ref_manager, port_manager):
+        topic = f"tier-{name}-{make.__name__}"
+        app = PORTED[name].format(
+            topic=topic if name == "source" else f"{topic}-out",
+            wal=tmp_path / make.__name__)
+        outs.append(run_ported_tier(make(), app, topic))
+    ref, got = outs
+    assert ref and got == ref
 
 
 def test_strict_refusal_raises_device_compile_error():

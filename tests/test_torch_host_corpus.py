@@ -14,16 +14,26 @@ The reference suites are imported as data, never edited:
   ``QueryCallback``, ``Event``, ``SiddhiAppCreationError``) bound to the
   port's, in the suite's module and on the ``siddhi_tpu`` package, for the
   duration of the call: the reference's own assertions judge the port, the
-  function-local imports included;
+  function-local imports included. The IO, flow and sink-pipeline modules
+  (``PORTED_MODULES``) are bound the same way, name by name: every name the
+  port's module defines replaces the reference's in the reference's module
+  and in the suite's, and a test double the suite derives from one of those
+  classes (a ``Sink``, a ``SourceHandler``) is rebased onto the port's
+  class for the call. ``SUITE_ONLY`` picks, for a suite that also tests
+  tiers outside this set, the functions it contributes;
 - ``NEEDS_UNPORTED`` lists, by id, the suite functions whose app needs a
   tier the port does not have yet, with that tier; the port must still
   refuse them at build time with "not ported yet" naming the tier.
+  ``NEEDS_MODULE`` lists the functions that drive a JAX-package module the
+  port has no counterpart of yet (``siddhi_tpu/service.py``); the port must
+  still lack it.
 
 ``test_torch_host_corpus_device.py`` runs both corpora again with a
 non-strict ``@device`` on every query.
 """
 
 import importlib
+import importlib.util
 import inspect
 
 import pytest
@@ -56,6 +66,42 @@ BINDINGS = {
     "Event": siddhi_tpu_torch.Event,
     "SiddhiAppCreationError": SiddhiAppCreationError,
 }
+
+# the reference's module → the port's, bound name by name (every public
+# name the port's module defines, where the reference's defines it too)
+PORTED_MODULES = {
+    "siddhi_tpu.core.debugger": "siddhi_tpu_torch.core.debugger",
+    "siddhi_tpu.core.event": "siddhi_tpu_torch.core.event",
+    "siddhi_tpu.core.io": "siddhi_tpu_torch.core.io",
+    "siddhi_tpu.core.snapshot": "siddhi_tpu_torch.core.snapshot",
+    "siddhi_tpu.core.table": "siddhi_tpu_torch.core.table",
+    "siddhi_tpu.flow": "siddhi_tpu_torch.flow",
+    "siddhi_tpu.flow.adaptive_batch": "siddhi_tpu_torch.flow.adaptive_batch",
+    "siddhi_tpu.flow.backpressure": "siddhi_tpu_torch.flow.backpressure",
+    "siddhi_tpu.flow.records": "siddhi_tpu_torch.flow.records",
+    "siddhi_tpu.flow.recovery": "siddhi_tpu_torch.flow.recovery",
+    "siddhi_tpu.flow.wal": "siddhi_tpu_torch.flow.wal",
+    "siddhi_tpu.resilience.circuit": "siddhi_tpu_torch.resilience.circuit",
+    "siddhi_tpu.resilience.sink_pipeline":
+        "siddhi_tpu_torch.resilience.sink_pipeline",
+    "siddhi_tpu.tpu.dcn": "siddhi_tpu_torch.gpu.dcn",
+    "siddhi_tpu.tpu.expr_compile": "siddhi_tpu_torch.gpu.expr_compile",
+}
+
+def ported_names() -> list:
+    """``(reference module, name, port object)`` for every bound name."""
+    out = []
+    for ref_name, port_name in PORTED_MODULES.items():
+        ref = importlib.import_module(ref_name)
+        port = importlib.import_module(port_name)
+        for name, obj in vars(port).items():
+            if name.startswith("_") or not hasattr(ref, name) \
+                    or inspect.ismodule(obj) \
+                    or not getattr(obj, "__module__", "").startswith(
+                        "siddhi_tpu_torch."):
+                continue
+            out.append((ref, name, obj))
+    return out
 
 
 # ----------------------------------------------------------------- corpora
@@ -149,7 +195,66 @@ def test_pattern_corpus_case(cid):
 SUITES = ["test_partition_corpus", "test_join_corpus", "test_filter_query",
           "test_sequence", "test_ratelimit_corpus", "test_executor_corpus",
           "test_windows", "test_pattern", "test_join", "test_table",
-          "test_window_corpus", "test_pattern_corpus"]
+          "test_window_corpus", "test_pattern_corpus", "test_handlers",
+          "test_flow", "test_integration", "test_edge_rows",
+          "test_resilience"]
+
+# suites that also test tiers outside the port's → the functions they
+# contribute: the IO tier and the sink pipeline (the rest of
+# test_edge_rows holds the columnar host tier, the fleet and the JAX
+# package's own parsers and lints; the rest of test_resilience the device
+# guard, chaos and the service)
+SUITE_ONLY = {
+    "test_edge_rows": {
+        "test_source_chunk_boundary_parity_fuzz",
+        "test_file_source_end_to_end", "test_socket_source_lines",
+        "test_socket_source_rows_frames", "test_unpack_columns_round_trip",
+        "test_rows_chunk_crosses_broker_intact",
+        "test_resilient_sink_chunk_retry",
+        "test_resilient_sink_partial_falls_back_per_event",
+        "test_parallel_tier_worker_parity",
+        "test_parallel_tier_snapshot_restore_mid_stream",
+        "test_fleet_stage_columns_parity",
+        "test_rows_chunk_with_source_handler_manager",
+        "test_line_source_tail_cap", "test_json_lines_mapper_rows",
+        "test_send_columns_fallback_paths", "test_send_columns_validation"},
+    "test_resilience": {
+        "test_circuit_breaker_transitions",
+        "test_circuit_success_resets_consecutive_failures",
+        "test_wait_policy_retries_until_success",
+        "test_wait_policy_does_not_retry_deterministic_bugs",
+        "test_retry_policy_bounded_then_escalates_to_store",
+        "test_retry_policy_succeeds_within_bounds",
+        "test_stream_policy_routes_to_fault_junction",
+        "test_log_policy_drops_and_counts", "test_bad_on_error_policy_rejected",
+        "test_sink_replay_targets_only_the_failed_sink",
+        "test_multi_receiver_failure_stores_event_once",
+        "test_sink_circuit_opens_then_half_open_probe_recovers",
+        "test_wait_policy_waits_out_open_circuit",
+        "test_stream_policy_without_consumer_escalates_to_drop",
+        "test_wait_policy_aborts_on_shutdown",
+        "test_on_error_store_replay_downstream_sees_event_once",
+        "test_replay_id_range", "test_replay_while_still_failing_restores_entry",
+        "test_file_error_store_survives_restart",
+        "test_error_store_service_endpoints",
+        "test_fault_event_carries_exception_object",
+        "test_every_receiver_failure_is_counted",
+        "test_chunk_failure_attributed_to_failing_event",
+        "test_connect_with_retry_configurable_delays_and_jitter",
+        "test_connect_with_retry_aborts_on_shutdown",
+        "test_device_failure_falls_back_to_host_no_loss",
+        "test_device_quarantine_repromotes_after_cooldown",
+        "test_device_quarantine_parity_vs_host",
+        "test_device_quarantine_optout",
+        "test_device_fallback_reaches_query_callbacks",
+        "test_sink_replay_that_drops_counts_as_failed",
+        "test_sink_without_policy_inherits_stream_on_error",
+        "test_sink_drop_notifies_exception_listener",
+        "test_negative_retry_delays_rejected_at_build",
+        "test_bad_retry_delays_rejected_at_build",
+        "test_chaos_smoke_no_event_loss", "test_chaos_soak_no_event_loss",
+        "test_chaos_source_fault_contained_in_app"},
+}
 
 # run above case by case, or about the JAX package's device compiler only
 NOT_SUITE_FUNCTIONS = {
@@ -159,7 +264,44 @@ NOT_SUITE_FUNCTIONS = {
 }
 
 # suite function id → the tier its app needs, which the port refuses
-NEEDS_UNPORTED: dict[str, str] = {}
+NEEDS_UNPORTED: dict[str, str] = {
+    **{f"test_edge_rows::{name}": "the columnar host tier" for name in (
+        "test_source_chunk_boundary_parity_fuzz",
+        "test_file_source_end_to_end", "test_socket_source_lines",
+        "test_socket_source_rows_frames",
+        "test_rows_chunk_crosses_broker_intact",
+        "test_resilient_sink_chunk_retry",
+        "test_resilient_sink_partial_falls_back_per_event",
+        "test_parallel_tier_worker_parity",
+        "test_parallel_tier_snapshot_restore_mid_stream",
+        "test_json_lines_mapper_rows", "test_send_columns_fallback_paths",
+        "test_send_columns_validation")},
+    "test_edge_rows::test_fleet_stage_columns_parity":
+        "the multi-tenant fleet tier",
+    "test_resilience::test_device_failure_falls_back_to_host_no_loss":
+        "the resilience subsystem",
+    "test_resilience::test_device_quarantine_repromotes_after_cooldown":
+        "the resilience subsystem",
+    "test_resilience::test_device_quarantine_parity_vs_host":
+        "the resilience subsystem",
+    "test_resilience::test_device_quarantine_optout":
+        "the resilience subsystem",
+    "test_resilience::test_device_fallback_reaches_query_callbacks":
+        "the resilience subsystem",
+    "test_resilience::test_chaos_smoke_no_event_loss":
+        "the resilience subsystem",
+    "test_resilience::test_chaos_soak_no_event_loss":
+        "the resilience subsystem",
+    "test_resilience::test_chaos_source_fault_contained_in_app":
+        "the resilience subsystem",
+}
+
+# suite function id → the JAX-package module it drives, which the port does
+# not have yet (the port must still lack it)
+NEEDS_MODULE: dict[str, str] = {
+    "test_flow::test_service_flow_endpoints": "service",
+    "test_resilience::test_error_store_service_endpoints": "service",
+}
 
 
 def _param_sets(fn) -> list:
@@ -191,9 +333,11 @@ def suite_functions() -> list:
     out = []
     for modname in SUITES:
         mod = importlib.import_module(modname)
+        only = SUITE_ONLY.get(modname)
         for name, fn in vars(mod).items():
             if not name.startswith("test_") or not inspect.isfunction(fn) \
-                    or (modname, name) in NOT_SUITE_FUNCTIONS:
+                    or (modname, name) in NOT_SUITE_FUNCTIONS \
+                    or (only is not None and name not in only):
                 continue
             for suffix, kwargs in _param_sets(fn):
                 fid = f"{modname}::{name}{suffix}"
@@ -204,51 +348,122 @@ def suite_functions() -> list:
 SUITE_FUNCTIONS = suite_functions()
 
 
-def bind_port_names(monkeypatch, mod) -> None:
+def bind_port_names(monkeypatch, mod, request) -> set:
     """The reference's public names → the port's, in ``mod`` and on the
-    ``siddhi_tpu`` package (function-local imports read the package)."""
+    ``siddhi_tpu`` package (function-local imports read the package), and
+    every name of ``PORTED_MODULES`` in the reference's module and in
+    ``mod``; ``mod``'s own classes derived from a bound class are rebased
+    onto the port's. Returns the names of ``mod`` now bound to the port."""
+    bound = set()
     for name, obj in BINDINGS.items():
         if name in vars(mod):
             monkeypatch.setattr(mod, name, obj)
+            bound.add(name)
         monkeypatch.setattr(siddhi_tpu, name, obj, raising=False)
     monkeypatch.setattr(siddhi_tpu.core.errors, "SiddhiAppCreationError",
                         SiddhiAppCreationError)
+    port_of = {}                # id(reference object) → the port's
+    for ref, name, obj in ported_names():
+        port_of[id(getattr(ref, name))] = obj
+        monkeypatch.setattr(ref, name, obj)
+    for name, val in list(vars(mod).items()):
+        if name in bound:
+            continue
+        if id(val) in port_of:
+            monkeypatch.setattr(mod, name, port_of[id(val)])
+            bound.add(name)
+        elif inspect.isclass(val) and val.__module__ == mod.__name__ \
+                and any(id(b) in port_of for b in val.__bases__):
+            # rebased here and back at teardown (``monkeypatch`` would
+            # delete ``__bases__`` at undo: it is not in the class dict)
+            old = val.__bases__
+            val.__bases__ = tuple(port_of.get(id(b), b) for b in old)
+            request.addfinalizer(
+                lambda c=val, b=old: setattr(c, "__bases__", b))
+            bound.add(name)
+    # function-local imports from the reference's modules get the port's
+    return bound | {name for _, name, _ in ported_names()}
 
 
-def call_suite_function(mod, fn, kwargs: dict) -> None:
-    """Calls ``fn`` with ``kwargs``; the suites' one fixture, ``manager``,
-    is the port's manager (shut down after)."""
+def autouse_fixtures(mod) -> list:
+    """The plain functions of ``mod``'s own autouse fixtures."""
+    out = []
+    for val in vars(mod).values():
+        marker = getattr(val, "_fixture_function_marker", None)
+        if marker is not None and marker.autouse:
+            out.append(val.__wrapped__)
+    return out
+
+
+def call_suite_function(mod, fn, kwargs: dict, tmp_path, caplog) -> None:
+    """Calls ``fn`` with ``kwargs``; of the suites' fixtures, ``manager`` is
+    the port's manager (shut down after, and the port's broker reset, as
+    the suites' fixture does), ``tmp_path`` and ``caplog`` the caller's;
+    ``mod``'s autouse fixtures run around the call."""
     manager = None
+    fixtures = {"tmp_path": tmp_path, "caplog": caplog}
     for p in inspect.signature(fn).parameters:
         if p in kwargs:
+            continue
+        if p in fixtures:
+            kwargs = dict(kwargs, **{p: fixtures[p]})
             continue
         if p != "manager":
             raise AssertionError(f"{mod.__name__}.{fn.__name__}: fixture "
                                  f"'{p}' has no port counterpart here")
         manager = PortManager()
         kwargs = dict(kwargs, manager=manager)
+    gens = []
+    for fixture in autouse_fixtures(mod):
+        g = fixture()
+        if inspect.isgenerator(g):
+            next(g)
+            gens.append(g)
     try:
         fn(**kwargs)
     finally:
         if manager is not None:
             manager.shutdown()
+        siddhi_tpu_torch.InMemoryBroker.reset()
+        for g in gens:
+            next(g, None)
+
+
+def names_used(fn) -> set:
+    """Global names ``fn``'s code reads, its nested functions' included."""
+    out, stack = set(), [fn.__code__]
+    while stack:
+        code = stack.pop()
+        out.update(code.co_names)
+        stack.extend(c for c in code.co_consts if inspect.iscode(c))
+    return out
 
 
 @pytest.mark.parametrize("modname,fname,kwargs", SUITE_FUNCTIONS)
 def test_reference_suite_function_on_the_port(modname, fname, kwargs,
-                                              request, monkeypatch):
+                                              request, monkeypatch, tmp_path,
+                                              caplog):
     mod = importlib.import_module(modname)
     fn = getattr(mod, fname)
-    bind_port_names(monkeypatch, mod)
     fid = request.node.callspec.id
+    missing = NEEDS_MODULE.get(fid)
+    if missing is not None:
+        assert importlib.util.find_spec(f"siddhi_tpu.{missing}") is not None
+        assert importlib.util.find_spec(
+            f"siddhi_tpu_torch.{missing}") is None
+        return
+    bound = bind_port_names(monkeypatch, mod, request)
     tier = NEEDS_UNPORTED.get(fid)
     built = PortManager.built
     if tier is None:
-        call_suite_function(mod, fn, kwargs)
-        assert PortManager.built > built, "the function built no port engine"
+        call_suite_function(mod, fn, kwargs, tmp_path, caplog)
+        # an engine function builds the port's engine; a unit function
+        # calls a class or function bound to the port's
+        assert PortManager.built > built or names_used(fn) & bound, \
+            "the function ran nothing of the port"
         return
     with pytest.raises(SiddhiAppCreationError, match="not ported yet") as e:
-        call_suite_function(mod, fn, kwargs)
+        call_suite_function(mod, fn, kwargs, tmp_path, caplog)
     assert tier in str(e.value)
 
 
@@ -259,4 +474,7 @@ def test_suites_are_all_collected():
     assert mods == set(SUITES)
     ids = {p.id for p in SUITE_FUNCTIONS}
     assert set(NEEDS_UNPORTED) <= ids
+    assert set(NEEDS_MODULE) <= ids
+    for modname, only in SUITE_ONLY.items():
+        assert only <= set(vars(importlib.import_module(modname)))
     assert len(SUITE_FUNCTIONS) > 120

@@ -59,7 +59,16 @@ def test_import_loads_neither_jax_nor_the_reference():
         "import siddhi_tpu_torch.core.query_runtime\n"
         "import siddhi_tpu_torch.core.partition, siddhi_tpu_torch.core.trigger\n"
         "import siddhi_tpu_torch.tools.engine_workloads\n"
+        "import siddhi_tpu_torch.core.io, siddhi_tpu_torch.gpu.dcn\n"
+        "import siddhi_tpu_torch.resilience\n"
+        "import siddhi_tpu_torch.resilience.circuit\n"
+        "import siddhi_tpu_torch.resilience.sink_pipeline\n"
+        "import siddhi_tpu_torch.flow, siddhi_tpu_torch.flow.wal\n"
+        "import siddhi_tpu_torch.flow.records, siddhi_tpu_torch.flow.recovery\n"
+        "import siddhi_tpu_torch.flow.backpressure\n"
+        "import siddhi_tpu_torch.flow.adaptive_batch\n"
         "from siddhi_tpu_torch import SiddhiManager, StreamCallback\n"
+        "from siddhi_tpu_torch import InMemoryBroker, recover\n"
         "print('\\n'.join(sorted(sys.modules)))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                          capture_output=True, text=True).stdout.split()

@@ -21,7 +21,8 @@ and the plain version do; ``next_scale`` when each side carries its own:
 the largest ``step_scale`` so far for a window, whose tails both sides
 hold exactly alike, and for running and per-key sums the sum of
 ``batch_scale`` over every batch fed, plus ``carried_scale`` of any state
-resumed from):
+resumed from; an unwindowed group-by's rows each take their own key's
+sum over every batch fed, ``key_scales``):
 
 - float32 sums, ``*_fsums``/``*_fcomp``: prefix sums round in a different
   order in each implementation (the reference's f32 cumsum rounds at every
@@ -538,14 +539,16 @@ class Scale:
     module docstring), one per lane, since a prefix reads one lane: ``s1``
     over each float32 sum/avg lane, ``sm`` over each stdDev lane, ``s2``
     bounding each stdDev lane's centred second moments. A limit takes the
-    largest lane. ``row``, where set (``bucket_rows``), holds per grouped
-    float32 sum/avg output the ``s1`` of each row's own bucket, which its
-    limit takes instead."""
+    largest lane. ``row``, where set (``bucket_rows``, ``next_scale``),
+    holds per grouped float32 sum/avg output the ``s1`` of each row's own
+    bucket, which its limit takes instead."""
 
     s1: np.ndarray | float = 0.0
     sm: np.ndarray | float = 0.0
     s2: np.ndarray | float = 0.0
     row: dict | None = None
+    keys: dict | None = None    # unwindowed group-by: per output, the
+    # s1 of each bucket summed over every batch fed ([K] float64)
 
     def __add__(self, o: "Scale") -> "Scale":
         return Scale(self.s1 + o.s1, self.sm + o.sm, self.s2 + o.s2)
@@ -606,13 +609,15 @@ def carried_scale(q, state) -> Scale:
     return sc
 
 
-def bucket_rows(q, state, cols, ts, valid) -> dict | None:
-    """Per grouped float32 sum/avg output, each output row's ``s1`` over its
-    own bucket alone: the bucket's |x| over the batch's accepted events and
-    the window's tail slots, or its carried per-key sum (a row reads only
-    its bucket's prefixes). ``None`` where the query has none."""
-    if not q.group_keys or not q.fagg_idx:
-        return None
+def _finite_abs(x):
+    x = x.double()
+    return torch.where(torch.isfinite(x), x.abs(), torch.zeros_like(x))
+
+
+def bucket_batch(q, cols, ts, valid):
+    """A group-by's batch by bucket: each compacted position's bucket id
+    ([B] int64) and, per float32 sum/avg output, the |x| of the batch's
+    accepted events summed per bucket ([K] float64)."""
     env = {**cols, "__ts__": ts, "__device__": ts.device}
     mask = valid
     for fn in q.filter_fns:
@@ -625,25 +630,54 @@ def bucket_rows(q, state, cols, ts, valid) -> dict | None:
         out[:k] = x[mask]
         return out
 
-    def finite_abs(x):
-        x = x.double()
-        return torch.where(torch.isfinite(x), x.abs(), torch.zeros_like(x))
-
     keys = group_bucket(q, [compact(cols[g].to(torch.int64))
                             for g in q.group_keys])[0].long()
+    per = {}
+    for i in q.fagg_idx:
+        x = torch.broadcast_to(as_tensor(q.specs[i].fn(env), env), valid.shape)
+        acc = torch.zeros(q.K, dtype=torch.float64, device=ts.device)
+        per[q.specs[i].name] = acc.index_add_(0, keys, _finite_abs(compact(x)))
+    return keys, per
+
+
+def bucket_rows(q, state, cols, ts, valid) -> dict | None:
+    """Per grouped float32 sum/avg output, each output row's ``s1`` over its
+    own bucket alone: the bucket's |x| over the batch's accepted events and
+    the window's tail slots, or its carried per-key sum (a row reads only
+    its bucket's prefixes). ``None`` where the query has none."""
+    if not q.group_keys or not q.fagg_idx:
+        return None
+    keys, per = bucket_batch(q, cols, ts, valid)
     rows = {}
     for lane, i in enumerate(q.fagg_idx):
-        x = torch.broadcast_to(as_tensor(q.specs[i].fn(env), env), valid.shape)
-        per = torch.zeros(q.K, dtype=torch.float64, device=ts.device)
-        per.index_add_(0, keys, finite_abs(compact(x)))
+        acc = per[q.specs[i].name]
         if "tail_fvals" in state:
-            per.index_add_(0, state["tail_gkey"].long(),
-                           finite_abs(state["tail_fvals"][lane]))
+            acc.index_add_(0, state["tail_gkey"].long(),
+                           _finite_abs(state["tail_fvals"][lane]))
         if "key_fsums" in state:
-            per += finite_abs(state["key_fsums"][lane])
-        rows[q.specs[i].name] = per[keys].cpu().numpy()
+            acc += _finite_abs(state["key_fsums"][lane])
+        rows[q.specs[i].name] = acc[keys].cpu().numpy()
     return rows
 
+
+def key_scales(q, keys: dict | None, state, cols, ts, valid):
+    """An unwindowed group-by's per-bucket ``s1`` after one more batch, each
+    side carrying its own per-key sums: ``keys`` (``None`` before the first
+    step: the carried per-key sums of ``state``, so a resumed state counts)
+    plus the batch's |x| per bucket; and each output row's own bucket's
+    (``Scale.row``)."""
+    pos, per = bucket_batch(q, cols, ts, valid)
+    new, rows = {}, {}
+    for lane, i in enumerate(q.fagg_idx):
+        name = q.specs[i].name
+        if keys is None:
+            prev = _finite_abs(state["key_fsums"][lane]).cpu().numpy() \
+                if "key_fsums" in state else np.zeros(q.K)
+        else:
+            prev = keys[name]
+        new[name] = prev + per[name].cpu().numpy()
+        rows[name] = new[name][pos.cpu().numpy()]
+    return new, rows
 
 def step_scale(q, state, cols, ts, valid) -> Scale:
     """The scale of one step whose both sides read ``state``, with the
@@ -659,9 +693,14 @@ def next_scale(q, sc: Scale, state, cols, ts, valid) -> Scale:
     (compared exactly), so a step reads only what ``step_scale`` sums, and
     the largest over the steps so far holds for every step; running and
     per-key sums carry each side's rounding forward, so theirs add up over
-    every batch fed."""
+    every batch fed: an unwindowed group-by's per bucket (``key_scales``),
+    each grouped row held to its own bucket's."""
     if q.window_kind in (None, "frequent", "lossyFrequent"):
-        return sc + batch_scale(q, cols, ts, valid)
+        nxt = sc + batch_scale(q, cols, ts, valid)
+        if q.window_kind is None and q.group_keys and q.fagg_idx:
+            nxt.keys, nxt.row = key_scales(q, sc.keys, state, cols, ts,
+                                           valid)
+        return nxt
     st = step_scale(q, state, cols, ts, valid)
     return Scale(np.maximum(sc.s1, st.s1), np.maximum(sc.sm, st.sm),
                  np.maximum(sc.s2, st.s2), st.row)

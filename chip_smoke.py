@@ -150,7 +150,7 @@ Phases, one JSON line each:
                [D, B] position bitwise; the reference's refusals and the
                kernel's limits refuse on the card.
  11. agg_main — two configurations at full width through
-               ``AggregationRuntime``, 2,000,000 events each, B = 4096,
+               ``AggregationRuntime``, 1,000,000 events each, B = 4096,
                defined in ``siddhi_tpu_torch/tools/agg_workloads.py``: (g)
                the Query Guide's trade rollup (1,000 Zipf(1.1) symbols, avg
                and sum every sec ... year, 1 % late trades) and (h) a
@@ -162,14 +162,14 @@ Phases, one JSON line each:
                checked run feeds every event through ``receive`` and holds
                every step bitwise against the plain version on the card;
                the final ``rows_for`` of every duration is held to a numpy
-               group-by of the 2,000,000 events (counts exact, min/max
+               group-by of the 1,000,000 events (counts exact, min/max
                exact against the f32 wire, the float lanes within the
                reference test's rel 1e-4).
  12. engine — every device path through the engine, ``SiddhiManager()``
                (the card) → ``create_siddhi_app_runtime(app, playback=
                True)`` → ``InputHandler`` → junction → ``DeviceQueryBridge``
                → kernel → ``StreamCallback``, each app ``@device(strict=
-               'true')`` with 1,000,000 seeded events
+               'true')`` with 500,000 seeded events
                (``siddhi_tpu_torch/tools/engine_workloads.py``): the chain
                of ``main`` without its partition (B1, batch 2048, slots 64)
                and the scan app without its partition (B4), per event
@@ -185,8 +185,8 @@ Phases, one JSON line each:
                the card engine's rows and state at that point (the query
                apps' float32 sums within ``tests/test_torch_query_shapes.py``'s
                tolerances); every micro-batch must be stepped, each app's
-               kernel launched (no other), and no ERROR record logged by
-               the port (a failed step is logged and dropped). The chain
+               kernel launched (no other), no ERROR record logged by the
+               port, and no step replayed by a device guard. The chain
                and (a) run once more with ``async='true'`` (the
                double-buffered driver) and must give the same rows and
                state; (c) is snapshotted at a micro-batch boundary
@@ -243,8 +243,10 @@ Phases, one JSON line each:
                ``@app:adaptive(latency.target.ms='50', min='256')``; the
                file's last ``IO_TAIL`` lines come in a read of their own,
                so the feed ends with a partial batch, which after an idle
-               gap the driver's deadline flush must step. It runs twice on
-               the card from a collected heap: as a user's app runs, then
+               gap the driver's deadline flush must step. After an untimed
+               warm-up run of the app on ``IO_EDGE_WARM`` other events, it
+               runs twice on the card from a collected heap: as a user's
+               app runs, then
                with the objects alive before it frozen out of the
                collector (``gc.freeze``). Each run's rows are held to the
                same app without ``@app:adaptive`` on the CPU engine (keys
@@ -259,6 +261,34 @@ Phases, one JSON line each:
                median and p99 by CUDA events and the ``StallTrace`` (each
                step the controller timed, split into collector pauses, the
                worker's CPU time and waits).
+     The engine phases above run with the default ``DeviceGuard`` on
+               every ``@device`` query; each ends with every guard's
+               ``report()`` read (``GuardAudit``): a failure, a fallback
+               or a lost event, or a circuit that is not closed, fails the
+               script with the report, so a kernel that faulted there
+               cannot pass on the host's rows.
+ 15. engine_guard — the resilience tier: (a) ``iot_mixed`` under
+               ``engine_workloads.IOT_CHAOS`` (``@app:chaos(seed='16',
+               device.fail.p='0.05')``, a circuit threshold of 1000) over
+               ``GUARD_EVENTS`` events, sync and with ``async='true'``, on
+               the card and on the CPU engine under the same seed: each
+               guard's failures equal the faults its chaos site injected
+               and the batches that failed, its fallback events the events
+               of those batches, no event lost, each kernel's launches its
+               launches a step times the steps that were not faulted, and
+               every output stream's rows equal the CPU engine's in order
+               (``Stats`` within the tolerances; the async run's
+               ``AlertRate`` by its number of rows, whose counts depend on
+               the worker's delivery against the playback clock); (b) a
+               stateless filter (B5a, batch 2048, async) under 25 % faults:
+               its rows equal a fault-free card run's, ``v`` as float32;
+               (c) a quarantine: after two faults the circuit opens and
+               the kernel is not launched while it is open, then with the
+               fault healed and the cool-down passed a probe re-promotes
+               it and it launches again, every event delivered once; (d)
+               the chain and ``grouped_length`` of the engine phase with
+               the default guard and with ``device.quarantine='false'``
+               (guarded, unguarded, unguarded, guarded): events/s of each.
 Then the card's name and power limit (nvidia-smi), the ``kernels`` line and,
 last, ``{"ok": true, "device": {...}}``. Any failure exits non-zero before
 that line. Needs one CUDA card; fails without one.
@@ -267,6 +297,7 @@ that line. Needs one CUDA card; fails without one.
 from __future__ import annotations
 
 import argparse
+import collections
 import gc
 import json
 import os
@@ -2289,7 +2320,7 @@ def phase_agg_shapes() -> None:
           "phase_s": time.perf_counter() - t_phase})
 
 
-AGG_EVENTS = 2_000_000            # events per agg_main configuration
+AGG_EVENTS = 1_000_000            # events per agg_main configuration
 
 
 def agg_step_bytes(ca, cols, ts, buckets, valid) -> int:
@@ -2495,7 +2526,7 @@ def agg_kernel_entry(a_outs: list) -> dict:
 
 # ----------------------------------------------------------------- engine
 
-ENGINE_EVENTS = 1_000_000          # events per engine app
+ENGINE_EVENTS = 500_000            # events per engine app
 ENGINE_CPU_STEPS = {"scan": 1}     # micro-batches the CPU engine checks (2)
 ENGINE_ASYNC = ("chain", "grouped_length")
 ENGINE_SNAPSHOT = "time_batch"       # an open bucket across the cut
@@ -2552,6 +2583,110 @@ class ErrorRecords:
     def close(self) -> None:
         import logging
         logging.getLogger("siddhi_tpu_torch").removeHandler(self.handler)
+
+
+class GuardAudit:
+    """The device guards of every runtime the port's engines build while
+    open (each through ``SiddhiManager.create_siddhi_app_runtime``,
+    ``recover``'s included). A phase that injects no fault must leave
+    every ``@device`` bridge guarded (the default) and every guard at 0
+    failures, 0 fallback and 0 lost events, its circuit CLOSED: otherwise
+    a kernel that faulted there would have been replayed on the host
+    interpreter, and its rows would pass. Each guard's ``report()`` is read
+    when its runtime shuts down and, for a runtime still alive, at
+    ``check``; a failure or a replay is also recorded as it happens, for a
+    runtime dropped without a shutdown. Runtimes are held weakly: holding
+    every run's rows to the phase's end would grow the heap that the
+    collector walks in the later runs."""
+
+    def __init__(self):
+        import weakref
+        from siddhi_tpu_torch.core.app_runtime import SiddhiAppRuntime
+        from siddhi_tpu_torch.core.manager import SiddhiManager
+        from siddhi_tpu_torch.resilience.device_guard import DeviceGuard
+        self.runtimes = []              # weak references
+        self.reports = {}               # id(runtime) → (app, reports)
+        self.events = []                # (site, what) of every fallback
+        self._undo = []
+        audit = self
+
+        def patch(cls, name, make):
+            orig = getattr(cls, name)
+            setattr(cls, name, make(orig))
+            self._undo.append((cls, name, orig))
+
+        def create(orig):
+            def audited_create(manager, *a, **k):
+                rt = orig(manager, *a, **k)
+                for b in rt.device_bridges:
+                    if b.guard is None or b.guard not in rt.resilience.guards:
+                        fail(f"device query '{b.query_name}' of app "
+                             f"'{rt.name}' has no guard")
+                audit.runtimes.append(weakref.ref(rt))
+                return rt
+            return audited_create
+
+        def shutdown(orig):
+            def audited_shutdown(rt, *a, **k):
+                out = orig(rt, *a, **k)
+                audit.read(rt)
+                return out
+            return audited_shutdown
+
+        def recorded(what):
+            def make(orig):
+                def rec(guard, *a, **k):
+                    audit.events.append((guard._site, what))
+                    return orig(guard, *a, **k)
+                return rec
+            return make
+
+        patch(SiddhiManager, "create_siddhi_app_runtime", create)
+        patch(SiddhiAppRuntime, "shutdown", shutdown)
+        patch(DeviceGuard, "_record_failure", recorded("step failed"))
+        patch(DeviceGuard, "_host_fallback", recorded("host replay"))
+
+    def read(self, rt) -> None:
+        self.reports[id(rt)] = (rt.name, [g.report()
+                                          for g in rt.resilience.guards])
+
+    def close(self) -> None:
+        for cls, name, orig in reversed(self._undo):
+            setattr(cls, name, orig)
+
+    def check(self, where: str) -> dict:
+        from siddhi_tpu_torch.resilience import CircuitState
+        for ref in self.runtimes:
+            rt = ref()
+            if rt is not None:
+                self.read(rt)
+        n = 0
+        for app, reports in self.reports.values():
+            for r in reports:
+                n += 1
+                if r["failures"] or r["fallback_events"] \
+                        or r["lost_events"] \
+                        or r["circuit"] != CircuitState.CLOSED:
+                    fail(f"{where}: app '{app}': a device guard fell back "
+                         f"to the host: {json.dumps(r)}")
+        if self.events:
+            fail(f"{where}: device guards fell back to the host: "
+                 f"{self.events[:5]}")
+        return {"phase": f"{where}_guards", "runtimes": len(self.runtimes),
+                "guards": n, "failures": 0, "fallback_events": 0,
+                "lost_events": 0, "circuits": "closed"}
+
+
+def audited(where: str, phase, *args, **kwargs):
+    """``phase(*args, **kwargs)`` under a ``GuardAudit``, checked at its
+    end (the check's line follows the phase's)."""
+    audit = GuardAudit()
+    try:
+        out = phase(*args, **kwargs)
+    finally:
+        audit.close()
+    emit(audit.check(where))
+    return out
 
 
 def to_numpy(tree):
@@ -3005,14 +3140,15 @@ def phase_engine(seed: int, n_events: int, standalone: dict) -> dict:
 
 # ------------------------------------------------------------ engine_host
 
-ENGINE_HOST_EVENTS = 500_000       # iot_mixed events
+ENGINE_HOST_EVENTS = 262_144       # iot_mixed events
 
 
-def host_engine_run(manager, app: str, ev, card: bool) -> dict:
+def host_engine_run(manager, app: str, ev, card: bool, hook=None) -> dict:
     """One run of ``iot_mixed`` on ``manager``: the rows of every output
     stream, the runtime, the wall, and on the card the step probes of the
     two device queries; on the CPU the stats query's tolerance scale
-    (``next_scale`` over its steps, as ``engine_cpu_prefix`` keeps it)."""
+    (``next_scale`` over its steps, as ``engine_cpu_prefix`` keeps it).
+    ``hook(rt)``, called before the feed, gives the result's ``hook``."""
     import torch
     from siddhi_tpu_torch import StreamCallback
     from siddhi_tpu_torch.tools import engine_workloads as ew
@@ -3034,6 +3170,7 @@ def host_engine_run(manager, app: str, ev, card: bool) -> dict:
 
         q.step_tensors = scaled
         scales = sc
+    hooked = hook(rt) if hook is not None else None
     if card:
         torch.cuda.synchronize()
         reset_launches()              # counts from here: the engine path
@@ -3048,7 +3185,7 @@ def host_engine_run(manager, app: str, ev, card: bool) -> dict:
     manager.shutdown()
     return dict(rows=got, rt=rt, wall=wall, probes=probes,
                 scale=scales[0] if scales else None, launches=launches,
-                errors=errors)
+                errors=errors, hook=hooked)
 
 
 def phase_engine_host(seed: int, n_events: int) -> dict:
@@ -3136,6 +3273,7 @@ def phase_engine_host(seed: int, n_events: int) -> dict:
 IO_PERSIST_AT = 98_304             # 24 chunks of 4,096 (48 chain batches)
 IO_KILL_AT = 196_608               # 48 chunks
 IO_IDLE_S = 30.0                   # the longest wait for a deadline flush
+IO_EDGE_WARM = 16_384              # the edge's warm-up events
 
 
 def io_scratch() -> str:
@@ -3365,8 +3503,10 @@ def io_edge_run(manager, csv: str, head: int, adaptive: bool, card: bool,
     rt = manager.create_siddhi_app_runtime(ew.iot_adaptive_edge_app(
         csv, head, adaptive=adaptive, **(widths or {})), playback=True)
     rows = []
+    # tuples of atoms, which the collector stops tracking: the check's copy
+    # of the rows adds no work to the run's collections
     rt.add_callback("Stats", StreamCallback(lambda evs: rows.extend(
-        (e.timestamp, list(e.data)) for e in evs)))
+        (e.timestamp, tuple(e.data)) for e in evs)))
     b = rt.device_bridges[0]
     b.runtime.flush_causes = {}
     q = plan_of(b.runtime)
@@ -3516,18 +3656,24 @@ def phase_engine_io(seed: int, n_events: int, widths: dict | None = None,
         m.shutdown()
         torch.cuda.synchronize()
 
-        reset_launches()              # counts from here: the engine_io path
-        card = io_straight(SiddhiManager(), ev, scratch, "card", True,
-                           widths)
-        crash = io_crash_recover(ev, scratch, widths, persist_at, kill_at)
-        launches = read_launches()
-        cpu = io_straight(SiddhiManager(device="cpu"), ev, scratch, "cpu",
-                          False, widths)
-
+        # the edge first: its unfrozen run then meets the heap a user's app
+        # would, not the durable runs' payloads, which stay alive for their
+        # checks below
         csv_bytes, head = ew.iot_csv(ev)    # data generation, untimed
         csv = os.path.join(scratch, "iot.csv")
         with open(csv, "wb") as f:
             f.write(csv_bytes)
+        # warm-up: the edge app's first run in the process (its file
+        # source, mapper and native parse, the plan's first launches) on
+        # other events, untimed, so the controller's first window times
+        # steady steps
+        warm_bytes, warm_head = ew.iot_csv(ew.IotEvents(IO_EDGE_WARM,
+                                                        seed + 7))
+        warm_csv = os.path.join(scratch, "iot_warm.csv")
+        with open(warm_csv, "wb") as f:
+            f.write(warm_bytes)
+        io_edge_run(SiddhiManager(), warm_csv, warm_head, True, True,
+                    edge_widths)
         reset_launches()
         edges = {}
         for frozen in (False, True):
@@ -3537,6 +3683,14 @@ def phase_engine_io(seed: int, n_events: int, widths: dict | None = None,
         edge_launches = read_launches()
         static = io_edge_run(SiddhiManager(device="cpu"), csv, head, False,
                              False, edge_widths)
+        reset_launches()              # counts from here: the engine_io path
+        card = io_straight(SiddhiManager(), ev, scratch, "card", True,
+                           widths)
+        crash = io_crash_recover(ev, scratch, widths, persist_at, kill_at)
+        launches = read_launches()
+        cpu = io_straight(SiddhiManager(device="cpu"), ev, scratch, "cpu",
+                          False, widths)
+
         records.check("engine_io")
     finally:
         records.close()
@@ -3613,6 +3767,422 @@ def phase_engine_io(seed: int, n_events: int, widths: dict | None = None,
     return out
 
 
+# ------------------------------------------------------------ engine_guard
+
+# cut from 131,072 / 131,072 / 196,608 to keep the whole script near its
+# time (PERF.md §4); at 65,536 events the seeded sites still fault: the
+# chain once in 32 steps, stats once in 16, the filter 10 times in 32
+GUARD_EVENTS = 65_536              # iot_mixed events under chaos, per run
+GUARD_FILTER_EVENTS = 65_536       # (b): the stateless filter's events
+GUARD_COST_EVENTS = 131_072        # (d): events per app and run
+GUARD_QUARANTINE_BATCH = 1024      # (c): the filter's batch
+
+
+class GuardCount:
+    """Per guard of ``rt``, counted around the guard itself and apart from
+    its ``report()``: the faults its chaos site raised, the batches that
+    failed at dispatch and their events, and the steps that reached the
+    device. The installed ``rt.dispatch`` calls the guard's ``dispatch``
+    and the guard its injector's ``on_device``, each read at every step,
+    so instance attributes wrap both."""
+
+    def __init__(self, rt):
+        from siddhi_tpu_torch.resilience import ChaosFault
+        chaos = rt.resilience.chaos
+        self.by_query = {}
+        sites = {}
+        for g in rt.resilience.guards:
+            c = {"site_faults": 0, "failed_batches": 0, "failed_events": 0,
+                 "device_steps": 0}
+            self.by_query[g.query_name] = sites[g._site] = c
+
+            def dispatch(inner, batch, orig=g.dispatch, c=c):
+                n = int(batch.get("count", 0))
+                token = orig(inner, batch)
+                if token.failed:
+                    c["failed_batches"] += 1
+                    c["failed_events"] += n
+                else:
+                    c["device_steps"] += 1
+                return token
+
+            g.dispatch = dispatch
+        if chaos is None:
+            return
+        on_device = chaos.on_device
+
+        def counted(site):
+            try:
+                on_device(site)
+            except ChaosFault:
+                sites[site]["site_faults"] += 1
+                raise
+
+        chaos.on_device = counted
+
+
+class AlertClock:
+    """The playback clock at each ``Alerts`` event's arrival in ``rt``: the
+    number of times the scheduler has fired its due timers so far and the
+    time of the last firing. The async driver delivers a batch's alerts
+    when its worker fences it, by which time the producer may have moved
+    the clock on, so ``alert_rate``'s ``window.time(10 sec)`` may hold
+    fewer alerts than in a sync run: ``alert_rate_rows`` gives the rows
+    that this schedule makes."""
+
+    def __init__(self, rt):
+        from siddhi_tpu_torch import StreamCallback
+        sched = rt.ctx.scheduler
+        self.fires, self.now, self.arrivals = 0, None, []
+        fire_until = sched.fire_until
+
+        def counted(now):
+            self.fires += 1
+            self.now = now
+            fire_until(now)
+
+        sched.fire_until = counted
+        rt.add_callback("Alerts", StreamCallback(
+            lambda evs: self.arrivals.extend(
+                (e.timestamp, self.fires, self.now) for e in evs)))
+
+
+def alert_rate_rows(arrivals: list, window_ms: int = 10_000) -> list:
+    """``from Alerts#window.time(10 sec) select count() as alerts``, plain,
+    over ``AlertClock.arrivals``: an alert leaves the window when an alert
+    at least ``window_ms`` younger arrives, or when the timers fire at a
+    time at least ``window_ms`` past it after it arrived; each arrival
+    emits the window's count, stamped with its own time."""
+    buf, out, fired = collections.deque(), [], 0
+    for ts, fires, now in arrivals:
+        if fires > fired and now is not None:
+            while buf and buf[0] + window_ms <= now:
+                buf.popleft()
+        fired = fires
+        while buf and buf[0] + window_ms <= ts:
+            buf.popleft()
+        buf.append(ts)
+        out.append((ts, [len(buf)]))
+    return out
+
+
+def guard_reports(rt) -> dict:
+    return {g.query_name: g.report() for g in rt.resilience.guards}
+
+
+def check_guard_counts(where: str, rt, count: GuardCount,
+                       launches: dict | None) -> dict:
+    """Each guard's failures are its site's injected faults (more than
+    none), its fallback events the events of the batches that failed, no
+    event lost; on the card each kernel launched once a step (B5a: its
+    plan's launches a step) for exactly the steps that were not faulted."""
+    from siddhi_tpu_torch.gpu.nfa_block import BlockPlan
+    from siddhi_tpu_torch.gpu.query_step import QueryPlan
+    reps = guard_reports(rt)
+    per_step = {}
+    for b in rt.device_bridges:
+        plan = plan_of(b.runtime).plan
+        per_step[b.query_name] = (
+            type(plan).__name__,
+            plan.step_launches() if isinstance(plan, QueryPlan)
+            else BlockPlan.LAUNCHES)
+    expect = {}
+    for q, r in reps.items():
+        c = count.by_query[q]
+        if not (r["failures"] == c["site_faults"] == c["failed_batches"]
+                and r["failures"] > 0):
+            fail(f"{where}: guard '{q}': {r['failures']} failures, its site "
+                 f"injected {c['site_faults']}, {c['failed_batches']} batches "
+                 f"failed: {json.dumps(r)}")
+        if r["fallback_events"] != c["failed_events"] or r["lost_events"]:
+            fail(f"{where}: guard '{q}': {r['fallback_events']} fallback "
+                 f"events, the failed batches held {c['failed_events']}, "
+                 f"{r['lost_events']} lost")
+        name, each = per_step[q]
+        expect[name] = expect.get(name, 0) + each * c["device_steps"]
+    if launches is not None:
+        got = {k: v for k, v in launches.items() if v}
+        if got != expect:
+            fail(f"{where}: launches {launches}, expected {expect} (the "
+                 f"steps that were not faulted)")
+    return {q: {**{k: r[k] for k in ("failures", "fallback_events",
+                                      "lost_events", "circuit",
+                                      "fallback_engine")},
+                "device_steps": count.by_query[q]["device_steps"]}
+            for q, r in reps.items()}
+
+
+def f32_rows(rows: list) -> list:
+    """``(dev, v)`` rows with ``v`` as float32: the host replay emits the
+    raw double, the device its float32."""
+    return [(d, np.float32(v)) for _, (d, v) in rows]
+
+
+def filter_run(manager, app: str, ev, lo: int = 0, hi: int | None = None,
+               rt=None):
+    """``GUARD_FILTER``'s events ``lo:hi`` through ``manager`` (or on into
+    ``rt``): the runtime, its ``Alerts`` rows in ``rt.got``."""
+    from siddhi_tpu_torch import StreamCallback
+    from siddhi_tpu_torch.tools import engine_workloads as ew
+    if rt is None:
+        rt = manager.create_siddhi_app_runtime(app, playback=True)
+        rt.got = []
+        rt.add_callback("Alerts", StreamCallback(lambda evs: rt.got.extend(
+            (e.timestamp, list(e.data)) for e in evs)))
+        rt.start()
+    ew.feed_filter(rt, ev, lo, hi)
+    rt.flush_device()
+    return rt
+
+
+def guard_cost(seed: int, n_events: int) -> dict:
+    """(d): the engine phase's chain and ``grouped_length`` through the
+    engine with the default guard and with
+    ``@app:resilience(device.quarantine='false')``, guarded, unguarded,
+    unguarded, guarded: events/s of each, rows equal. Each run starts from
+    a collected heap (``gc.collect``), so a full collection of another
+    run's garbage does not land in it."""
+    import torch
+    from siddhi_tpu_torch import SiddhiManager
+    from siddhi_tpu_torch.tools import engine_workloads as ew
+    out = {}
+    for name in ("chain", "grouped_length"):
+        cfg = ew.engine_config(name)
+        ev = ew.EngineEvents(name, n_events, seed)
+        off = "@app:resilience(device.quarantine='false')\n" + cfg["app"]
+        rates = {"guarded": [], "unguarded": []}
+        rows = {}
+        for label in ("guarded", "unguarded", "unguarded", "guarded"):
+            m = SiddhiManager()
+            rt, _ = engine_runtime(
+                m, dict(cfg, app=cfg["app"] if label == "guarded" else off))
+            if (rt.device_bridges[0].guard is None) != (label ==
+                                                        "unguarded"):
+                fail(f"engine_guard (d) {name}: {label} run's guard is "
+                     f"{rt.device_bridges[0].guard}")
+            gc.collect()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ew.feed_engine(rt, ev)
+            rt.flush_device()
+            torch.cuda.synchronize()
+            rates[label].append(ev.n / (time.perf_counter() - t0))
+            rows.setdefault(label, list(rt.got))
+            reps = guard_reports(rt)
+            m.shutdown()
+            if any(r["failures"] or r["fallback_events"]
+                   for r in reps.values()):
+                fail(f"engine_guard (d) {name}: a guard fell back: {reps}")
+        if rows["guarded"] != rows["unguarded"]:
+            fail(f"engine_guard (d) {name}: the guarded run's rows differ "
+                 f"from the unguarded run's")
+        out[name] = {"events": ev.n,
+                     "guarded_events_per_s": rates["guarded"],
+                     "unguarded_events_per_s": rates["unguarded"],
+                     "guarded_over_unguarded":
+                         float(np.mean(rates["guarded"])
+                               / np.mean(rates["unguarded"]))}
+    return out
+
+
+def phase_engine_guard(seed: int, n_events: int = GUARD_EVENTS,
+                       filter_events: int = GUARD_FILTER_EVENTS,
+                       cost_events: int = GUARD_COST_EVENTS,
+                       widths: dict | None = None,
+                       quarantine_batch: int = GUARD_QUARANTINE_BATCH) -> dict:
+    """The resilience tier on the card: (a) ``iot_mixed`` under seeded
+    device faults, sync and async, against the CPU engine under the same
+    seed; (b) a stateless filter under heavier faults against a fault-free
+    card run; (c) a quarantine and its re-promotion; (d) the default
+    guard's cost. ``widths`` (``iot_mixed_app``'s) and the event counts
+    shrink it for a rehearsal on the CPU."""
+    import logging
+    import torch
+    from siddhi_tpu_torch import SiddhiManager
+    from siddhi_tpu_torch.gpu.nfa_block import BlockPlan
+    from siddhi_tpu_torch.gpu.query_step import QueryPlan
+    from siddhi_tpu_torch.resilience import CircuitState
+    from siddhi_tpu_torch.tools import engine_workloads as ew
+    t_phase = time.perf_counter()
+    # every injected fault logs its traceback as a WARNING; lost events log
+    # an ERROR, which the records catch
+    guard_log = logging.getLogger("siddhi_tpu_torch.resilience")
+    level = guard_log.level
+    guard_log.setLevel(logging.ERROR)
+    records = ErrorRecords()
+    launches = {}
+    try:
+        # ---- (d) what the default guard costs (first: the heap holds no
+        # row of (a)-(c) yet)
+        cost = guard_cost(seed, cost_events)
+
+        # ---- (a) iot_mixed under chaos, sync and async, and the CPU
+        app = ew.IOT_CHAOS + ew.iot_mixed_app(**(widths or {}))
+        ev = ew.IotEvents(n_events, seed)
+        runs = {}
+        def hooks(rt):
+            return GuardCount(rt), AlertClock(rt)
+
+        for mode in ("sync", "async"):
+            text = app if mode == "sync" else app.replace(
+                "strict='true'", "strict='true', async='true'")
+            runs[mode] = host_engine_run(SiddhiManager(), text, ev,
+                                         card=True, hook=hooks)
+        cpu = host_engine_run(SiddhiManager(device="cpu"), app, ev,
+                              card=False, hook=hooks)
+        guards_a, alert_rate = {}, {}
+        for mode, run in list(runs.items()) + [("cpu", cpu)]:
+            rt = run["rt"]
+            if sorted(b.query_name for b in rt.device_bridges) != \
+                    ["chain", "stats"]:
+                fail(f"engine_guard (a) {mode}: device bridges "
+                     f"{[b.query_name for b in rt.device_bridges]}")
+            if run["errors"]:
+                fail(f"engine_guard (a) {mode}: {run['errors']} receiver "
+                     f"errors")
+            guards_a[mode] = check_guard_counts(
+                f"engine_guard (a) {mode}", rt, run["hook"][0],
+                run["launches"])
+            # every run's AlertRate rows are those of its own delivery
+            # schedule, exactly
+            rows, plain = run["rows"]["AlertRate"], alert_rate_rows(
+                run["hook"][1].arrivals)
+            if rows != plain:
+                fail(f"engine_guard (a) {mode}: AlertRate: {len(rows)} rows, "
+                     f"the plain window over the alerts' arrival clock "
+                     f"gives {len(plain)}: they differ")
+            alert_rate[mode] = sum(a != b for a, b in zip(
+                rows, cpu["rows"]["AlertRate"]))
+        for mode, run in runs.items():
+            for s in ("Alerts", "AlertRate", "Top", "RoomPeak"):
+                if s == "AlertRate" and mode == "async":
+                    # the count in each row depends on when the worker
+                    # delivers the alert against the producer's clock: held
+                    # exactly to its schedule above, and here to the CPU's
+                    # number of rows
+                    if len(run["rows"][s]) != len(cpu["rows"][s]):
+                        fail(f"engine_guard (a) async: AlertRate: "
+                             f"{len(run['rows'][s])} rows on the card, "
+                             f"{len(cpu['rows'][s])} on the CPU")
+                    continue
+                if run["rows"][s] != cpu["rows"][s]:
+                    fail(f"engine_guard (a) {mode}: {s}: "
+                         f"{len(run['rows'][s])} rows on the card, "
+                         f"{len(cpu['rows'][s])} on the CPU: they differ")
+            q = plan_of(next(b for b in run["rt"].device_bridges
+                             if b.query_name == "stats").runtime)
+            close_rows(query_shapes_module(), q, cpu["scale"],
+                       cpu["rows"]["Stats"], run["rows"]["Stats"],
+                       f"engine_guard (a) {mode} Stats (card vs CPU)")
+            for k, v in run["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+        if not guards_a["sync"] == guards_a["async"] == guards_a["cpu"]:
+            fail(f"engine_guard (a): the guards differ: {guards_a}")
+
+        # ---- (b) a stateless filter, faulted, against a clean card run
+        fev = ew.IotEvents(filter_events, seed + 1)
+        text = ew.GUARD_FILTER.format(batch=2048, extra=", async='true'")
+        faulted = ("@app:chaos(seed='16', device.fail.p='0.25')\n"
+                   "@app:resilience(device.circuit.threshold='1000')\n"
+                   + text)
+        clean = filter_run(SiddhiManager(), text, fev)
+        m = SiddhiManager()
+        rt = filter_run(m, faulted, fev, 0, 0)
+        count = GuardCount(rt)
+        torch.cuda.synchronize()
+        reset_launches()
+        filter_run(m, faulted, fev, rt=rt)
+        torch.cuda.synchronize()
+        got_b = read_launches()
+        guards_b = check_guard_counts("engine_guard (b)", rt, count, got_b)
+        m.shutdown()
+        if clean.resilience.guards[0].report()["failures"]:
+            fail("engine_guard (b): the clean run fell back")
+        if f32_rows(rt.got) != f32_rows(clean.got):
+            fail(f"engine_guard (b): {len(rt.got)} rows, the clean run "
+                 f"{len(clean.got)}: (dev, float32 v) differ")
+        for k, v in got_b.items():
+            launches[k] = launches.get(k, 0) + v
+
+        # ---- (c) quarantine, then the probe re-promotes the kernel
+        B = quarantine_batch
+        qapp = ("@app:chaos(seed='16', device.fail.p='1.0')\n"
+                "@app:resilience(device.circuit.threshold='2', "
+                "device.circuit.cooldown.ms='50')\n"
+                + ew.GUARD_FILTER.format(batch=B, extra=""))
+        qev = ew.IotEvents(6 * B, seed + 2)
+        m = SiddhiManager()
+        rt = filter_run(m, qapp, qev, 0, 0)
+        guard = rt.device_bridges[0].guard
+        torch.cuda.synchronize()
+        reset_launches()
+        filter_run(m, qapp, qev, 0, 2 * B, rt=rt)       # two faults: OPEN
+        torch.cuda.synchronize()
+        at_open = read_launches()[QueryPlan.__name__]
+        if guard.breaker.state != CircuitState.OPEN or guard.failures != 2:
+            fail(f"engine_guard (c): not quarantined: {guard.report()}")
+        filter_run(m, qapp, qev, 2 * B, 4 * B, rt=rt)   # while OPEN
+        torch.cuda.synchronize()
+        while_open = read_launches()[QueryPlan.__name__]
+        if at_open or while_open or guard.failures != 2 \
+                or guard.fallback_events != 4 * B:
+            fail(f"engine_guard (c): launched {at_open} / {while_open} "
+                 f"times while faulted / OPEN: {guard.report()}")
+        rt.resilience.chaos.device_fail_p = 0.0          # healed
+        time.sleep(0.06)                                 # the cool-down
+        filter_run(m, qapp, qev, 4 * B, 6 * B, rt=rt)   # probe, then on
+        torch.cuda.synchronize()
+        after = read_launches()[QueryPlan.__name__]
+        plan = plan_of(rt.device_bridges[0].runtime).plan
+        if guard.breaker.state != CircuitState.CLOSED \
+                or after != 2 * plan.step_launches() \
+                or guard.fallback_events != 4 * B:
+            fail(f"engine_guard (c): after the probe {after} launches: "
+                 f"{guard.report()}")
+        expect = [(d, np.float32(v)) for d, v in zip(qev.dev, qev.v)
+                  if v > 50.0]
+        if f32_rows(rt.got) != expect:
+            fail(f"engine_guard (c): {len(rt.got)} rows, {len(expect)} "
+                 f"expected, each event once")
+        quarantine = {"batch": B, "events": qev.n,
+                      "launches_faulted": at_open,
+                      "launches_while_open": while_open,
+                      "launches_after_probe": after,
+                      "report": guard.report()}
+        m.shutdown()
+        launches[QueryPlan.__name__] += after
+
+        records.check("engine_guard")
+    finally:
+        records.close()
+        guard_log.setLevel(level)
+    if not launches.get(BlockPlan.__name__) \
+            or not launches.get(QueryPlan.__name__):
+        fail(f"engine_guard: launches {launches}")
+    out = {
+        "phase": "engine_guard", "app": "iot_mixed + chaos",
+        "events": n_events,
+        "events_per_s": {mode: ev.n / run["wall"]
+                         for mode, run in runs.items()},
+        "cpu_events_per_s": ev.n / cpu["wall"],
+        "guards": guards_a,
+        "chaos": runs["sync"]["rt"].resilience.chaos.report()["counters"],
+        "rows": {s: len(r) for s, r in runs["sync"]["rows"].items()},
+        "equal_to_cpu_engine": True,
+        "alert_rate_rows_equal_to_their_schedule": True,
+        "alert_rate_rows_differing_from_cpu": alert_rate,
+        "stateless": {"events": fev.n, "rows": len(clean.got),
+                      "guards": guards_b, "equal_to_clean_run_f32": True},
+        "quarantine": quarantine, "cost": cost,
+        "launches": {"nfa_block": launches[BlockPlan.__name__],
+                     "query_step": launches[QueryPlan.__name__]},
+        "error_records": 0, "phase_s": time.perf_counter() - t_phase,
+    }
+    emit(out)
+    return out
+
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=42)
@@ -3646,16 +4216,20 @@ def main() -> int:
                 "events_per_s")
         return {"phase": phase, **{k: o[k] for k in keys if k in o}}
 
-    eng = phase_engine(args.seed, ENGINE_EVENTS, {
+    # every engine phase runs guarded by default; each ends with every guard
+    # at 0 failures, fallback and lost events (GuardAudit)
+    eng = audited("engine", phase_engine, args.seed, ENGINE_EVENTS, {
         "chain": stand(main_out, "main (64 lanes, partitioned)"),
         "scan": stand(scan_out, "scan_main (64 lanes, partitioned)"),
         **{n: stand(by_q[n], "query_main") for n in
            ("grouped_length", "time_batch", "lossy_frequent")},
         "market_join": stand(j_outs[0], "join_main"),
         "trade_rollup": stand(a_outs[0], "agg_main")})
-    host = phase_engine_host(args.seed, ENGINE_HOST_EVENTS)
+    host = audited("engine_host", phase_engine_host, args.seed,
+                   ENGINE_HOST_EVENTS)
     from siddhi_tpu_torch.tools.engine_workloads import IO_EVENTS
-    io = phase_engine_io(args.seed, IO_EVENTS)
+    io = audited("engine_io", phase_engine_io, args.seed, IO_EVENTS)
+    guard = phase_engine_guard(args.seed)
     bound = max(main_out["bound_ms_bytes"], main_out["bound_ms_ops"])
     scan_bound = max(scan_out["bound_ms_bytes"], scan_out["bound_ms_ops"])
     kernels = [{
@@ -3719,6 +4293,8 @@ def main() -> int:
             by_path["engine_io"] = io["launches"][k["name"]]
             if not by_path["engine_io"]:
                 fail(f"engine_io: kernel {k['name']} was not launched")
+        if k["name"] in guard["launches"]:
+            by_path["engine_guard"] = guard["launches"][k["name"]]
     print(card, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -17,14 +17,16 @@ statistics and the playback clock are the reference's. So is the IO tier:
 ``resilience/``), with the handler interception managers of the engine
 context; and so is durable flow control (``flow/``: ``@app:wal``,
 ``@app:backpressure``, and ``@app:adaptive``, whose controller the device
-bridges attach).
+bridges attach), and so is the resilience layer (``resilience/``): every
+``@device`` query behind a ``DeviceGuard`` that replays a failed step on the
+host interpreter and quarantines a failing device path, ``@app:chaos`` fault
+injection and the ``@app:resilience`` settings.
 
 What later engine slices bring is refused at build time with a
 ``SiddhiAppCreationError`` that names its tier (``_refuse_unported``): the
 fleet and columnar host tiers (``@app:fleet``, ``@app:host_batch`` and a
-query's ``@host_batch``), and the observability and resilience subsystems
-(``@app:trace``, ``@app:flightrecorder``, ``@app:profile``,
-``@app:chaos``, ``@app:resilience``).
+query's ``@host_batch``), and the observability subsystem (``@app:trace``,
+``@app:flightrecorder``, ``@app:profile``).
 """
 
 from __future__ import annotations
@@ -72,8 +74,6 @@ _UNPORTED_APP_ANNOTATIONS = {
     "trace": "the observability subsystem",
     "flightrecorder": "the observability subsystem",
     "profile": "the observability subsystem",
-    "chaos": "the resilience subsystem",
-    "resilience": "the resilience subsystem",
 }
 
 
@@ -372,12 +372,23 @@ class SiddhiAppRuntime:
         for sid, j in self.ctx.stream_junctions.items():
             sm.gauge_tracker(f"stream.{sid}.receiver_errors",
                              lambda jj=j: jj.receiver_errors)
-        # sink circuits (sink_retries / sink_dropped register themselves as
-        # counters at wrap time)
+        # resilience gauges: sink circuits (sink_retries / sink_dropped
+        # register themselves as counters at wrap time), device quarantine
+        # state, chaos counters
         for rs in self.resilience.sinks:
             sm.gauge_tracker(
                 f"sink.{rs.stream_id}.{rs.ordinal}.circuit_state",
                 lambda s=rs: s.breaker.state_code)
+        for g in self.resilience.guards:
+            sm.gauge_tracker(f"device.{g.query_name}.circuit_state",
+                             lambda x=g: x.breaker.state_code)
+            sm.gauge_tracker(f"device.{g.query_name}.fallback_events",
+                             lambda x=g: x.fallback_events)
+        if self.resilience.chaos is not None:
+            for key in self.resilience.chaos.counters:
+                sm.gauge_tracker(
+                    f"chaos.{key}",
+                    lambda c=self.resilience.chaos, k=key: c.counters[k])
 
     def _stream_defs(self) -> dict:
         defs = dict(self.app.stream_definitions)
@@ -575,6 +586,7 @@ class SiddhiAppRuntime:
                     sh.send_event(row, ih)
                 else:
                     ih.send(row)
+        # @app:chaos source faults reject the payload before ingress
         return self.resilience.wrap_source_handler(stream_id, handler)
 
     # -------------------------------------------------------------- public API
@@ -867,6 +879,34 @@ class SiddhiAppRuntime:
         if table is None:
             raise KeyError(f"table '{table_id}' is not defined")
         return _TableInputHandler(table, self.ctx)
+
+    def on_demand_query_output_attributes(self, text: str) -> list:
+        """(name, DataType) pairs the on-demand query would emit (reference
+        ``getOnDemandQueryOutputAttributes``)."""
+        from .executor import ExecutorBuilder, RowResolver
+        odq = parse_on_demand_query(text)
+        sid = odq.input_store_id
+        ctx = self.ctx
+        if sid in ctx.tables:
+            d = ctx.tables[sid].definition
+        elif sid in ctx.named_windows:
+            d = ctx.named_windows[sid].definition
+        elif sid in ctx.aggregations:
+            d = ctx.aggregations[sid].output_definition
+        else:
+            raise KeyError(f"store '{sid}' is not defined")
+        names = d.attribute_names
+        types = [d.attribute_type(n) for n in names]
+        attrs = list(odq.selector.attributes)
+        if odq.selector.select_all or not attrs:
+            return list(zip(names, types))
+        builder = ExecutorBuilder(RowResolver(names, types), ctx)
+        out = []
+        for oa in attrs:
+            fn, t = builder.build(oa.expr)
+            name = oa.name or getattr(oa.expr, "attribute", None) or "value"
+            out.append((name, t))
+        return out
 
     def set_purging_enabled(self, enabled: bool) -> None:
         """Toggle incremental-aggregation purging engine-wide (reference

@@ -18,10 +18,18 @@ A query the compilers refuse is a refusal at build time: logged on the
 ``siddhi_tpu_torch.device`` logger with the compiler's reason, after which
 the engine builds the query on the host interpreter
 (``core/query_runtime.py``), as the reference does; under
-``@device(strict='true')`` the ``DeviceCompileError`` itself raises. The port
-has no resilience layer: no ``DeviceGuard`` replays a failed step; the driver logs it on the
-``siddhi_tpu_torch.device`` logger and drops its batch, as the reference does
-without a guard.
+``@device(strict='true')`` the ``DeviceCompileError`` itself raises. On the
+card the query's kernel library is built and loaded then too: a failed
+``nvcc`` or load raises ``DeviceCompileError`` whether or not the query is
+strict, and is never a host fallback or a failed step.
+
+Every bridge runtime is then wrapped by the app's resilience layer
+(``resilience/device_guard.py``), as in the reference, unless
+``@app:resilience(device.quarantine='false')``: a step that fails at
+dispatch or at the fence replays its batch through the host interpreter at
+the batch's own egress slot, and repeated failures quarantine the device
+path until a cool-down probe re-promotes it. On the card only an injected
+``ChaosFault`` replays so; any other failure of a step raises.
 """
 
 from __future__ import annotations
@@ -72,9 +80,13 @@ class AsyncDeviceDriver:
     flight while fencing the previous token: the device computes batch N
     while the host decodes batch N−1 and the producer packs batch N+1.
     Tokens collect strictly FIFO, so a mid-pipeline device fault surfaces at
-    its own egress slot, after every earlier batch delivered; without a
-    guard the batch is logged and dropped (``batches_stepped`` still counts
-    it).
+    its own egress slot — the DeviceGuard replays the failed batch's shadow
+    there, after every earlier batch delivered, and can neither reorder nor
+    double-emit a micro-batch. Without a guard
+    (``device.quarantine='false'``), and on the card for a failure that is
+    not an injected ``ChaosFault`` (the guard raises it and every later
+    step of the query), the batch is logged as an ERROR and dropped
+    (``batches_stepped`` still counts it).
 
     A latency-mode adaptive controller (``@app:adaptive(latency.target.ms)``)
     adds a **deadline flush**: when the pipeline idles with a partial batch
@@ -297,9 +309,10 @@ class AsyncDeviceDriver:
         token = None
         try:
             token = self.rt.dispatch(batch)
-        except Exception as e:  # noqa: BLE001 — a dispatch failure must
-            # not kill the worker; the batch is consumed (counted at its
-            # egress slot)
+        except Exception as e:  # noqa: BLE001 — without a DeviceGuard
+            # installed, or a fault the guard does not replay on the card,
+            # a dispatch failure must not kill the worker; the batch is
+            # consumed (counted at its egress slot)
             log.exception("device dispatch failed")
             err = e
         disp_s = time.perf_counter() - t0
@@ -319,7 +332,9 @@ class AsyncDeviceDriver:
                 rows = self.rt.collect(token)
                 ok = True
         except Exception:   # noqa: BLE001 — an async-dispatched step's
-            # failure surfaces at the fence
+            # failure surfaces at the fence; the DeviceGuard has rerouted
+            # the batch to the host path unless it is off, or the fault is
+            # one it does not replay on the card
             log.exception("device step failed")
             rows = []
         fence_s = time.perf_counter() - t0
@@ -446,7 +461,7 @@ class _DeviceRTBase(AdaptiveFlushMixin):
     fencing and returns its output tensors; ``collect(token)`` fences at the
     egress edge (the decode's copy to the host) and returns rows.
     ``process`` is one dispatch immediately collected — the synchronous
-    path. Host-sync
+    path, and the shape the DeviceGuard wraps on both phases. Host-sync
     bookkeeping that would stall the pipeline (counter checks read device
     scalars) lives in ``on_drained``, which the driver calls whenever the
     pipeline empties and the sync path calls after every flush."""
@@ -538,7 +553,7 @@ class DeviceQueryBridge:
         self.output_junction = output_junction
         self.query_name = query_name
         self.query_callbacks: list = []
-        self.guard = None                   # no resilience layer yet
+        self.guard = None                   # DeviceGuard (resilience layer)
         self.probe = None                   # no observability probe yet
         self._on_rows_accepts_ts = True     # deliver() passes the batch ts
         runtime.add_callback(self._on_rows)
@@ -694,7 +709,9 @@ def try_build_device_query(query: Query, app_context, stream_defs: dict,
     compilers refuse it: that refusal is logged on
     ``siddhi_tpu_torch.device`` with the compiler's reason and the engine
     builds the query on the host interpreter, as in the reference. Under
-    ``@device(strict='true')`` the refusal raises ``DeviceCompileError``."""
+    ``@device(strict='true')`` the refusal raises ``DeviceCompileError``.
+    On the card a kernel library that fails to build or load raises its
+    ``KernelLibraryError`` (a ``DeviceCompileError``), strict or not."""
     ann = find_annotation(query.annotations, "device")
     if ann is None:
         return None
@@ -731,7 +748,7 @@ def try_build_device_query(query: Query, app_context, stream_defs: dict,
                 async_mode = True
                 break
 
-    from ..gpu.expr_compile import DeviceCompileError
+    from ..gpu.expr_compile import DeviceCompileError, KernelLibraryError
 
     device = app_context.siddhi_context.device
 
@@ -810,6 +827,7 @@ def try_build_device_query(query: Query, app_context, stream_defs: dict,
                 raise DeviceCompileError(
                     "output rate limiting on windowed queries takes the "
                     "host path")
+            _load_kernel_library(compiled.plan, compiled.device)
 
             class _StreamRT(_DeviceRTBase):
                 def __init__(self):
@@ -892,7 +910,11 @@ def try_build_device_query(query: Query, app_context, stream_defs: dict,
                     row = [None] * len(self.compiled.schema.names)
                     if self._tk_pos is not None:
                         row[self._tk_pos] = sentinel
-                    self.builder.append(row, sentinel)
+                    # a guarded builder excludes the sentinel from its
+                    # host-fallback shadow (it is bookkeeping, not an event)
+                    append = getattr(self.builder, "append_sentinel",
+                                     self.builder.append)
+                    append(row, sentinel)
                     self.flush()
 
                 def collect(self, out):
@@ -957,6 +979,7 @@ def try_build_device_query(query: Query, app_context, stream_defs: dict,
 
             compiler = DeviceNFACompiler(query, stream_defs, slots, batch,
                                          device=device)
+            _load_kernel_library(compiler.plan, compiler.device)
 
             class _NFART(DeviceNFARuntime):
                 def __init__(self):
@@ -990,6 +1013,7 @@ def try_build_device_query(query: Query, app_context, stream_defs: dict,
             compiled = CompiledJoinQuery(
                 query, dict(stream_defs), batch_capacity=batch,
                 ring_capacity=ring, joined_capacity=joined, device=device)
+            _load_kernel_library(compiled.plan, compiled.device)
 
             class _JoinRT(_DeviceRTBase):
                 def __init__(self):
@@ -1042,7 +1066,9 @@ def try_build_device_query(query: Query, app_context, stream_defs: dict,
                 "device path covers single-stream, pattern/sequence, and "
                 "windowed stream-join inputs")
     except DeviceCompileError as e:
-        if strict:
+        # a kernel library that failed to build or load on the card raises
+        # whether or not the query is strict: the host path would hide it
+        if strict or isinstance(e, KernelLibraryError):
             raise
         log.info("query '%s' falls back to host path: %s", name, e)
         return None
@@ -1057,7 +1083,40 @@ def try_build_device_query(query: Query, app_context, stream_defs: dict,
         rt.batch_controller = AdaptiveBatchController(**cfg)
     bridge.batch_capacity = batch       # pad-ratio denominator (observability)
     app_context.register_state(f"device-{name}", _BridgeState(bridge))
+    # device quarantine: a RUNTIME step failure (compile-time refusals fell
+    # back above, a kernel library that failed to build or load raised)
+    # reroutes the batch through the host interpreter, and repeated
+    # failures circuit-break the device path itself
+    resilience = getattr(app_context.runtime, "resilience", None)
+    if resilience is not None:
+        bridge.guard = resilience.guard_device(
+            rt, query, name, dict(stream_defs), get_junction, bridge.kind)
+        resilience.bind_bridge(bridge.guard, bridge)
     return bridge
+
+
+def _load_kernel_library(plan, device) -> None:
+    """On a CUDA device, builds (``nvcc``) and loads the kernel library of
+    ``plan`` now, while the query is built, before its bridge starts (and
+    runs the plan's ``prepare``, where it has one): a
+    failure raises ``KernelLibraryError`` from ``try_build_device_query``,
+    strict or not, and the app does not build. Falling back to the host
+    interpreter would hide the kernel, and so would loading it lazily at
+    the first step: the DeviceGuard would replay that failure on the host
+    batch after batch."""
+    if device.type != "cuda":
+        return
+    from ..gpu.expr_compile import KernelLibraryError
+    try:
+        plan._lib()
+    except Exception as e:  # noqa: BLE001 — nvcc, dlopen and the layout
+        # checks raise RuntimeError or OSError; any of them fails the build
+        raise KernelLibraryError(
+            f"the kernel library of {type(plan).__name__} did not build or "
+            f"load: {e}") from e
+    prepare = getattr(plan, "prepare", None)
+    if prepare is not None:
+        prepare(device)
 
 
 class _BridgeState:

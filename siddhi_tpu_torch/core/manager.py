@@ -51,6 +51,27 @@ class SiddhiManager:
     # reference-style alias
     createSiddhiAppRuntime = create_siddhi_app_runtime
 
+    def create_sandbox_siddhi_app_runtime(
+            self, app: Union[str, SiddhiApp],
+            playback: Optional[bool] = None,
+            start_time: int = 0) -> SiddhiAppRuntime:
+        """Runs the app WITHOUT its external sources/sinks/stores (reference
+        ``SiddhiManager.createSandboxSiddhiAppRuntime:105`` — non-inMemory
+        @source/@sink annotations and every @store are stripped, so the app
+        can be driven by input handlers/callbacks in isolation)."""
+        app = self._parse(app)
+        for sd in app.stream_definitions.values():
+            sd.annotations = [
+                a for a in sd.annotations
+                if a.name.lower() not in ("source", "sink")
+                or (a.get("type") or "").lower() == "inmemory"]
+        for td in app.table_definitions.values():
+            td.annotations = [a for a in td.annotations
+                              if a.name.lower() != "store"]
+        return self.create_siddhi_app_runtime(app, playback, start_time)
+
+    createSandboxSiddhiAppRuntime = create_sandbox_siddhi_app_runtime
+
     def validate_siddhi_app(self, app: Union[str, SiddhiApp]) -> None:
         """Full validation: parse + build the runtime, then discard it
         (reference ``SiddhiManager.validateSiddhiApp:145`` does exactly

@@ -85,7 +85,11 @@ def _finish(stem: str, started) -> ctypes.CDLL:
         build_seconds[stem] = time.perf_counter() - t0
     else:
         build_seconds.setdefault(stem, 0.0)
-    return ctypes.CDLL(out)
+    # PyDLL keeps the interpreter lock through a call: an entry point only
+    # enqueues launches and returns, and releasing the lock for it would
+    # cost the calling thread up to a switch interval to win it back from
+    # a busy producer thread
+    return ctypes.PyDLL(out)
 
 
 def build_all(stems) -> dict[str, ctypes.CDLL]:

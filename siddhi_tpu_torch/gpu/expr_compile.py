@@ -63,6 +63,11 @@ class DeviceCompileError(Exception):
     """Raised when an expression or pattern cannot run on the device path."""
 
 
+class KernelLibraryError(DeviceCompileError):
+    """A query's kernel library did not build or load on the card: raised
+    when the query is built, strict or not, never a host fallback."""
+
+
 class ColumnResolver:
     """Maps a Variable to a column key + dtype for one stream: bare
     attribute names (pattern compilers resolve prefixed keys instead)."""

@@ -70,6 +70,7 @@ from .expr_compile import (
     astype,
     compile_expression,
 )
+from .transfer import to_device, to_host
 
 # event-time sentinels bounding every real timestamp (keep searchsorted input
 # sorted: empty tail slots sit at the front, batch padding at the back)
@@ -581,14 +582,16 @@ class CompiledStreamQuery:
         """``BatchBuilder.emit()`` output (numpy) → ``(cols, ts, valid)``
         tensors on ``device`` (default: the compiled query's)."""
         dev = self.device if device is None else torch.device(device)
-
-        def t(x):
-            if isinstance(x, torch.Tensor):
-                return x.to(dev)
-            return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
-
-        return ({k: t(v) for k, v in batch["cols"].items()}, t(batch["ts"]),
-                t(batch["valid"]))
+        names = list(batch["cols"])
+        parts = [batch["cols"][k] for k in names] + [batch["ts"],
+                                                      batch["valid"]]
+        if any(isinstance(x, torch.Tensor) for x in parts):
+            moved = [x.to(dev) if isinstance(x, torch.Tensor) else
+                     torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+                     for x in parts]
+        else:                           # one copy (``gpu/transfer.py``)
+            moved = to_device(parts, dev)
+        return dict(zip(names, moved)), moved[-2], moved[-1]
 
     def step(self, state, batch: dict):
         """batch: output of ``BatchBuilder.emit()``; returns (state, out).
@@ -610,10 +613,12 @@ class CompiledStreamQuery:
     def decode_outputs(self, out) -> list[list]:
         """Valid output rows, in order, as Python values (strings decoded
         through the dictionary)."""
-        idx = np.nonzero(out["valid"].cpu().numpy())[0]
+        valid, *cols = to_host([out["valid"]] + [out["out"][s.name]
+                                                 for s in self.specs])
+        idx = np.nonzero(valid)[0]
         columns = []
-        for s in self.specs:
-            col = out["out"][s.name].cpu().numpy()[idx]
+        for s, col in zip(self.specs, cols):
+            col = col[idx]
             if s.dtype == DataType.STRING and s.source_attr:
                 dic = self.schema.dictionaries[s.source_attr]
                 columns.append([dic.decode(c) for c in col.tolist()])

@@ -346,6 +346,19 @@ class QueryPlan:
         for k, p in proto.items():
             need(state[k], f"state[{k!r}]", p.dtype, p.shape)
 
+    def prepare(self, dev) -> None:
+        """The work of a first step that does not depend on its inputs: the
+        argument template on ``dev`` and the state prototype the checks
+        compare against. Called when the query is built, so the first step
+        times like every other."""
+        dev = torch.device(dev)
+        if dev.type == "cuda" and dev.index is None:
+            # the template is keyed by the device the step's tensors report
+            dev = torch.device("cuda", torch.cuda.current_device())
+        self._on(dev)
+        if self._proto is None:
+            self._proto = self.q.init_state(device="meta")
+
     def step_cuda(self, state, cols, ts, valid):
         """Runs one step on the card (launches on the current stream)."""
         if ts.device.type != "cuda":

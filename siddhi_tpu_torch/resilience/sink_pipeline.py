@@ -1,8 +1,6 @@
 """Resilient sink publish pipeline.
 
-The port's copy of the JAX package's ``resilience/sink_pipeline.py``. The
-``chaos`` hook (``@app:chaos`` fault injection) stays ``None``: the port
-refuses ``@app:chaos`` until the resilience tier is ported.
+The port's copy of the JAX package's ``resilience/sink_pipeline.py``.
 
 Reference: ``core/stream/output/sink/Sink.java`` — ``connectWithRetry``,
 ``onError`` dispatch over ``on.error=WAIT|RETRY|STREAM|STORE|LOG``. Every
@@ -45,6 +43,7 @@ from typing import Callable, Optional
 
 from ..core.metrics import CounterTracker, Level
 from .circuit import CircuitBreaker
+from .chaos import ChaosInjector
 
 log = logging.getLogger("siddhi_tpu_torch.resilience")
 
@@ -98,7 +97,7 @@ class ResilientSink:
                  app_name: str,
                  error_store_fn: Callable[[], object],
                  fault_junction_fn: Optional[Callable[[], object]] = None,
-                 chaos=None,
+                 chaos: Optional[ChaosInjector] = None,
                  shutdown_signal: Optional[threading.Event] = None,
                  stats=None,
                  listener_fn: Optional[Callable[[], object]] = None,

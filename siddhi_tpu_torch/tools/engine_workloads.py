@@ -48,6 +48,12 @@ partition by room keeps a per-room peak. 256 devices, 16 rooms, ``v``
 uniform on [0, 100) to 3 decimals with 1 % error readings of -1.0 that
 ``clean`` drops, ``ts`` rising by 1 ms an event, fed per event through
 ``InputHandler.send``.
+
+``chip_smoke.py``'s ``engine_guard`` phase runs ``iot_mixed`` under
+``IOT_CHAOS`` (seeded device faults in 5 % of the steps, a circuit that
+never opens, so every failed step replays on the host interpreter and the
+next steps return to the kernels), and ``GUARD_FILTER``, a stateless
+filter on the query kernel, under heavier faults and a quarantine.
 """
 
 from __future__ import annotations
@@ -377,6 +383,28 @@ def collect_outputs(rt, callback_cls) -> dict:
         rt.add_callback(s, callback_cls(lambda evs, rows=got[s]: rows.extend(
             (e.timestamp, list(e.data)) for e in evs)))
     return got
+
+
+# --------------------------------------------------------- engine_guard
+
+IOT_CHAOS = ("@app:chaos(seed='16', device.fail.p='0.05')\n"
+             "@app:resilience(device.circuit.threshold='1000')\n")
+
+GUARD_FILTER = """
+define stream S (dev string, v double);
+@device(batch='{batch}', strict='true'{extra})
+from S[v > 50.0] select dev, v insert into Alerts;
+"""
+
+
+def feed_filter(rt, ev: IotEvents, lo: int = 0,
+                hi: int | None = None) -> None:
+    """Events ``lo:hi`` of ``ev`` into ``GUARD_FILTER``'s ``S``."""
+    hi = ev.n if hi is None else min(hi, ev.n)
+    ih = rt.input_handler("S")
+    dev, v, ts = ev.dev, ev.v, ev.ts
+    for i in range(lo, hi):
+        ih.send([dev[i], v[i]], timestamp=ts[i])
 
 
 # ------------------------------------------------------------ engine_io

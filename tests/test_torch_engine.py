@@ -17,7 +17,8 @@
 - Every tier the port does not have yet is refused at
   ``create_siddhi_app_runtime`` with a ``SiddhiAppCreationError`` naming it,
   and the tiers it has (sources, sinks, the WAL, backpressure, adaptive
-  batching) build and give the reference engine's rows;
+  batching, chaos and resilience) build and give the reference engine's
+  rows;
   a strict ``@device`` query the compilers refuse raises
   ``DeviceCompileError``, as in the reference.
 - ``SiddhiManager()`` runs on the card, and without one it raises.
@@ -423,9 +424,6 @@ REFUSALS = {
                        "observability subsystem"),
     "profile": ("@app:profile(enable='true')\n" + S + Q,
                 "observability subsystem"),
-    "chaos": ("@app:chaos(seed='1')\n" + S + Q, "resilience subsystem"),
-    "resilience": ("@app:resilience(device.quarantine='false')\n" + S + Q,
-                   "resilience subsystem"),
 }
 
 
@@ -449,6 +447,8 @@ PORTED = {
     "wal": "@app:wal(dir='{wal}')\n" + S + Q,
     "backpressure": "@app:backpressure(capacity='8')\n" + S + Q,
     "adaptive": "@app:adaptive(target.ms='25')\n" + S + Q,
+    "chaos": "@app:chaos(seed='1', device.fail.p='0.5')\n" + S + Q,
+    "resilience": "@app:resilience(device.quarantine='false')\n" + S + Q,
 }
 
 

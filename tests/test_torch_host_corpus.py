@@ -19,11 +19,16 @@ The reference suites are imported as data, never edited:
   port's module defines replaces the reference's in the reference's module
   and in the suite's, and a test double the suite derives from one of those
   classes (a ``Sink``, a ``SourceHandler``) is rebased onto the port's
-  class for the call. ``SUITE_ONLY`` picks, for a suite that also tests
-  tiers outside this set, the functions it contributes;
+  class for the call. The suite's own fixtures (``manager``, ``rt``) are
+  called as pytest would, and pytest's ``tmp_path``, ``caplog`` and
+  ``monkeypatch`` are the caller's. ``SUITE_ONLY`` picks, for a suite that
+  also tests tiers outside this set, the functions it contributes; a
+  function the suite marks ``slow`` keeps the mark;
 - ``NEEDS_UNPORTED`` lists, by id, the suite functions whose app needs a
   tier the port does not have yet, with that tier; the port must still
-  refuse them at build time with "not ported yet" naming the tier.
+  refuse them at build time with "not ported yet" naming the tier, or,
+  where the app carries no annotation of the tier (``UNPORTED_SURFACE``),
+  still fail where they read a surface that tier adds.
   ``NEEDS_MODULE`` lists the functions that drive a JAX-package module the
   port has no counterpart of yet (``siddhi_tpu/service.py``); the port must
   still lack it.
@@ -70,6 +75,8 @@ BINDINGS = {
 # the reference's module → the port's, bound name by name (every public
 # name the port's module defines, where the reference's defines it too)
 PORTED_MODULES = {
+    "siddhi_tpu.core.aggregation": "siddhi_tpu_torch.core.aggregation",
+    "siddhi_tpu.core.config": "siddhi_tpu_torch.core.config",
     "siddhi_tpu.core.debugger": "siddhi_tpu_torch.core.debugger",
     "siddhi_tpu.core.event": "siddhi_tpu_torch.core.event",
     "siddhi_tpu.core.io": "siddhi_tpu_torch.core.io",
@@ -81,7 +88,11 @@ PORTED_MODULES = {
     "siddhi_tpu.flow.records": "siddhi_tpu_torch.flow.records",
     "siddhi_tpu.flow.recovery": "siddhi_tpu_torch.flow.recovery",
     "siddhi_tpu.flow.wal": "siddhi_tpu_torch.flow.wal",
+    "siddhi_tpu.resilience": "siddhi_tpu_torch.resilience",
+    "siddhi_tpu.resilience.chaos": "siddhi_tpu_torch.resilience.chaos",
     "siddhi_tpu.resilience.circuit": "siddhi_tpu_torch.resilience.circuit",
+    "siddhi_tpu.resilience.device_guard":
+        "siddhi_tpu_torch.resilience.device_guard",
     "siddhi_tpu.resilience.sink_pipeline":
         "siddhi_tpu_torch.resilience.sink_pipeline",
     "siddhi_tpu.tpu.dcn": "siddhi_tpu_torch.gpu.dcn",
@@ -197,7 +208,11 @@ SUITES = ["test_partition_corpus", "test_join_corpus", "test_filter_query",
           "test_windows", "test_pattern", "test_join", "test_table",
           "test_window_corpus", "test_pattern_corpus", "test_handlers",
           "test_flow", "test_integration", "test_edge_rows",
-          "test_resilience"]
+          "test_resilience", "test_management", "test_on_demand_corpus",
+          "test_aggregation_purge", "test_persisted_aggregation",
+          "test_incremental_persistence", "test_cache_table",
+          "test_record_pushdown", "test_config", "test_metrics",
+          "test_torn_fuzz", "test_bridge_fuzz", "test_device_pipeline"]
 
 # suites that also test tiers outside the port's → the functions they
 # contribute: the IO tier and the sink pipeline (the rest of
@@ -252,15 +267,26 @@ SUITE_ONLY = {
         "test_sink_drop_notifies_exception_listener",
         "test_negative_retry_delays_rejected_at_build",
         "test_bad_retry_delays_rejected_at_build",
+        "test_chaos_injector_deterministic",
         "test_chaos_smoke_no_event_loss", "test_chaos_soak_no_event_loss",
         "test_chaos_source_fault_contained_in_app"},
 }
 
-# run above case by case, or about the JAX package's device compiler only
+# run above case by case, or driving only the JAX package's own code
 NOT_SUITE_FUNCTIONS = {
     ("test_window_corpus", "test_window_corpus_counts"),
     ("test_pattern_corpus", "test_reference_corpus"),
     ("test_pattern_corpus", "test_device_compilable_floor"),
+    # runs the JAX package's bench.py in a subprocess
+    ("test_device_pipeline", "test_bench_survives_sigkilled_phase"),
+    # runs the JAX package's scripts/check_bench_regression.py
+    ("test_device_pipeline",
+     "test_device_latency_guard_tolerates_partial_reports"),
+    # call only the JAX package's LaneGroupSnapshotStore
+    # (resilience/dcn_guard.py, which comes with distribution)
+    ("test_torn_fuzz", "test_snapshot_corrupt_newest_falls_back"),
+    ("test_torn_fuzz", "test_snapshot_all_revisions_corrupt_returns_none"),
+    ("test_torn_fuzz", "test_snapshot_missing_meta_member_falls_back"),
 }
 
 # suite function id → the tier its app needs, which the port refuses
@@ -278,22 +304,30 @@ NEEDS_UNPORTED: dict[str, str] = {
         "test_send_columns_validation")},
     "test_edge_rows::test_fleet_stage_columns_parity":
         "the multi-tenant fleet tier",
-    "test_resilience::test_device_failure_falls_back_to_host_no_loss":
-        "the resilience subsystem",
-    "test_resilience::test_device_quarantine_repromotes_after_cooldown":
-        "the resilience subsystem",
-    "test_resilience::test_device_quarantine_parity_vs_host":
-        "the resilience subsystem",
-    "test_resilience::test_device_quarantine_optout":
-        "the resilience subsystem",
-    "test_resilience::test_device_fallback_reaches_query_callbacks":
-        "the resilience subsystem",
-    "test_resilience::test_chaos_smoke_no_event_loss":
-        "the resilience subsystem",
-    "test_resilience::test_chaos_soak_no_event_loss":
-        "the resilience subsystem",
-    "test_resilience::test_chaos_source_fault_contained_in_app":
-        "the resilience subsystem",
+    "test_metrics::test_fleet_fallback_reason_counter_family":
+        "the multi-tenant fleet tier",
+    "test_metrics::test_guard_metric_families_unregister_on_shutdown":
+        "the multi-tenant fleet tier",
+    "test_device_pipeline::test_driver_overlap_counters_and_gauges":
+        "the observability subsystem",
+    "test_device_pipeline::test_deadline_flush_bounds_partial_batch_wait":
+        "the observability subsystem",
+    "test_device_pipeline::test_flush_cause_accounting_capacity_and_drain":
+        "the observability subsystem",
+}
+
+# of those, the functions whose app carries no annotation of the tier, so
+# the port builds it; each reads a surface that the tier adds, and must
+# still fail there: the exception and the message the port gives (the
+# device step probe, ``bridge.probe``, stays None, and its gauges are not
+# registered)
+UNPORTED_SURFACE: dict[str, tuple] = {
+    "test_device_pipeline::test_driver_overlap_counters_and_gauges":
+        (KeyError, "device.query-1.pipeline_depth"),
+    "test_device_pipeline::test_deadline_flush_bounds_partial_batch_wait":
+        (AttributeError, "'NoneType' object has no attribute 'flush_causes'"),
+    "test_device_pipeline::test_flush_cause_accounting_capacity_and_drain":
+        (AttributeError, "'NoneType' object has no attribute 'flush_causes'"),
 }
 
 # suite function id → the JAX-package module it drives, which the port does
@@ -330,6 +364,8 @@ def _param_sets(fn) -> list:
 
 
 def suite_functions() -> list:
+    """A case per suite function and parameter set; a function the suite
+    marks ``slow`` keeps the mark."""
     out = []
     for modname in SUITES:
         mod = importlib.import_module(modname)
@@ -339,9 +375,12 @@ def suite_functions() -> list:
                     or (modname, name) in NOT_SUITE_FUNCTIONS \
                     or (only is not None and name not in only):
                 continue
+            slow = any(m.name == "slow" for m in getattr(fn, "pytestmark", []))
             for suffix, kwargs in _param_sets(fn):
                 fid = f"{modname}::{name}{suffix}"
-                out.append(pytest.param(modname, name, kwargs, id=fid))
+                out.append(pytest.param(
+                    modname, name, kwargs, id=fid,
+                    marks=[pytest.mark.slow] if slow else []))
     return out
 
 
@@ -385,57 +424,79 @@ def bind_port_names(monkeypatch, mod, request) -> set:
     return bound | {name for _, name, _ in ported_names()}
 
 
-def autouse_fixtures(mod) -> list:
-    """The plain functions of ``mod``'s own autouse fixtures."""
-    out = []
-    for val in vars(mod).values():
+def own_fixtures(mod) -> tuple[dict, list]:
+    """The plain functions of ``mod``'s own fixtures: by name, and the
+    autouse ones."""
+    named, autouse = {}, []
+    for name, val in vars(mod).items():
         marker = getattr(val, "_fixture_function_marker", None)
-        if marker is not None and marker.autouse:
-            out.append(val.__wrapped__)
-    return out
+        if marker is None:
+            continue
+        if marker.autouse:
+            autouse.append(val.__wrapped__)
+        else:
+            named[marker.name or name] = val.__wrapped__
+    return named, autouse
 
 
-def call_suite_function(mod, fn, kwargs: dict, tmp_path, caplog) -> None:
-    """Calls ``fn`` with ``kwargs``; of the suites' fixtures, ``manager`` is
-    the port's manager (shut down after, and the port's broker reset, as
-    the suites' fixture does), ``tmp_path`` and ``caplog`` the caller's;
-    ``mod``'s autouse fixtures run around the call."""
-    manager = None
-    fixtures = {"tmp_path": tmp_path, "caplog": caplog}
-    for p in inspect.signature(fn).parameters:
-        if p in kwargs:
-            continue
-        if p in fixtures:
-            kwargs = dict(kwargs, **{p: fixtures[p]})
-            continue
-        if p != "manager":
-            raise AssertionError(f"{mod.__name__}.{fn.__name__}: fixture "
-                                 f"'{p}' has no port counterpart here")
-        manager = PortManager()
-        kwargs = dict(kwargs, manager=manager)
+def call_suite_function(mod, fn, kwargs: dict, fixtures: dict) -> None:
+    """Calls ``fn`` with ``kwargs``. Its other parameters are pytest's
+    fixtures in ``fixtures`` (the caller's ``tmp_path``, ``caplog``,
+    ``monkeypatch``) or ``mod``'s own fixtures of that name (``manager``,
+    ``rt``; with the port's names bound they build the port's engine), set
+    up before the call and torn down after it in reverse order, as pytest
+    does; ``mod``'s autouse fixtures come first. The port's broker is
+    reset after the call."""
+    named, autouse = own_fixtures(mod)
     gens = []
-    for fixture in autouse_fixtures(mod):
-        g = fixture()
-        if inspect.isgenerator(g):
-            next(g)
-            gens.append(g)
+
+    def setup(fixture, given: dict):
+        args = dict(given)
+        for p in inspect.signature(fixture).parameters:
+            if p in args:
+                continue
+            if p in fixtures:
+                args[p] = fixtures[p]
+            elif p in named:
+                args[p] = setup(named[p], {})
+            else:
+                raise AssertionError(
+                    f"{mod.__name__}.{fn.__name__}: fixture '{p}' has no "
+                    f"port counterpart here")
+        if fixture is fn:
+            return args
+        value = fixture(**args)
+        if inspect.isgenerator(value):
+            gens.append(value)
+            value = next(value)
+        return value
+
     try:
-        fn(**kwargs)
+        for fixture in autouse:
+            setup(fixture, {})
+        args = setup(fn, kwargs)
+        fn(**args)
     finally:
-        if manager is not None:
-            manager.shutdown()
-        siddhi_tpu_torch.InMemoryBroker.reset()
-        for g in gens:
+        for g in reversed(gens):
             next(g, None)
+        siddhi_tpu_torch.InMemoryBroker.reset()
 
 
 def names_used(fn) -> set:
-    """Global names ``fn``'s code reads, its nested functions' included."""
-    out, stack = set(), [fn.__code__]
+    """Global names ``fn``'s code reads, its nested functions' included,
+    and those of the helper functions of its module that it calls."""
+    out, stack, seen = set(), [fn.__code__], set()
+    mod = vars(inspect.getmodule(fn))
     while stack:
         code = stack.pop()
+        if code in seen:
+            continue
+        seen.add(code)
         out.update(code.co_names)
         stack.extend(c for c in code.co_consts if inspect.iscode(c))
+        stack.extend(mod[n].__code__ for n in code.co_names
+                     if inspect.isfunction(mod.get(n))
+                     and mod[n].__module__ == fn.__module__)
     return out
 
 
@@ -455,15 +516,25 @@ def test_reference_suite_function_on_the_port(modname, fname, kwargs,
     bound = bind_port_names(monkeypatch, mod, request)
     tier = NEEDS_UNPORTED.get(fid)
     built = PortManager.built
+    fixtures = {"tmp_path": tmp_path, "caplog": caplog,
+                "monkeypatch": monkeypatch}
     if tier is None:
-        call_suite_function(mod, fn, kwargs, tmp_path, caplog)
+        call_suite_function(mod, fn, kwargs, fixtures)
         # an engine function builds the port's engine; a unit function
         # calls a class or function bound to the port's
         assert PortManager.built > built or names_used(fn) & bound, \
             "the function ran nothing of the port"
         return
+    surface = UNPORTED_SURFACE.get(fid)
+    if surface is not None:
+        exc, message = surface
+        with pytest.raises(exc) as e:
+            call_suite_function(mod, fn, kwargs, fixtures)
+        assert message in str(e.value)
+        assert PortManager.built > built
+        return
     with pytest.raises(SiddhiAppCreationError, match="not ported yet") as e:
-        call_suite_function(mod, fn, kwargs, tmp_path, caplog)
+        call_suite_function(mod, fn, kwargs, fixtures)
     assert tier in str(e.value)
 
 
@@ -474,6 +545,7 @@ def test_suites_are_all_collected():
     assert mods == set(SUITES)
     ids = {p.id for p in SUITE_FUNCTIONS}
     assert set(NEEDS_UNPORTED) <= ids
+    assert set(UNPORTED_SURFACE) <= set(NEEDS_UNPORTED)
     assert set(NEEDS_MODULE) <= ids
     for modname, only in SUITE_ONLY.items():
         assert only <= set(vars(importlib.import_module(modname)))

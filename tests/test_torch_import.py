@@ -35,7 +35,7 @@ def test_import_loads_neither_jax_nor_the_reference():
         "import sys\n"
         "import siddhi_tpu_torch\n"
         "import siddhi_tpu_torch.gpu.partition, siddhi_tpu_torch.gpu.state_io\n"
-        "import siddhi_tpu_torch.gpu._build\n"
+        "import siddhi_tpu_torch.gpu._build, siddhi_tpu_torch.gpu.transfer\n"
         "import siddhi_tpu_torch.gpu.join_compile, siddhi_tpu_torch.gpu.join_step\n"
         "import siddhi_tpu_torch.tools.join_workloads\n"
         "import siddhi_tpu_torch.core.errors, siddhi_tpu_torch.core.event\n"
@@ -59,9 +59,13 @@ def test_import_loads_neither_jax_nor_the_reference():
         "import siddhi_tpu_torch.core.query_runtime\n"
         "import siddhi_tpu_torch.core.partition, siddhi_tpu_torch.core.trigger\n"
         "import siddhi_tpu_torch.tools.engine_workloads\n"
+        "import siddhi_tpu_torch.tools.edge_first_steps\n"
         "import siddhi_tpu_torch.core.io, siddhi_tpu_torch.gpu.dcn\n"
         "import siddhi_tpu_torch.resilience\n"
         "import siddhi_tpu_torch.resilience.circuit\n"
+        "import siddhi_tpu_torch.resilience.chaos\n"
+        "import siddhi_tpu_torch.resilience.device_guard\n"
+        "from siddhi_tpu_torch.resilience import ChaosInjector, DeviceGuard\n"
         "import siddhi_tpu_torch.resilience.sink_pipeline\n"
         "import siddhi_tpu_torch.flow, siddhi_tpu_torch.flow.wal\n"
         "import siddhi_tpu_torch.flow.records, siddhi_tpu_torch.flow.recovery\n"

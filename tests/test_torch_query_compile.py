@@ -10,8 +10,10 @@ sums/avgs and Kahan/Welford leaves (``2**-20`` of a sum of |x| that
 bounds every prefix either side reads, each side carrying its own state:
 ``next_scale``; an avg's limit divided by its row's count) and stdDev. Also here: the port refuses exactly what the reference refuses
 (same message) at construction, and compiles one small query per tumbling,
-hopping and scan-walked window with its kernel plan linked; and
-``avalanche`` is the reference's splitmix64 bit for bit.
+hopping and scan-walked window with its kernel plan linked;
+``avalanche`` is the reference's splitmix64 bit for bit; and a step's
+batch and outputs, moved through one buffer each way (``gpu/transfer.py``),
+are the arrays they were, exactly.
 """
 
 import jax
@@ -31,6 +33,7 @@ from siddhi_tpu_torch.gpu.query_compile import (
     stream_step_plain,
 )
 from siddhi_tpu_torch.gpu.state_io import state_to_numpy
+from siddhi_tpu_torch.gpu.transfer import to_device, to_host
 
 from test_torch_query_shapes import (
     ACCEPTED,
@@ -137,3 +140,47 @@ def test_avalanche_bit_for_bit():
     want = javalanche(x, np)
     got = avalanche(torch.from_numpy(x)).numpy()
     assert got.dtype == want.dtype and (got == want).all()
+
+
+# ---------------------------------------------------- one copy each way
+
+@pytest.mark.parametrize("shapes", [
+    [(np.int32, (7,)), (np.float32, (7,)), (np.int64, (7,)), (np.bool_, (7,))],
+    [(np.bool_, (5,)), (np.float64, (3, 5)), (np.int64, ()),
+     (np.float32, (0,)), (np.uint8, (9,)), (np.int16, (3,))],
+], ids=["batch_layout", "mixed"])
+def test_transfer_round_trip_is_exact(shapes):
+    rng = np.random.default_rng(5)
+    arrays = [np.asarray((rng.standard_normal(sh) * 1e3).astype(dt)
+                         if dt != np.bool_ else rng.random(sh) > 0.5)
+              for dt, sh in shapes]
+    moved = to_device(arrays, torch.device("cpu"))
+    for a, t in zip(arrays, moved):
+        assert t.dtype == torch.from_numpy(a).dtype and tuple(t.shape) == a.shape
+        assert np.array_equal(t.numpy(), a)
+        assert t.numel() == 0 or t.data_ptr() % 16 == 0
+    back = to_host(moved + [torch.arange(12).reshape(3, 4).t()])
+    for a, h in zip(arrays + [np.arange(12).reshape(3, 4).T], back):
+        assert h.dtype == a.dtype and h.shape == a.shape
+        assert np.array_equal(h, a)
+
+
+@pytest.mark.parametrize("name,B", CASES[:6], ids=IDS[:6])
+def test_one_copy_batch_and_decode_match_per_tensor_copies(name, B):
+    tq = compile_port(name, B, "cpu")
+    state, wire = tq.init_state(), wire_for(name, B)
+    for step in range(3):
+        batch = wire.batch(step)
+        cols, ts, valid = tq.batch_tensors(batch)
+        for k, v in batch["cols"].items():
+            assert np.array_equal(cols[k].numpy(), v)
+        assert np.array_equal(ts.numpy(), batch["ts"])
+        assert np.array_equal(valid.numpy(), batch["valid"])
+        state, out = stream_step_plain(tq, state, cols, ts, valid)
+        idx = np.nonzero(out["valid"].numpy())[0]
+        want = [list(r) for r in zip(*[
+            [tq.schema.dictionaries[s.source_attr].decode(c) for c in
+             out["out"][s.name].numpy()[idx].tolist()]
+            if s.dtype.name == "STRING" and s.source_attr else
+            out["out"][s.name].numpy()[idx].tolist() for s in tq.specs])]
+        assert tq.decode_outputs(out) == want

@@ -289,6 +289,36 @@ Phases, one JSON line each:
                the chain and ``grouped_length`` of the engine phase with
                the default guard and with ``device.quarantine='false'``
                (guarded, unguarded, unguarded, guarded): events/s of each.
+ 16. engine_observe — the observability tier on ``iot_mixed`` at the
+               engine's widths (``OBSERVE_EVENTS`` events a run): (a) a
+               plain sync run and one under ``@app(statistics='true')``,
+               ``@app:trace(sample='1/64')`` and
+               ``@app:flightrecorder(ring='4096')`` give equal rows on all
+               five outputs, in order; (b) in the second, each device
+               query's step probe counts its kernel's launches over its
+               launches a step, the events its bridge took and its flush
+               causes summing to its steps; its ``latency_report()``
+               reconciles to 1.0 within 1e-6; the trace export has its
+               ``fill-wait`` and ``device`` spans; ``render`` gives
+               Prometheus 0.0.4 text (every line checked, no exemplar) with
+               ``siddhi_tpu_device_steps_total`` for each, and exemplars
+               only when OpenMetrics is asked for; (c) the same with
+               ``async='true'``: its ``Alerts`` and ``Stats`` equal the
+               plain run's, each driver's ``device_idle_frac`` within
+               [0, 1] and ``overlap_efficiency`` within (0, window]; (d)
+               under ``@app:chaos(seed='16', device.fail.p='0.05')`` with a
+               circuit that opens at each failure, the flight recorder
+               holds one ``circuit:open`` and one ``step_failed`` per
+               failure of each guard, a ``fallback_step``, in time order,
+               and a quarantine (engine_guard (c)'s) under
+               ``@app:flightrecorder(dir=...)`` dumps it as JSON; (e) the
+               chain alone under ``@app:profile(dir=...)``,
+               ``OBSERVE_PROFILE_EVENTS`` events, sync and async, each in
+               a fresh process, the two at once (an older process's
+               capture loses kernel records): the exported ``torch.profiler`` trace holds a
+               ``siddhi:step:chain`` range a step and one
+               ``nfa_block_kernel`` record a launch; their device time
+               beside the probe's busy seconds.
 Then the card's name and power limit (nvidia-smi), the ``kernels`` line and,
 last, ``{"ok": true, "device": {...}}``. Any failure exits non-zero before
 that line. Needs one CUDA card; fails without one.
@@ -301,6 +331,7 @@ import collections
 import gc
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -4183,6 +4214,388 @@ def phase_engine_guard(seed: int, n_events: int = GUARD_EVENTS,
 
 
 
+# ------------------------------------------------------------ engine_observe
+
+# iot_mixed events per run (cut from 65,536 after a 70.3 s phase: 20 chain
+# and 10 stats batches; (d)'s seeded faults land on chain steps 5, 11, 18,
+# and stats' first at its step 13, past the cut)
+OBSERVE_EVENTS = 40_960
+OBSERVE_PROFILE_EVENTS = 16_384    # (e): the chain's events per profiled run
+OBSERVE_ANN = ("@app(name='Observed', statistics='true')\n"
+               "@app:trace(sample='1/64')\n"
+               "@app:flightrecorder(ring='4096')\n")
+# (d): every failed step opens its circuit and the next batch probes it, so
+# each fault puts the breaker's transitions on the flight recorder
+OBSERVE_CHAOS = ("@app:chaos(seed='16', device.fail.p='0.05')\n"
+                 "@app:resilience(device.circuit.threshold='1', "
+                 "device.circuit.cooldown.ms='0')\n")
+# a Prometheus 0.0.4 sample line: name, labels, value, optional timestamp
+PROM_SAMPLE = re.compile(
+    r'^([a-zA-Z_:][a-zA-Z0-9_:]*)'
+    r'(\{(?:[a-zA-Z_][a-zA-Z0-9_]*="(?:[^"\\]|\\.)*"'
+    r'(?:,[a-zA-Z_][a-zA-Z0-9_]*="(?:[^"\\]|\\.)*")*)?\})?'
+    r' (-?[0-9.eE+-]+|NaN|[+-]Inf)( -?[0-9]+)?$')
+
+
+def check_exposition(where: str, text: str) -> dict:
+    """``text`` as Prometheus 0.0.4 text: every line a ``# HELP``, a
+    ``# TYPE`` or a sample of a family typed before it, no exemplar.
+    Returns ``{family: {sample name + labels: value}}``."""
+    types, fams = {}, {}
+    for line in text.splitlines():
+        if not line:
+            continue
+        if line.startswith("# TYPE "):
+            parts = line.split(" ")
+            if len(parts) != 4 or parts[3] not in (
+                    "counter", "gauge", "histogram", "summary", "untyped"):
+                fail(f"{where}: bad TYPE line: {line}")
+            types[parts[2]] = parts[3]
+            fams.setdefault(parts[2], {})
+            continue
+        if line.startswith("# HELP "):
+            continue
+        m = PROM_SAMPLE.match(line)
+        if m is None or line.startswith("#") or " # " in line:
+            fail(f"{where}: not a 0.0.4 sample line: {line}")
+        name = m.group(1)
+        fam = name if name in types else next(
+            (name[:-len(s)] for s in ("_bucket", "_sum", "_count")
+             if name.endswith(s) and name[:-len(s)] in types), None)
+        if fam is None:
+            fail(f"{where}: sample of an untyped family: {line}")
+        fams[fam][name + (m.group(2) or "")] = float(m.group(3))
+    return fams
+
+
+def observe_probes(where: str, rt, launches: dict, n_events: int) -> dict:
+    """(b): each device query's probe against its kernel's launches and the
+    events its bridge took, its flush causes against its steps, its phase
+    breakdown reconciled, its trace spans, and the exposition."""
+    from siddhi_tpu_torch.gpu.nfa_block import BlockPlan
+    from siddhi_tpu_torch.gpu.query_step import QueryPlan
+    from siddhi_tpu_torch.observability import render
+    obs = rt.observability
+    lat = obs.latency_report()["queries"]
+    traces = obs.trace_export()["traces"]
+    spans = {(s["stage"], s["name"]) for t in traces for s in t["spans"]}
+    out = {}
+    for b in rt.device_bridges:
+        q, p = b.query_name, b.probe
+        plan = plan_of(b.runtime).plan
+        each = plan.step_launches() if isinstance(plan, QueryPlan) \
+            else BlockPlan.LAUNCHES
+        launched = launches[type(plan).__name__]
+        if p.steps * each != launched:
+            fail(f"{where}: '{q}': probe steps {p.steps} x {each} launches "
+                 f"a step != {launched} launched")
+        if p.events != n_events:
+            fail(f"{where}: '{q}': probe events {p.events}, the bridge "
+                 f"took {n_events}")
+        if sum(p.flush_causes.values()) != p.steps:
+            fail(f"{where}: '{q}': flush causes {p.flush_causes} do not sum "
+                 f"to its {p.steps} steps")
+        ratio = lat[q].get("reconciliation_ratio")
+        if ratio is None or abs(ratio - 1.0) > 1e-6:
+            fail(f"{where}: '{q}': reconciliation ratio {ratio}")
+        if ("fill-wait", q) not in spans or ("device", q) not in spans:
+            fail(f"{where}: '{q}': the trace export lacks its fill-wait or "
+                 f"device span ({len(traces)} traces)")
+        out[q] = {"steps": p.steps, "launches": launched,
+                  "events": p.events, "pad_ratio": p.pad_ratio,
+                  "flush_causes": dict(p.flush_causes),
+                  "compile_seconds": p.compile_seconds,
+                  "busy_seconds": p.busy_seconds,
+                  "reconciliation_ratio": ratio,
+                  "end_to_end_mean_ms": lat[q]["end_to_end_mean_ms"],
+                  "phase_mean_ms": {ph: v["avg_ms"] for ph, v in
+                                    lat[q]["phases"].items()}}
+    text = render([rt.ctx.statistics_manager])
+    fams = check_exposition(f"{where} /metrics", text)
+    steps = fams.get("siddhi_tpu_device_steps_total", {})
+    labelled = {k.split('query="')[1].split('"')[0]: v
+                for k, v in steps.items() if 'query="' in k}
+    if labelled != {q: float(o["steps"]) for q, o in out.items()}:
+        fail(f"{where}: siddhi_tpu_device_steps_total {labelled}")
+    om = render([rt.ctx.statistics_manager], with_exemplars=True)
+    if "# {" not in om:
+        fail(f"{where}: the OpenMetrics rendering carries no exemplar")
+    return {"queries": out, "traces": len(traces),
+            "families": len(fams), "exposition_bytes": len(text)}
+
+
+def observe_profile(seed: int, n_events: int, mode: str, scratch: str) -> dict:
+    """(e): the chain alone under ``@app:profile(dir=...)``: the exported
+    trace holds a ``siddhi:step:chain`` range a step and the blocked
+    kernel's records, one a launch; their device time beside the probe's
+    busy seconds."""
+    import torch
+    from siddhi_tpu_torch import SiddhiManager, StreamCallback
+    from siddhi_tpu_torch.gpu.nfa_block import BlockPlan
+    from siddhi_tpu_torch.tools import engine_workloads as ew
+    cfg = ew.engine_config("chain")
+    d = os.path.join(scratch, f"profile-{mode}")
+    app = (f"@app(name='Profiled')\n@app:profile(dir='{d}')\n"
+           + cfg["app"].replace("@device(", "@info(name='chain') @device(",
+                                1))
+    if mode == "async":
+        app = app.replace("strict='true'", "strict='true', async='true'")
+    ev = ew.EngineEvents("chain", n_events, seed)
+    m = SiddhiManager()
+    rt = m.create_siddhi_app_runtime(app, playback=True)
+    rows = []
+    rt.add_callback("Alerts", StreamCallback(lambda evs: rows.extend(evs)))
+    torch.cuda.synchronize()
+    reset_launches()
+    rt.start()
+    ew.feed_engine(rt, ev)
+    rt.flush_device()
+    torch.cuda.synchronize()
+    launched = BlockPlan.launches
+    probe = rt.device_bridges[0].probe
+    m.shutdown()
+    prof = rt.observability.profiler
+    if prof.trace_path is None:
+        fail(f"engine_observe (e) {mode}: no profiler trace was exported")
+    with open(prof.trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    ranges = [e for e in events if e.get("name") == "siddhi:step:chain"
+              and e.get("ph") == "X"]
+    kernels = [e for e in events if e.get("cat") == "kernel"
+               and "nfa_block_kernel" in e.get("name", "")]
+    cpu_ranges = [e for e in ranges if e.get("cat") != "gpu_user_annotation"]
+    if len(cpu_ranges) != probe.steps or not probe.steps:
+        fail(f"engine_observe (e) {mode}: {len(cpu_ranges)} "
+             f"siddhi:step:chain ranges, {probe.steps} steps")
+    if len(kernels) != launched or launched != probe.steps:
+        fail(f"engine_observe (e) {mode}: {len(kernels)} nfa_block_kernel "
+             f"records, {launched} launches, {probe.steps} steps")
+    size = os.path.getsize(prof.trace_path)
+    return {"events": ev.n, "steps": probe.steps, "launches": launched,
+            "rows": len(rows),
+            "step_ranges": len(cpu_ranges), "kernel_records": len(kernels),
+            "kernel_names": sorted({e["name"] for e in kernels}),
+            "kernel_device_ms": sum(e.get("dur", 0.0) for e in kernels)
+            / 1e3,
+            "probe_busy_ms": probe.busy_seconds * 1e3,
+            "trace_bytes": size}
+
+
+def profile_in_fresh_processes(seed: int, n_events: int,
+                               scratch: str) -> dict:
+    """(e), each mode in a process of its own, the two at once: in a
+    process half a minute or more old (this script's, by the time this
+    phase runs) the profiler's trace loses kernel records, which Kineto
+    drops as outside its capture window (``PERF.md`` §6, PR 17;
+    ``siddhi_tpu_torch/tools/profiler_record_loss.py``), so the check runs
+    where the capture keeps them. The kernel libraries are loaded from
+    this run's build."""
+    procs = {}
+    for mode in ("sync", "async"):
+        code = ("import json, sys\n"
+                f"sys.path.insert(0, {REPO!r})\n"
+                "import chip_smoke as cs\n"
+                f"out = cs.observe_profile({seed}, {n_events}, {mode!r}, "
+                f"{scratch!r})\n"
+                "print(json.dumps(out))\n")
+        procs[mode] = subprocess.Popen(
+            [sys.executable, "-c", code], cwd=REPO, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+    out = {}
+    try:
+        for mode, proc in procs.items():
+            stdout, stderr = proc.communicate(timeout=600)
+            if proc.returncode != 0:
+                fail(f"engine_observe (e) {mode}: the profiled process "
+                     f"failed: {stderr.strip()[-2000:]}")
+            out[mode] = json.loads(stdout.strip().splitlines()[-1])
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return out
+
+
+def phase_engine_observe(seed: int, n_events: int = OBSERVE_EVENTS,
+                         profile_events: int = OBSERVE_PROFILE_EVENTS,
+                         quarantine_batch: int = GUARD_QUARANTINE_BATCH
+                         ) -> dict:
+    """The observability tier on the card, on ``iot_mixed``: (a) the rows
+    of a plain run and of a run under ``@app(statistics='true')``,
+    ``@app:trace`` and ``@app:flightrecorder`` are equal; (b) the second
+    run's probes against the kernels' launches, its phase breakdown, trace
+    and exposition; (c) the async driver's health gauges; (d) the flight
+    recorder under seeded faults and its dump at a quarantine; (e)
+    ``@app:profile``'s trace of the chain. The event counts and the
+    quarantine's batch shrink it for a rehearsal on the CPU."""
+    import logging
+    import shutil
+    from siddhi_tpu_torch import SiddhiManager
+    from siddhi_tpu_torch.gpu.nfa_block import BlockPlan
+    from siddhi_tpu_torch.gpu.query_step import QueryPlan
+    from siddhi_tpu_torch.tools import engine_workloads as ew
+    t_phase = time.perf_counter()
+    guard_log = logging.getLogger("siddhi_tpu_torch.resilience")
+    level = guard_log.level
+    guard_log.setLevel(logging.ERROR)
+    scratch = io_scratch()
+    launches = {}
+
+    def add(got):
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+
+    try:
+        plain = ew.iot_mixed_app()
+        observed = OBSERVE_ANN + plain
+        ev = ew.IotEvents(n_events, seed)
+        n_s = sum(1 for v in ev.v if v >= 0.0)      # events into S
+        runs = {}
+        # ---- (a) observability changes no row
+        for name, app in (("plain", plain), ("observed", observed)):
+            runs[name] = host_engine_run(SiddhiManager(), app, ev, card=True)
+            add(runs[name]["launches"])
+        a, b = runs["plain"], runs["observed"]
+        for s in ew.IOT_OUTS:
+            if a["rows"][s] != b["rows"][s]:
+                fail(f"engine_observe (a): {s}: {len(b['rows'][s])} rows "
+                     f"observed, {len(a['rows'][s])} plain: they differ")
+        for name, run in runs.items():
+            bridged = sorted(x.query_name for x in run["rt"].device_bridges)
+            if bridged != ["chain", "stats"]:
+                fail(f"engine_observe (a) {name}: device bridges {bridged}")
+            if run["errors"]:
+                fail(f"engine_observe (a) {name}: {run['errors']} receiver "
+                     f"errors")
+        if a["rt"].observability.tracer is not None \
+                or b["rt"].observability.tracer is None:
+            fail("engine_observe (a): @app:trace armed the wrong run")
+        # ---- (b) the probes agree with the kernels
+        probes = observe_probes("engine_observe (b)", b["rt"],
+                                b["launches"], n_s)
+
+        # ---- (c) the async driver's health
+        text = observed.replace("strict='true'",
+                                "strict='true', async='true'")
+        c = host_engine_run(SiddhiManager(), text, ev, card=True)
+        add(c["launches"])
+        for s in ("Alerts", "Stats"):
+            if c["rows"][s] != a["rows"][s]:
+                fail(f"engine_observe (c): {s}: {len(c['rows'][s])} rows "
+                     f"async, {len(a['rows'][s])} plain: they differ")
+        health = {}
+        for x in c["rt"].device_bridges:
+            p, drv = x.probe, x.driver
+            if drv is None or p.driver is not drv:
+                fail(f"engine_observe (c): '{x.query_name}' has no driver "
+                     f"on its probe")
+            h = {"pipeline_depth": p.pipeline_depth,
+                 "overlap_efficiency": p.overlap_efficiency,
+                 "device_idle_frac": p.device_idle_frac,
+                 "window": drv.window, "steps": p.steps,
+                 "flush_causes": dict(p.flush_causes)}
+            if not 0.0 <= h["device_idle_frac"] <= 1.0 \
+                    or not 0.0 < h["overlap_efficiency"] <= drv.window:
+                fail(f"engine_observe (c): '{x.query_name}': {h}")
+            health[x.query_name] = h
+        c_probes = observe_probes("engine_observe (c)", c["rt"],
+                                  c["launches"], n_s)
+
+        # ---- (d) the flight recorder under faults
+        d = host_engine_run(SiddhiManager(), OBSERVE_CHAOS + observed, ev,
+                            card=True)
+        add(d["launches"])
+        rt = d["rt"]
+        reps = guard_reports(rt)
+        if not sum(r["failures"] for r in reps.values()) \
+                or any(r["lost_events"] for r in reps.values()):
+            fail(f"engine_observe (d): guards {reps}")
+        breaker = rt.observability.flight_export("breaker")["entries"]
+        device = rt.observability.flight_export("device")["entries"]
+        flight = {}
+        for q, r in reps.items():
+            opened = [e for e in breaker if e["site"] == f"device:{q}"
+                      and e["kind"] == "circuit:open"]
+            failed = [e for e in device if e["site"] == q
+                      and e["kind"] == "step_failed"]
+            fell = [e for e in device if e["site"] == q
+                    and e["kind"] == "fallback_step"]
+            if len(opened) != r["failures"] or len(failed) != r["failures"] \
+                    or bool(fell) != bool(r["failures"]):
+                fail(f"engine_observe (d): '{q}': {len(opened)} circuit "
+                     f"openings, {len(failed)} failed steps, {len(fell)} "
+                     f"fallbacks on the recorder; guard {r}")
+            flight[q] = {"failures": r["failures"],
+                         "breaker_entries": sum(
+                             e["site"] == f"device:{q}" for e in breaker),
+                         "device_entries": sum(e["site"] == q
+                                               for e in device)}
+        every = rt.observability.flight_export()["entries"]
+        if [e["t_ns"] for e in every] != sorted(e["t_ns"] for e in every):
+            fail("engine_observe (d): flight entries out of time order")
+        if not any(e["site"] == "device:chain" for e in breaker):
+            fail("engine_observe (d): no device:chain breaker transition")
+        # a quarantine dumps the ring as JSON (engine_guard (c)'s)
+        dump_dir = os.path.join(scratch, "flight")
+        B = quarantine_batch
+        qapp = (f"@app:flightrecorder(dir='{dump_dir}')\n"
+                "@app:chaos(seed='16', device.fail.p='1.0')\n"
+                "@app:resilience(device.circuit.threshold='2', "
+                "device.circuit.cooldown.ms='60000')\n"
+                + ew.GUARD_FILTER.format(batch=B, extra=""))
+        qev = ew.IotEvents(2 * B, seed + 2)
+        m = SiddhiManager()
+        qrt = filter_run(m, qapp, qev)
+        m.shutdown()
+        dumps = sorted(os.listdir(dump_dir)) if os.path.isdir(dump_dir) \
+            else []
+        if len(dumps) != 1:
+            fail(f"engine_observe (d): {len(dumps)} flight dumps at the "
+                 f"quarantine")
+        with open(os.path.join(dump_dir, dumps[0])) as f:
+            dump = json.load(f)
+        kinds = [e["kind"] for e in dump["entries"]]
+        if dump["reason"] != "device_quarantine" \
+                or "quarantined" not in kinds or "step_failed" not in kinds:
+            fail(f"engine_observe (d): the dump holds {dump['reason']} "
+                 f"{kinds}")
+
+        # ---- (e) the profiler on the chain alone, sync and async
+        profile = profile_in_fresh_processes(seed, profile_events, scratch)
+        for p in profile.values():
+            launches[BlockPlan.__name__] = \
+                launches.get(BlockPlan.__name__, 0) + p["launches"]
+    finally:
+        guard_log.setLevel(level)
+        shutil.rmtree(scratch, ignore_errors=True)
+    if not launches.get(BlockPlan.__name__) \
+            or not launches.get(QueryPlan.__name__):
+        fail(f"engine_observe: launches {launches}")
+    out = {
+        "phase": "engine_observe", "app": "iot_mixed", "events": n_events,
+        "events_per_s": {"plain": ev.n / a["wall"],
+                         "observed": ev.n / b["wall"],
+                         "async_observed": ev.n / c["wall"],
+                         "chaos_observed": ev.n / d["wall"]},
+        "observed_over_plain": a["wall"] / b["wall"],
+        "rows": {s: len(r) for s, r in a["rows"].items()},
+        "rows_equal": True, "probes": probes, "async": {
+            "health": health, "probes": c_probes},
+        "flight": {"queries": flight, "breaker": len(breaker),
+                   "device": len(device), "all": len(every),
+                   "dump_entries": len(dump["entries"]),
+                   "dump_reason": dump["reason"],
+                   "quarantine_rows": len(qrt.got)},
+        "profile": profile,
+        "launches": {"nfa_block": launches[BlockPlan.__name__],
+                     "query_step": launches[QueryPlan.__name__]},
+        "phase_s": time.perf_counter() - t_phase,
+    }
+    emit(out)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=42)
@@ -4230,6 +4643,7 @@ def main() -> int:
     from siddhi_tpu_torch.tools.engine_workloads import IO_EVENTS
     io = audited("engine_io", phase_engine_io, args.seed, IO_EVENTS)
     guard = phase_engine_guard(args.seed)
+    observe = phase_engine_observe(args.seed)
     bound = max(main_out["bound_ms_bytes"], main_out["bound_ms_ops"])
     scan_bound = max(scan_out["bound_ms_bytes"], scan_out["bound_ms_ops"])
     kernels = [{
@@ -4295,6 +4709,7 @@ def main() -> int:
                 fail(f"engine_io: kernel {k['name']} was not launched")
         if k["name"] in guard["launches"]:
             by_path["engine_guard"] = guard["launches"][k["name"]]
+        by_path["engine_observe"] = observe["launches"].get(k["name"], 0)
     print(card, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -20,13 +20,15 @@ context; and so is durable flow control (``flow/``: ``@app:wal``,
 bridges attach), and so is the resilience layer (``resilience/``): every
 ``@device`` query behind a ``DeviceGuard`` that replays a failed step on the
 host interpreter and quarantines a failing device path, ``@app:chaos`` fault
-injection and the ``@app:resilience`` settings.
+injection and the ``@app:resilience`` settings. So is the observability
+subsystem (``observability/``): ``@app:trace``, the always-on flight recorder
+(``@app:flightrecorder``), ``@app:profile`` on ``torch.profiler``, the device
+step probes and the phase attribution, wired after the build.
 
 What later engine slices bring is refused at build time with a
 ``SiddhiAppCreationError`` that names its tier (``_refuse_unported``): the
 fleet and columnar host tiers (``@app:fleet``, ``@app:host_batch`` and a
-query's ``@host_batch``), and the observability subsystem (``@app:trace``,
-``@app:flightrecorder``, ``@app:profile``).
+query's ``@host_batch``).
 """
 
 from __future__ import annotations
@@ -71,9 +73,6 @@ from .trigger import TriggerRuntime, trigger_stream_definition
 _UNPORTED_APP_ANNOTATIONS = {
     "fleet": "the multi-tenant fleet tier",
     "host_batch": "the columnar host tier",
-    "trace": "the observability subsystem",
-    "flightrecorder": "the observability subsystem",
-    "profile": "the observability subsystem",
 }
 
 
@@ -144,12 +143,20 @@ class SiddhiAppRuntime:
             from ..flow.adaptive_batch import parse_adaptive_annotation
             self.ctx.adaptive_cfg = parse_adaptive_annotation(adaptive_ann)
         self.flow = None                # FlowSubsystem when @app:wal/@app:backpressure
+        # observability BEFORE _build: the @app:trace tracer must exist on
+        # the context while queries, sinks and device bridges compile their
+        # instrumentation points
+        from ..observability import ObservabilitySubsystem
+        self.observability = ObservabilitySubsystem(self)
         # sink pipelines — built BEFORE _build so sinks wrap as the IO
         # compiles
         from ..resilience import ResilienceSubsystem
         self.resilience = ResilienceSubsystem(self)
 
         self._build()
+        # gauges/probes over the finished surfaces (bridges, junctions,
+        # sources) — after _build so every element exists
+        self.observability.wire()
 
     # ------------------------------------------------------------------ build
     def _build(self) -> None:
@@ -671,6 +678,7 @@ class SiddhiAppRuntime:
         if not getattr(self, "_defer_sources", False):
             for src in self.sources:
                 src.connect_with_retry()
+        self.observability.on_start()
         self.ctx.statistics_manager.start_reporting()
         if not self.ctx.timestamp_generator.playback:
             self.ctx.ticker = SystemTicker(self.ctx.scheduler)
@@ -711,6 +719,7 @@ class SiddhiAppRuntime:
         self._io_handlers = []
         if self.flow is not None:
             self.flow.close()
+        self.observability.on_shutdown()
         self.ctx.statistics_manager.stop_reporting()
         if self.ctx.ticker is not None:
             self.ctx.ticker.stop()

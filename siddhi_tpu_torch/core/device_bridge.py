@@ -554,7 +554,7 @@ class DeviceQueryBridge:
         self.query_name = query_name
         self.query_callbacks: list = []
         self.guard = None                   # DeviceGuard (resilience layer)
-        self.probe = None                   # no observability probe yet
+        self.probe = None                   # DeviceStepProbe (observability)
         self._on_rows_accepts_ts = True     # deliver() passes the batch ts
         runtime.add_callback(self._on_rows)
         self._out_ts = 0

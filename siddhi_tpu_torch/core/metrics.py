@@ -19,8 +19,9 @@ re-entrant measurements on one tracker can't mis-pair
 Reporters: ``@app(statistics='true')`` enables BASIC; @app elements
 ``statistics.reporter`` ('log' | 'console' | registered name) and
 ``statistics.interval`` (seconds) configure periodic emission — the analog
-of the reference's Dropwizard reporter wiring. The Prometheus exposition
-of the JAX package is not ported yet.
+of the reference's Dropwizard reporter wiring. Machine scraping goes
+through :mod:`siddhi_tpu_torch.observability.prometheus` instead
+(``GET /siddhi-apps/{name}/metrics``).
 """
 
 from __future__ import annotations

@@ -32,8 +32,9 @@ budget as a wall-clock deadline flush on partial batches
 (``flush_deadline_ms``): a tail bounded by about two step times instead of
 the wait for a throughput-sized window to fill.
 
-The ``flight`` (flight recorder) and ``ceiling`` (SLO autopilot) hooks
-belong to tiers the port does not have yet; they stay ``None``.
+The observability subsystem sets the ``flight`` hook (the flight recorder);
+the ``ceiling`` hook (the SLO autopilot) belongs to the fleet tier, which the
+port does not have yet, and stays ``None``.
 """
 
 from __future__ import annotations

@@ -13,9 +13,8 @@ package (``siddhi_tpu_torch/flow``: WAL + replay + backpressure) makes the
   reroute the failed batch through the host interpreter; repeated failures
   quarantine the device path until a cool-down probe re-promotes it);
 - **control plane** — stored failures replay through
-  :meth:`~siddhi_tpu_torch.core.errors.ErrorStore.replay` (the reference
-  also exposes it as service endpoints; the port has no service yet,
-  ``ROADMAP.md`` §A item 6);
+  :meth:`~siddhi_tpu_torch.core.errors.ErrorStore.replay`, exposed as service
+  endpoints (``GET .../error-store``, ``POST .../error-store/replay``);
 - **test substrate** — ``@app:chaos`` wires a deterministic seeded
   :class:`~siddhi_tpu_torch.resilience.chaos.ChaosInjector` across sources,
   sinks, and device steps.

@@ -224,8 +224,7 @@ class DeviceGuard:
         self.fallback_events = 0        # events replayed through the host
         self.lost_events = 0            # shadow-less batches (bulk ingress)
         self.bridge = None              # set by guard_device for callbacks
-        self.flight = None              # FlightRecorder: stays None until
-        # the observability tier (ROADMAP.md §A item 3)
+        self.flight = None              # FlightRecorder (observability wiring)
         self._last_step_fell_back = False
         self._fb_runtime = None
         self._fb_engine = None          # 'scalar' once built

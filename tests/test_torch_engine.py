@@ -418,12 +418,6 @@ REFUSALS = {
     "fleet": ("@app:fleet(tenant='a')\n" + S + Q, "fleet tier"),
     "host_batch": ("@app:host_batch(workers='2')\n" + S + Q,
                    "columnar host tier"),
-    "trace": ("@app:trace(sample='1/1')\n" + S + Q,
-              "observability subsystem"),
-    "flightrecorder": ("@app:flightrecorder(dir='f')\n" + S + Q,
-                       "observability subsystem"),
-    "profile": ("@app:profile(enable='true')\n" + S + Q,
-                "observability subsystem"),
 }
 
 
@@ -449,6 +443,9 @@ PORTED = {
     "adaptive": "@app:adaptive(target.ms='25')\n" + S + Q,
     "chaos": "@app:chaos(seed='1', device.fail.p='0.5')\n" + S + Q,
     "resilience": "@app:resilience(device.quarantine='false')\n" + S + Q,
+    "trace": "@app:trace(sample='1/1')\n" + S + Q,
+    "flightrecorder": "@app:flightrecorder(ring='64')\n" + S + Q,
+    "profile": "@app:profile(enable='true')\n" + S + Q,
 }
 
 

@@ -14,14 +14,16 @@ The reference suites are imported as data, never edited:
   ``QueryCallback``, ``Event``, ``SiddhiAppCreationError``) bound to the
   port's, in the suite's module and on the ``siddhi_tpu`` package, for the
   duration of the call: the reference's own assertions judge the port, the
-  function-local imports included. The IO, flow and sink-pipeline modules
-  (``PORTED_MODULES``) are bound the same way, name by name: every name the
+  function-local imports included. The IO, flow, sink-pipeline,
+  observability, service and doc-generator modules (``PORTED_MODULES``) are
+  bound the same way, name by name: every name the
   port's module defines replaces the reference's in the reference's module
   and in the suite's, and a test double the suite derives from one of those
   classes (a ``Sink``, a ``SourceHandler``) is rebased onto the port's
   class for the call. The suite's own fixtures (``manager``, ``rt``) are
   called as pytest would, and pytest's ``tmp_path``, ``caplog`` and
-  ``monkeypatch`` are the caller's. ``SUITE_ONLY`` picks, for a suite that
+  ``monkeypatch`` are the caller's. A service the suite builds without a
+  manager builds the port's on the CPU. ``SUITE_ONLY`` picks, for a suite that
   also tests tiers outside this set, the functions it contributes; a
   function the suite marks ``slow`` keeps the mark;
 - ``NEEDS_UNPORTED`` lists, by id, the suite functions whose app needs a
@@ -30,8 +32,8 @@ The reference suites are imported as data, never edited:
   where the app carries no annotation of the tier (``UNPORTED_SURFACE``),
   still fail where they read a surface that tier adds.
   ``NEEDS_MODULE`` lists the functions that drive a JAX-package module the
-  port has no counterpart of yet (``siddhi_tpu/service.py``); the port must
-  still lack it.
+  port has no counterpart of yet (the DCN guard of distribution), with its
+  tier; the port must still lack it.
 
 ``test_torch_host_corpus_device.py`` runs both corpora again with a
 non-strict ``@device`` on every query.
@@ -45,6 +47,7 @@ import pytest
 
 import siddhi_tpu
 import siddhi_tpu_torch
+import siddhi_tpu_torch.service as port_service
 from siddhi_tpu_torch.core.errors import SiddhiAppCreationError
 
 import test_pattern_corpus as pattern_corpus
@@ -58,8 +61,8 @@ class PortManager(siddhi_tpu_torch.SiddhiManager):
 
     built = 0
 
-    def __init__(self, device="cpu"):
-        super().__init__(device=device)
+    def __init__(self, device=None):
+        super().__init__(device=device or "cpu")
         PortManager.built += 1
 
 
@@ -79,15 +82,30 @@ PORTED_MODULES = {
     "siddhi_tpu.core.config": "siddhi_tpu_torch.core.config",
     "siddhi_tpu.core.debugger": "siddhi_tpu_torch.core.debugger",
     "siddhi_tpu.core.event": "siddhi_tpu_torch.core.event",
+    "siddhi_tpu.core.extension": "siddhi_tpu_torch.core.extension",
     "siddhi_tpu.core.io": "siddhi_tpu_torch.core.io",
+    "siddhi_tpu.core.metrics": "siddhi_tpu_torch.core.metrics",
     "siddhi_tpu.core.snapshot": "siddhi_tpu_torch.core.snapshot",
     "siddhi_tpu.core.table": "siddhi_tpu_torch.core.table",
+    "siddhi_tpu.doc_gen": "siddhi_tpu_torch.doc_gen",
     "siddhi_tpu.flow": "siddhi_tpu_torch.flow",
     "siddhi_tpu.flow.adaptive_batch": "siddhi_tpu_torch.flow.adaptive_batch",
     "siddhi_tpu.flow.backpressure": "siddhi_tpu_torch.flow.backpressure",
     "siddhi_tpu.flow.records": "siddhi_tpu_torch.flow.records",
     "siddhi_tpu.flow.recovery": "siddhi_tpu_torch.flow.recovery",
     "siddhi_tpu.flow.wal": "siddhi_tpu_torch.flow.wal",
+    "siddhi_tpu.observability": "siddhi_tpu_torch.observability",
+    "siddhi_tpu.observability.flight_recorder":
+        "siddhi_tpu_torch.observability.flight_recorder",
+    "siddhi_tpu.observability.histogram":
+        "siddhi_tpu_torch.observability.histogram",
+    "siddhi_tpu.observability.phases": "siddhi_tpu_torch.observability.phases",
+    "siddhi_tpu.observability.profiler":
+        "siddhi_tpu_torch.observability.profiler",
+    "siddhi_tpu.observability.prometheus":
+        "siddhi_tpu_torch.observability.prometheus",
+    "siddhi_tpu.observability.tracing":
+        "siddhi_tpu_torch.observability.tracing",
     "siddhi_tpu.resilience": "siddhi_tpu_torch.resilience",
     "siddhi_tpu.resilience.chaos": "siddhi_tpu_torch.resilience.chaos",
     "siddhi_tpu.resilience.circuit": "siddhi_tpu_torch.resilience.circuit",
@@ -95,9 +113,15 @@ PORTED_MODULES = {
         "siddhi_tpu_torch.resilience.device_guard",
     "siddhi_tpu.resilience.sink_pipeline":
         "siddhi_tpu_torch.resilience.sink_pipeline",
+    "siddhi_tpu.service": "siddhi_tpu_torch.service",
     "siddhi_tpu.tpu.dcn": "siddhi_tpu_torch.gpu.dcn",
     "siddhi_tpu.tpu.expr_compile": "siddhi_tpu_torch.gpu.expr_compile",
 }
+
+# the module-level registries of a bound module that a suite fills: bound
+# too, so what the suite registers reaches the port's classes
+REGISTRIES = {"siddhi_tpu.core.metrics": ("REPORTERS",)}
+
 
 def ported_names() -> list:
     """``(reference module, name, port object)`` for every bound name."""
@@ -112,6 +136,8 @@ def ported_names() -> list:
                         "siddhi_tpu_torch."):
                 continue
             out.append((ref, name, obj))
+        out.extend((ref, name, getattr(port, name))
+                   for name in REGISTRIES.get(ref_name, ()))
     return out
 
 
@@ -212,13 +238,14 @@ SUITES = ["test_partition_corpus", "test_join_corpus", "test_filter_query",
           "test_aggregation_purge", "test_persisted_aggregation",
           "test_incremental_persistence", "test_cache_table",
           "test_record_pushdown", "test_config", "test_metrics",
-          "test_torn_fuzz", "test_bridge_fuzz", "test_device_pipeline"]
+          "test_torn_fuzz", "test_bridge_fuzz", "test_device_pipeline",
+          "test_observability", "test_xray", "test_service_and_docs"]
 
 # suites that also test tiers outside the port's → the functions they
 # contribute: the IO tier and the sink pipeline (the rest of
 # test_edge_rows holds the columnar host tier, the fleet and the JAX
-# package's own parsers and lints; the rest of test_resilience the device
-# guard, chaos and the service)
+# package's own parsers and lints; the rest of test_resilience the JAX
+# package's except-clause lint)
 SUITE_ONLY = {
     "test_edge_rows": {
         "test_source_chunk_boundary_parity_fuzz",
@@ -287,6 +314,18 @@ NOT_SUITE_FUNCTIONS = {
     ("test_torn_fuzz", "test_snapshot_corrupt_newest_falls_back"),
     ("test_torn_fuzz", "test_snapshot_all_revisions_corrupt_returns_none"),
     ("test_torn_fuzz", "test_snapshot_missing_meta_member_falls_back"),
+    # run the JAX package's scripts/check_metric_names.py over its render
+    ("test_observability", "test_check_metric_names_lint_passes"),
+    # the JAX package's metric-name lint on literal exposition text
+    ("test_observability", "test_check_metric_names_catches_offenders"),
+    ("test_xray", "test_metric_lint_catches_exemplar_and_cardinality_offenders"),
+    # runs the JAX package's scripts/check_span_coverage.py over its sources
+    ("test_xray", "test_check_span_coverage_lint_passes"),
+    # the extension's metadata is built at import from the JAX package's
+    # DataType, which no binding reaches and the port's validator refuses
+    # (tests/test_torch_observability.py holds the port's validator)
+    ("test_service_and_docs", "test_validate_extension_args"),
+    ("test_service_and_docs", "test_build_time_validation_in_query"),
 }
 
 # suite function id → the tier its app needs, which the port refuses
@@ -308,33 +347,22 @@ NEEDS_UNPORTED: dict[str, str] = {
         "the multi-tenant fleet tier",
     "test_metrics::test_guard_metric_families_unregister_on_shutdown":
         "the multi-tenant fleet tier",
-    "test_device_pipeline::test_driver_overlap_counters_and_gauges":
-        "the observability subsystem",
-    "test_device_pipeline::test_deadline_flush_bounds_partial_batch_wait":
-        "the observability subsystem",
-    "test_device_pipeline::test_flush_cause_accounting_capacity_and_drain":
-        "the observability subsystem",
+    "test_xray::test_observability_overhead_pin_on_columnar_micro_corpus":
+        "the columnar host tier",
 }
 
 # of those, the functions whose app carries no annotation of the tier, so
 # the port builds it; each reads a surface that the tier adds, and must
-# still fail there: the exception and the message the port gives (the
-# device step probe, ``bridge.probe``, stays None, and its gauges are not
-# registered)
-UNPORTED_SURFACE: dict[str, tuple] = {
-    "test_device_pipeline::test_driver_overlap_counters_and_gauges":
-        (KeyError, "device.query-1.pipeline_depth"),
-    "test_device_pipeline::test_deadline_flush_bounds_partial_batch_wait":
-        (AttributeError, "'NoneType' object has no attribute 'flush_causes'"),
-    "test_device_pipeline::test_flush_cause_accounting_capacity_and_drain":
-        (AttributeError, "'NoneType' object has no attribute 'flush_causes'"),
-}
+# still fail there: the exception and the message the port gives (none
+# today)
+UNPORTED_SURFACE: dict[str, tuple] = {}
 
 # suite function id → the JAX-package module it drives, which the port does
-# not have yet (the port must still lack it)
-NEEDS_MODULE: dict[str, str] = {
-    "test_flow::test_service_flow_endpoints": "service",
-    "test_resilience::test_error_store_service_endpoints": "service",
+# not have yet (the port must still lack it), and the tier it comes with
+NEEDS_MODULE: dict[str, tuple] = {
+    # the DCN trace stitching: the reference's DCNWorker and DCN guard
+    "test_xray::test_two_host_trace_stitching_survives_retry_and_takeover":
+        ("resilience.dcn_guard", "distribution"),
 }
 
 
@@ -405,6 +433,8 @@ def bind_port_names(monkeypatch, mod, request) -> set:
     for ref, name, obj in ported_names():
         port_of[id(getattr(ref, name))] = obj
         monkeypatch.setattr(ref, name, obj)
+    # a service that builds its own manager builds the port's on the CPU
+    monkeypatch.setattr(port_service, "SiddhiManager", PortManager)
     for name, val in list(vars(mod).items()):
         if name in bound:
             continue
@@ -507,7 +537,7 @@ def test_reference_suite_function_on_the_port(modname, fname, kwargs,
     mod = importlib.import_module(modname)
     fn = getattr(mod, fname)
     fid = request.node.callspec.id
-    missing = NEEDS_MODULE.get(fid)
+    missing, _tier = NEEDS_MODULE.get(fid, (None, None))
     if missing is not None:
         assert importlib.util.find_spec(f"siddhi_tpu.{missing}") is not None
         assert importlib.util.find_spec(

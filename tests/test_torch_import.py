@@ -71,6 +71,15 @@ def test_import_loads_neither_jax_nor_the_reference():
         "import siddhi_tpu_torch.flow.records, siddhi_tpu_torch.flow.recovery\n"
         "import siddhi_tpu_torch.flow.backpressure\n"
         "import siddhi_tpu_torch.flow.adaptive_batch\n"
+        "import siddhi_tpu_torch.observability\n"
+        "import siddhi_tpu_torch.observability.profiler\n"
+        "import siddhi_tpu_torch.observability.prometheus\n"
+        "import siddhi_tpu_torch.observability.flight_recorder\n"
+        "import siddhi_tpu_torch.observability.tracing\n"
+        "import siddhi_tpu_torch.observability.phases\n"
+        "import siddhi_tpu_torch.service, siddhi_tpu_torch.doc_gen\n"
+        "from siddhi_tpu_torch.observability import ObservabilitySubsystem\n"
+        "from siddhi_tpu_torch.service import SiddhiService\n"
         "from siddhi_tpu_torch import SiddhiManager, StreamCallback\n"
         "from siddhi_tpu_torch import InMemoryBroker, recover\n"
         "print('\\n'.join(sorted(sys.modules)))\n")
@@ -116,6 +125,14 @@ def test_entry_points_without_a_card_raise(monkeypatch):
     rt = PartitionedNFARuntime(APP, num_partitions=2, key_attr="dev",
                                device="cpu")
     assert rt.device.type == "cpu"
+    # the service builds its own manager on the card unless asked otherwise
+    from siddhi_tpu_torch.service import SiddhiService
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SiddhiService()
+    svc = SiddhiService(device="cpu")
+    assert svc.manager.device.type == "cpu"
+    svc.start()
+    svc.stop()
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():

@@ -283,8 +283,10 @@ Phases, one JSON line each:
                stateless filter (B5a, batch 2048, async) under 25 % faults:
                its rows equal a fault-free card run's, ``v`` as float32;
                (c) a quarantine: after two faults the circuit opens and
-               the kernel is not launched while it is open, then with the
-               fault healed and the cool-down passed a probe re-promotes
+               the kernel is not launched while it is open (a cool-down of
+               ``GUARD_COOLDOWN_MS``, which the window must not outlast),
+               then with the fault healed and the cool-down passed a probe
+               re-promotes
                it and it launches again, every event delivered once; (d)
                the chain and ``grouped_length`` of the engine phase with
                the default guard and with ``device.quarantine='false'``
@@ -319,6 +321,34 @@ Phases, one JSON line each:
                ``siddhi:step:chain`` range a step and one
                ``nfa_block_kernel`` record a launch; their device time
                beside the probe's busy seconds.
+ 17. engine_columnar — the columnar host tier beside the kernels: (a)
+               ``iot_mixed`` at the engine's widths under
+               ``@app:host_batch(batch='8192', lanes='16')``,
+               ``COLUMNAR_EVENTS`` events, sync: ``clean`` and
+               ``alert_rate`` on the columnar tier, ``chain`` and ``stats``
+               on the kernels, ``top`` and ``room_peak`` on the
+               interpreter, as the same app built on the CPU has them;
+               every output's rows equal the run without the annotation,
+               in order (``AlertRate``, whose columnar time window expires
+               by the alerts' own times, held to ``alert_rate_rows`` with
+               no timer where it differs); B1 and B5a launched; (b) the
+               partitioned 3-state chain of the parallel lane tier
+               (``COLUMNAR_PAR_APP``, batch 2048, 8 lanes) with 1 worker,
+               4 threads and 4 lane processes: equal rows and
+               ``match_count``, and a snapshot cut under 2 workers resumed
+               under 4 equal to the uninterrupted run; (c) under
+               ``@app:chaos(seed='18', device.fail.p='0.05')`` a ``@device``
+               filter replays its faulted batches on the columnar engine
+               (``fallback_engine`` ``"columnar"``, rows equal to a run
+               without faults, ``v`` as float32) and ``iot_mixed``'s guards
+               equal the CPU engine's, the chain's replays columnar (stats,
+               a windowed group-by, keeps the interpreter as in the
+               reference), no event lost, rows equal to the CPU engine's;
+               (d) ``samples/columnar_edge.py``'s app from a CSV file of
+               ``COLUMNAR_EDGE_ROWS`` ``iot`` events through the file
+               source, the columnar filter and the ``inMemory`` sink with
+               no ``Event``/``StreamEvent`` built, its published rows equal
+               the interpreter's. Events/s of every run.
 Then the card's name and power limit (nvidia-smi), the ``kernels`` line and,
 last, ``{"ok": true, "device": {...}}``. Any failure exits non-zero before
 that line. Needs one CUDA card; fails without one.
@@ -3207,7 +3237,11 @@ def host_engine_run(manager, app: str, ev, card: bool, hook=None) -> dict:
         reset_launches()              # counts from here: the engine path
     t0 = time.perf_counter()
     ew.feed_iot(rt, ev)
+    # columnar host queries (@app:host_batch) feed device queries and read
+    # their outputs: drain them on both sides of the device flush
+    rt.flush_host()
     rt.flush_device()
+    rt.flush_host()
     if card:
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -3807,6 +3841,7 @@ GUARD_EVENTS = 65_536              # iot_mixed events under chaos, per run
 GUARD_FILTER_EVENTS = 65_536       # (b): the stateless filter's events
 GUARD_COST_EVENTS = 131_072        # (d): events per app and run
 GUARD_QUARANTINE_BATCH = 1024      # (c): the filter's batch
+GUARD_COOLDOWN_MS = 2000           # (c): the breaker's cool-down
 
 
 class GuardCount:
@@ -4135,11 +4170,14 @@ def phase_engine_guard(seed: int, n_events: int = GUARD_EVENTS,
         for k, v in got_b.items():
             launches[k] = launches.get(k, 0) + v
 
-        # ---- (c) quarantine, then the probe re-promotes the kernel
+        # ---- (c) quarantine, then the probe re-promotes the kernel. The
+        # cool-down must outlast the OPEN window (the second fault's
+        # replay, 2 * B sends one by one, two replays): at 50 ms a slow
+        # host let it lapse, and the HALF_OPEN probe failed a third time.
         B = quarantine_batch
         qapp = ("@app:chaos(seed='16', device.fail.p='1.0')\n"
                 "@app:resilience(device.circuit.threshold='2', "
-                "device.circuit.cooldown.ms='50')\n"
+                f"device.circuit.cooldown.ms='{GUARD_COOLDOWN_MS}')\n"
                 + ew.GUARD_FILTER.format(batch=B, extra=""))
         qev = ew.IotEvents(6 * B, seed + 2)
         m = SiddhiManager()
@@ -4155,12 +4193,15 @@ def phase_engine_guard(seed: int, n_events: int = GUARD_EVENTS,
         filter_run(m, qapp, qev, 2 * B, 4 * B, rt=rt)   # while OPEN
         torch.cuda.synchronize()
         while_open = read_launches()[QueryPlan.__name__]
+        open_window_s = guard.breaker.cooldown_s \
+            - guard.breaker.remaining_cooldown()
         if at_open or while_open or guard.failures != 2 \
                 or guard.fallback_events != 4 * B:
             fail(f"engine_guard (c): launched {at_open} / {while_open} "
-                 f"times while faulted / OPEN: {guard.report()}")
+                 f"times while faulted / OPEN ({open_window_s:.3f} s of "
+                 f"the cool-down gone): {guard.report()}")
         rt.resilience.chaos.device_fail_p = 0.0          # healed
-        time.sleep(0.06)                                 # the cool-down
+        time.sleep(guard.breaker.remaining_cooldown() + 0.01)
         filter_run(m, qapp, qev, 4 * B, 6 * B, rt=rt)   # probe, then on
         torch.cuda.synchronize()
         after = read_launches()[QueryPlan.__name__]
@@ -4179,6 +4220,8 @@ def phase_engine_guard(seed: int, n_events: int = GUARD_EVENTS,
                       "launches_faulted": at_open,
                       "launches_while_open": while_open,
                       "launches_after_probe": after,
+                      "cooldown_s": guard.breaker.cooldown_s,
+                      "open_window_s": open_window_s,
                       "report": guard.report()}
         m.shutdown()
         launches[QueryPlan.__name__] += after
@@ -4596,6 +4639,408 @@ def phase_engine_observe(seed: int, n_events: int = OBSERVE_EVENTS,
     return out
 
 
+# ------------------------------------------------------------ engine_columnar
+
+COLUMNAR_EVENTS = 65_536           # (a): iot_mixed events a run
+COLUMNAR_PAR_EVENTS = 65_536       # (b): the partitioned chain's events
+COLUMNAR_PAR_CHUNK = 2_048         # (b): events a send_columns call
+# (c): iot_mixed under chaos, a card run and a CPU run (cut from 65,536 for
+# the CPU engine's run; at 32,768 events the seeded sites still fault: the
+# chain at its steps 5 and 13 of 16, stats at its step 2 of 8)
+COLUMNAR_CHAOS_EVENTS = 32_768
+COLUMNAR_FILTER_EVENTS = 65_536    # (c): the filter's events (64 batches
+COLUMNAR_FILTER_BATCH = 1_024      # of 1,024: faults at steps 36 and 46)
+COLUMNAR_EDGE_ROWS = 262_144       # (d): the CSV file's rows
+COLUMNAR_ANN = "@app:host_batch(batch='8192', lanes='16')\n"
+COLUMNAR_CHAOS = "@app:chaos(seed='18', device.fail.p='0.05')\n"
+# (b): tests/test_edge_rows.py's _PAR_APP
+COLUMNAR_PAR_APP = """
+@app(name='{name}')
+@app:host_batch(batch='2048', lanes='8', workers='{workers}'{mode})
+define stream S (dev string, v double);
+partition with (dev of S)
+begin
+from every e1=S[v > 70.0] -> e2=S[v > e1.v] -> e3=S[v > e2.v] within 400
+select e1.v as v1, e2.v as v2, e3.v as v3 insert into Alerts;
+end;
+"""
+
+
+def tiers(rt) -> dict:
+    """Which tier runs each query of ``rt``."""
+    return {"device": sorted(b.query_name for b in rt.device_bridges),
+            "columnar": sorted((b.kind, b.query_name)
+                               for b in rt.host_bridges),
+            "interpreter": sorted(rt.query_runtimes),
+            "partitions": sorted(q.name() for p in rt.partition_runtimes
+                                 for q in p.partition_ast.queries)}
+
+
+def par_feed(n: int, seed: int) -> tuple:
+    """(b)'s events: ``dev`` of 8 devices, ``v`` to three places, ``ts``
+    rising by 1 ms (``test_edge_rows._pattern_feed``'s, drawn with numpy)."""
+    rng = np.random.default_rng(seed)
+    dev = np.array([f"dev{k}" for k in range(8)], dtype=object)[
+        rng.integers(0, 8, n)]
+    return (dev, np.round(rng.uniform(0.0, 100.0, n), 3),
+            1_000 + np.arange(n, dtype=np.int64))
+
+
+def par_run(feed: tuple, workers: int, mode: str, name: str, lo: int = 0,
+            hi: int | None = None, snapshot_at: int | None = None,
+            restore: bytes | None = None) -> dict:
+    """``COLUMNAR_PAR_APP`` over events ``lo:hi`` of ``feed`` in
+    ``send_columns`` chunks, on the card's manager: its ``Alerts`` rows, the
+    lane tier's ``match_count``, the first chunk's seconds (a process pool
+    spawns its children there), the wall of the chunks after it, and the
+    snapshot cut at event ``snapshot_at``. ``restore`` is restored before
+    the first event."""
+    from siddhi_tpu_torch import SiddhiManager, StreamCallback
+    dev, v, ts = feed
+    hi = len(ts) if hi is None else hi
+    extra = f", workers.mode='{mode}'" if mode == "process" else ""
+    m = SiddhiManager()
+    try:
+        rt = m.create_siddhi_app_runtime(COLUMNAR_PAR_APP.format(
+            name=name, workers=workers, mode=extra), playback=True)
+        rows = []
+        rt.add_callback("Alerts", StreamCallback(lambda evs: rows.extend(
+            (e.timestamp, tuple(e.data)) for e in evs)))
+        rt.start()
+        if restore is not None:
+            rt.restore(restore)
+        prt = rt.host_bridges[0].runtime.prt
+        ih = rt.input_handler("S")
+        blob = None
+        t0 = t1 = time.perf_counter()
+        for s in range(lo, hi, COLUMNAR_PAR_CHUNK):
+            e = min(s + COLUMNAR_PAR_CHUNK, hi)
+            ih.send_columns({"dev": dev[s:e], "v": v[s:e]}, ts[s:e])
+            if s == lo:
+                t1 = time.perf_counter()
+            if snapshot_at is not None and e >= snapshot_at and blob is None:
+                blob = rt.snapshot()
+        rt.flush_host()
+        wall = time.perf_counter() - t1
+        pool = prt._proc_pool
+        out = {"rows": rows, "matches": prt.match_count,
+               "first_chunk_s": t1 - t0, "wall": wall,
+               "timed_events": max(hi - lo - COLUMNAR_PAR_CHUNK, 0),
+               "blob": blob, "threads": prt._pool is not None,
+               "children": None if pool is None else pool.report()["alive"],
+               "tiers": tiers(rt)}
+    finally:
+        m.shutdown()
+    return out
+
+
+def edge_csv(ev, path: str) -> None:
+    """(d)'s file: ``ev`` as CSV lines in the columnar edge sample's layout
+    ``symbol,price,volume,ts`` (``dev``, ``v``, ``room``): the events of
+    ``iot_csv``, in the order of the sample's stream."""
+    with open(path, "w") as f:
+        f.write("".join(f"{d},{v!r},{r},{t}\n" for d, r, v, t in
+                        zip(ev.dev, ev.room, ev.v, ev.ts)))
+
+
+def edge_run(app: str, columnar: bool, topic: str) -> dict:
+    """``samples/columnar_edge.py``'s app from its CSV file to its
+    ``inMemory`` sink: the published rows, the wall from start to the
+    source's drain, and the ``Event``/``StreamEvent`` objects built on the
+    way (counted while the run lasts)."""
+    from siddhi_tpu_torch import InMemoryBroker, SiddhiManager
+    from siddhi_tpu_torch.core.event import Event, StreamEvent
+    text = app if columnar else app.replace(
+        "@app:host_batch(batch='4096')\n", "")
+    text = text.replace("topic='high-price'", f"topic='{topic}'")
+    rows = []
+
+    def take(p):
+        if hasattr(p, "rows"):            # a RowsChunk: columns, no events
+            rows.extend(tuple(r) for r in p.rows(["symbol", "price"]))
+        else:
+            rows.append(tuple(p.data))
+
+    unsub = InMemoryBroker.subscribe(topic, take)
+    built = {"n": 0}
+    inits = (StreamEvent.__init__, Event.__init__)
+
+    def counted(init):
+        def wrapper(self, *a, **k):
+            built["n"] += 1
+            init(self, *a, **k)
+        return wrapper
+
+    m = SiddhiManager()
+    try:
+        rt = m.create_siddhi_app_runtime(text, playback=True)
+        StreamEvent.__init__, Event.__init__ = map(counted, inits)
+        try:
+            t0 = time.perf_counter()
+            rt.start()
+            if not rt.sources[0].wait_drained(600.0):
+                fail("engine_columnar (d): the file source did not drain")
+            rt.flush_host()
+            wall = time.perf_counter() - t0
+        finally:
+            StreamEvent.__init__, Event.__init__ = inits
+        out = {"rows": rows, "wall": wall, "objects": built["n"],
+               "bridges": [b.query_name for b in rt.host_bridges],
+               "parse_errors": rt.sources[0].mapper.parse_errors}
+    finally:
+        unsub()
+        m.shutdown()
+    return out
+
+
+def sample_template(name: str) -> str:
+    """``samples/<name>.py``'s ``APP`` f-string as a ``str.format``
+    template (read as data: the sample imports the JAX package)."""
+    import ast
+    tree = ast.parse(open(os.path.join(REPO, "samples",
+                                       f"{name}.py")).read())
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and node.targets[0].id == "APP":
+            return "".join(
+                v.value.replace("{", "{{").replace("}", "}}")
+                if isinstance(v, ast.Constant)
+                else "{" + ast.unparse(v.value) + "}"
+                for v in node.value.values)
+    fail(f"engine_columnar (d): samples/{name}.py has no APP")
+
+
+def phase_engine_columnar(seed: int, n_events: int = COLUMNAR_EVENTS,
+                          par_events: int = COLUMNAR_PAR_EVENTS,
+                          chaos_events: int = COLUMNAR_CHAOS_EVENTS,
+                          filter_events: int = COLUMNAR_FILTER_EVENTS,
+                          edge_rows: int = COLUMNAR_EDGE_ROWS,
+                          widths: dict | None = None) -> dict:
+    """The columnar host tier beside the kernels: (a) ``iot_mixed`` under
+    ``@app:host_batch(batch='8192', lanes='16')``, each query on the tier
+    the CPU engine gives it and every output equal to the plain run's; (b)
+    the partitioned chain of the parallel lane tier with 1 worker, 4
+    threads and 4 processes, equal rows and matches, and a snapshot cut
+    under 2 workers resumed under 4; (c) the guard's columnar fallback on
+    the card under ``@app:chaos(seed='18', device.fail.p='0.05')``, over a
+    filter and over ``iot_mixed``; (d) the columnar edge sample from a
+    CSV file to its sink without an ``Event``. ``widths`` (``iot_mixed``'s)
+    and the event counts shrink it for a rehearsal on the CPU."""
+    import logging
+    import shutil
+    import torch
+    from siddhi_tpu_torch import SiddhiManager
+    from siddhi_tpu_torch.gpu.nfa_block import BlockPlan
+    from siddhi_tpu_torch.gpu.query_step import QueryPlan
+    from siddhi_tpu_torch.tools import engine_workloads as ew
+    if not torch.cuda.is_available():
+        fail("engine_columnar: no CUDA device")
+    t_phase = time.perf_counter()
+    guard_log = logging.getLogger("siddhi_tpu_torch.resilience")
+    level = guard_log.level
+    guard_log.setLevel(logging.ERROR)
+    records = ErrorRecords()
+    launches = {}
+    scratch = io_scratch()
+
+    def add(got):
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+
+    try:
+        # ---- (a) iot_mixed with its host queries on the columnar tier
+        plain_app = ew.iot_mixed_app(**(widths or {}))
+        app = COLUMNAR_ANN + plain_app
+        ev = ew.IotEvents(n_events, seed)
+        plain = host_engine_run(SiddhiManager(), plain_app, ev, card=True)
+        col = host_engine_run(SiddhiManager(), app, ev, card=True)
+        add(col["launches"])
+        m = SiddhiManager(device="cpu")
+        cpu_tiers = tiers(m.create_siddhi_app_runtime(app, playback=True))
+        m.shutdown()
+        expect = {"device": ["chain", "stats"],
+                  "columnar": [("host_stream", "alert_rate"),
+                               ("host_stream", "clean")],
+                  "interpreter": ["top"], "partitions": ["room_peak"]}
+        got_tiers = tiers(col["rt"])
+        if got_tiers != cpu_tiers or got_tiers != expect:
+            fail(f"engine_columnar (a): tiers {got_tiers}, on the CPU "
+                 f"{cpu_tiers}")
+        if col["errors"] or plain["errors"]:
+            fail(f"engine_columnar (a): receiver errors {col['errors']} / "
+                 f"{plain['errors']}")
+        alert_rate = "equal"
+        for s in ew.IOT_OUTS:
+            if col["rows"][s] == plain["rows"][s]:
+                continue
+            if s == "AlertRate":
+                # alert_rate runs on the columnar tier, whose time window
+                # expires by the alerts' own times and never by the
+                # playback clock's timers: the plain window over its
+                # alerts as they arrived, no timer firing
+                want = alert_rate_rows(
+                    [(t, 0, None) for t, _ in col["rows"]["Alerts"]])
+                if col["rows"][s] == want:
+                    alert_rate = "held to alert_rate_rows"
+                    continue
+            fail(f"engine_columnar (a): {s}: {len(col['rows'][s])} rows "
+                 f"under @app:host_batch, {len(plain['rows'][s])} "
+                 f"without: they differ")
+        if not col["launches"][BlockPlan.__name__] \
+                or not col["launches"][QueryPlan.__name__]:
+            fail(f"engine_columnar (a): launches {col['launches']}")
+        hb = {b.query_name: {"events": b.events_in, "batches": b.batches}
+              for b in col["rt"].host_bridges}
+
+        # ---- (b) the parallel lane tier: 1 worker, 4 threads, 4 processes
+        feed = par_feed(par_events, seed)
+        par = {}
+        for label, workers, mode in (("workers_1", 1, "thread"),
+                                     ("threads_4", 4, "thread"),
+                                     ("processes_4", 4, "process")):
+            par[label] = par_run(feed, workers, mode, f"par-{label}")
+        base = par["workers_1"]
+        if not base["matches"] or base["matches"] != len(base["rows"]):
+            fail(f"engine_columnar (b): {base['matches']} matches, "
+                 f"{len(base['rows'])} rows")
+        for label, r in par.items():
+            if r["rows"] != base["rows"] or r["matches"] != base["matches"]:
+                fail(f"engine_columnar (b) {label}: {len(r['rows'])} rows, "
+                     f"{r['matches']} matches; 1 worker: "
+                     f"{len(base['rows'])}, {base['matches']}")
+            if r["tiers"]["columnar"] != [("host_partition",
+                                           "partition-1-query-0")]:
+                fail(f"engine_columnar (b) {label}: tiers {r['tiers']}")
+        if not par["threads_4"]["threads"] \
+                or par["processes_4"]["children"] != 4:
+            fail(f"engine_columnar (b): thread pool "
+                 f"{par['threads_4']['threads']}, "
+                 f"{par['processes_4']['children']} lane children")
+        cut = par_events // 2
+        first = par_run(feed, 2, "thread", "par-snap-a", 0, cut,
+                        snapshot_at=cut)
+        second = par_run(feed, 4, "thread", "par-snap-b", cut,
+                         restore=first["blob"])
+        if first["rows"] + second["rows"] != base["rows"]:
+            fail(f"engine_columnar (b): the snapshot cut under 2 workers "
+                 f"and resumed under 4 gives {len(first['rows'])} + "
+                 f"{len(second['rows'])} rows, the uninterrupted run "
+                 f"{len(base['rows'])}")
+
+        # ---- (c) the guard's columnar fallback on the card
+        fev = ew.IotEvents(filter_events, seed + 1)
+        text = ew.GUARD_FILTER.format(batch=COLUMNAR_FILTER_BATCH, extra="")
+        faulted = (COLUMNAR_CHAOS
+                   + "@app:resilience(device.circuit.threshold='1000')\n"
+                   + text)
+        clean = filter_run(SiddhiManager(), text, fev)
+        m = SiddhiManager()
+        torch.cuda.synchronize()
+        reset_launches()
+        frt = filter_run(m, faulted, fev)
+        torch.cuda.synchronize()
+        add(read_launches())
+        m.shutdown()
+        f_rep = guard_reports(frt)
+        engines = {}
+        for name, r in f_rep.items():
+            if not r["failures"] or r["lost_events"] \
+                    or r["fallback_engine"] != "columnar":
+                fail(f"engine_columnar (c) filter: guard '{name}': {r}")
+            engines[f"filter/{name}"] = r["fallback_engine"]
+        if f32_rows(frt.got) != f32_rows(clean.got):
+            fail(f"engine_columnar (c) filter: {len(frt.got)} rows, the "
+                 f"run without faults {len(clean.got)}: (dev, float32 v) "
+                 f"differ")
+        cev = ew.IotEvents(chaos_events, seed + 3)
+        capp = COLUMNAR_CHAOS + "@app:resilience(" \
+            "device.circuit.threshold='1000')\n" + plain_app
+        card = host_engine_run(SiddhiManager(), capp, cev, card=True)
+        add(card["launches"])
+        cpu = host_engine_run(SiddhiManager(device="cpu"), capp, cev,
+                              card=False)
+        c_rep, cpu_rep = guard_reports(card["rt"]), guard_reports(cpu["rt"])
+        # the engine the reference's columnar tier gives each query: the
+        # chain lowers; a windowed group-by (stats) keeps the interpreter
+        want_engine = {"chain": "columnar", "stats": "scalar"}
+        for name, r in c_rep.items():
+            if r["lost_events"] or r != cpu_rep[name] or (
+                    r["failures"]
+                    and r["fallback_engine"] != want_engine[name]):
+                fail(f"engine_columnar (c) iot_mixed: guard '{name}': "
+                     f"card {r}, CPU {cpu_rep[name]}")
+            if r["failures"]:
+                engines[f"iot_mixed/{name}"] = r["fallback_engine"]
+        if not c_rep["chain"]["failures"]:
+            fail(f"engine_columnar (c) iot_mixed: the chain never faulted: "
+                 f"{c_rep}")
+        for s in ("Alerts", "AlertRate", "Top", "RoomPeak"):
+            if card["rows"][s] != cpu["rows"][s]:
+                fail(f"engine_columnar (c) iot_mixed: {s}: "
+                     f"{len(card['rows'][s])} rows on the card, "
+                     f"{len(cpu['rows'][s])} on the CPU: they differ")
+        q = plan_of(next(b for b in card["rt"].device_bridges
+                         if b.query_name == "stats").runtime)
+        close_rows(query_shapes_module(), q, cpu["scale"],
+                   cpu["rows"]["Stats"], card["rows"]["Stats"],
+                   "engine_columnar (c) Stats (card vs CPU)")
+
+        # ---- (d) the columnar edge: CSV file → columns → sink
+        dev_ = ew.IotEvents(edge_rows, seed + 4)
+        path = os.path.join(scratch, "ticks.csv")
+        edge_csv(dev_, path)
+        eapp = sample_template("columnar_edge").format(csv_path=path)
+        scalar = edge_run(eapp, False, "edge-scalar")
+        edge = edge_run(eapp, True, "edge-columnar")
+        if edge["objects"] or edge["bridges"] != ["filterQuery"] \
+                or scalar["bridges"]:
+            fail(f"engine_columnar (d): {edge['objects']} Event/StreamEvent "
+                 f"objects built, columnar bridges {edge['bridges']} / "
+                 f"{scalar['bridges']}")
+        if edge["rows"] != scalar["rows"] or not edge["rows"] \
+                or edge["parse_errors"] or scalar["parse_errors"]:
+            fail(f"engine_columnar (d): {len(edge['rows'])} rows published, "
+                 f"the scalar run {len(scalar['rows'])}: they differ")
+        records.check("engine_columnar")
+    finally:
+        records.close()
+        guard_log.setLevel(level)
+        shutil.rmtree(scratch, ignore_errors=True)
+    if not launches.get(BlockPlan.__name__) \
+            or not launches.get(QueryPlan.__name__):
+        fail(f"engine_columnar: launches {launches}")
+    out = {
+        "phase": "engine_columnar", "app": "iot_mixed + host_batch",
+        "events": n_events,
+        "tiers": {k: v for k, v in got_tiers.items()},
+        "host_bridges": hb,
+        "events_per_s": {"plain": ev.n / plain["wall"],
+                         "host_batch": ev.n / col["wall"]},
+        "rows": {s: len(r) for s, r in col["rows"].items()},
+        "rows_equal_to_plain": True, "alert_rate": alert_rate,
+        "parallel": {"events": par_events, "matches": base["matches"],
+                     # after the first chunk, whose seconds are apart
+                     "events_per_s": {k: r["timed_events"] / r["wall"]
+                                      for k, r in par.items()},
+                     "first_chunk_s": {k: r["first_chunk_s"]
+                                       for k, r in par.items()},
+                     "snapshot_2_to_4_equal": True},
+        "guard": {"fallback_engines": engines,
+                  "filter": {"events": fev.n, "guards": f_rep,
+                             "rows": len(frt.got)},
+                  "iot_mixed": {"events": cev.n, "guards": c_rep,
+                                "equal_to_cpu_engine": True}},
+        "edge": {"rows": edge_rows, "published": len(edge["rows"]),
+                 "objects": edge["objects"],
+                 "events_per_s": edge_rows / edge["wall"],
+                 "scalar_events_per_s": edge_rows / scalar["wall"]},
+        "launches": {"nfa_block": launches[BlockPlan.__name__],
+                     "query_step": launches[QueryPlan.__name__]},
+        "error_records": 0, "phase_s": time.perf_counter() - t_phase,
+    }
+    emit(out)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=42)
@@ -4644,6 +5089,7 @@ def main() -> int:
     io = audited("engine_io", phase_engine_io, args.seed, IO_EVENTS)
     guard = phase_engine_guard(args.seed)
     observe = phase_engine_observe(args.seed)
+    columnar = phase_engine_columnar(args.seed)
     bound = max(main_out["bound_ms_bytes"], main_out["bound_ms_ops"])
     scan_bound = max(scan_out["bound_ms_bytes"], scan_out["bound_ms_ops"])
     kernels = [{
@@ -4710,6 +5156,8 @@ def main() -> int:
         if k["name"] in guard["launches"]:
             by_path["engine_guard"] = guard["launches"][k["name"]]
         by_path["engine_observe"] = observe["launches"].get(k["name"], 0)
+        if k["name"] in columnar["launches"]:
+            by_path["engine_columnar"] = columnar["launches"][k["name"]]
     print(card, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,4 +1,4 @@
-"""SiddhiAppRuntime: build + lifecycle for one app, on two tiers.
+"""SiddhiAppRuntime: build + lifecycle for one app, on three tiers.
 
 Port of the JAX package's ``core/app_runtime.py`` (reference
 ``core/SiddhiAppRuntime.java`` / ``SiddhiAppRuntimeImpl.java``: start:449,
@@ -6,29 +6,33 @@ shutdown:552, persist:686, query:309; ``util/parser/SiddhiAppParser``). It
 builds definitions, junctions (``@async``, ``@OnError``), tables, script
 functions, named windows, triggers, ``define aggregation``
 (``core/aggregation.py``, ``@device`` included), then the queries and
-partitions in definition order. A ``@device`` query that the device
-compilers take steps on the engine's device (``core/device_bridge.py``,
-``SiddhiContext.device``); every other query, and every partition, runs on
-the host interpreter (``core/query_runtime.py``, ``core/partition.py``), as
-in the reference. Snapshots, persistence, on-demand queries, the debugger,
-statistics and the playback clock are the reference's. So is the IO tier:
-``@source``/``@sink`` annotations wire sources, sinks and their mappers
-(``core/io.py``; every sink behind the publish pipeline of
-``resilience/``), with the handler interception managers of the engine
-context; and so is durable flow control (``flow/``: ``@app:wal``,
-``@app:backpressure``, and ``@app:adaptive``, whose controller the device
-bridges attach), and so is the resilience layer (``resilience/``): every
-``@device`` query behind a ``DeviceGuard`` that replays a failed step on the
-host interpreter and quarantines a failing device path, ``@app:chaos`` fault
-injection and the ``@app:resilience`` settings. So is the observability
-subsystem (``observability/``): ``@app:trace``, the always-on flight recorder
+partitions in definition order, each on the first tier that takes it, as in
+the reference: a ``@device`` query that the device compilers take steps on
+the engine's device (``core/device_bridge.py``, ``SiddhiContext.device``);
+under ``@app:host_batch`` (or a query's ``@host_batch``) a query whose plan
+lowers in the compilers' host form, and a partition of blocked patterns,
+run on the columnar host tier (``core/host_bridge.py``, on the CPU); every
+other query, and every other partition, runs on the host interpreter
+(``core/query_runtime.py``, ``core/partition.py``). Snapshots, persistence,
+on-demand queries, the debugger, statistics and the playback clock are the
+reference's. So is the IO tier: ``@source``/``@sink`` annotations wire
+sources, sinks and their mappers (``core/io.py``; every sink behind the
+publish pipeline of ``resilience/``), with the handler interception
+managers of the engine context; and so is durable flow control (``flow/``:
+``@app:wal``, ``@app:backpressure``, and ``@app:adaptive``, whose
+controller the device and host bridges attach), and so is the resilience
+layer (``resilience/``): every ``@device`` query behind a ``DeviceGuard``
+that replays a failed step on the host (the columnar tier first) and
+quarantines a failing device path, every columnar query behind a
+``HostStepGuard``, ``@app:chaos`` fault injection and the
+``@app:resilience`` settings. So is the observability subsystem
+(``observability/``): ``@app:trace``, the always-on flight recorder
 (``@app:flightrecorder``), ``@app:profile`` on ``torch.profiler``, the device
 step probes and the phase attribution, wired after the build.
 
 What later engine slices bring is refused at build time with a
 ``SiddhiAppCreationError`` that names its tier (``_refuse_unported``): the
-fleet and columnar host tiers (``@app:fleet``, ``@app:host_batch`` and a
-query's ``@host_batch``).
+fleet tier (``@app:fleet``).
 """
 
 from __future__ import annotations
@@ -72,7 +76,6 @@ from .trigger import TriggerRuntime, trigger_stream_definition
 # app-level annotations whose subsystem is not ported yet → its tier
 _UNPORTED_APP_ANNOTATIONS = {
     "fleet": "the multi-tenant fleet tier",
-    "host_batch": "the columnar host tier",
 }
 
 
@@ -127,6 +130,7 @@ class SiddhiAppRuntime:
         self.sources: list = []
         self.sinks: list = []
         self.device_bridges: list = []
+        self.host_bridges: list = []    # columnar host fast-path queries
         self._io_handlers: list[tuple[str, str]] = []   # (kind, element id)
         self._started = False
         self._ondemand_cache: dict[str, OnDemandQueryRuntime] = {}
@@ -212,13 +216,24 @@ class SiddhiAppRuntime:
                 device=ctx.siddhi_context.device)
         # queries & partitions in definition order
         from .device_bridge import try_build_device_query
+        from .host_bridge import (
+            host_batch_config,
+            try_build_host_partition,
+            try_build_host_query,
+        )
+        host_cfg = host_batch_config(app.annotations)
+        if host_cfg is not None:
+            # the retained source travels with the config: process-backed
+            # lane pools rebuild identical engines by re-parsing it
+            host_cfg["source_text"] = getattr(app, "source_text", None)
+        part_count = 0
         q_count = 0
         for element in app.execution_elements:
             if isinstance(element, Query):
                 q_count += 1
                 name = element.name() or f"query-{q_count}"
                 # @device queries step on the device when they fit its
-                # kernels' coverage; otherwise the interpreter builds below
+                # kernels' coverage; otherwise the host tiers build below
                 bridge = try_build_device_query(
                     element, ctx, self._stream_defs(), self._get_junction, name)
                 if bridge is not None:
@@ -227,6 +242,20 @@ class SiddhiAppRuntime:
                         self._get_junction(sid).subscribe(
                             bridge.receiver_for(sid))
                     self._fill_implicit(element, bridge)
+                    continue
+                # columnar host fast path (middle tier): engages per query
+                # when the plan lowers in the compilers' host form;
+                # otherwise the scalar interpreter builds below — per
+                # query, not per app
+                hbridge = try_build_host_query(
+                    element, ctx, self._stream_defs(), self._get_junction,
+                    name, host_cfg)
+                if hbridge is not None:
+                    self.host_bridges.append(hbridge)
+                    for sid in hbridge.stream_ids:
+                        self._get_junction(sid).subscribe(
+                            hbridge.receiver_for(sid))
+                    self._fill_implicit(element, hbridge)
                     continue
                 rt = build_query_runtime(
                     element, ctx, self._stream_defs(), self._get_junction, name)
@@ -242,9 +271,27 @@ class SiddhiAppRuntime:
                 self._fill_implicit(element, rt)
             elif isinstance(element, Partition):
                 q_count += 1
+                part_count += 1
                 name = f"partition-{q_count}"
-                # every inner query runs on the interpreter, @device ones
-                # too, as in the reference
+                if host_cfg is not None:
+                    # position among the app's partitions: the lane-pool
+                    # child re-parses and indexes to the same block
+                    host_cfg["part_index"] = part_count - 1
+                    # lane-partitioned columnar NFA for pattern partitions:
+                    # replaces the per-key interpreter cloning when EVERY
+                    # query in the block lowers in the host form
+                    hbridges = try_build_host_partition(
+                        element, ctx, self._stream_defs(),
+                        self._get_junction, name, host_cfg)
+                    if hbridges is not None:
+                        for hb in hbridges:
+                            self.host_bridges.append(hb)
+                            for sid in hb.stream_ids:
+                                self._get_junction(sid).subscribe(
+                                    hb.receiver_for(sid))
+                        continue
+                # otherwise every inner query runs on the interpreter,
+                # @device ones too, as in the reference
                 prt = PartitionRuntime(element, ctx, self._stream_defs(),
                                        lambda sid, inner=False: self._get_junction(sid),
                                        name)
@@ -360,6 +407,20 @@ class SiddhiAppRuntime:
             if ctrl is not None:
                 sm.gauge_tracker(f"device.{b.query_name}.batch_size",
                                  lambda c=ctrl: c.current)
+        # columnar host fast-path gauges: staged rows, events/batches routed
+        # through the vectorized engine (the step-latency histogram registers
+        # at bridge construction)
+        for b in self.host_bridges:
+            sm.buffered_tracker(f"host_batch.{b.query_name}",
+                                lambda bb=b: len(bb.runtime.builder))
+            sm.gauge_tracker(f"host_batch.{b.query_name}.events",
+                             lambda bb=b: bb.events_in)
+            sm.gauge_tracker(f"host_batch.{b.query_name}.batches",
+                             lambda bb=b: bb.batches)
+            ctrl = getattr(b.runtime, "batch_controller", None)
+            if ctrl is not None:
+                sm.gauge_tracker(f"host_batch.{b.query_name}.batch_size",
+                                 lambda c=ctrl: c.current)
         # edge-path gauges: transport bytes and parsed rows per source
         for src in self.sources:
             sid = getattr(getattr(src, "definition", None), "id", None)
@@ -390,6 +451,14 @@ class SiddhiAppRuntime:
             sm.gauge_tracker(f"device.{g.query_name}.circuit_state",
                              lambda x=g: x.breaker.state_code)
             sm.gauge_tracker(f"device.{g.query_name}.fallback_events",
+                             lambda x=g: x.fallback_events)
+        # host-batch step containment (HostStepGuard): circuit + replay
+        # evidence per columnar query, torn down with the host_batch.{q}
+        # family on shutdown
+        for g in self.resilience.host_guards:
+            sm.gauge_tracker(f"host_batch.{g.query_name}.circuit_state",
+                             lambda x=g: x.breaker.state_code)
+            sm.gauge_tracker(f"host_batch.{g.query_name}.fallback_events",
                              lambda x=g: x.fallback_events)
         if self.resilience.chaos is not None:
             for key in self.resilience.chaos.counters:
@@ -643,7 +712,7 @@ class SiddhiAppRuntime:
             cbs = rt.callback_adapter.callbacks
             if callback in cbs:
                 cbs.remove(callback)
-        for bridge in self.device_bridges:
+        for bridge in self.device_bridges + self.host_bridges:
             if callback in bridge.query_callbacks:
                 bridge.query_callbacks.remove(callback)
 
@@ -652,7 +721,7 @@ class SiddhiAppRuntime:
         if rt is not None:
             rt.add_callback(callback)
             return
-        for bridge in self.device_bridges:
+        for bridge in self.device_bridges + self.host_bridges:
             if bridge.query_name == query_name:
                 bridge.query_callbacks.append(callback)
                 return
@@ -696,6 +765,8 @@ class SiddhiAppRuntime:
         self.drain_async()           # deliver queued async events
         for b in self.device_bridges:
             b.finalize()             # drain + close open device segments
+        for b in self.host_bridges:
+            b.finalize()             # drain columnar host micro-batches
         for j in self.ctx.stream_junctions.values():
             if j.dispatcher is not None:
                 j.dispatcher.stop()
@@ -719,6 +790,9 @@ class SiddhiAppRuntime:
         self._io_handlers = []
         if self.flow is not None:
             self.flow.close()
+        sm = self.ctx.statistics_manager
+        for b in self.host_bridges:
+            sm.unregister(f"host_batch.{b.query_name}")
         self.observability.on_shutdown()
         self.ctx.statistics_manager.stop_reporting()
         if self.ctx.ticker is not None:
@@ -739,6 +813,7 @@ class SiddhiAppRuntime:
     def advance_time(self, ts: int) -> None:
         """Advance the playback clock (fires due timers) without an event."""
         self.flush_device()
+        self.flush_host()
         self.ctx.advance_time(ts)
 
     def flush_device(self) -> None:
@@ -747,15 +822,18 @@ class SiddhiAppRuntime:
             b.flush()
 
     def flush_host(self) -> None:
-        """Drain pending micro-batches of columnar host fast-path and fleet
-        queries (the reference's surface): the port has neither tier yet,
-        so nothing is staged and there is nothing to drain."""
+        """Drain pending micro-batches of columnar host fast-path queries
+        (the fleet's come with that tier)."""
+        for b in self.host_bridges:
+            b.flush()
 
     # -- snapshots ------------------------------------------------------------
     def _pre_snapshot(self) -> None:
         """Quiesce async machinery so state walks see a stable engine (the
         reference locks ThreadBarrier). Runs WITHOUT root_lock."""
         self.drain_async()
+        self.flush_host()       # columnar bridges are synchronous: a plain
+        # drain leaves no staged row for the state walk to miss
         for b in self.device_bridges:
             if b.driver is not None:
                 b.driver.flush_sync()
@@ -868,6 +946,7 @@ class SiddhiAppRuntime:
     def query_names(self) -> set:
         names = set(self.query_runtimes)
         names.update(b.query_name for b in self.device_bridges)
+        names.update(b.query_name for b in self.host_bridges)
         return names
 
     @property
@@ -948,20 +1027,12 @@ class SiddhiAppRuntime:
 
 
 def _refuse_unported(app: SiddhiApp) -> None:
-    """Raises ``SiddhiAppCreationError`` for the first element of ``app``
-    whose tier the port does not have yet."""
+    """Raises ``SiddhiAppCreationError`` for the first app annotation whose
+    tier the port does not have yet."""
     for ann in app.annotations:
         tier = _UNPORTED_APP_ANNOTATIONS.get(ann.name.lower())
         if tier is not None:
             raise _not_ported(f"@app:{ann.name}", tier)
-    q_count = 0
-    for element in app.execution_elements:
-        q_count += 1
-        if isinstance(element, Query) and find_annotation(
-                element.annotations, "host_batch") is not None:
-            name = element.name() or f"query-{q_count}"
-            raise _not_ported(f"@host_batch on query '{name}'",
-                              "the columnar host tier")
 
 
 class _TableInputHandler:

@@ -216,6 +216,7 @@ class ColumnsOut:
 
     def rows(self) -> list[list]:
         if self._rows is None:
+            from ..gpu.host_exec import decode_columns
             self._rows = decode_columns(self.specs, self.cols,
                                         self.dictionaries)
         return self._rows
@@ -223,27 +224,6 @@ class ColumnsOut:
     def ts_list(self) -> list:
         return np.asarray(self.ts).tolist()
 
-
-def decode_columns(out_specs, cols: dict, dictionaries: dict) -> list[list]:
-    """{name: np[n]} → host rows, with dictionary-encoded strings decoded
-    (the JAX package's ``tpu/host_exec.py::decode_columns``): ``tolist()``
-    converts whole columns at once."""
-    py_cols = []
-    for (name, _fn, t) in out_specs:
-        v = cols[name]
-        table = next(iter(dictionaries.values()), None)
-        if t == DataType.STRING and table is not None:
-            vals = np.asarray(table._values, dtype=object)
-            codes = np.clip(np.asarray(v, np.int64), 0, len(vals) - 1)
-            py_cols.append(vals[codes].tolist())
-        else:
-            py_cols.append(np.asarray(v).tolist())
-    return [list(r) for r in zip(*py_cols)]
-
-
-# ---------------------------------------------------------------------------
-# CSV → columns parsers
-# ---------------------------------------------------------------------------
 
 def _py_bool(field: bytes) -> bool:
     return field.lower() == b"true" or field == b"1"

@@ -1,10 +1,12 @@
 """Dtype policy lookup, device selection and shared kernel helpers.
 
 The reference's ``tpu/backend.py`` made the array namespace a parameter
-(jax.numpy on device, numpy on the host tier). The port has one namespace,
-torch, so what remains is the dtype policy lookup the expression compiler
-uses, the rule every entry point follows for its ``device`` argument, and
-the helpers the query compiler shares (``avalanche``, ``reduce_identity``).
+(jax.numpy on device, numpy on the columnar host tier). The port has one
+namespace, torch, so what remains is the dtype policy lookup the expression
+compiler uses (the device's, or with ``host`` the columnar host tier's
+full-width one: that tier runs the same closures on CPU tensors), the rule
+every entry point follows for its ``device`` argument, and the helpers the
+query compiler shares (``avalanche``, ``reduce_identity``).
 """
 
 from __future__ import annotations
@@ -12,12 +14,13 @@ from __future__ import annotations
 import torch
 
 from ..query_api.definition import DataType
-from .dtypes import TORCH
+from .dtypes import TORCH, TORCH_HOST
 
 
-def policy_dtype(t: DataType) -> torch.dtype:
-    """Device dtype for a declared attribute type (``dtypes.TORCH``)."""
-    return TORCH[t]
+def policy_dtype(t: DataType, host: bool = False) -> torch.dtype:
+    """Dtype for a declared attribute type: the device's (``dtypes.TORCH``)
+    or, with ``host``, the columnar host tier's (``dtypes.TORCH_HOST``)."""
+    return TORCH_HOST[t] if host else TORCH[t]
 
 
 def resolve_device(device=None) -> torch.device:

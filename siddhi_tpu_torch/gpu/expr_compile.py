@@ -30,6 +30,14 @@ provide, as the reference's do not: inside a pattern it raises
 queries (``query_compile.py``) resolve bare attribute names through
 ``ColumnResolver`` and do put ``__ts__`` in the env; their kernel links
 ``OP_TS`` to the int64 timestamp column and bare names to column slots.
+
+A resolver with ``host`` set (the reference's numpy ``xp``) compiles for the
+columnar host tier (``host_exec.py``): the same closures, pinned to the
+full-width host policy (``dtypes.TORCH_HOST``: int64, float64) and run on
+CPU tensors, with numpy's semantics where the reference's host tier has
+them: integer division and modulo by zero give 0, float → int conversion is
+the plain cast, and LONG against a non-constant DOUBLE compares in float64.
+A host compile builds no IR (``ir`` is None): no kernel runs it.
 """
 
 from __future__ import annotations
@@ -70,10 +78,12 @@ class KernelLibraryError(DeviceCompileError):
 
 class ColumnResolver:
     """Maps a Variable to a column key + dtype for one stream: bare
-    attribute names (pattern compilers resolve prefixed keys instead)."""
+    attribute names (pattern compilers resolve prefixed keys instead).
+    ``host`` compiles for the columnar host tier (module docstring)."""
 
-    def __init__(self, schema):
+    def __init__(self, schema, host: bool = False):
         self.schema = schema
+        self.host = host
 
     def resolve(self, var: Variable) -> tuple[str, DataType]:
         d = self.schema.definition
@@ -298,32 +308,52 @@ def java_mod(a, b):
     return torch.sign(a) * _remainder(torch.abs(a), torch.abs(b))
 
 
+def host_java_div(a, b):
+    """``java_div`` as the reference's host tier computes it on numpy, whose
+    integer division by zero gives 0 (``x / 0 == 0``)."""
+    a, b = torch.broadcast_tensors(a, b)
+    return torch.where(b == 0, torch.zeros_like(a), java_div(a, b))
+
+
+def host_astype(x: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+    """numpy's ``.astype``: the plain conversion (the host tier's)."""
+    return x if x.dtype == dt else x.to(dt)
+
+
+def _is_host(resolver) -> bool:
+    return getattr(resolver, "host", False)
+
+
 # --------------------------------------------------------------------------
 # the compile pass
 # --------------------------------------------------------------------------
 
 def compile_expression(expr: Expression, resolver
                        ) -> tuple[Callable[[dict], torch.Tensor], DataType, list]:
-    """Returns ``(fn(env) -> tensor, result DataType, postfix IR)``."""
+    """Returns ``(fn(env) -> tensor, result DataType, postfix IR)``; the IR
+    is None for a host compile."""
+    host = _is_host(resolver)
     if isinstance(expr, Constant):
         if expr.type == DataType.STRING:
             raise DeviceCompileError(
                 "bare string constant needs a comparison context for encoding")
         v = expr.value
         return (lambda env, v=v: v), expr.type, \
-            [(OP["CONST"], ir_type(expr.type), v, 0)]
+            None if host else [(OP["CONST"], ir_type(expr.type), v, 0)]
 
     if isinstance(expr, Variable):
         key, t = resolver.resolve(expr)
         op = OP["EV"] if key.startswith("ev_") else OP["BIND"]
-        return (lambda env, key=key: env[key]), t, [(op, ir_type(t), key, 0)]
+        return (lambda env, key=key: env[key]), t, \
+            None if host else [(op, ir_type(t), key, 0)]
 
     if isinstance(expr, (And, Or)):
         lf, _, lir = compile_expression(expr.left, resolver)
         rf, _, rir = compile_expression(expr.right, resolver)
         name = "AND" if isinstance(expr, And) else "OR"
         tfn = torch.logical_and if name == "AND" else torch.logical_or
-        ir = _cast_ir(lir, ir_result_type(lir), T_BOOL) + \
+        ir = None if host else \
+            _cast_ir(lir, ir_result_type(lir), T_BOOL) + \
             _cast_ir(rir, ir_result_type(rir), T_BOOL) + \
             [(OP[name], T_BOOL, 0, 0)]
         return (lambda env: tfn(as_tensor(lf(env), env),
@@ -331,7 +361,7 @@ def compile_expression(expr: Expression, resolver
 
     if isinstance(expr, Not):
         f, _, sir = compile_expression(expr.expr, resolver)
-        ir = _cast_ir(sir, ir_result_type(sir), T_BOOL) + \
+        ir = None if host else _cast_ir(sir, ir_result_type(sir), T_BOOL) + \
             [(OP["NOT"], T_BOOL, 0, 0)]
         return (lambda env: torch.logical_not(as_tensor(f(env), env))), \
             DataType.BOOL, ir
@@ -346,7 +376,8 @@ def compile_expression(expr: Expression, resolver
         f, t, sir = compile_expression(expr.expr, resolver)
         if t == DataType.BOOL:
             raise DeviceCompileError("unary minus on a bool")
-        return (lambda env: -f(env)), t, sir + [(OP["NEG"], ir_type(t), 0, 0)]
+        return (lambda env: -f(env)), t, \
+            None if host else sir + [(OP["NEG"], ir_type(t), 0, 0)]
 
     if isinstance(expr, AttributeFunction):
         return _compile_function(expr, resolver)
@@ -356,22 +387,24 @@ def compile_expression(expr: Expression, resolver
 
 
 def _compile_math(expr: MathExpr, resolver):
+    host = _is_host(resolver)
     lf, lt, lir = compile_expression(expr.left, resolver)
     rf, rt, rir = compile_expression(expr.right, resolver)
-    _check_long_float_mix(lt, rt, expr.left, expr.right)
+    _check_long_float_mix(lt, rt, expr.left, expr.right, host)
     rtype = promote(lt, rt)
     op = expr.op
     int_result = rtype in (DataType.INT, DataType.LONG)
     if rtype == DataType.BOOL and op not in (MathOp.ADD, MathOp.MUL):
         raise DeviceCompileError(f"{op} on bools")
-    jdt = policy_dtype(rtype)
-    ty = TY_OF[jdt]
+    jdt = policy_dtype(rtype, host)
+    cast = host_astype if host else astype
+    div = host_java_div if host else java_div
 
     def run(env):
         # both operands pinned to the promoted type's policy dtype, as the
         # reference does (no f64 ever reaches the device)
-        a = astype(as_tensor(lf(env), env), jdt)
-        b = astype(as_tensor(rf(env), env), jdt)
+        a = cast(as_tensor(lf(env), env), jdt)
+        b = cast(as_tensor(rf(env), env), jdt)
         if op == MathOp.ADD:
             return a + b
         if op == MathOp.SUB:
@@ -379,9 +412,12 @@ def _compile_math(expr: MathExpr, resolver):
         if op == MathOp.MUL:
             return a * b
         if op == MathOp.DIV:
-            return java_div(a, b) if int_result else a / b
+            return div(a, b) if int_result else a / b
         return java_mod(a, b) if int_result else torch.fmod(a, b)
 
+    if host:
+        return run, rtype, None
+    ty = TY_OF[jdt]
     name = {MathOp.ADD: "ADD", MathOp.SUB: "SUB", MathOp.MUL: "MUL",
             MathOp.DIV: "DIV", MathOp.MOD: "MOD"}[op]
     ir = _cast_ir(lir, ir_result_type(lir), ty) + \
@@ -397,10 +433,14 @@ _F32_EXACT_INT = 2 ** 24      # |v| ≤ 2^24 round-trips int↔float32 exactly
 
 
 def _check_long_float_mix(lt: DataType, rt: DataType, left: Expression,
-                          right: Expression) -> None:
+                          right: Expression, host: bool = False) -> None:
     """LONG mixed with a non-constant FLOAT/DOUBLE casts the int64 side to
     f32, which misfires above 2^24 — refused, as the reference refuses it,
-    unless the LONG side is a constant small enough to be exact in f32."""
+    unless the LONG side is a constant small enough to be exact in f32.
+    The host policy promotes to float64 as the reference's host tier does,
+    so there it does not apply."""
+    if host:
+        return
     floats = (DataType.FLOAT, DataType.DOUBLE)
     for t, other_t, e in ((lt, rt, left), (rt, lt, right)):
         if t == DataType.LONG and other_t in floats:
@@ -411,7 +451,7 @@ def _check_long_float_mix(lt: DataType, rt: DataType, left: Expression,
                 "device (f64 banned) — host path")
 
 
-def _fold_int_vs_float_const(col_fn, col_ir: list, op: CompareOp, c: float):
+def _fold_int_vs_float_const(col_fn, col_ir, op: CompareOp, c: float):
     """``int_col OP float_const`` as an exact int64 comparison.
 
     For any integer a: a > c ⟺ a ≥ ⌊c⌋+1; a ≥ c ⟺ a ≥ ⌈c⌉; a < c ⟺ a ≤ ⌈c⌉-1;
@@ -422,10 +462,11 @@ def _fold_int_vs_float_const(col_fn, col_ir: list, op: CompareOp, c: float):
         def run(env):
             x = as_tensor(col_fn(env), env)
             return torch.full(x.shape, v, dtype=torch.bool, device=x.device)
-        return run, [(OP["CONST"], T_BOOL, v, 0)]
+        return run, None if col_ir is None else [(OP["CONST"], T_BOOL, v, 0)]
 
     def cmp(name: str, bound: int):
-        ir = _cast_ir(col_ir, ir_result_type(col_ir), T_I64) + \
+        ir = None if col_ir is None else \
+            _cast_ir(col_ir, ir_result_type(col_ir), T_I64) + \
             [(OP["CONST"], T_I64, bound, 0), (OP[name], T_BOOL, T_I64, 0)]
         fn = _CMP_FN[name]
         return (lambda env: fn(astype(as_tensor(col_fn(env), env), torch.int64),
@@ -470,6 +511,8 @@ def _fold_int_vs_float_const(col_fn, col_ir: list, op: CompareOp, c: float):
 
 
 def _compile_compare(expr: Compare, resolver):
+    host = _is_host(resolver)
+
     # string comparisons: only EQ/NEQ, via dictionary codes
     def side(e: Expression, other: Expression):
         if isinstance(e, Constant) and e.type == DataType.STRING:
@@ -480,7 +523,7 @@ def _compile_compare(expr: Compare, resolver):
                 raise DeviceCompileError("string constant vs non-string column")
             code = resolver.encode_string(key, e.value)
             return (lambda env, code=code: code), DataType.STRING, \
-                [(OP["CONST"], T_I32, code, 0)]
+                None if host else [(OP["CONST"], T_I32, code, 0)]
         return compile_expression(e, resolver)
 
     lf, lt, lir = side(expr.left, expr.right)
@@ -507,18 +550,22 @@ def _compile_compare(expr: Compare, resolver):
 
     # numeric compares: pin both sides to the promoted policy dtype so mixed
     # int64/float32 operands never promote to float64
-    _check_long_float_mix(lt, rt, expr.left, expr.right)
-    cmp_dt = policy_dtype(promote(lt, rt)) \
+    _check_long_float_mix(lt, rt, expr.left, expr.right, host)
+    cmp_dt = policy_dtype(promote(lt, rt), host) \
         if lt in _NUM_ORDER and rt in _NUM_ORDER and lt != rt else None
     name = _CMP_OP[op]
     tfn = _CMP_FN[name]
+    cast = host_astype if host else astype
 
     def run(env):
         a, b = lf(env), rf(env)
         a, b = as_tensor(a, env), as_tensor(b, env)
         if cmp_dt is not None:
-            a, b = astype(a, cmp_dt), astype(b, cmp_dt)
+            a, b = cast(a, cmp_dt), cast(b, cmp_dt)
         return tfn(a, b)
+
+    if host:
+        return run, DataType.BOOL, None
 
     lty, rty = ir_result_type(lir), ir_result_type(rir)
     # common operand type: the promoted policy dtype, else (bool against a
@@ -531,20 +578,24 @@ def _compile_compare(expr: Compare, resolver):
 
 
 def _compile_function(expr: AttributeFunction, resolver):
+    host = _is_host(resolver)
+    cast = host_astype if host else astype
     name = expr.name if expr.namespace is None else f"{expr.namespace}:{expr.name}"
     if name == "ifThenElse":
         c, _, cir = compile_expression(expr.args[0], resolver)
         a, ta, air = compile_expression(expr.args[1], resolver)
         b, tb, bir = compile_expression(expr.args[2], resolver)
         rt = promote(ta, tb)
-        jdt = policy_dtype(rt)
-        ty = TY_OF[jdt]
+        jdt = policy_dtype(rt, host)
 
         def run(env):
-            cond = astype(as_tensor(c(env), env), torch.bool)
-            return torch.where(cond, astype(as_tensor(a(env), env), jdt),
-                               astype(as_tensor(b(env), env), jdt))
+            cond = cast(as_tensor(c(env), env), torch.bool)
+            return torch.where(cond, cast(as_tensor(a(env), env), jdt),
+                               cast(as_tensor(b(env), env), jdt))
 
+        if host:
+            return run, rt, None
+        ty = TY_OF[jdt]
         ir = _cast_ir(cir, ir_result_type(cir), T_BOOL) + \
             _cast_ir(air, ir_result_type(air), ty) + \
             _cast_ir(bir, ir_result_type(bir), ty) + \
@@ -561,27 +612,29 @@ def _compile_function(expr: AttributeFunction, resolver):
         if str(target.value).lower() not in tmap:
             raise DeviceCompileError(f"convert to {target.value!r} not on device")
         dt = tmap[str(target.value).lower()]
-        jdt = policy_dtype(dt)
-        return (lambda env: astype(as_tensor(src(env), env), jdt)), dt, \
-            _cast_ir(sir, ir_result_type(sir), TY_OF[jdt])
+        jdt = policy_dtype(dt, host)
+        return (lambda env: cast(as_tensor(src(env), env), jdt)), dt, \
+            None if host else _cast_ir(sir, ir_result_type(sir), TY_OF[jdt])
     if name == "eventTimestamp" and not expr.args:
         return (lambda env: env["__ts__"]), DataType.LONG, \
-            [(OP["TS"], T_I64, 0, 0)]
+            None if host else [(OP["TS"], T_I64, 0, 0)]
     if name in ("maximum", "minimum"):
         fns = [compile_expression(a, resolver) for a in expr.args]
         t = fns[0][1]
         for _, ti, _ in fns[1:]:
             t = promote(t, ti)
-        jdt = policy_dtype(t)
-        ty = TY_OF[jdt]
+        jdt = policy_dtype(t, host)
         is_max = name == "maximum"
         # NaN-propagating, as jnp.max/jnp.min over the stacked arguments
         red = torch.maximum if is_max else torch.minimum
 
         def run(env, fns=fns, jdt=jdt):
-            vs = [astype(as_tensor(f(env), env), jdt) for f, _, _ in fns]
+            vs = [cast(as_tensor(f(env), env), jdt) for f, _, _ in fns]
             return functools.reduce(red, torch.broadcast_tensors(*vs))
 
+        if host:
+            return run, t, None
+        ty = TY_OF[jdt]
         ir = _cast_ir(fns[0][2], ir_result_type(fns[0][2]), ty)
         for _, _, fir in fns[1:]:
             ir = ir + _cast_ir(fir, ir_result_type(fir), ty) + \

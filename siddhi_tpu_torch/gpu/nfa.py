@@ -291,6 +291,8 @@ class _NFAResolver:
         self.current = current_state
         self.current_alias = current_alias
         self.touched: list = []        # (state, variant) bound refs resolved
+        # the columnar host tier's closures (host policy, no IR)
+        self.host = getattr(nfa, "host", False)
 
     def resolve(self, var: Variable) -> tuple[str, DataType]:
         nfa = self.nfa
@@ -416,12 +418,20 @@ class DeviceNFACompiler:
 
     ``device`` follows ``backend.resolve_device``: the card unless the
     caller passes ``"cpu"``; with no card and no explicit ``"cpu"`` the
-    constructor raises."""
+    constructor raises.
+
+    ``host=True`` (the reference's ``backend="numpy"``) compiles the SAME
+    plan (states, predicates, output programs) for the columnar host tier
+    (``host_exec.HostBlockNFA``): host-policy closures, no IR, no kernel
+    plan and no device. That tier covers the blocked shape only; any other
+    raises the reference's message."""
 
     def __init__(self, query: Query, stream_defs: dict[str, StreamDefinition],
                  slot_capacity: int = 64, batch_capacity: int = 1024,
-                 creation_cap: Optional[int] = None, device=None):
-        self.device = resolve_device(device)
+                 creation_cap: Optional[int] = None, device=None,
+                 host: bool = False):
+        self.host = host
+        self.device = None if host else resolve_device(device)
         ist = query.input_stream
         if not isinstance(ist, StateInputStream):
             raise DeviceCompileError("not a pattern/sequence query")
@@ -563,6 +573,15 @@ class DeviceNFACompiler:
             raise DeviceCompileError(
                 "element-level within outside stream-chain patterns needs "
                 "the host path")
+        if host:
+            # the columnar host tier executes the plan eagerly with dynamic
+            # shapes; it only covers the blocked shape
+            if not self.blocked:
+                raise DeviceCompileError(
+                    "count/logical/absent states have no columnar host "
+                    "kernel — scalar interpreter path")
+            self.plan = None
+            return
         # the kernel's plan (linked programs, descriptor tables): an app over
         # one of its limits is refused here, on every device, where callers
         # catch DeviceCompileError, and never at a later step
@@ -671,6 +690,8 @@ class DeviceNFACompiler:
                 r = r & env[fkey]
             return r
 
+        if ir is None:                  # a host compile builds no IR
+            return guarded, None
         # the IR form: the program's result (as bool) ANDed with each flag
         gir = list(ir)
         if ir_result_type(gir) != T_BOOL:

@@ -145,11 +145,19 @@ class CompiledStreamQuery:
     limits (``query_step.QueryPlan``).
 
     ``device`` follows ``backend.resolve_device``: the card unless the
-    caller asks for the CPU."""
+    caller asks for the CPU.
+
+    ``host=True`` (the reference's ``backend="numpy"``): the SAME lowering
+    pass (handler walk, spec build, refusals and their messages) emits the
+    closures for the columnar host tier (``host_exec.HostStreamQuery``),
+    under the full-width host policy and with no IR. It builds no kernel
+    plan, so no kernel limit refuses it, and has no device (``device`` is
+    None): that tier runs on the CPU whether or not a card is present."""
 
     def __init__(self, query: Query, definition: StreamDefinition,
                  batch_capacity: int = 4096, group_capacity: int = 1024,
-                 window_capacity: int = 4096, device=None):
+                 window_capacity: int = 4096, device=None,
+                 host: bool = False):
         ist = query.input_stream
         if not isinstance(ist, SingleInputStream):
             raise DeviceCompileError("device path covers single-stream queries")
@@ -157,8 +165,9 @@ class CompiledStreamQuery:
         self.definition = definition
         self.B = batch_capacity
         self.K = group_capacity
+        self.host = host
         self.schema = BatchSchema(definition)
-        resolver = ColumnResolver(self.schema)
+        resolver = ColumnResolver(self.schema, host=host)
         self.resolver = resolver
 
         # handlers: filters + at most one window
@@ -287,6 +296,7 @@ class CompiledStreamQuery:
         self.having_ir: Optional[list] = None
         if query.selector.having is not None:
             hres = _OutputResolver(self.specs, self.schema)
+            hres.host = host
             self.having_fn, _, self.having_ir = compile_expression(
                 query.selector.having, hres)
 
@@ -299,6 +309,9 @@ class CompiledStreamQuery:
             self.step_error = f"'{(const_value or const_arg)[0]}' object " \
                 f"has no attribute '{attr}'"
 
+        if host:
+            self.plan = self.device = None
+            return
         from .query_step import make_plan
         self.plan = make_plan(self)       # kernel limits refuse here
         self.device = resolve_device(device)

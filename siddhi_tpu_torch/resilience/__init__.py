@@ -10,8 +10,13 @@ package (``siddhi_tpu_torch/flow``: WAL + replay + backpressure) makes the
   pipeline (``on.error`` policy + per-sink circuit breaker);
 - **device** — every ``@device`` bridge runtime gets a
   :class:`~siddhi_tpu_torch.resilience.device_guard.DeviceGuard` (runtime failures
-  reroute the failed batch through the host interpreter; repeated failures
+  reroute the failed batch through the host — the columnar host engine when
+  the query lowers there, else the interpreter; repeated failures
   quarantine the device path until a cool-down probe re-promotes it);
+- **host batch** — every columnar host bridge gets a
+  :class:`~siddhi_tpu_torch.resilience.fleet_guard.HostStepGuard` (a failed
+  micro-batch replays on the scalar interpreter; repeated failures
+  quarantine the columnar path);
 - **control plane** — stored failures replay through
   :meth:`~siddhi_tpu_torch.core.errors.ErrorStore.replay`, exposed as service
   endpoints (``GET .../error-store``, ``POST .../error-store/replay``);
@@ -24,11 +29,9 @@ Defaults are applied to every app; ``@app:resilience(...)`` tunes them:
     @app:resilience(sink.on.error='log', sink.circuit.threshold='5',
                     sink.circuit.cooldown.ms='30000',
                     device.quarantine='true', device.circuit.threshold='3',
-                    device.circuit.cooldown.ms='30000')
-
-The reference's ``host.*`` settings tune its ``HostStepGuard``, which guards
-the columnar host tier; both come with ``ROADMAP.md`` §A item 4. Until then
-the port ignores those keys and ``host_guards`` stays an empty list.
+                    device.circuit.cooldown.ms='30000',
+                    host.quarantine='true', host.circuit.threshold='3',
+                    host.circuit.cooldown.ms='30000')
 """
 
 from __future__ import annotations
@@ -40,13 +43,15 @@ from ..query_api.annotation import find_annotation
 from .chaos import ChaosFault, ChaosInjector, parse_chaos_annotation
 from .circuit import CircuitBreaker, CircuitState
 from .device_guard import DeviceGuard
+from .fleet_guard import HostStepGuard
 from .sink_pipeline import OnErrorPolicy, ResilientSink, parse_sink_policy
 
 log = logging.getLogger("siddhi_tpu_torch.resilience")
 
 __all__ = [
     "ChaosFault", "ChaosInjector", "CircuitBreaker", "CircuitState",
-    "DeviceGuard", "OnErrorPolicy", "ResilienceSubsystem", "ResilientSink",
+    "DeviceGuard", "HostStepGuard", "OnErrorPolicy", "ResilienceSubsystem",
+    "ResilientSink",
     "parse_chaos_annotation", "parse_sink_policy",
 ]
 
@@ -79,9 +84,21 @@ class ResilienceSubsystem:
                     res_ann.get("device.circuit.cooldown.ms")) / 1000.0
             self.device_quarantine = (
                 res_ann.get("device.quarantine") or "true").lower() != "false"
+        self.host_threshold = 3
+        self.host_cooldown_s = 30.0
+        self.host_quarantine = True
+        if res_ann is not None:
+            if res_ann.get("host.circuit.threshold"):
+                self.host_threshold = int(
+                    res_ann.get("host.circuit.threshold"))
+            if res_ann.get("host.circuit.cooldown.ms"):
+                self.host_cooldown_s = float(
+                    res_ann.get("host.circuit.cooldown.ms")) / 1000.0
+            self.host_quarantine = (
+                res_ann.get("host.quarantine") or "true").lower() != "false"
         self.sinks: list[ResilientSink] = []
         self.guards: list[DeviceGuard] = []
-        self.host_guards: list = []     # no HostStepGuard until §A item 4
+        self.host_guards: list[HostStepGuard] = []
         self.shutdown_signal = threading.Event()
         self._sink_ordinals: dict[str, int] = {}
 
@@ -155,6 +172,23 @@ class ResilienceSubsystem:
         callbacks (the bridge is constructed after the runtime)."""
         if guard is not None:
             guard.bridge = bridge
+
+    # -- host-batch containment ----------------------------------------------
+    def guard_host(self, bridge, query, stream_defs: dict, get_junction):
+        """Install a HostStepGuard over a freshly built columnar host
+        bridge (called from ``try_build_host_query`` /
+        ``try_build_host_partition``): a failing micro-batch replays through
+        the scalar interpreter, repeated failures quarantine the columnar
+        path. Returns the guard, or None when disabled."""
+        if not self.host_quarantine:
+            return None
+        guard = HostStepGuard(
+            bridge, query, self.runtime.ctx, stream_defs, get_junction,
+            failure_threshold=self.host_threshold,
+            cooldown_s=self.host_cooldown_s)
+        guard.install()
+        self.host_guards.append(guard)
+        return guard
 
     # -- sources (chaos only: retry/jitter lives on Source itself) -----------
     def wrap_source_handler(self, stream_id: str, handler):

@@ -1,12 +1,12 @@
 """Device-path quarantine: a circuit breaker over the card's execution path.
 
 The port's copy of the JAX package's ``resilience/device_guard.py``
-(``DeviceGuard``; ``HostStepGuard`` comes with the columnar host tier,
-``ROADMAP.md`` §A item 4). Two deliberate differences:
+(``DeviceGuard``; ``HostStepGuard``, the columnar host tier's guard, is in
+``fleet_guard.py``). The host fallback is the reference's: the columnar
+host engine first (``core/host_bridge.py``, ``report()["fallback_engine"]``
+``"columnar"``), the scalar interpreter when the query does not lower there.
+One deliberate difference:
 
-- the host fallback is the scalar interpreter alone
-  (``report()["fallback_engine"]`` is ``"scalar"``), where the reference
-  tries its columnar host engine first (lifted by ``ROADMAP.md`` §A item 4);
 - on the card (``replay_only_chaos``) only an injected ``ChaosFault``
   replays on the host. Any other failure of a step is a fault of a kernel
   or of the card: it counts in ``failures``, logs an ERROR and raises, and
@@ -227,7 +227,7 @@ class DeviceGuard:
         self.flight = None              # FlightRecorder (observability wiring)
         self._last_step_fell_back = False
         self._fb_runtime = None
-        self._fb_engine = None          # 'scalar' once built
+        self._fb_engine = None          # 'columnar' | 'scalar' once built
         self._fb_lock = threading.Lock()
 
     # -- installation --------------------------------------------------------
@@ -354,11 +354,33 @@ class DeviceGuard:
         with self.app_context.root_lock:
             with self._fb_lock:
                 if self._fb_runtime is None:
-                    # the reference builds its columnar host engine first
-                    # (core/host_bridge.py, vectorized micro-batches) and
-                    # takes this scalar interpreter only when that build
-                    # fails; the port has no columnar host tier until
-                    # ROADMAP.md §A item 4, so it always takes this branch
+                    # COLUMNAR first: quarantine/shadow-replay through the
+                    # vectorized host engine (gpu/host_exec.py) — degraded
+                    # mode runs at micro-batch speed, not one event at a
+                    # time. Queries that don't lower in the host form keep
+                    # the scalar interpreter runtime.
+                    fb = None
+                    try:
+                        from ..core.host_bridge import build_host_fallback
+                        fb = build_host_fallback(
+                            self.query, self.app_context, self.stream_defs,
+                            self.get_junction, f"{self.query_name}__hostfb")
+                    except Exception:   # noqa: BLE001 — fallback of the
+                        # fallback: never let the fast path's absence turn
+                        # a degraded device into a dead query
+                        log.exception(
+                            "%s: columnar fallback build failed; using the "
+                            "scalar interpreter", self._site)
+                    if fb is not None:
+                        if self.bridge is not None:
+                            # SHARE the bridge's query-callback list (see
+                            # the scalar branch below)
+                            fb.bridge.query_callbacks = \
+                                self.bridge.query_callbacks
+                        self._fb_runtime = fb
+                        self._fb_engine = "columnar"
+                        self._fb_runtime.start()
+                        return self._fb_runtime
                     from ..core.query_runtime import build_query_runtime
                     self._fb_runtime = build_query_runtime(
                         self.query, self.app_context, self.stream_defs,
@@ -407,6 +429,10 @@ class DeviceGuard:
                     if sid is None or rsid == sid:
                         receiver.receive(ev)
                 delivered += 1
+            if self._fb_engine == "columnar":
+                # columnar receivers STAGE rows; one vectorized step per
+                # replayed batch surfaces the outputs immediately
+                rt.flush()
         self.fallback_events += delivered
         log.info("%s: %d event(s) rerouted through the host path%s",
                  self._site, delivered,
@@ -420,7 +446,7 @@ class DeviceGuard:
             "failures": self.failures,
             "fallback_events": self.fallback_events,
             "lost_events": self.lost_events,
-            # which engine replays shadows: 'scalar' in the port (the
-            # reference may say 'columnar'); None until the first fallback
+            # which engine replays shadows: 'columnar' (vectorized host
+            # fast path) or 'scalar'; None until the first fallback
             "fallback_engine": self._fb_engine,
         }

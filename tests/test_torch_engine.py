@@ -5,9 +5,9 @@
   SiddhiManager(device="cpu")`` and give the reference engine's output:
   the two device samples (``device_pattern``, ``device_offload``) on the
   device tier, the others on the host interpreter; ``interception_handlers``
-  through the IO tier, with the port's source and sink handler managers.
-  ``columnar_edge`` stays out: it needs the columnar host tier
-  (``@app:host_batch``), which the port does not have yet.
+  through the IO tier, with the port's source and sink handler managers;
+  ``columnar_edge`` through the file source, the columnar host tier
+  (``@app:host_batch``) and the ``inMemory`` sink.
 - ``snapshot``/``restore`` and ``persist``/``restore_last_revision``
   mid-stream, in sync and async mode: cut where every bridge's builder is
   empty, the port resumed in a fresh engine equals its uninterrupted run,
@@ -17,8 +17,8 @@
 - Every tier the port does not have yet is refused at
   ``create_siddhi_app_runtime`` with a ``SiddhiAppCreationError`` naming it,
   and the tiers it has (sources, sinks, the WAL, backpressure, adaptive
-  batching, chaos and resilience) build and give the reference engine's
-  rows;
+  batching, chaos and resilience, the columnar host tier) build and give
+  the reference engine's rows;
   a strict ``@device`` query the compilers refuse raises
   ``DeviceCompileError``, as in the reference.
 - ``SiddhiManager()`` runs on the card, and without one it raises.
@@ -62,13 +62,27 @@ ROOT = Path(__file__).resolve().parent.parent
 
 # ------------------------------------------------------------------ samples
 
+def _template(node: ast.JoinedStr) -> str:
+    """An f-string as a ``str.format`` template: its fields by name."""
+    parts = []
+    for v in node.values:
+        if isinstance(v, ast.Constant):
+            parts.append(v.value.replace("{", "{{").replace("}", "}}"))
+        else:
+            parts.append("{" + ast.unparse(v.value) + "}")
+    return "".join(parts)
+
+
 def sample_app(name: str) -> str:
-    """The ``APP`` text of ``samples/<name>.py``, or the app text its
+    """The ``APP`` text of ``samples/<name>.py`` (an f-string's as a
+    ``str.format`` template), or the app text its
     ``create_siddhi_app_runtime`` call is given (read as data: the sample
     imports the JAX package)."""
     tree = ast.parse((ROOT / "samples" / f"{name}.py").read_text())
     for node in tree.body:
         if isinstance(node, ast.Assign) and node.targets[0].id == "APP":
+            if isinstance(node.value, ast.JoinedStr):
+                return _template(node.value)
             return ast.literal_eval(node.value)
     for node in ast.walk(tree):
         if isinstance(node, ast.Call) and getattr(
@@ -244,6 +258,33 @@ def drive_interception_handlers(manager, app):
     return audit + [("transport", list(p.data)) for p in received], rt
 
 
+def drive_columnar_edge(manager, app):
+    """The sample's ticks as a CSV file through the file source, the
+    columnar filter and the ``inMemory`` sink: the published chunks'
+    rows."""
+    import tempfile
+    pkg = _pkg(manager)
+    path = Path(tempfile.mkdtemp()) / "ticks.csv"
+    path.write_text("".join(
+        f"{sym},{price},{vol},{1000 + i * 100}\n" for i, (sym, price, vol)
+        in enumerate([("WSO2", 55.6, 100), ("IBM", 40.0, 50),
+                      ("GOOG", 120.0, 30), ("WSO2", 57.1, 20),
+                      ("IBM", 75.0, 10)])))
+    published = []
+    unsub = pkg.InMemoryBroker.subscribe(
+        "high-price",
+        lambda chunk: published.extend(chunk.rows(["symbol", "price"])))
+    rt = manager.create_siddhi_app_runtime(app.format(csv_path=path),
+                                           playback=True)
+    rt.start()
+    rt.sources[0].wait_drained(10.0)
+    rt.flush_host()
+    assert [b.query_name for b in rt.host_bridges] == ["filterQuery"]
+    unsub()
+    manager.shutdown()
+    return published, rt
+
+
 # name → (output stream, events) for a sample whose loop only sends, or its
 # replayed driver loop
 SAMPLES = {
@@ -269,6 +310,7 @@ SAMPLES = {
     "perf_filter": drive_perf_filter,
     "incremental_aggregation": drive_incremental_aggregation,
     "interception_handlers": drive_interception_handlers,
+    "columnar_edge": drive_columnar_edge,
 }
 DEVICE_SAMPLES = {"device_pattern", "device_offload"}
 
@@ -416,8 +458,6 @@ S = "define stream S (v double);\n"
 Q = "@device(batch='16')\nfrom S[v > 1.0] select v insert into O;\n"
 REFUSALS = {
     "fleet": ("@app:fleet(tenant='a')\n" + S + Q, "fleet tier"),
-    "host_batch": ("@app:host_batch(workers='2')\n" + S + Q,
-                   "columnar host tier"),
 }
 
 
@@ -446,6 +486,9 @@ PORTED = {
     "trace": "@app:trace(sample='1/1')\n" + S + Q,
     "flightrecorder": "@app:flightrecorder(ring='64')\n" + S + Q,
     "profile": "@app:profile(enable='true')\n" + S + Q,
+    # a device query and a columnar host query side by side
+    "host_batch": "@app:host_batch(workers='2')\n" + S + Q
+                  + "from S[v > 2.0] select v insert into O;\n",
 }
 
 

@@ -15,7 +15,8 @@ The reference suites are imported as data, never edited:
   port's, in the suite's module and on the ``siddhi_tpu`` package, for the
   duration of the call: the reference's own assertions judge the port, the
   function-local imports included. The IO, flow, sink-pipeline,
-  observability, service and doc-generator modules (``PORTED_MODULES``) are
+  observability, service, doc-generator and columnar host modules
+  (``PORTED_MODULES``) are
   bound the same way, name by name: every name the
   port's module defines replaces the reference's in the reference's module
   and in the suite's, and a test double the suite derives from one of those
@@ -25,7 +26,10 @@ The reference suites are imported as data, never edited:
   ``monkeypatch`` are the caller's. A service the suite builds without a
   manager builds the port's on the CPU. ``SUITE_ONLY`` picks, for a suite that
   also tests tiers outside this set, the functions it contributes; a
-  function the suite marks ``slow`` keeps the mark;
+  function the suite marks ``slow`` or ``skipif`` keeps the mark;
+  ``COLUMNAR`` lists the functions that drive the columnar host tier, and
+  each must reach the port's (a host bridge, a stager, or an
+  ``@app:host_batch`` config read);
 - ``NEEDS_UNPORTED`` lists, by id, the suite functions whose app needs a
   tier the port does not have yet, with that tier; the port must still
   refuse them at build time with "not ported yet" naming the tier, or,
@@ -79,10 +83,12 @@ BINDINGS = {
 # name the port's module defines, where the reference's defines it too)
 PORTED_MODULES = {
     "siddhi_tpu.core.aggregation": "siddhi_tpu_torch.core.aggregation",
+    "siddhi_tpu.core.columns": "siddhi_tpu_torch.core.columns",
     "siddhi_tpu.core.config": "siddhi_tpu_torch.core.config",
     "siddhi_tpu.core.debugger": "siddhi_tpu_torch.core.debugger",
     "siddhi_tpu.core.event": "siddhi_tpu_torch.core.event",
     "siddhi_tpu.core.extension": "siddhi_tpu_torch.core.extension",
+    "siddhi_tpu.core.host_bridge": "siddhi_tpu_torch.core.host_bridge",
     "siddhi_tpu.core.io": "siddhi_tpu_torch.core.io",
     "siddhi_tpu.core.metrics": "siddhi_tpu_torch.core.metrics",
     "siddhi_tpu.core.snapshot": "siddhi_tpu_torch.core.snapshot",
@@ -94,6 +100,7 @@ PORTED_MODULES = {
     "siddhi_tpu.flow.records": "siddhi_tpu_torch.flow.records",
     "siddhi_tpu.flow.recovery": "siddhi_tpu_torch.flow.recovery",
     "siddhi_tpu.flow.wal": "siddhi_tpu_torch.flow.wal",
+    "siddhi_tpu.query_api.definition": "siddhi_tpu_torch.query_api.definition",
     "siddhi_tpu.observability": "siddhi_tpu_torch.observability",
     "siddhi_tpu.observability.flight_recorder":
         "siddhi_tpu_torch.observability.flight_recorder",
@@ -106,6 +113,7 @@ PORTED_MODULES = {
         "siddhi_tpu_torch.observability.prometheus",
     "siddhi_tpu.observability.tracing":
         "siddhi_tpu_torch.observability.tracing",
+    "siddhi_tpu.procmesh.lanepool": "siddhi_tpu_torch.procmesh.lanepool",
     "siddhi_tpu.resilience": "siddhi_tpu_torch.resilience",
     "siddhi_tpu.resilience.chaos": "siddhi_tpu_torch.resilience.chaos",
     "siddhi_tpu.resilience.circuit": "siddhi_tpu_torch.resilience.circuit",
@@ -114,8 +122,10 @@ PORTED_MODULES = {
     "siddhi_tpu.resilience.sink_pipeline":
         "siddhi_tpu_torch.resilience.sink_pipeline",
     "siddhi_tpu.service": "siddhi_tpu_torch.service",
+    "siddhi_tpu.tpu.batch": "siddhi_tpu_torch.gpu.batch",
     "siddhi_tpu.tpu.dcn": "siddhi_tpu_torch.gpu.dcn",
     "siddhi_tpu.tpu.expr_compile": "siddhi_tpu_torch.gpu.expr_compile",
+    "siddhi_tpu.tpu.host_exec": "siddhi_tpu_torch.gpu.host_exec",
 }
 
 # the module-level registries of a bound module that a suite fills: bound
@@ -239,13 +249,15 @@ SUITES = ["test_partition_corpus", "test_join_corpus", "test_filter_query",
           "test_incremental_persistence", "test_cache_table",
           "test_record_pushdown", "test_config", "test_metrics",
           "test_torn_fuzz", "test_bridge_fuzz", "test_device_pipeline",
-          "test_observability", "test_xray", "test_service_and_docs"]
+          "test_observability", "test_xray", "test_service_and_docs",
+          "test_host_batch", "test_procmesh", "test_fleet_guard"]
 
 # suites that also test tiers outside the port's → the functions they
-# contribute: the IO tier and the sink pipeline (the rest of
-# test_edge_rows holds the columnar host tier, the fleet and the JAX
-# package's own parsers and lints; the rest of test_resilience the JAX
-# package's except-clause lint)
+# contribute: the IO tier, the sink pipeline and the columnar host tier
+# (the rest of test_edge_rows holds the JAX package's own parsers and
+# lints; the rest of test_resilience the JAX package's except-clause lint;
+# the rest of test_procmesh the process mesh of distribution, the rest of
+# test_fleet_guard the fleet's guard)
 SUITE_ONLY = {
     "test_edge_rows": {
         "test_source_chunk_boundary_parity_fuzz",
@@ -259,7 +271,15 @@ SUITE_ONLY = {
         "test_fleet_stage_columns_parity",
         "test_rows_chunk_with_source_handler_manager",
         "test_line_source_tail_cap", "test_json_lines_mapper_rows",
-        "test_send_columns_fallback_paths", "test_send_columns_validation"},
+        "test_send_columns_fallback_paths", "test_send_columns_validation",
+        "test_zero_objects_on_rows_path",
+        "test_stager_mixed_rows_and_columns_order"},
+    "test_procmesh": {"test_lane_pool_parity_and_snapshot",
+                      "test_lane_pool_rejects_bad_mode"},
+    "test_fleet_guard": {
+        "test_host_step_guard_replays_failed_batch_through_scalar",
+        "test_host_step_guard_quarantines_after_threshold",
+        "test_host_guard_emit_failure_does_not_duplicate"},
     "test_resilience": {
         "test_circuit_breaker_transitions",
         "test_circuit_success_resets_consecutive_failures",
@@ -328,9 +348,10 @@ NOT_SUITE_FUNCTIONS = {
     ("test_service_and_docs", "test_build_time_validation_in_query"),
 }
 
-# suite function id → the tier its app needs, which the port refuses
-NEEDS_UNPORTED: dict[str, str] = {
-    **{f"test_edge_rows::{name}": "the columnar host tier" for name in (
+# suite functions that drive the columnar host tier (its apps carry
+# @app:host_batch or a query's @host_batch, or they build its stager)
+COLUMNAR: set = {
+    *(f"test_edge_rows::{name}" for name in (
         "test_source_chunk_boundary_parity_fuzz",
         "test_file_source_end_to_end", "test_socket_source_lines",
         "test_socket_source_rows_frames",
@@ -340,15 +361,25 @@ NEEDS_UNPORTED: dict[str, str] = {
         "test_parallel_tier_worker_parity",
         "test_parallel_tier_snapshot_restore_mid_stream",
         "test_json_lines_mapper_rows", "test_send_columns_fallback_paths",
-        "test_send_columns_validation")},
+        "test_send_columns_validation", "test_zero_objects_on_rows_path",
+        "test_stager_mixed_rows_and_columns_order")),
+    "test_xray::test_observability_overhead_pin_on_columnar_micro_corpus",
+    "test_procmesh::test_lane_pool_parity_and_snapshot",
+    "test_procmesh::test_lane_pool_rejects_bad_mode",
+    *(f"test_fleet_guard::{name}" for name in (
+        "test_host_step_guard_replays_failed_batch_through_scalar",
+        "test_host_step_guard_quarantines_after_threshold",
+        "test_host_guard_emit_failure_does_not_duplicate")),
+}
+
+# suite function id → the tier its app needs, which the port refuses
+NEEDS_UNPORTED: dict[str, str] = {
     "test_edge_rows::test_fleet_stage_columns_parity":
         "the multi-tenant fleet tier",
     "test_metrics::test_fleet_fallback_reason_counter_family":
         "the multi-tenant fleet tier",
     "test_metrics::test_guard_metric_families_unregister_on_shutdown":
         "the multi-tenant fleet tier",
-    "test_xray::test_observability_overhead_pin_on_columnar_micro_corpus":
-        "the columnar host tier",
 }
 
 # of those, the functions whose app carries no annotation of the tier, so
@@ -393,7 +424,7 @@ def _param_sets(fn) -> list:
 
 def suite_functions() -> list:
     """A case per suite function and parameter set; a function the suite
-    marks ``slow`` keeps the mark."""
+    marks ``slow`` or ``skipif`` keeps the mark."""
     out = []
     for modname in SUITES:
         mod = importlib.import_module(modname)
@@ -403,12 +434,12 @@ def suite_functions() -> list:
                     or (modname, name) in NOT_SUITE_FUNCTIONS \
                     or (only is not None and name not in only):
                 continue
-            slow = any(m.name == "slow" for m in getattr(fn, "pytestmark", []))
+            kept = [m for m in getattr(fn, "pytestmark", [])
+                    if m.name in ("slow", "skipif")]
             for suffix, kwargs in _param_sets(fn):
                 fid = f"{modname}::{name}{suffix}"
-                out.append(pytest.param(
-                    modname, name, kwargs, id=fid,
-                    marks=[pytest.mark.slow] if slow else []))
+                out.append(pytest.param(modname, name, kwargs, id=fid,
+                                        marks=kept))
     return out
 
 
@@ -512,6 +543,37 @@ def call_suite_function(mod, fn, kwargs: dict, fixtures: dict) -> None:
         siddhi_tpu_torch.InMemoryBroker.reset()
 
 
+class ColumnarReach:
+    """Counts, while open, what the functions of ``COLUMNAR`` must reach of
+    the port's columnar host tier: its bridges and stagers built, and the
+    ``@app:host_batch`` configs it read (a config that raises counts)."""
+
+    def __init__(self, monkeypatch):
+        from siddhi_tpu_torch.core import host_bridge
+        from siddhi_tpu_torch.gpu import host_exec
+        self.n = 0
+        reach = self
+
+        def counted(orig, is_config=False):
+            def wrapper(*a, **k):
+                try:
+                    out = orig(*a, **k)
+                except Exception:
+                    reach.n += 1
+                    raise
+                if not is_config or out is not None:
+                    reach.n += 1
+                return out
+            return wrapper
+
+        monkeypatch.setattr(host_bridge.HostQueryBridge, "__init__",
+                            counted(host_bridge.HostQueryBridge.__init__))
+        monkeypatch.setattr(host_exec.HostRowStager, "__init__",
+                            counted(host_exec.HostRowStager.__init__))
+        monkeypatch.setattr(host_bridge, "host_batch_config",
+                            counted(host_bridge.host_batch_config, True))
+
+
 def names_used(fn) -> set:
     """Global names ``fn``'s code reads, its nested functions' included,
     and those of the helper functions of its module that it calls."""
@@ -549,11 +611,15 @@ def test_reference_suite_function_on_the_port(modname, fname, kwargs,
     fixtures = {"tmp_path": tmp_path, "caplog": caplog,
                 "monkeypatch": monkeypatch}
     if tier is None:
+        reach = ColumnarReach(monkeypatch) if fid in COLUMNAR else None
         call_suite_function(mod, fn, kwargs, fixtures)
         # an engine function builds the port's engine; a unit function
         # calls a class or function bound to the port's
         assert PortManager.built > built or names_used(fn) & bound, \
             "the function ran nothing of the port"
+        if reach is not None:
+            assert reach.n, "the function never reached the port's " \
+                "columnar host tier"
         return
     surface = UNPORTED_SURFACE.get(fid)
     if surface is not None:
@@ -575,6 +641,7 @@ def test_suites_are_all_collected():
     assert mods == set(SUITES)
     ids = {p.id for p in SUITE_FUNCTIONS}
     assert set(NEEDS_UNPORTED) <= ids
+    assert COLUMNAR <= ids and not COLUMNAR & set(NEEDS_UNPORTED)
     assert set(UNPORTED_SURFACE) <= set(NEEDS_UNPORTED)
     assert set(NEEDS_MODULE) <= ids
     for modname, only in SUITE_ONLY.items():

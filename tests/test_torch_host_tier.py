@@ -21,7 +21,8 @@ bridges for exactly the same queries:
 - ``snapshot``/``restore`` and ``persist``/``restore_last_revision`` cut
   mid-stream in an app with interpreter windows, a pattern and a
   partition;
-- a query-level ``@host_batch`` is refused naming the columnar host tier.
+- a query-level ``@host_batch`` builds a columnar host bridge for that
+  query on both engines (it was refused before the columnar host tier).
 """
 
 import logging
@@ -33,7 +34,6 @@ import torch
 
 import siddhi_tpu
 import siddhi_tpu_torch
-from siddhi_tpu_torch.core.errors import SiddhiAppCreationError
 from siddhi_tpu_torch.gpu.expr_compile import DeviceCompileError
 from siddhi_tpu_torch.tools import engine_workloads as ew
 
@@ -154,10 +154,22 @@ def test_strict_refusal_raises():
 
 
 def test_query_host_batch_is_refused():
-    app = S + "@info(name='q') @host_batch(batch='64')\n" + ORDERED
-    with pytest.raises(SiddhiAppCreationError, match="not ported yet") as e:
-        port_manager().create_siddhi_app_runtime(app, playback=True)
-    assert "columnar host tier" in str(e.value) and "'q'" in str(e.value)
+    """No longer refused: a query-level ``@host_batch`` builds a columnar
+    host bridge named 'q' on both engines, beside an interpreter query,
+    with equal rows."""
+    app = S + "@info(name='q') @host_batch(batch='4')\n" \
+        "from S[v > 1.0] select v, v * 2.0 as w insert into O;\n" + ORDERED
+    events = [("S", [float(v)], 1000 + i)
+              for i, v in enumerate([3, 0.5, 7, 2, 9, 4, 6])]
+    prt = started(port_manager(), app, ["O"])
+    rrt = started(ref_manager(), app, ["O"])
+    for rt in (prt, rrt):
+        assert [(b.kind, b.query_name) for b in rt.host_bridges] == \
+            [("host_stream", "q")]
+        assert list(rt.query_runtimes) == ["query-2"]
+        send(rt, events)
+        rt.flush_host()
+    assert prt.got == rrt.got and prt.got
 
 
 # ---------------------------------------------------------------- partition

@@ -78,6 +78,12 @@ def test_import_loads_neither_jax_nor_the_reference():
         "import siddhi_tpu_torch.observability.tracing\n"
         "import siddhi_tpu_torch.observability.phases\n"
         "import siddhi_tpu_torch.service, siddhi_tpu_torch.doc_gen\n"
+        "import siddhi_tpu_torch.gpu.host_exec\n"
+        "import siddhi_tpu_torch.core.host_bridge\n"
+        "import siddhi_tpu_torch.procmesh, siddhi_tpu_torch.procmesh.protocol\n"
+        "import siddhi_tpu_torch.procmesh.lanepool\n"
+        "import siddhi_tpu_torch.resilience.fleet_guard\n"
+        "from siddhi_tpu_torch.resilience import HostStepGuard\n"
         "from siddhi_tpu_torch.observability import ObservabilitySubsystem\n"
         "from siddhi_tpu_torch.service import SiddhiService\n"
         "from siddhi_tpu_torch import SiddhiManager, StreamCallback\n"
@@ -107,6 +113,53 @@ def test_source_scan_finds_no_jax_or_reference_import():
     bad = [(str(f.relative_to(ROOT)), m) for f in files for m in _imports(f)
            if _forbidden(m)]
     assert bad == [], bad
+
+
+def test_lane_pool_child_imports_neither_jax_nor_the_reference(capfd):
+    """A process lane child (``@app:host_batch(workers.mode='process')``)
+    rebuilds its engine from the app text: every module it imports, as
+    ``-X importtime`` lists them, is neither JAX nor the JAX package, and
+    it is given no card."""
+    from siddhi_tpu_torch.compiler import parse
+    from siddhi_tpu_torch.gpu.host_exec import HostPartitionedNFA
+    from siddhi_tpu_torch.procmesh.lanepool import ProcessLanePool
+    app = parse(APP)
+    prt = HostPartitionedNFA(app.partitions[0].queries[0],
+                             dict(app.stream_definitions), "dev",
+                             num_partitions=2)
+    source = {"app_text": APP, "part_index": 0, "query_index": 0,
+              "key_attr": "dev"}
+    pool = ProcessLanePool(source, 2, 2, [prt.engine.snapshot_state(s)
+                                          for s in prt.lane_states],
+                           env={"PYTHONPROFILEIMPORTTIME": "1"})
+    try:
+        assert pool.match_count() == 0
+        assert pool.report()["alive"] == 2
+    finally:
+        pool.close()
+    err = capfd.readouterr().err
+    mods = [line.rsplit("|", 1)[-1].strip() for line in err.splitlines()
+            if line.startswith("import time:")]
+    assert "siddhi_tpu_torch.gpu.host_exec" in mods
+    assert "siddhi_tpu_torch.procmesh.lanepool" in mods
+    bad = sorted({m for m in mods if _forbidden(m)})
+    assert bad == [], bad
+
+
+def test_lane_pool_child_is_given_no_card(monkeypatch):
+    from siddhi_tpu_torch.procmesh import lanepool
+    seen = {}
+
+    def popen(args, **kw):
+        seen.update(kw["env"])
+        raise OSError("not spawned")
+
+    monkeypatch.setattr(lanepool.subprocess, "Popen", popen)
+    with pytest.raises(OSError):
+        lanepool.ProcessLanePool({}, 2, 2, [None, None])
+    assert seen["CUDA_VISIBLE_DEVICES"] == ""
+    assert seen["OMP_NUM_THREADS"] == "1"
+    assert seen["SIDDHI_PROCMESH_CHILD"] == "1"
 
 
 def test_entry_points_without_a_card_raise(monkeypatch):

@@ -10,12 +10,10 @@ The same app text and the same seeded events go through
 - guarded runs (every ``@device`` query has a ``DeviceGuard`` by default)
   of a stateless filter, a 3-state chain and a grouped ``length`` window,
   sync and async, under ``device.fail.p`` 0.25 and 1.0, give the
-  reference's rows in order, timestamps included, and its guard reports
-  (but ``fallback_engine``: the port replays on the scalar interpreter
-  only). The reference's own fallback tries its columnar host engine first;
-  where that gives other rows, the reference is run with
-  ``siddhi_tpu.core.host_bridge.build_host_fallback`` made to raise, its own
-  path when that build fails (``ROADMAP.md`` §C). Every value compared is
+  reference's rows in order, timestamps included, and its guard reports,
+  ``fallback_engine`` included: both guards replay on the columnar host
+  engine first (the filter and the chain; the grouped window does not
+  lower there and replays on the interpreter). Every value compared is
   exact: the inputs are float32-representable and the windows sum longs, so
   no tolerance applies;
 - a fault at the fence (the runtime's ``collect`` raising on its k-th
@@ -29,7 +27,10 @@ The same app text and the same seeded events go through
   strict or not: never the host interpreter, never a step the guard replays;
 - on the card (``replay_only_chaos``) a step that fails with anything but an
   injected ``ChaosFault`` is not replayed: it raises, as does every later
-  step of the query, without a launch.
+  step of the query, without a launch;
+- the columnar host tier's ``HostStepGuard``: a failed micro-batch replays
+  on the interpreter with no event lost, and ``host.circuit.threshold``
+  failures quarantine the columnar path, each in both packages.
 """
 
 import importlib.util
@@ -86,19 +87,8 @@ def _quiet_guard_logs(caplog):
         logging.getLogger(name).setLevel(logging.NOTSET)
 
 
-def _scalar_reference(monkeypatch) -> None:
-    """The reference's guard on its scalar interpreter: the columnar host
-    engine's build raises, and the guard takes its own fallback branch."""
-    import siddhi_tpu.core.host_bridge as hb
-
-    def refuse(*args, **kwargs):
-        raise RuntimeError("columnar fallback disabled for the comparison")
-    monkeypatch.setattr(hb, "build_host_fallback", refuse)
-
-
 def _guard_report(rt) -> list:
-    return [{k: v for k, v in g.report().items() if k != "fallback_engine"}
-            for g in rt.resilience.guards]
+    return [g.report() for g in rt.resilience.guards]
 
 
 # ------------------------------------------------------------------ chaos
@@ -273,21 +263,19 @@ def _events(shape: str, n: int = 600, seed: int = 5):
     return stream_events(seed, n, {"S": (1, SHAPES[shape][1])}, gap=9)
 
 
-# the reference's columnar fallback gives the chain's matches, timestamps
-# included, in another order than its scalar fallback and its interpreter
-# (ROADMAP.md §C): the port is held to its scalar fallback there
-SCALAR_REFERENCE = {"chain"}
+# the engine each shape's guard replays on: the columnar host engine where
+# the query lowers there (a grouped window does not)
+FALLBACK_ENGINE = {"filter": "columnar", "chain": "columnar",
+                   "grouped": "scalar"}
 
 
 @pytest.mark.parametrize("p", [0.25, 1.0])
 @pytest.mark.parametrize("mode", ["sync", "async"])
 @pytest.mark.parametrize("shape", sorted(SHAPES))
-def test_guarded_run_equals_the_reference(shape, mode, p, monkeypatch):
+def test_guarded_run_equals_the_reference(shape, mode, p):
     extra = ", async='true'" if mode == "async" else ""
     app = _chaos(p) + SHAPES[shape][0].format(batch=32, extra=extra)
     events = _events(shape)
-    if shape in SCALAR_REFERENCE:
-        _scalar_reference(monkeypatch)
     (ref, ref_rep, ref_chaos), _ = guarded_run(ref_manager, app, events)
     (got, rep, chaos), prt = guarded_run(port_manager, app, events)
     assert got == ref
@@ -300,7 +288,7 @@ def test_guarded_run_equals_the_reference(shape, mode, p, monkeypatch):
         # every batch replayed, the circuit open after the third
         assert guard["fallback_events"] == len(events)
         assert guard["circuit"] == CircuitState.OPEN
-    assert prt.device_bridges[0].guard.report()["fallback_engine"] == "scalar"
+    assert guard["fallback_engine"] == FALLBACK_ENGINE[shape]
 
 
 def test_stateful_fallback_state_starts_at_the_fault():
@@ -504,6 +492,85 @@ def test_fallback_rows_reach_query_callbacks():
     assert seen["port"] == seen["ref"] == \
         [["d1", 55.0], ["d1", 60.0], ["d1", 65.0], ["d1", 70.0],
          ["d1", 75.0]]
+
+
+# ------------------------------------------------- columnar step guard
+
+HOST_FILTER = """
+@app:name('HostGuarded')
+@app:host_batch(batch='{batch}')
+{resilience}
+define stream S (dev string, v double);
+@info(name='q') from S[v > 50.0] select dev, v insert into Out;
+"""
+
+
+def host_guarded_run(make, app: str, events, broken: set, chunk: int):
+    """``(rows, HostStepGuard reports)`` of ``events`` sent in chunks of
+    ``chunk`` rows, the columnar step raising at the steps in ``broken``
+    (0-based)."""
+    m = make()
+    rt = start(m, app)
+    hq = rt.host_bridges[0].runtime.hq
+    inner, calls = hq.step, [0]
+
+    def step(*a, **k):
+        calls[0] += 1
+        if calls[0] - 1 in broken:
+            raise RuntimeError("columnar step failed")
+        return inner(*a, **k)
+
+    hq.step = step
+    for lo in range(0, len(events), chunk):
+        part = events[lo:lo + chunk]
+        rt.input_handler("S").send_rows([list(r) for _, r, _ in part],
+                                        [t for _, _, t in part])
+    rt.flush_host()
+    out = (rt.got, [g.report() for g in rt.resilience.host_guards])
+    m.shutdown()
+    return out
+
+
+def test_host_step_guard_replays_a_failed_micro_batch():
+    """A columnar micro-batch whose step fails replays on the scalar
+    interpreter, in both packages: no event lost, the rows a clean run's in
+    order, the guard reports equal."""
+    events = _events("filter", n=400)
+    app = HOST_FILTER.format(batch=64, resilience="")
+    ref = host_guarded_run(ref_manager, app, events, {1, 4}, 40)
+    got = host_guarded_run(port_manager, app, events, {1, 4}, 40)
+    clean = host_guarded_run(port_manager, app, events, set(), 40)
+    assert got == ref
+    (rep,) = got[1]
+    assert rep["failures"] == 2 and rep["lost_events"] == 0
+    assert rep["fallback_events"] == 80
+    assert rep["circuit"] == CircuitState.CLOSED
+    assert got[0] == clean[0]
+
+
+def test_host_step_guard_quarantines_under_the_host_keys():
+    """``host.circuit.threshold`` failures in a row open the columnar
+    path's circuit: later micro-batches drain to the interpreter without a
+    step, in both packages, and no event is lost; ``host.quarantine=
+    'false'`` installs no guard."""
+    events = _events("filter", n=300)
+    res = ("@app:resilience(host.circuit.threshold='2', "
+           "host.circuit.cooldown.ms='60000')")
+    app = HOST_FILTER.format(batch=16, resilience=res)
+    every = set(range(100))
+    ref = host_guarded_run(ref_manager, app, events, every, 30)
+    got = host_guarded_run(port_manager, app, events, every, 30)
+    assert got == ref
+    (rep,) = got[1]
+    assert rep["circuit"] == CircuitState.OPEN
+    assert rep["failures"] == 2 and rep["lost_events"] == 0
+    assert rep["fallback_events"] == len(events)
+    assert [r for _, r in got[0]] == [r for _, r, _ in events if r[1] > 50.0]
+    off = HOST_FILTER.format(
+        batch=16, resilience="@app:resilience(host.quarantine='false')")
+    rt = port_manager().create_siddhi_app_runtime(off, playback=True)
+    assert rt.host_bridges and not rt.resilience.host_guards
+    rt.shutdown()
 
 
 def test_gauges_equal_the_reference():

@@ -30,9 +30,11 @@ quarantines a failing device path, every columnar query behind a
 (``@app:flightrecorder``), ``@app:profile`` on ``torch.profiler``, the device
 step probes and the phase attribution, wired after the build.
 
-What later engine slices bring is refused at build time with a
-``SiddhiAppCreationError`` that names its tier (``_refuse_unported``): the
-fleet tier (``@app:fleet``).
+So is the multi-tenant fleet tier (``fleet/``): an ``@app:fleet`` app's
+queries and pattern partitions join the engine's ``FleetManager`` shape
+groups (one shared columnar plan per shape, cross-app lane batching, the
+``FleetGuard`` and the SLO autopilot); a query with no fleet shape keeps
+the solo tiers (device, columnar, interpreter), per query.
 """
 
 from __future__ import annotations
@@ -73,22 +75,11 @@ from .stream import (
 from .table import InMemoryTable
 from .trigger import TriggerRuntime, trigger_stream_definition
 
-# app-level annotations whose subsystem is not ported yet → its tier
-_UNPORTED_APP_ANNOTATIONS = {
-    "fleet": "the multi-tenant fleet tier",
-}
-
-
-def _not_ported(what: str, tier: str) -> SiddhiAppCreationError:
-    return SiddhiAppCreationError(
-        f"{what} needs {tier}, which is not ported yet")
-
 
 class SiddhiAppRuntime:
     def __init__(self, app: SiddhiApp, siddhi_context: SiddhiContext,
                  playback: Optional[bool] = None, start_time: int = 0):
         self.app = app
-        _refuse_unported(app)
         app_ann = find_annotation(app.annotations, "app")
         playback_ann = find_annotation(app.annotations, "playback")
         if playback is None:
@@ -131,6 +122,7 @@ class SiddhiAppRuntime:
         self.sinks: list = []
         self.device_bridges: list = []
         self.host_bridges: list = []    # columnar host fast-path queries
+        self.fleet_bridges: list = []   # @app:fleet shared-lane members
         self._io_handlers: list[tuple[str, str]] = []   # (kind, element id)
         self._started = False
         self._ondemand_cache: dict[str, OnDemandQueryRuntime] = {}
@@ -227,6 +219,17 @@ class SiddhiAppRuntime:
             # lane pools rebuild identical engines by re-parsing it
             host_cfg["source_text"] = getattr(app, "source_text", None)
         part_count = 0
+        # @app:fleet: multi-tenant shared compilation — queries join the
+        # engine-wide FleetManager's shape groups (one compiled program per
+        # shape, cross-app lane batching); non-normalizing queries fall
+        # through to the solo tiers below, per query
+        from ..fleet import fleet_config
+        try:
+            fleet_cfg = fleet_config(app.annotations)
+        except ValueError as e:     # malformed slo.class / numeric knob
+            raise SiddhiAppCreationError(str(e)) from None
+        fleet_mgr = ctx.siddhi_context.fleet() if fleet_cfg is not None \
+            else None
         q_count = 0
         for element in app.execution_elements:
             if isinstance(element, Query):
@@ -243,6 +246,20 @@ class SiddhiAppRuntime:
                             bridge.receiver_for(sid))
                     self._fill_implicit(element, bridge)
                     continue
+                # fleet tier: same-shape queries across tenant apps share
+                # one compiled columnar program and step as lanes of one
+                # batched step (solo tiers below when no fleet shape)
+                if fleet_mgr is not None:
+                    fbridge = fleet_mgr.enroll_query(
+                        element, ctx, self._stream_defs(),
+                        self._get_junction, name, fleet_cfg)
+                    if fbridge is not None:
+                        self.fleet_bridges.append(fbridge)
+                        for sid in fbridge.stream_ids:
+                            self._get_junction(sid).subscribe(
+                                fbridge.receiver_for(sid))
+                        self._fill_implicit(element, fbridge)
+                        continue
                 # columnar host fast path (middle tier): engages per query
                 # when the plan lowers in the compilers' host form;
                 # otherwise the scalar interpreter builds below — per
@@ -277,6 +294,18 @@ class SiddhiAppRuntime:
                     # position among the app's partitions: the lane-pool
                     # child re-parses and indexes to the same block
                     host_cfg["part_index"] = part_count - 1
+                if fleet_mgr is not None:
+                    fbridges = fleet_mgr.enroll_partition(
+                        element, ctx, self._stream_defs(),
+                        self._get_junction, name, fleet_cfg)
+                    if fbridges is not None:
+                        for fb in fbridges:
+                            self.fleet_bridges.append(fb)
+                            for sid in fb.stream_ids:
+                                self._get_junction(sid).subscribe(
+                                    fb.receiver_for(sid))
+                        continue
+                if host_cfg is not None:
                     # lane-partitioned columnar NFA for pattern partitions:
                     # replaces the per-key interpreter cloning when EVERY
                     # query in the block lowers in the host form
@@ -421,6 +450,12 @@ class SiddhiAppRuntime:
             if ctrl is not None:
                 sm.gauge_tracker(f"host_batch.{b.query_name}.batch_size",
                                  lambda c=ctrl: c.current)
+        # fleet gauges: staged rows visible per tenant (per-member ev/s,
+        # lanes-per-step and shape-cache counters register at enroll time in
+        # the FleetManager)
+        for b in self.fleet_bridges:
+            sm.buffered_tracker(f"fleet.{b.query_name}",
+                                lambda bb=b: len(bb.group.stager))
         # edge-path gauges: transport bytes and parsed rows per source
         for src in self.sources:
             sid = getattr(getattr(src, "definition", None), "id", None)
@@ -712,7 +747,8 @@ class SiddhiAppRuntime:
             cbs = rt.callback_adapter.callbacks
             if callback in cbs:
                 cbs.remove(callback)
-        for bridge in self.device_bridges + self.host_bridges:
+        for bridge in (self.device_bridges + self.host_bridges
+                       + self.fleet_bridges):
             if callback in bridge.query_callbacks:
                 bridge.query_callbacks.remove(callback)
 
@@ -721,7 +757,8 @@ class SiddhiAppRuntime:
         if rt is not None:
             rt.add_callback(callback)
             return
-        for bridge in self.device_bridges + self.host_bridges:
+        for bridge in (self.device_bridges + self.host_bridges
+                       + self.fleet_bridges):
             if bridge.query_name == query_name:
                 bridge.query_callbacks.append(callback)
                 return
@@ -767,6 +804,8 @@ class SiddhiAppRuntime:
             b.finalize()             # drain + close open device segments
         for b in self.host_bridges:
             b.finalize()             # drain columnar host micro-batches
+        for b in self.fleet_bridges:
+            b.finalize()             # drain the shared fleet groups
         for j in self.ctx.stream_junctions.values():
             if j.dispatcher is not None:
                 j.dispatcher.stop()
@@ -790,7 +829,17 @@ class SiddhiAppRuntime:
         self._io_handlers = []
         if self.flow is not None:
             self.flow.close()
+        # leave the fleet: this tenant's lanes detach from their shape
+        # groups (shared plans stay cached for the next tenant), and its
+        # metric families tear down through unregister() — a stopped tenant
+        # app must not leak dead gauges into the engine-wide exposition
         sm = self.ctx.statistics_manager
+        if self.fleet_bridges:
+            self.ctx.siddhi_context.fleet().release_app(self.name)
+            sm.unregister("fleet.")
+            sm.unregister("slo.")   # the autopilot's compliance gauges ride
+            # the tenant's lifecycle exactly like the fleet.* families
+            self.fleet_bridges = []
         for b in self.host_bridges:
             sm.unregister(f"host_batch.{b.query_name}")
         self.observability.on_shutdown()
@@ -823,8 +872,10 @@ class SiddhiAppRuntime:
 
     def flush_host(self) -> None:
         """Drain pending micro-batches of columnar host fast-path queries
-        (the fleet's come with that tier)."""
+        and of the shared fleet groups this app's tenants stage into."""
         for b in self.host_bridges:
+            b.flush()
+        for b in self.fleet_bridges:
             b.flush()
 
     # -- snapshots ------------------------------------------------------------
@@ -947,6 +998,7 @@ class SiddhiAppRuntime:
         names = set(self.query_runtimes)
         names.update(b.query_name for b in self.device_bridges)
         names.update(b.query_name for b in self.host_bridges)
+        names.update(b.query_name for b in self.fleet_bridges)
         return names
 
     @property
@@ -1024,15 +1076,6 @@ class SiddhiAppRuntime:
 
     def set_exception_listener(self, listener) -> None:
         self.ctx.exception_listener = listener
-
-
-def _refuse_unported(app: SiddhiApp) -> None:
-    """Raises ``SiddhiAppCreationError`` for the first app annotation whose
-    tier the port does not have yet."""
-    for ann in app.annotations:
-        tier = _UNPORTED_APP_ANNOTATIONS.get(ann.name.lower())
-        if tier is not None:
-            raise _not_ported(f"@app:{ann.name}", tier)
 
 
 class _TableInputHandler:

@@ -8,8 +8,9 @@ partitioned execution (single-threaded deterministic interpreter).
 
 The port's engine context also carries the ``device`` every device runtime of
 the engine runs on (``gpu.backend.resolve_device``: the card unless the caller
-asks for the CPU). The JAX package's multi-tenant fleet (``fleet()``) is not
-ported.
+asks for the CPU), and the engine's multi-tenant fleet (``fleet()``: one
+``fleet.FleetManager`` per engine, whose shared device plans are built on
+that device).
 """
 
 from __future__ import annotations
@@ -38,6 +39,17 @@ class SiddhiContext:
         self.source_handler_manager = None
         self.sink_handler_manager = None
         self.record_table_handler_manager = None
+        # multi-tenant shared compilation (siddhi_tpu_torch/fleet/): one
+        # manager per engine so @app:fleet apps share plans and lane-batch
+        # cross-app
+        self.fleet_manager = None
+
+    def fleet(self):
+        """The engine's FleetManager, created on first use."""
+        if self.fleet_manager is None:
+            from ..fleet import FleetManager
+            self.fleet_manager = FleetManager(device=self.device)
+        return self.fleet_manager
 
 
 class SiddhiAppContext:

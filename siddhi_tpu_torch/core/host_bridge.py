@@ -395,17 +395,24 @@ class _HostPartitionRT(_HostRTBase):
 # ---------------------------------------------------------------------------
 
 def _app_plan_key(query: Query, stream_defs: dict, kind: str):
-    """Key for the per-APP plan cache: two queries in one app that lower to
-    the SAME program share one compiled plan — state, stagers and junction
-    wiring stay per query. The reference keys on the fleet's shape
-    normalizer (shape AND constants on the same streams), which comes with
-    the fleet (``ROADMAP.md`` §A item 5); the port keys on the query's
-    input and select list as written, which shares the same plans when the
-    queries are spelled alike and compiles the rest on their own."""
-    ist = query.input_stream
-    if (kind == "stream") != isinstance(ist, SingleInputStream):
+    """Shape-and-constants key for the per-APP plan cache: two queries in
+    one app that lower to the SAME program (identical shape AND identical
+    constants/overrides on the same streams) share one compiled plan —
+    state, stagers and junction wiring stay per query. Cross-app sharing is
+    the fleet's job (per-tenant parameter slots); within one app the
+    constants must match exactly, so the plan needs no slots."""
+    try:
+        from ..fleet.shape import normalize_query
+        nq = normalize_query(query, stream_defs)
+    except Exception:       # noqa: BLE001 — no shape → no dedupe, solo build
         return None
-    return (kind, repr(ist), repr(query.selector))
+    if nq.kind != kind:
+        return None
+    try:
+        return (nq.shape_key, tuple(nq.param_values),
+                tuple(sorted(nq.overrides.items())), tuple(nq.stream_ids))
+    except TypeError:       # unhashable constant — skip dedupe
+        return None
 
 
 def _app_plan_cache(app_context) -> dict:

@@ -82,6 +82,14 @@ class SiddhiManager:
 
     validateSiddhiApp = validate_siddhi_app
 
+    # -- multi-tenant fleet (shared compilation / cross-app lane batching) --
+    @property
+    def fleet(self):
+        """The engine's :class:`~siddhi_tpu_torch.fleet.FleetManager`
+        (created on first use): shared plan cache stats, live groups,
+        admission config — the cross-app face of ``@app:fleet``."""
+        return self.context.fleet()
+
     # -- engine-level attribute map (reference get/setAttributes) -----------
     def get_attributes(self) -> dict:
         return self.context.attributes

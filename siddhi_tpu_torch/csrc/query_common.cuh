@@ -132,6 +132,9 @@ struct QArgs {
                                     // table lives in shared memory
   int ntile;                        // tiles of TILE positions over M
   int nrow, gsub;                   // group-by sort: rows of gsub positions
+  int npar;                         // fleet parameter columns having reads
+  int par_col[QMAXCOL];             // their event column slots
+  long long* pc;                    // [npar, B] their values, compacted
 };
 
 // ------------------------------------------------------------------ helpers
@@ -148,6 +151,15 @@ struct NoBindQ {
 struct OutAt {
   const long long* v;
   __device__ long long operator()(int k) const { return v[k]; }
+};
+// having's event reads: fleet parameter p at output slot b, compacted with
+// the accepted events as the reference compacts its parameter columns
+// (the having program links each parameter to its ordinal p)
+struct ParAt {
+  const QArgs* a; int b;
+  __device__ long long operator()(int p) const {
+    return a->pc[(long long)p * a->B + b];
+  }
 };
 
 __device__ __forceinline__ long long eval_row(const QArgs& a, Prog p, int b) {
@@ -261,7 +273,8 @@ __device__ __forceinline__ bool remainder_kind(int w) {
 // rank_b (compact_event): its aggregate arguments to the batch lanes, its
 // group or heavy-hitter key code, window clock and sort key to their
 // scratch, its value projections to out[i] at voff + rank_b (to bv for
-// hopping), its timestamp to ots (where the output axis is the batch's).
+// hopping), its timestamp to ots (where the output axis is the batch's),
+// the fleet parameter columns that having reads to pc.
 // Slots past the accepted count k hold the reference's fills
 // (compact_fill). compact_batch runs it in one CTA; query_step.cu runs the
 // same three parts over a grid (q_mask, q_compact).
@@ -293,6 +306,10 @@ __device__ void compact_event(const QArgs& a, int b, int r, int voff) {
   for (int l = 0; l < a.AM; ++l)
     a.bm[(long long)l * B + r] = eval_row(a, a.lane[L_M][l], b);
   a.bones[r] = 1;
+  for (int p = 0; p < a.npar; ++p) {
+    const int c = a.par_col[p];
+    a.pc[(long long)p * B + r] = load_typed(a.col[c], a.col_ty[c], b);
+  }
   if (a.ngk > 0) {
     unsigned long long packed = (unsigned long long)eval_row(a, a.gk[0], b);
     if (a.key_mode == KM_PAIR) {
@@ -339,6 +356,7 @@ __device__ void compact_fill(const QArgs& a, int s, int voff) {
   for (int l = 0; l < a.AS; ++l) a.bs[(long long)l * B + s] = 0.0f;
   for (int l = 0; l < a.AM; ++l) a.bm[(long long)l * B + s] = a.m_ident[l];
   a.bones[s] = 0;
+  for (int p = 0; p < a.npar; ++p) a.pc[(long long)p * B + s] = 0;
   a.bpacked[s] = 0;
   a.bwts[s] = TS_POS;
   a.bkeyv[s] = a.skey_fill;

@@ -14,7 +14,9 @@
 //     query_walk.cu's.
 // and evaluates filters, projections, aggregate arguments, group keys and
 // having through B2's IR (expr_ir.cuh; OP_TS is linked as a read of the
-// int64 timestamp column, having reads the row's outputs as bindings).
+// int64 timestamp column, having reads the row's outputs as bindings and
+// a fleet parameter column as an event read at the output slot, from the
+// parameter values compacted with the accepted events).
 //
 // What it computes, per step over a batch of B events: the filter mask and
 // its stable compaction (query_common.cuh); the step's axis z: the tail
@@ -1158,7 +1160,7 @@ __device__ void emit_row(const QArgs& a, int b, int k, int P) {
   }
   // the count is taken before having, as the reference takes it
   if ((a.wkind == W_BATCH || hop) && ok) atomicAdd(a.ocount, 1);
-  if (a.has_having) ok = ok && eval_prog(a.code, a.having, NoBindQ{}, OutAt{ov}) != 0;
+  if (a.has_having) ok = ok && eval_prog(a.code, a.having, ParAt{&a, b}, OutAt{ov}) != 0;
   a.ovalid[b] = ok;
 }
 

@@ -106,7 +106,7 @@ __device__ __noinline__ bool put_row(const QArgs& a, int b, long long cnt, const
     store_typed(a.out[i], a.spec_ty[i], b, v);
     ov[i] = v;
   }
-  if (a.has_having) ok = ok && eval_prog(a.code, a.having, NoBindQ{}, OutAt{ov}) != 0;
+  if (a.has_having) ok = ok && eval_prog(a.code, a.having, ParAt{&a, b}, OutAt{ov}) != 0;
   a.ovalid[b] = ok;
   return ok;
 }

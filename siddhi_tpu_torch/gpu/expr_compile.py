@@ -76,6 +76,28 @@ class KernelLibraryError(DeviceCompileError):
     when the query is built, strict or not, never a host fallback."""
 
 
+class ParamRef(Expression):
+    """A per-tenant parameter slot (fleet shared compilation).
+
+    Stands where a ``Constant`` stood in a normalized query: the compiled
+    closure reads the value from the env under :attr:`key` (a per-row
+    column the caller injects at step time), so one compiled program serves
+    every tenant of a shape, each with its own constants. In the IR it is
+    one more event column (``OP_EV``): the kernels read it like any other
+    column, and it counts toward each kernel's column limit. String params
+    carry dictionary codes, bound against the shared plan's dictionaries
+    (``fleet/shape.py`` hoists the constants; ``fleet/group.py`` binds and
+    injects them)."""
+
+    def __init__(self, index: int, type: DataType):
+        self.index = index
+        self.type = type
+
+    @property
+    def key(self) -> str:
+        return f"__fleet_p{self.index}"
+
+
 class ColumnResolver:
     """Maps a Variable to a column key + dtype for one stream: bare
     attribute names (pattern compilers resolve prefixed keys instead).
@@ -84,6 +106,12 @@ class ColumnResolver:
     def __init__(self, schema, host: bool = False):
         self.schema = schema
         self.host = host
+        # fleet parameter slots the compiled programs read: key → DataType
+        self.param_types: dict[str, DataType] = {}
+
+    def param_key(self, p: ParamRef) -> str:
+        self.param_types[p.key] = p.type
+        return p.key
 
     def resolve(self, var: Variable) -> tuple[str, DataType]:
         d = self.schema.definition
@@ -333,6 +361,15 @@ def compile_expression(expr: Expression, resolver
     """Returns ``(fn(env) -> tensor, result DataType, postfix IR)``; the IR
     is None for a host compile."""
     host = _is_host(resolver)
+    if isinstance(expr, ParamRef):
+        # resolvers with a prefixed env namespace (the NFA's ev_ columns)
+        # say where the slot lands; each records the slot's type
+        key_fn = getattr(resolver, "param_key", None)
+        key = key_fn(expr) if key_fn is not None else expr.key
+        # an event column of the kernels (OP_EV), whatever the env prefix
+        return (lambda env, key=key: env[key]), expr.type, \
+            None if host else [(OP["EV"], ir_type(expr.type), key, 0)]
+
     if isinstance(expr, Constant):
         if expr.type == DataType.STRING:
             raise DeviceCompileError(

@@ -32,6 +32,8 @@ scalar interpreter.
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Any, Optional
 
 import numpy as np
@@ -41,6 +43,7 @@ from ..query_api.definition import DataType
 from .backend import avalanche, reduce_identity
 from .dtypes import NP_HOST, TORCH_HOST
 from .expr_compile import DeviceCompileError, as_tensor
+from .state_io import host_tree_from_numpy, host_tree_to_numpy
 
 _TS_NEG = -(2 ** 62)
 _I64 = torch.int64
@@ -50,6 +53,36 @@ _F64 = torch.float64
 # ---------------------------------------------------------------------------
 # shared small kernels (torch ports of the query_compile helpers)
 # ---------------------------------------------------------------------------
+
+_one_lock = threading.Lock()
+_one_depth = 0
+_one_saved = 1
+
+
+@contextlib.contextmanager
+def one_intraop_thread():
+    """Runs the body with one intra-op thread, as numpy runs the
+    reference's host tier: a window's ops are a few tens of thousands of
+    elements, where a pool of threads costs more than it saves, and under
+    other busy processes far more (a fleet's storm stepped 40× slower on 8
+    threads beside five busy cores). Process-wide while any body runs
+    (``torch.set_num_threads``); nested and concurrent bodies share one
+    count, and the last to leave restores the setting."""
+    global _one_depth, _one_saved
+    with _one_lock:
+        if _one_depth == 0:
+            _one_saved = torch.get_num_threads()
+            if _one_saved != 1:
+                torch.set_num_threads(1)
+        _one_depth += 1
+    try:
+        yield
+    finally:
+        with _one_lock:
+            _one_depth -= 1
+            if _one_depth == 0 and _one_saved != 1:
+                torch.set_num_threads(_one_saved)
+
 
 def _t(x) -> torch.Tensor:
     """A staged numpy column (or a tensor) as a CPU tensor, zero-copy."""
@@ -107,22 +140,6 @@ def _accumulate(v: torch.Tensor, is_min: bool) -> torch.Tensor:
     if v.numel() == 0:
         return v
     return (torch.cummin if is_min else torch.cummax)(v, 0).values
-
-
-def _to_numpy(tree):
-    if isinstance(tree, dict):
-        return {k: _to_numpy(v) for k, v in tree.items()}
-    if isinstance(tree, torch.Tensor):
-        return tree.numpy().copy()
-    return tree
-
-
-def _from_numpy(tree):
-    if isinstance(tree, dict):
-        return {k: _from_numpy(v) for k, v in tree.items()}
-    if isinstance(tree, (np.ndarray, np.generic, torch.Tensor)):
-        return torch.from_numpy(np.array(tree))
-    return tree
 
 
 # ---------------------------------------------------------------------------
@@ -787,13 +804,13 @@ class HostBlockNFA:
     def snapshot_state(self, state: dict) -> dict:
         """The reference's snapshot: numpy leaves, the match count and the
         dictionaries."""
-        return {"tables": _to_numpy(state["tables"]),
+        return {"tables": host_tree_to_numpy(state["tables"]),
                 "matches": state["matches"],
                 "dict": self.nfa.merged.snapshot_dictionaries()}
 
     def restore_state(self, snap: dict) -> dict:
         self.nfa.merged.restore_dictionaries(snap.get("dict", {}))
-        return {"tables": _from_numpy(snap["tables"]),
+        return {"tables": host_tree_from_numpy(snap["tables"]),
                 "matches": snap["matches"]}
 
 
@@ -1095,7 +1112,14 @@ class HostStreamQuery:
             state = self._aggregate(state, ccols, cts, wts, k, out)
         hv = self.c.having_fn
         if hv is not None and k:
-            hmask = _full(hv(out), k, torch.bool)
+            # fleet param slots are visible to the having program too
+            # (hoisted constants in `having` clauses): compacted per-row
+            # param columns merge under the output columns
+            hv_env = out
+            pkeys = [kk for kk in ccols if kk.startswith("__fleet_p")]
+            if pkeys:
+                hv_env = {**{kk: ccols[kk] for kk in pkeys}, **out}
+            hmask = _full(hv(hv_env), k, torch.bool)
             out = {nm: v[hmask] for nm, v in out.items()}
             cts = cts[hmask]
             keep = keep[hmask]
@@ -1299,10 +1323,10 @@ class HostStreamQuery:
     # -- snapshots -------------------------------------------------------
     def snapshot_state(self, state: dict) -> dict:
         """The state with numpy leaves (the reference's form)."""
-        return _to_numpy(state)
+        return host_tree_to_numpy(state)
 
     def restore_state(self, snap: dict) -> dict:
-        return _from_numpy(snap)
+        return host_tree_from_numpy(snap)
 
     def decode(self, res: dict) -> tuple[list[int], list[list]]:
         cols = res["out"]

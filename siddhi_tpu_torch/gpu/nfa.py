@@ -353,6 +353,14 @@ class _NFAResolver:
         self.touched.append((q, variant))
         return variant, t
 
+    def param_key(self, p) -> str:
+        # fleet per-tenant parameter slots ride the event-column namespace
+        # (every cols entry is ev_-prefixed in the step env); they are
+        # injected at step time, never staged, so they are not used_ev_cols:
+        # the kernel plans read them as event columns (``param_cols``)
+        self.nfa.param_cols[p.key] = p.type
+        return f"ev_{p.key}"
+
     def encode_string(self, key: str, value: str) -> int:
         mk = key[3:] if key.startswith("ev_") else self._bound_to_merged(key)
         dic = self.nfa.merged.dictionaries.get(mk)
@@ -552,6 +560,9 @@ class DeviceNFACompiler:
 
         # compile predicates (after the alias map is ready) from the ASTs
         self.used_ev_cols: set[str] = set()
+        # fleet parameter columns the programs read (``__fleet_p{i}`` →
+        # DataType): injected per row with the batch, never staged
+        self.param_cols: dict[str, DataType] = {}
         self._compile_predicates(ist)
         self._compile_output(query)
         # merged columns the compiled program actually reads — the builders
@@ -739,6 +750,15 @@ class DeviceNFACompiler:
         for deps in self.out_null_deps:
             for (q, flag) in deps:
                 self.referenced.add((q, flag, DataType.BOOL))
+
+    def kernel_columns(self) -> list:
+        """The event columns a kernel plan reads, in slot order: the staged
+        columns the programs use, then the fleet parameter columns."""
+        return sorted(self.used_cols) + sorted(self.param_cols)
+
+    def column_type(self, key: str) -> DataType:
+        t = self.param_cols.get(key)
+        return t if t is not None else self.merged.columns[key]
 
     # ------------------------------------------------------------------ state
     def init_state(self, lanes: int = 1, start_ts: int = 0) -> dict:

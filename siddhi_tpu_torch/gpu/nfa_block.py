@@ -508,8 +508,8 @@ class BlockPlan:
     def __init__(self, nfa: "DeviceNFACompiler"):
         self.nfa = nfa
         C, S, B, K = nfa.C, nfa.S, nfa.B, nfa.creation_cap
-        self.col_keys = sorted(nfa.used_cols)
-        self.col_ty = [TY_OF[TORCH[nfa.merged.columns[k]]] for k in self.col_keys]
+        self.col_keys = nfa.kernel_columns()
+        self.col_ty = [TY_OF[TORCH[nfa.column_type(k)]] for k in self.col_keys]
         col_slot = {k: i for i, k in enumerate(self.col_keys)}
         if len(self.col_keys) > MAXCOL:
             raise DeviceCompileError(f"more than {MAXCOL} event columns")

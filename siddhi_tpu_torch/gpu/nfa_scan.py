@@ -1135,9 +1135,9 @@ class ScanPlan:
         key_idx = {k: i for i, k in enumerate(self.keys)}
         key_ty = {key: t for (q, key, t) in nfa.referenced}
         key_q = {key: q for (q, key, t) in nfa.referenced}
-        self.col_keys = sorted(nfa.used_cols)
+        self.col_keys = nfa.kernel_columns()
         col_slot = {k: i for i, k in enumerate(self.col_keys)}
-        self.col_ty = [TY_OF[TORCH[nfa.merged.columns[k]]] for k in self.col_keys]
+        self.col_ty = [TY_OF[TORCH[nfa.column_type(k)]] for k in self.col_keys]
         # fields: table by table, in the state tree's leaf order
         self.tables = []            # per state: {leaf name: global field}
         self.fields = []            # (state, leaf name, torch dtype)

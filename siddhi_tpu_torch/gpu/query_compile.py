@@ -122,6 +122,11 @@ class _OutputResolver:
     def __init__(self, specs: list[_Spec], schema: BatchSchema):
         self.specs = {s.name: s for s in specs}
         self.schema = schema
+        self.param_types: dict = {}      # fleet parameters having reads
+
+    def param_key(self, p) -> str:
+        self.param_types[p.key] = p.type
+        return p.key
 
     def resolve(self, var: Variable) -> tuple[str, DataType]:
         s = self.specs.get(var.attribute)
@@ -169,6 +174,9 @@ class CompiledStreamQuery:
         self.schema = BatchSchema(definition)
         resolver = ColumnResolver(self.schema, host=host)
         self.resolver = resolver
+        # fleet parameter columns (``__fleet_p{i}`` → DataType) the programs
+        # read: per-row columns the caller injects with the batch
+        self.param_types = resolver.param_types
 
         # handlers: filters + at most one window
         self.filter_fns: list[Callable] = []
@@ -294,11 +302,15 @@ class CompiledStreamQuery:
         # having: post-filter over materialized output columns
         self.having_fn: Optional[Callable] = None
         self.having_ir: Optional[list] = None
+        # fleet parameter columns having reads (keys of ``param_types``)
+        self.having_params: set[str] = set()
         if query.selector.having is not None:
             hres = _OutputResolver(self.specs, self.schema)
             hres.host = host
             self.having_fn, _, self.having_ir = compile_expression(
                 query.selector.having, hres)
+            self.having_params = set(hres.param_types)
+            self.param_types.update(hres.param_types)
 
         # a constant projection or aggregate argument: the reference's step
         # fails on the Python scalar (projections first); so does the port's,
@@ -590,6 +602,12 @@ class CompiledStreamQuery:
             state["run_scnt"] = z((AS,), FACC)
         return state
 
+    def column_type(self, key: str) -> DataType:
+        """A step column's type: a stream attribute's, or a fleet
+        parameter's."""
+        t = self.param_types.get(key)
+        return t if t is not None else self.definition.attribute_type(key)
+
     # -------------------------------------------------------------- execution
     def batch_tensors(self, batch: dict, device=None):
         """``BatchBuilder.emit()`` output (numpy) → ``(cols, ts, valid)``
@@ -840,12 +858,21 @@ def stream_step_plain(q: CompiledStreamQuery, state: dict, cols: dict,
     ones_c = compact(mask.to(i32))
     out_valid = ar < k
 
+    # fleet per-tenant parameter columns (injected by the caller, not part
+    # of the schema): compacted so having programs over hoisted constants
+    # stay row-aligned with the output columns, as the reference compacts
+    # them
+    pcols = {kk: compact(cols[kk]) for kk in cols
+             if kk.startswith("__fleet_p")}
+
     def finish(new_state, sums_f, sums_i, cnts, mins, svars,
-               ovalid=out_valid, count=None, ots=cts, proj=proj_c):
+               ovalid=out_valid, count=None, ots=cts, proj=proj_c,
+               params=True):
         out = _materialize(specs, value_idx, fagg_idx, iagg_idx, sagg_idx,
                            proj, sums_f, sums_i, cnts, mins, svars)
         if q.having_fn is not None:
-            hv = as_tensor(q.having_fn({**out, "__device__": dev}), env)
+            henv = {**pcols, **out} if params and pcols else out
+            hv = as_tensor(q.having_fn({**henv, "__device__": dev}), env)
             ovalid = ovalid & hv.expand(ovalid.shape)
         cnt = torch.tensor(k if count is None else count, dtype=i32,
                            device=dev)
@@ -1080,8 +1107,10 @@ def _remainder_step(q, state, k, lanes, cts, cts_pos, m_ismin, finish):
             (total - n_rel - rem_n)
         new_state["ts_regressions"] = state["ts_regressions"] + regressions
         carry(rem_n, max(total - rem_n, 0), zts)
+        # the reference's delay step hands having the outputs alone
         return finish(new_state, None, None, None, {}, None, ovalid=release,
-                      count=n_rel, ots=zts + q.window_ms, proj=zproj)
+                      count=n_rel, ots=zts + q.window_ms, proj=zproj,
+                      params=False)
 
     z_f = zc(state["tail_fvals"], av_f)
     z_i = zc(state["tail_ivals"], av_i)

@@ -7,7 +7,10 @@
 (``make_plan``): it links the query's programs (filters, projections,
 aggregate arguments, group and heavy-hitter keys, the sort key, the
 externalTime column, having) into the IR the kernels' interpreter runs
-(``csrc/expr_ir.cuh``), fills the kernels' argument block (``QArgs``,
+(``csrc/expr_ir.cuh``; a fleet parameter ``__fleet_p{i}`` is one more
+event column, and one that ``having`` reads is compacted with the
+accepted events into ``QArgs.pc`` and read at the output slot), fills the
+kernels' argument block (``QArgs``,
 mirrored here with ctypes) and refuses, with ``DeviceCompileError``, a query
 over a kernel limit (columns, outputs, lanes, filters, group keys, stack
 depth, sizes), on every device, so the CPU and the card accept the same
@@ -104,22 +107,28 @@ class QArgs(ctypes.Structure):
         *[(n, c_vp) for n in _SCRATCH],
         ("hh_H", c_int), ("hh_shared", c_int),
         ("ntile", c_int), ("nrow", c_int), ("gsub", c_int),
+        ("npar", c_int), ("par_col", c_int * QMAXCOL), ("pc", c_vp),
     ]
 
 
 def link_query_program(ir: list, slot: dict, ts_slot: int | None,
-                       bind: bool = False) -> np.ndarray:
+                       bind: bool = False,
+                       params: dict | None = None) -> np.ndarray:
     """Resolves a query program's env keys to kernel slots: every variable
     key (bare attribute names, or output names for ``having``) →
     ``slot[key]`` (an event-column read, or an output binding when
-    ``bind``); ``eventTimestamp()`` → the int64 timestamp column. Raises
-    KeyError for a key the step's env lacks, as the reference raises at its
-    first step."""
+    ``bind``); a fleet parameter read of ``having`` (an ``OP_EV`` key in
+    ``params``) → its ordinal among the compacted parameter columns;
+    ``eventTimestamp()`` → the int64 timestamp column. Raises KeyError for
+    a key the step's env lacks, as the reference raises at its first
+    step."""
     def operand(op, a):
         if op == OP["TS"]:
             if ts_slot is None:
                 raise KeyError("__ts__")
             return OP["EV"], ts_slot
+        if params is not None and op == OP["EV"] and a in params:
+            return OP["EV"], params[a]
         if a not in slot:
             raise KeyError(a)
         return (OP["BIND"] if bind else OP["EV"]), slot[a]
@@ -162,6 +171,16 @@ class QueryPlan:
         for key in (q.time_key, q.sort_key):
             if key:
                 used.add(key)
+        # fleet parameter columns that having reads: compacted with the
+        # accepted events (``csrc/query_common.cuh``: ``pc``), read at the
+        # output slot; only where an output slot is an accepted event's
+        self.par_keys = sorted(q.having_params)
+        used |= set(self.par_keys)
+        if self.par_keys and kind in REMAINDER:
+            raise DeviceCompileError(
+                f"{self.WHAT}: having reads fleet parameter "
+                f"'{self.par_keys[0]}' over a '{kind}' window, whose output "
+                f"rows are not the batch's accepted events")
         self.col_keys = sorted(used)
         limits.append((len(self.col_keys) + 1, QMAXCOL, "event columns"))
         for n, cap, what in limits:
@@ -170,7 +189,7 @@ class QueryPlan:
                     f"{self.WHAT}: {n} {what} (limit {cap})")
         slot = {k: i for i, k in enumerate(self.col_keys)}
         ts_slot = len(self.col_keys)
-        types = {k: q.definition.attribute_type(k) for k in self.col_keys}
+        types = {k: q.column_type(k) for k in self.col_keys}
         self.col_ty = [TY_OF[TORCH[types[k]]] for k in self.col_keys] + \
             [TY_OF[torch.int64]]
 
@@ -180,11 +199,11 @@ class QueryPlan:
         self.link_error = None      # raised at the first step, as the
         # reference raises at its first step (trace time)
 
-        def add(ir, ty=None, env=slot, tss=ts_slot, bind=False):
+        def add(ir, ty=None, env=slot, tss=ts_slot, bind=False, params=None):
             if ty is not None:
                 ir = cast_to(ir, ty)
             try:
-                prog = link_query_program(ir, env, tss, bind)
+                prog = link_query_program(ir, env, tss, bind, params)
             except KeyError as e:
                 self.link_error = self.link_error or e
                 return _Prog(0, 0)
@@ -266,8 +285,12 @@ class QueryPlan:
         if q.having_ir is not None:
             a.has_having = 1
             out_slot = {s.name: i for i, s in enumerate(specs)}
+            par_slot = {k: p for p, k in enumerate(self.par_keys)}
             a.having = add(cast_to(q.having_ir, T_BOOL), env=out_slot, tss=None,
-                           bind=True)
+                           bind=True, params=par_slot)
+            a.npar = len(self.par_keys)
+            for p, k in enumerate(self.par_keys):
+                a.par_col[p] = slot[k]
         self.code_host = np.concatenate(code) if code else \
             np.zeros((1, 4), np.int32)
         self._dev = {}      # device → (argument template, code, scratch)
@@ -335,8 +358,7 @@ class QueryPlan:
         for k in self.col_keys:
             if k not in cols:
                 raise ValueError(f"missing column '{k}'")
-            need(cols[k], f"cols[{k!r}]", TORCH[q.definition.attribute_type(k)],
-                 (q.B,))
+            need(cols[k], f"cols[{k!r}]", TORCH[q.column_type(k)], (q.B,))
         if self._proto is None:
             self._proto = q.init_state(device="meta")
         proto = self._proto
@@ -524,6 +546,7 @@ class QueryPlan:
             "tpz": e(tasks * 6 * a.ntile, i32), "acc": e(4, i64),
             "hidx": e(a.hh_H, i32), "hfree": e((a.N + 31) // 32 if a.hh_H else 0,
                                                i32),
+            "pc": e(a.npar * B, i64),
         }
 
 

@@ -21,6 +21,14 @@ Both packages keep the same state tree, leaf names and dtypes:
   ``join_drops`` and ``ring_drops`` (``join_state_from_numpy`` checks a tree
   against ``init_state``'s leaf list the same way).
 
+- a fleet member of the columnar host tier (``fleet/group.py``'s
+  ``FleetMemberState``): ``{"state": tree, "dict": {column: values}}``, the
+  tree the member's host plan keeps (a stream shape's flat dict with its
+  ``window_n``/``window_ms`` overrides, an NFA shape's ``{"tables",
+  "matches"}``, a partition's ``{"lanes": [...]}``) with numpy leaves and
+  Python counters; ``host_tree_to_numpy``/``host_tree_from_numpy`` carry it
+  between the port's CPU tensors and those leaves.
+
 The reference's partitioned runtimes stack lanes in front (``[P, C]``, ``[P]``)
 as the port does; its single-lane ``DeviceNFARuntime`` keeps ``[C]`` leaves
 and scalar counters, which the port holds as one lane (``single_lane=True``
@@ -102,3 +110,29 @@ def _check_like(proto: dict, got: dict, at: str) -> None:
             raise ValueError(f"state leaf {name!r}: {got[k].dtype}"
                              f"{tuple(got[k].shape)}, expected {p.dtype}"
                              f"{tuple(p.shape)}")
+
+
+def host_tree_to_numpy(tree):
+    """A host-tier state tree (dicts, lists, CPU tensors, Python values) →
+    the same tree with numpy leaves (the JAX package's host form)."""
+    if isinstance(tree, dict):
+        return {k: host_tree_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [host_tree_to_numpy(v) for v in tree]
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().numpy().copy()
+    return tree
+
+
+def host_tree_from_numpy(tree):
+    """``host_tree_to_numpy``'s inverse: numpy arrays and scalars → CPU
+    tensors (copied); dicts, lists and Python values as they are."""
+    if isinstance(tree, dict):
+        return {k: host_tree_from_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [host_tree_from_numpy(v) for v in tree]
+    if isinstance(tree, (np.ndarray, np.generic)):
+        return torch.from_numpy(np.array(tree))
+    if isinstance(tree, torch.Tensor):
+        return tree.clone()
+    return tree

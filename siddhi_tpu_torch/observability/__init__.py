@@ -3,14 +3,9 @@ Prometheus exposition, device-path profiling, and the X-Ray layer:
 detection-latency attribution, cross-host trace stitching, and an
 always-on engine flight recorder.
 
-The port's copy of the JAX package's ``observability/__init__.py``, with two
-deliberate differences:
-
-- ``GroupEvidence``, ``SLOController`` and ``TenantSLO`` (``slo.py``) are
-  left out: the SLO autopilot reads fleet groups and comes with the fleet
-  tier (``ROADMAP.md`` §A item 5);
-- ``profiler.py`` runs on ``torch.profiler`` (with NVTX ranges on the card)
-  where the JAX package's runs on ``jax.profiler``.
+The port's copy of the JAX package's ``observability/__init__.py``, with one
+deliberate difference: ``profiler.py`` runs on ``torch.profiler`` (with NVTX
+ranges on the card) where the JAX package's runs on ``jax.profiler``.
 
 The flow and resilience layers fill the statistics SPI with gauges and
 counters; this package closes the gaps:
@@ -28,6 +23,11 @@ counters; this package closes the gaps:
 - **exposition** (``prometheus.py``) — ``GET /metrics`` renders every
   tracker as stable ``siddhi_tpu_*`` families, tail buckets carrying
   ``trace_id`` exemplars when sampled;
+- **SLO autopilot** (``slo.py``) — per-tenant SLO classes on
+  ``@app:fleet`` groups, a closed loop from the phase evidence to the
+  fleet's actuators (shed / shrink the window / split / eject), every
+  decision on the flight recorder first (``GET /siddhi-apps/{name}/slo``,
+  ``siddhi_tpu_slo_*`` gauges);
 - **flight recorder** (``flight_recorder.py``) — a bounded ring of
   control-plane transitions (AIMD resizes, flush-cause flips, breaker
   state, quarantine/ejection, SLO decisions, takeover/rejoin), dumped to
@@ -61,12 +61,14 @@ from .tracing import (
     parse_trace_annotation,
 )
 
+from .slo import GroupEvidence, SLOController, TenantSLO
 log = logging.getLogger("siddhi_tpu_torch.observability")
 
 __all__ = [
     "CONTENT_TYPE", "DeviceProfiler", "DeviceStepProbe", "FLUSH_CAUSES",
-    "FlightRecorder", "LogHistogram", "ObservabilitySubsystem", "PHASES",
-    "PhaseBreakdown", "PipelineTracer", "Span", "Trace", "TraceContext",
+    "FlightRecorder", "GroupEvidence", "LogHistogram",
+    "ObservabilitySubsystem", "PHASES", "PhaseBreakdown", "PipelineTracer",
+    "SLOController", "Span", "TenantSLO", "Trace", "TraceContext",
     "parse_flightrecorder_annotation", "parse_profile_annotation",
     "parse_trace_annotation", "phase_of_stage", "render",
 ]

@@ -13,6 +13,10 @@ package (``siddhi_tpu_torch/flow``: WAL + replay + backpressure) makes the
   reroute the failed batch through the host — the columnar host engine when
   the query lowers there, else the interpreter; repeated failures
   quarantine the device path until a cool-down probe re-promotes it);
+- **fleet** — every ``@app:fleet`` shape group gets a
+  :class:`~siddhi_tpu_torch.resilience.fleet_guard.FleetGuard` (per-tenant
+  containment, ejection to the solo tier, re-admission, input hardening,
+  fair share);
 - **host batch** — every columnar host bridge gets a
   :class:`~siddhi_tpu_torch.resilience.fleet_guard.HostStepGuard` (a failed
   micro-batch replays on the scalar interpreter; repeated failures
@@ -43,15 +47,15 @@ from ..query_api.annotation import find_annotation
 from .chaos import ChaosFault, ChaosInjector, parse_chaos_annotation
 from .circuit import CircuitBreaker, CircuitState
 from .device_guard import DeviceGuard
-from .fleet_guard import HostStepGuard
+from .fleet_guard import FleetGuard, HostStepGuard
 from .sink_pipeline import OnErrorPolicy, ResilientSink, parse_sink_policy
 
 log = logging.getLogger("siddhi_tpu_torch.resilience")
 
 __all__ = [
     "ChaosFault", "ChaosInjector", "CircuitBreaker", "CircuitState",
-    "DeviceGuard", "HostStepGuard", "OnErrorPolicy", "ResilienceSubsystem",
-    "ResilientSink",
+    "DeviceGuard", "FleetGuard", "HostStepGuard", "OnErrorPolicy",
+    "ResilienceSubsystem", "ResilientSink",
     "parse_chaos_annotation", "parse_sink_policy",
 ]
 

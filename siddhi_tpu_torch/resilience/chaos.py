@@ -1,9 +1,10 @@
 """Seeded fault injection: the test substrate for the resilience layer.
 
 The port's copy of the JAX package's ``resilience/chaos.py``. The
-``fleet.fault.p`` and ``dcn.*`` fields are parsed as the reference parses
-them; nothing in the port calls their sites yet (the fleet and distribution
-tiers, ``ROADMAP.md`` §A items 5 and 8).
+``dcn.*`` fields are parsed as the reference parses them; nothing in the
+port calls their sites yet (the distribution tier, ``ROADMAP.md`` §A item
+8). ``fleet.fault.p`` targets a tenant's own lanes of its fleet group
+(``resilience/fleet_guard.py``).
 
 ``@app:chaos(seed='42', source.fail.p='0.05', sink.fail.p='0.05',
 device.fail.p='0.05', connect.fail.p='0', latency.ms='0')`` (or a

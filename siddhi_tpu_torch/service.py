@@ -3,10 +3,10 @@
 The port's copy of the JAX package's ``service.py``, with one difference: a
 service that builds its own manager builds it as ``SiddhiManager(device)``
 (``device=None``, the default, is the card; ``"cpu"`` runs the plain
-versions). The ``fleet``, ``slo``, ``dcn`` and ``mesh`` endpoints read tiers
-the port does not have yet (``ROADMAP.md`` §A items 5 and 8) through
-``getattr`` and answer ``enabled: false`` as the JAX package's do without
-them.
+versions). The ``fleet`` and ``slo`` endpoints read the port's fleet tier;
+the ``dcn`` and ``mesh`` endpoints read tiers the port does not have yet
+(``ROADMAP.md`` §A item 8) through ``getattr`` and answer ``enabled: false``
+as the JAX package's do without them.
 
 Reference: ``modules/siddhi-service`` —
 ``impl/SiddhiApiServiceImpl.java:45`` (deploy ``:51``, undeploy ``:100``): a

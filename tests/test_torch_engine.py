@@ -14,11 +14,9 @@
   timestamps included; cut mid-batch (the snapshot flushes the partial
   batch, so output timestamps move), it equals the reference engine cut at
   the same event. A blob holds numpy arrays and no ``torch.Tensor``.
-- Every tier the port does not have yet is refused at
-  ``create_siddhi_app_runtime`` with a ``SiddhiAppCreationError`` naming it,
-  and the tiers it has (sources, sinks, the WAL, backpressure, adaptive
-  batching, chaos and resilience, the columnar host tier) build and give
-  the reference engine's rows;
+- The tiers it once refused (sources, sinks, the WAL, backpressure,
+  adaptive batching, chaos and resilience, the columnar host tier, the
+  fleet) build and give the reference engine's rows;
   a strict ``@device`` query the compilers refuse raises
   ``DeviceCompileError``, as in the reference.
 - ``SiddhiManager()`` runs on the card, and without one it raises.
@@ -40,7 +38,6 @@ import torch
 
 import siddhi_tpu
 import siddhi_tpu_torch
-from siddhi_tpu_torch.core.errors import SiddhiAppCreationError
 from siddhi_tpu_torch.gpu.expr_compile import DeviceCompileError
 
 from test_torch_device_bridge import (
@@ -452,21 +449,10 @@ def test_resume_mid_batch_matches_reference(mode):
     assert got == ref
 
 
-# ----------------------------------------------------------------- refusals
+# ------------------------------------------------------------ ported tiers
 
 S = "define stream S (v double);\n"
 Q = "@device(batch='16')\nfrom S[v > 1.0] select v insert into O;\n"
-REFUSALS = {
-    "fleet": ("@app:fleet(tenant='a')\n" + S + Q, "fleet tier"),
-}
-
-
-@pytest.mark.parametrize("name", sorted(REFUSALS))
-def test_unported_tier_is_refused(name):
-    app, tier = REFUSALS[name]
-    with pytest.raises(SiddhiAppCreationError, match="not ported yet") as e:
-        port_manager().create_siddhi_app_runtime(app, playback=True)
-    assert tier in str(e.value)
 
 
 # the tiers this engine has, which it refused before: each app builds on
@@ -489,6 +475,9 @@ PORTED = {
     # a device query and a columnar host query side by side
     "host_batch": "@app:host_batch(workers='2')\n" + S + Q
                   + "from S[v > 2.0] select v insert into O;\n",
+    # a device query and a fleet member side by side
+    "fleet": "@app:fleet(batch='4')\n" + S + Q
+             + "from S[v > 2.0] select v insert into O;\n",
 }
 
 

@@ -15,8 +15,8 @@ The reference suites are imported as data, never edited:
   port's, in the suite's module and on the ``siddhi_tpu`` package, for the
   duration of the call: the reference's own assertions judge the port, the
   function-local imports included. The IO, flow, sink-pipeline,
-  observability, service, doc-generator and columnar host modules
-  (``PORTED_MODULES``) are
+  observability, service, doc-generator, columnar host and fleet modules
+  (``PORTED_MODULES``; for a suite, ``SUITE_MODULES`` too) are
   bound the same way, name by name: every name the
   port's module defines replaces the reference's in the reference's module
   and in the suite's, and a test double the suite derives from one of those
@@ -30,12 +30,7 @@ The reference suites are imported as data, never edited:
   ``COLUMNAR`` lists the functions that drive the columnar host tier, and
   each must reach the port's (a host bridge, a stager, or an
   ``@app:host_batch`` config read);
-- ``NEEDS_UNPORTED`` lists, by id, the suite functions whose app needs a
-  tier the port does not have yet, with that tier; the port must still
-  refuse them at build time with "not ported yet" naming the tier, or,
-  where the app carries no annotation of the tier (``UNPORTED_SURFACE``),
-  still fail where they read a surface that tier adds.
-  ``NEEDS_MODULE`` lists the functions that drive a JAX-package module the
+- ``NEEDS_MODULE`` lists the functions that drive a JAX-package module the
   port has no counterpart of yet (the DCN guard of distribution), with its
   tier; the port must still lack it.
 
@@ -100,6 +95,11 @@ PORTED_MODULES = {
     "siddhi_tpu.flow.records": "siddhi_tpu_torch.flow.records",
     "siddhi_tpu.flow.recovery": "siddhi_tpu_torch.flow.recovery",
     "siddhi_tpu.flow.wal": "siddhi_tpu_torch.flow.wal",
+    "siddhi_tpu.fleet": "siddhi_tpu_torch.fleet",
+    "siddhi_tpu.fleet.cache": "siddhi_tpu_torch.fleet.cache",
+    "siddhi_tpu.fleet.group": "siddhi_tpu_torch.fleet.group",
+    "siddhi_tpu.fleet.manager": "siddhi_tpu_torch.fleet.manager",
+    "siddhi_tpu.fleet.shape": "siddhi_tpu_torch.fleet.shape",
     "siddhi_tpu.query_api.definition": "siddhi_tpu_torch.query_api.definition",
     "siddhi_tpu.observability": "siddhi_tpu_torch.observability",
     "siddhi_tpu.observability.flight_recorder":
@@ -111,6 +111,7 @@ PORTED_MODULES = {
         "siddhi_tpu_torch.observability.profiler",
     "siddhi_tpu.observability.prometheus":
         "siddhi_tpu_torch.observability.prometheus",
+    "siddhi_tpu.observability.slo": "siddhi_tpu_torch.observability.slo",
     "siddhi_tpu.observability.tracing":
         "siddhi_tpu_torch.observability.tracing",
     "siddhi_tpu.procmesh.lanepool": "siddhi_tpu_torch.procmesh.lanepool",
@@ -119,6 +120,8 @@ PORTED_MODULES = {
     "siddhi_tpu.resilience.circuit": "siddhi_tpu_torch.resilience.circuit",
     "siddhi_tpu.resilience.device_guard":
         "siddhi_tpu_torch.resilience.device_guard",
+    "siddhi_tpu.resilience.fleet_guard":
+        "siddhi_tpu_torch.resilience.fleet_guard",
     "siddhi_tpu.resilience.sink_pipeline":
         "siddhi_tpu_torch.resilience.sink_pipeline",
     "siddhi_tpu.service": "siddhi_tpu_torch.service",
@@ -132,11 +135,21 @@ PORTED_MODULES = {
 # too, so what the suite registers reaches the port's classes
 REGISTRIES = {"siddhi_tpu.core.metrics": ("REPORTERS",)}
 
+# bound for one suite only, on top of PORTED_MODULES: test_fleet parses its
+# tenants' texts and normalizes their queries for the shared device plans
+# (function-local imports of the parser and the query API)
+SUITE_MODULES = {
+    "test_fleet": {"siddhi_tpu.compiler": "siddhi_tpu_torch.compiler",
+                   "siddhi_tpu.query_api": "siddhi_tpu_torch.query_api"},
+}
 
-def ported_names() -> list:
-    """``(reference module, name, port object)`` for every bound name."""
+
+def ported_names(suite: str = "") -> list:
+    """``(reference module, name, port object)`` for every bound name (and
+    for those ``suite`` binds on top)."""
     out = []
-    for ref_name, port_name in PORTED_MODULES.items():
+    for ref_name, port_name in {**PORTED_MODULES,
+                                **SUITE_MODULES.get(suite, {})}.items():
         ref = importlib.import_module(ref_name)
         port = importlib.import_module(port_name)
         for name, obj in vars(port).items():
@@ -250,14 +263,14 @@ SUITES = ["test_partition_corpus", "test_join_corpus", "test_filter_query",
           "test_record_pushdown", "test_config", "test_metrics",
           "test_torn_fuzz", "test_bridge_fuzz", "test_device_pipeline",
           "test_observability", "test_xray", "test_service_and_docs",
-          "test_host_batch", "test_procmesh", "test_fleet_guard"]
+          "test_host_batch", "test_procmesh", "test_fleet_guard",
+          "test_fleet", "test_slo"]
 
 # suites that also test tiers outside the port's → the functions they
-# contribute: the IO tier, the sink pipeline and the columnar host tier
-# (the rest of test_edge_rows holds the JAX package's own parsers and
-# lints; the rest of test_resilience the JAX package's except-clause lint;
-# the rest of test_procmesh the process mesh of distribution, the rest of
-# test_fleet_guard the fleet's guard)
+# contribute: the IO tier, the sink pipeline, the columnar host tier and
+# the fleet (the rest of test_edge_rows holds the JAX package's own parsers
+# and lints; the rest of test_resilience the JAX package's except-clause
+# lint; the rest of test_procmesh the process mesh of distribution)
 SUITE_ONLY = {
     "test_edge_rows": {
         "test_source_chunk_boundary_parity_fuzz",
@@ -276,10 +289,6 @@ SUITE_ONLY = {
         "test_stager_mixed_rows_and_columns_order"},
     "test_procmesh": {"test_lane_pool_parity_and_snapshot",
                       "test_lane_pool_rejects_bad_mode"},
-    "test_fleet_guard": {
-        "test_host_step_guard_replays_failed_batch_through_scalar",
-        "test_host_step_guard_quarantines_after_threshold",
-        "test_host_guard_emit_failure_does_not_duplicate"},
     "test_resilience": {
         "test_circuit_breaker_transitions",
         "test_circuit_success_resets_consecutive_failures",
@@ -346,6 +355,19 @@ NOT_SUITE_FUNCTIONS = {
     # (tests/test_torch_observability.py holds the port's validator)
     ("test_service_and_docs", "test_validate_extension_args"),
     ("test_service_and_docs", "test_build_time_validation_in_query"),
+    # runs the JAX package's scripts/check_fleet_shapes.py over its
+    # normalizer (tests/test_torch_fleet.py holds the port's keys equal to
+    # the JAX package's over the lint's corpus and the samples, and the
+    # lint's three properties on the port)
+    ("test_fleet", "test_fleet_shape_lint_passes"),
+    # builds the JAX package's wire batch and calls its jitted step
+    # (tests/test_torch_fleet.py steps the port's device plan with 2 and 16
+    # tenants' parameter columns against it)
+    ("test_fleet", "test_device_plan_executes_with_param_columns"),
+    # runs the JAX package's scripts/check_guard_coverage.py over its
+    # sources (tests/test_torch_fleet.py checks the port's fleet sections:
+    # the group's guard and the autopilot's record-before-actuate)
+    ("test_fleet_guard", "test_guard_coverage_lint_passes"),
 }
 
 # suite functions that drive the columnar host tier (its apps carry
@@ -362,7 +384,8 @@ COLUMNAR: set = {
         "test_parallel_tier_snapshot_restore_mid_stream",
         "test_json_lines_mapper_rows", "test_send_columns_fallback_paths",
         "test_send_columns_validation", "test_zero_objects_on_rows_path",
-        "test_stager_mixed_rows_and_columns_order")),
+        "test_stager_mixed_rows_and_columns_order",
+        "test_fleet_stage_columns_parity")),
     "test_xray::test_observability_overhead_pin_on_columnar_micro_corpus",
     "test_procmesh::test_lane_pool_parity_and_snapshot",
     "test_procmesh::test_lane_pool_rejects_bad_mode",
@@ -372,27 +395,16 @@ COLUMNAR: set = {
         "test_host_guard_emit_failure_does_not_duplicate")),
 }
 
-# suite function id → the tier its app needs, which the port refuses
-NEEDS_UNPORTED: dict[str, str] = {
-    "test_edge_rows::test_fleet_stage_columns_parity":
-        "the multi-tenant fleet tier",
-    "test_metrics::test_fleet_fallback_reason_counter_family":
-        "the multi-tenant fleet tier",
-    "test_metrics::test_guard_metric_families_unregister_on_shutdown":
-        "the multi-tenant fleet tier",
-}
-
-# of those, the functions whose app carries no annotation of the tier, so
-# the port builds it; each reads a surface that the tier adds, and must
-# still fail there: the exception and the message the port gives (none
-# today)
-UNPORTED_SURFACE: dict[str, tuple] = {}
-
 # suite function id → the JAX-package module it drives, which the port does
 # not have yet (the port must still lack it), and the tier it comes with
 NEEDS_MODULE: dict[str, tuple] = {
     # the DCN trace stitching: the reference's DCNWorker and DCN guard
     "test_xray::test_two_host_trace_stitching_survives_retry_and_takeover":
+        ("resilience.dcn_guard", "distribution"),
+    # the DCN guard's snapshot store (LaneGroupSnapshotStore)
+    "test_fleet_guard::test_snapshot_store_fsyncs_file_and_dir_before_rename":
+        ("resilience.dcn_guard", "distribution"),
+    "test_fleet_guard::test_snapshot_store_survives_torn_tmp":
         ("resilience.dcn_guard", "distribution"),
 }
 
@@ -449,8 +461,8 @@ SUITE_FUNCTIONS = suite_functions()
 def bind_port_names(monkeypatch, mod, request) -> set:
     """The reference's public names → the port's, in ``mod`` and on the
     ``siddhi_tpu`` package (function-local imports read the package), and
-    every name of ``PORTED_MODULES`` in the reference's module and in
-    ``mod``; ``mod``'s own classes derived from a bound class are rebased
+    every name of ``PORTED_MODULES`` (and of ``mod``'s ``SUITE_MODULES``)
+    in the reference's module and in ``mod``; ``mod``'s own classes derived from a bound class are rebased
     onto the port's. Returns the names of ``mod`` now bound to the port."""
     bound = set()
     for name, obj in BINDINGS.items():
@@ -461,7 +473,8 @@ def bind_port_names(monkeypatch, mod, request) -> set:
     monkeypatch.setattr(siddhi_tpu.core.errors, "SiddhiAppCreationError",
                         SiddhiAppCreationError)
     port_of = {}                # id(reference object) → the port's
-    for ref, name, obj in ported_names():
+    suite = mod.__name__
+    for ref, name, obj in ported_names(suite):
         port_of[id(getattr(ref, name))] = obj
         monkeypatch.setattr(ref, name, obj)
     # a service that builds its own manager builds the port's on the CPU
@@ -482,7 +495,7 @@ def bind_port_names(monkeypatch, mod, request) -> set:
                 lambda c=val, b=old: setattr(c, "__bases__", b))
             bound.add(name)
     # function-local imports from the reference's modules get the port's
-    return bound | {name for _, name, _ in ported_names()}
+    return bound | {name for _, name, _ in ported_names(suite)}
 
 
 def own_fixtures(mod) -> tuple[dict, list]:
@@ -606,43 +619,27 @@ def test_reference_suite_function_on_the_port(modname, fname, kwargs,
             f"siddhi_tpu_torch.{missing}") is None
         return
     bound = bind_port_names(monkeypatch, mod, request)
-    tier = NEEDS_UNPORTED.get(fid)
     built = PortManager.built
     fixtures = {"tmp_path": tmp_path, "caplog": caplog,
                 "monkeypatch": monkeypatch}
-    if tier is None:
-        reach = ColumnarReach(monkeypatch) if fid in COLUMNAR else None
-        call_suite_function(mod, fn, kwargs, fixtures)
-        # an engine function builds the port's engine; a unit function
-        # calls a class or function bound to the port's
-        assert PortManager.built > built or names_used(fn) & bound, \
-            "the function ran nothing of the port"
-        if reach is not None:
-            assert reach.n, "the function never reached the port's " \
-                "columnar host tier"
-        return
-    surface = UNPORTED_SURFACE.get(fid)
-    if surface is not None:
-        exc, message = surface
-        with pytest.raises(exc) as e:
-            call_suite_function(mod, fn, kwargs, fixtures)
-        assert message in str(e.value)
-        assert PortManager.built > built
-        return
-    with pytest.raises(SiddhiAppCreationError, match="not ported yet") as e:
-        call_suite_function(mod, fn, kwargs, fixtures)
-    assert tier in str(e.value)
+    reach = ColumnarReach(monkeypatch) if fid in COLUMNAR else None
+    call_suite_function(mod, fn, kwargs, fixtures)
+    # an engine function builds the port's engine; a unit function calls a
+    # class or function bound to the port's
+    assert PortManager.built > built or names_used(fn) & bound, \
+        "the function ran nothing of the port"
+    if reach is not None:
+        assert reach.n, "the function never reached the port's columnar " \
+            "host tier"
 
 
 def test_suites_are_all_collected():
-    """Every suite contributes functions; the unported list names only
-    collected ids."""
+    """Every suite contributes functions; the lists name only collected
+    ids."""
     mods = {p.values[0] for p in SUITE_FUNCTIONS}
     assert mods == set(SUITES)
     ids = {p.id for p in SUITE_FUNCTIONS}
-    assert set(NEEDS_UNPORTED) <= ids
-    assert COLUMNAR <= ids and not COLUMNAR & set(NEEDS_UNPORTED)
-    assert set(UNPORTED_SURFACE) <= set(NEEDS_UNPORTED)
+    assert COLUMNAR <= ids
     assert set(NEEDS_MODULE) <= ids
     for modname, only in SUITE_ONLY.items():
         assert only <= set(vars(importlib.import_module(modname)))

@@ -32,6 +32,7 @@ from siddhi_tpu_torch.gpu import host_exec as port_he
 from siddhi_tpu_torch.gpu.expr_compile import DeviceCompileError
 from siddhi_tpu_torch.gpu.nfa import DeviceNFACompiler as PortNFA
 from siddhi_tpu_torch.gpu.query_compile import CompiledStreamQuery as PortQuery
+from siddhi_tpu_torch.gpu.state_io import host_tree_to_numpy
 
 RTOL = 1e-12
 STREAM = "define stream S (sym string, v double, n long);\n"
@@ -124,7 +125,7 @@ class Pair:
                             port_he.HostRowStager(pc.schema, None, 1 << 20))
         self.ref_state = self.ref.init_state()
         self.port_state = self.port.init_state()
-        leaves_equal(self.ref_state, port_he._to_numpy(self.port_state))
+        leaves_equal(self.ref_state, host_tree_to_numpy(self.port_state))
 
     @staticmethod
     def _query(app):
@@ -143,18 +144,18 @@ class Pair:
         if self.partitioned:
             rj, rout = self.ref.process(rb)
             pj, pout = self.port.process(pb)
-            leaves_equal(rout, port_he._to_numpy(pout), "outs")
+            leaves_equal(rout, host_tree_to_numpy(pout), "outs")
             for lane, (r, g) in enumerate(zip(self.ref.lane_states,
                                               self.port.lane_states)):
-                leaves_equal(r, port_he._to_numpy(g), f"lane {lane}")
+                leaves_equal(r, host_tree_to_numpy(g), f"lane {lane}")
             return self.ref.decode(rout), self.port.decode(pout)
         if self.nfa:
             self.ref_state, rout = self.ref.step(
                 self.ref_state, rb["cols"], rb["tag"], rb["ts"])
             self.port_state, pout = self.port.step(
                 self.port_state, pb["cols"], pb["tag"], pb["ts"])
-            leaves_equal(rout, port_he._to_numpy(pout), "outs")
-            leaves_equal(self.ref_state, port_he._to_numpy(self.port_state),
+            leaves_equal(rout, host_tree_to_numpy(pout), "outs")
+            leaves_equal(self.ref_state, host_tree_to_numpy(self.port_state),
                          "state")
             specs = self.ref.out_specs
             return (list(zip(rout["ts"].tolist(), ref_he.decode_columns(
@@ -166,8 +167,8 @@ class Pair:
                                              rb["ts"])
         self.port_state, pres = self.port.step(self.port_state, pb["cols"],
                                                pb["ts"])
-        leaves_equal(rres, port_he._to_numpy(pres), "outs")
-        leaves_equal(self.ref_state, port_he._to_numpy(self.port_state),
+        leaves_equal(rres, host_tree_to_numpy(pres), "outs")
+        leaves_equal(self.ref_state, host_tree_to_numpy(self.port_state),
                      "state")
         return (list(zip(*self.ref.decode(rres))),
                 list(zip(*self.port.decode(pres))))

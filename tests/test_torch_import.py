@@ -84,6 +84,12 @@ def test_import_loads_neither_jax_nor_the_reference():
         "import siddhi_tpu_torch.procmesh.lanepool\n"
         "import siddhi_tpu_torch.resilience.fleet_guard\n"
         "from siddhi_tpu_torch.resilience import HostStepGuard\n"
+        "from siddhi_tpu_torch.resilience import FleetGuard\n"
+        "import siddhi_tpu_torch.fleet, siddhi_tpu_torch.fleet.shape\n"
+        "import siddhi_tpu_torch.fleet.cache, siddhi_tpu_torch.fleet.group\n"
+        "import siddhi_tpu_torch.fleet.manager\n"
+        "import siddhi_tpu_torch.observability.slo\n"
+        "from siddhi_tpu_torch.observability import SLOController\n"
         "from siddhi_tpu_torch.observability import ObservabilitySubsystem\n"
         "from siddhi_tpu_torch.service import SiddhiService\n"
         "from siddhi_tpu_torch import SiddhiManager, StreamCallback\n"

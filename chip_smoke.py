@@ -385,6 +385,38 @@ Phases, one JSON line each:
                market join under ``@device``: the join has no fleet shape,
                lands on B6 (``csrc/join_step.cu``) and launches there, its
                rows equal to the CPU engine's.
+ 19. dcn     — lanes over several devices and the DCN shard tier, on the
+               bench's chain (``bench_app``: 8 states, ``within 4000``, by
+               ``dev``), 2,000,000 events of ``gen_events``: (a) the main
+               path through ``send_many`` with its 64 lanes split over
+               ``devices=["cuda:0"] * 2`` and ``* 4`` (each range its own
+               state, stream and launch a step) against one device: rows
+               in order, state leaves (the ranges concatenated) and
+               counters bitwise equal, launches the one device's times the
+               ranges; ``dryrun_multichip(2, devices=["cuda:0"] * 2)``;
+               (b) two ``DCNWorker``s on loopback, ``LaneTopology(64, 2)``
+               (32 lanes a shard on the card, lane batch 2048, C = 64, no
+               creation cap: the worker's own shard), every event into
+               host 0 through ``ingest_chunk`` (``DCN_CHUNK`` a call), so
+               about half cross the socket as bulk frames: the two
+               workers' matches over the first ``DCN_ORACLE_EVENTS`` equal
+               the port's host interpreter's; over the first
+               ``DCN_TWIN_EVENTS`` (the cut of the plain twin, whose step
+               at this width takes seconds on the CPU) each worker's rows
+               in order and state leaves bitwise equal to the same two
+               workers with ``device="cpu"``; then all 2,000,000 events,
+               timed: events/s, ``forward_chunk_rows``; (c) failover on
+               the card: host 1 snapshots each applied frame into a
+               ``LaneGroupSnapshotStore``, both hosts snapshot, host 1 is
+               closed mid-stream, host 0's frames for group 1 spill, host 0
+               takes group 1 over from the snapshot (restored onto the
+               card) and replays the spill, host 1 returns as a standby and
+               takes group 1 back through ``K_ADOPT``, and is routed to
+               again (``DCN_FAILOVER_CHUNKS`` chunks of
+               ``DCN_FAILOVER_CHUNK`` events): every worker's rows in order
+               and the final state leaves bitwise equal to the same script
+               with ``device="cpu"``. B1's ``launches_by_path`` gains
+               ``lanes_split`` ((a)) and ``dcn`` ((b)'s timed run).
 Then the card's name and power limit (nvidia-smi), the ``kernels`` line and,
 last, ``{"ok": true, "device": {...}}``. Any failure exits non-zero before
 that line. Needs one CUDA card; fails without one.
@@ -5600,6 +5632,338 @@ def phase_engine_fleet(seed: int, rule_events: int = FLEET_EVENTS,
     return out
 
 
+# ------------------------------------------------------------ distribution
+
+DCN_EVENTS = 2_000_000             # (b): events into host 0
+DCN_LANES = 64                     # global lanes: 32 a shard over two hosts
+DCN_WIDTHS = dict(slot_capacity=64, lane_batch=2048)
+DCN_CHUNK = 16_384                 # events an ingest_chunk call
+DCN_ORACLE_EVENTS = 20_000         # (b): the interpreter's prefix
+DCN_TWIN_EVENTS = 131_072          # (b): the plain twin's prefix
+DCN_FAILOVER_CHUNK = 8_192         # (c): events an ingest_chunk call
+DCN_FAILOVER_CHUNKS = (1, 1, 1, 1)  # (c): healthy, host 1 down, adopted,
+#                                     handed back
+
+
+def dcn_port() -> int:
+    import socket
+    s = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+    s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def dcn_chunks(dev, v, ts, lo: int, hi: int, size: int):
+    from siddhi_tpu_torch.core.columns import RowsChunk
+    for a in range(lo, hi, size):
+        b = min(a + size, hi)
+        yield RowsChunk({"dev": dev[a:b], "v": v[a:b]}, ts[a:b])
+
+
+def dcn_leaves(workers) -> dict:
+    """Every owned group's state leaves (the snapshot's order) by
+    ``h<host>.g<group>.<i>``, on the host."""
+    from siddhi_tpu_torch.gpu.state_io import state_leaves
+    out = {}
+    for w in workers:
+        for g, shard in sorted(w._shards.items()):
+            for i, a in enumerate(state_leaves(shard.state)):
+                out[f"h{w.host_index}.g{g}.{i:03d}"] = a
+    return out
+
+
+def dcn_pair(device, ev, n: int, lanes: int, widths: dict) -> dict:
+    """Two workers on loopback (``LaneTopology(lanes, 2)``), every one of
+    the first ``n`` events into host 0 through ``ingest_chunk``; both
+    flushed. Returns each worker's rows in order, the state leaves, the
+    counters and the wall seconds (the flush included)."""
+    import torch
+    from siddhi_tpu_torch.gpu.dcn import DCNWorker, LaneTopology
+    p0, p1 = dcn_port(), dcn_port()
+    rows = ([], [])
+    w1 = DCNWorker(1, LaneTopology(lanes, 2), bench_app(), "dev", port=p1,
+                   peers={0: ("127.0.0.1", p0)}, on_rows=rows[1].extend,
+                   device=device, **widths)
+    w0 = DCNWorker(0, LaneTopology(lanes, 2), bench_app(), "dev", port=p0,
+                   peers={1: ("127.0.0.1", p1)}, on_rows=rows[0].extend,
+                   device=device, **widths)
+    try:
+        if w0.device.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for chunk in dcn_chunks(*ev, 0, n, DCN_CHUNK):
+            w0.ingest_chunk(chunk)
+        w0.flush()
+        w1.flush()
+        if w0.device.type == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        return {"rows": rows, "leaves": dcn_leaves((w0, w1)),
+                "matches": (w0.match_count, w1.match_count),
+                "drops": sum(rt.drop_count for w in (w0, w1)
+                             for rt in w._shards.values()),
+                "forward_chunk_rows": w0.forward_chunk_rows,
+                "received": w1.received, "wall_s": wall,
+                "devices": sorted({str(rt.device) for w in (w0, w1)
+                                   for rt in w._shards.values()})}
+    finally:
+        w0.close()
+        w1.close()
+
+
+def dcn_failover(device, ev, lanes: int, widths: dict) -> dict:
+    """The takeover and the rejoin of ``test_dcn_resilience``'s failover
+    case at full width: host 1 snapshots every applied frame into a
+    ``LaneGroupSnapshotStore``; after a snapshot of both hosts it is closed
+    mid-stream, host 0's frames for group 1 spill, host 0 takes group 1
+    over past the deadline (restoring it onto its device) and replays the
+    spill, then host 1 returns as a standby, takes group 1 back through
+    ``K_ADOPT`` and is routed to again. Returns the rows of every worker in
+    order, the final state leaves and the counters."""
+    import shutil
+    import tempfile
+    from siddhi_tpu_torch.gpu.dcn import DCNWorker, LaneTopology
+    from siddhi_tpu_torch.resilience.dcn_guard import (
+        PEER_DOWN, DCNGuardConfig, LaneGroupSnapshotStore)
+    base = os.path.join(REPO, "siddhi_tpu_torch", "_build")
+    os.makedirs(base, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="dcn-", dir=base)
+    clock = [0.0]
+    store = LaneGroupSnapshotStore(root)
+    cfg0 = DCNGuardConfig(retry_max=1, retry_base_s=0.0,
+                          failure_threshold=1, down_cooldown_s=5.0,
+                          probe_timeout_s=1.0, takeover_deadline_s=10.0,
+                          spill_capacity_frames=512)
+    p0, p1 = dcn_port(), dcn_port()
+    rows0, rows1, rows1b = [], [], []
+    kw = dict(device=device, **widths)
+    w1 = DCNWorker(1, LaneTopology(lanes, 2), bench_app(), "dev", port=p1,
+                   peers={0: ("127.0.0.1", p0)}, snapshot_store=store,
+                   snapshot_every_frames=1, on_rows=rows1.extend, **kw)
+    w0 = DCNWorker(0, LaneTopology(lanes, 2), bench_app(), "dev", port=p0,
+                   peers={1: ("127.0.0.1", p1)}, guard_config=cfg0,
+                   snapshot_store=store, clock=lambda: clock[0],
+                   on_rows=rows0.extend, **kw)
+    w1b = None
+    bounds = np.cumsum((0,) + DCN_FAILOVER_CHUNKS) * DCN_FAILOVER_CHUNK
+
+    def feed_part(k: int) -> None:
+        for chunk in dcn_chunks(*ev, int(bounds[k]), int(bounds[k + 1]),
+                                DCN_FAILOVER_CHUNK):
+            w0.ingest_chunk(chunk)
+
+    try:
+        feed_part(0)                                  # healthy
+        w0.snapshot()
+        w1.snapshot()
+        w1.close()                                    # host 1 dies
+        feed_part(1)                                  # group 1 spills
+        spilled = w0.guard.spill(1).spilled_frames
+        if w0.guard.peer_state(1) != PEER_DOWN or not spilled:
+            fail(f"dcn (c) on {device}: host 1 not down or nothing spilled "
+                 f"({w0.guard.peer_state(1)}, {spilled} frames)")
+        clock[0] = 11.0                               # past the deadline
+        w0.guard.heartbeat_once()
+        if w0.takeovers != 1 or not w0.guard.spill(1).empty \
+                or sorted(w0.topo.groups_owned_by(0)) != [0, 1]:
+            fail(f"dcn (c) on {device}: no takeover of group 1 "
+                 f"({w0.takeovers}, owner {w0.topo.owner})")
+        adopted = str(w0._shards[1].device)
+        feed_part(2)                                  # both groups local
+        w1b = DCNWorker(1, LaneTopology(lanes, 2, owner={0: 0, 1: 0}),
+                        bench_app(), "dev", port=p1,
+                        peers={0: ("127.0.0.1", p0)}, epoch=1,
+                        snapshot_store=store, snapshot_every_frames=1,
+                        on_rows=rows1b.extend, **kw)
+        clock[0] = 30.0
+        w0.guard.heartbeat_once()                     # recovery → hand back
+        if w0.rejoins != 1 or w0.topo.owner[1] != 1 or w1b.takeovers != 1:
+            fail(f"dcn (c) on {device}: group 1 not handed back "
+                 f"({w0.rejoins}, {w1b.takeovers}, owner {w0.topo.owner})")
+        feed_part(3)                                  # routed again
+        w0.flush()
+        w1b.flush()
+        return {"rows": (rows0, rows1, rows1b),
+                "leaves": dcn_leaves((w0, w1b)),
+                "matches": w0.match_count + w1b.match_count,
+                "spilled_frames": spilled,
+                "replayed_frames": w0.guard.spill(1).replayed_frames,
+                "adopted_on": adopted,
+                "events": int(bounds[-1])}
+    finally:
+        for w in (w0, w1, w1b):
+            if w is not None:
+                w.close()
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def dcn_oracle(ev, n: int) -> int:
+    """Matches of the port's host interpreter over the first ``n`` events
+    (one engine, no shards)."""
+    from siddhi_tpu_torch import SiddhiManager, StreamCallback
+    m = SiddhiManager(device="cpu")
+    rt = m.create_siddhi_app_runtime(bench_app(), playback=True)
+    got = []
+    rt.add_callback("Alerts", StreamCallback(got.extend))
+    rt.start()
+    ih = rt.input_handler("S")
+    dev, v, ts = ev
+    for i in range(n):
+        ih.send([str(dev[i]), float(v[i])], timestamp=int(ts[i]))
+    m.shutdown()
+    return len(got)
+
+
+def dcn_same(where: str, ref: dict, got: dict) -> None:
+    """Rows in order per worker, state leaves bitwise."""
+    if ref["rows"] != got["rows"]:
+        fail(f"{where}: rows differ from the plain twin's "
+             f"({[len(r) for r in ref['rows']]} vs "
+             f"{[len(r) for r in got['rows']]})")
+    bad = np_diff(ref["leaves"], got["leaves"])
+    if bad:
+        fail(f"{where}: state leaf {bad} differs from the plain twin's")
+
+
+def phase_dcn(seed: int, n_events: int = DCN_EVENTS,
+              lanes: int = DCN_LANES, widths: dict | None = None,
+              split_widths: dict | None = None,
+              twin_events: int = DCN_TWIN_EVENTS,
+              oracle_events: int = DCN_ORACLE_EVENTS) -> dict:
+    """Lanes over several devices and the DCN shard tier on the card
+    (module docstring, phase 19); the sizes shrink it for a rehearsal on
+    the CPU."""
+    import torch
+    from siddhi_tpu_torch.entry import dryrun_multichip
+    from siddhi_tpu_torch.gpu.nfa_block import BlockPlan
+    from siddhi_tpu_torch.gpu.partition import PartitionedNFARuntime
+    from siddhi_tpu_torch.gpu.state_io import state_to_numpy
+    if not torch.cuda.is_available():
+        fail("dcn: no CUDA device")
+    widths = widths or DCN_WIDTHS
+    split_widths = split_widths or MAIN
+    t_phase = time.perf_counter()
+    ev = gen_events(n_events, seed)
+
+    # (a) the lane split: send_many over one card as 1, 2 and 4 ranges
+    split = {}
+    BlockPlan.launches = 0                     # counts from here: (a)
+    for n in (1, 2, 4):
+        before = BlockPlan.launches
+        kw = {"device": "cuda"} if n == 1 else {"devices": ["cuda:0"] * n}
+        rt = PartitionedNFARuntime(bench_app(), **kw, **split_widths)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rows = feed(rt, *ev)
+        rt.block_until_ready()
+        wall = time.perf_counter() - t0
+        split[n] = {"rows": rows, "state": state_to_numpy(rt.state),
+                    "matches": rt.match_count, "drops": rt.drop_count,
+                    "launches": BlockPlan.launches - before,
+                    "events_per_s": n_events / wall,
+                    "ranges": len(rt.ranges),
+                    "devices": [str(d) for d in rt.devices]}
+    one = split[1]
+    if not one["launches"] or one["matches"] != len(one["rows"]):
+        fail(f"dcn (a): one device: {one['launches']} launches, "
+             f"{one['matches']} matches, {len(one['rows'])} rows")
+    for n in (2, 4):
+        s = split[n]
+        if s["rows"] != one["rows"]:
+            fail(f"dcn (a): rows over {n} ranges differ from one device's")
+        bad = np_diff(one["state"], s["state"])
+        if bad:
+            fail(f"dcn (a): state leaf {bad} over {n} ranges differs")
+        if (s["matches"], s["drops"]) != (one["matches"], one["drops"]):
+            fail(f"dcn (a): counters over {n} ranges differ")
+        if s["launches"] != n * one["launches"] or s["ranges"] != n:
+            fail(f"dcn (a): {s['launches']} launches over {n} ranges, "
+                 f"{one['launches']} on one")
+    before = BlockPlan.launches
+    dry = dryrun_multichip(2, devices=["cuda:0"] * 2)
+    dry_launches = BlockPlan.launches - before
+    if dry["matches"] != dry["expected"] or not dry_launches:
+        fail(f"dcn (a): dryrun_multichip(2): {dry['matches']} matches of "
+             f"{dry['expected']}, {dry_launches} launches")
+    split_launches = BlockPlan.launches
+
+    # (b) two workers on loopback, every event into host 0
+    probe = dcn_pair("cuda", ev, oracle_events, lanes, widths)
+    oracle = dcn_oracle(ev, oracle_events)
+    if sum(probe["matches"]) != oracle:
+        fail(f"dcn (b): the two workers' {probe['matches']} matches over "
+             f"the first {oracle_events} events, the interpreter's {oracle}")
+    t_twin = time.perf_counter()
+    card_pre = dcn_pair("cuda", ev, twin_events, lanes, widths)
+    plain_pre = dcn_pair("cpu", ev, twin_events, lanes, widths)
+    dcn_same(f"dcn (b), the first {twin_events} events", plain_pre, card_pre)
+    twin_s = time.perf_counter() - t_twin
+    BlockPlan.launches = 0                     # counts from here: (b)
+    full = dcn_pair("cuda", ev, n_events, lanes, widths)
+    dcn_launches = BlockPlan.launches
+    if not all(d.startswith("cuda") for d in full["devices"]) \
+            or not dcn_launches:
+        fail(f"dcn (b): shards on {full['devices']}, {dcn_launches} "
+             f"launches")
+    if sum(full["matches"]) != len(full["rows"][0]) + len(full["rows"][1]):
+        fail(f"dcn (b): {full['matches']} matches, "
+             f"{[len(r) for r in full['rows']]} rows")
+    if full["received"] != full["forward_chunk_rows"] or \
+            not full["forward_chunk_rows"]:
+        fail(f"dcn (b): {full['forward_chunk_rows']} rows forwarded, "
+             f"{full['received']} received")
+    for r in full["rows"][0] + full["rows"][1]:
+        if len(r) != 8 or not (r[0] > 90.0 and
+                               all(a < b for a, b in zip(r, r[1:]))):
+            fail(f"dcn (b): row breaks the rising-chain contract: {r}")
+
+    # (c) failover on the card against its plain twin
+    t_fail = time.perf_counter()
+    before = BlockPlan.launches
+    card_fo = dcn_failover("cuda", ev, lanes, widths)
+    fo_launches = BlockPlan.launches - before
+    plain_fo = dcn_failover("cpu", ev, lanes, widths)
+    dcn_same("dcn (c)", plain_fo, card_fo)
+    if not card_fo["adopted_on"].startswith("cuda") or not fo_launches \
+            or card_fo["matches"] != plain_fo["matches"]:
+        fail(f"dcn (c): group 1 adopted on {card_fo['adopted_on']}, "
+             f"{fo_launches} launches")
+    fail_s = time.perf_counter() - t_fail
+    out = {"phase": "dcn",
+           "lanes_split": {
+               str(n): {k: s[k] for k in ("matches", "drops", "launches",
+                                          "events_per_s", "ranges",
+                                          "devices")}
+               for n, s in split.items()},
+           "lanes_split_rows": len(one["rows"]), "lanes_split_equal": True,
+           "dryrun_multichip_2": {"matches": dry["matches"],
+                                  "devices": dry["devices"],
+                                  "launches": dry_launches},
+           "lanes_split_launches": split_launches,
+           "dcn": {"events": n_events, "lanes": lanes, **widths,
+                   "events_per_s": n_events / full["wall_s"],
+                   "wall_s": full["wall_s"],
+                   "forward_chunk_rows": full["forward_chunk_rows"],
+                   "matches": list(full["matches"]),
+                   "drops": full["drops"], "launches": dcn_launches,
+                   "devices": full["devices"]},
+           "oracle": {"events": oracle_events, "matches": oracle},
+           "plain_twin": {"events": twin_events, "equal": True,
+                          "rows": [len(r) for r in card_pre["rows"]],
+                          "seconds": twin_s},
+           "failover": {k: card_fo[k] for k in (
+               "matches", "spilled_frames", "replayed_frames", "adopted_on",
+               "events")} | {"rows": [len(r) for r in card_fo["rows"]],
+                             "launches": fo_launches,
+                             "equal_to_plain_twin": True,
+                             "seconds": fail_s},
+           "phase_s": time.perf_counter() - t_phase}
+    emit(out)
+    return out
+
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -5651,6 +6015,7 @@ def main() -> int:
     observe = phase_engine_observe(args.seed)
     columnar = phase_engine_columnar(args.seed)
     fleet = phase_engine_fleet(args.seed)
+    dcn = phase_dcn(args.seed)
     bound = max(main_out["bound_ms_bytes"], main_out["bound_ms_ops"])
     scan_bound = max(scan_out["bound_ms_bytes"], scan_out["bound_ms_ops"])
     kernels = [{
@@ -5674,7 +6039,9 @@ def main() -> int:
         "launches_by_path": {
             "main": main_out["launches"], "native_main": native_out["launches"],
             "snapshot": snap_out["apps"][0]["launches"],
-            "entry": entry_out["entry_launches"] + entry_out["dryrun_launches"]},
+            "entry": entry_out["entry_launches"] + entry_out["dryrun_launches"],
+            "lanes_split": dcn["lanes_split_launches"],
+            "dcn": dcn["dcn"]["launches"]},
         "native_main_ms": native_out["kernel_step_ms_median"],
         "native_main_plain_ms": native_out["plain_step_ms_median"],
     }, {

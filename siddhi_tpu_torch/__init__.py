@@ -12,7 +12,9 @@ This package imports ``torch`` and never ``jax`` or ``siddhi_tpu``. CUDA
 kernels (``csrc/``) are compiled with ``nvcc`` at first CUDA use, and the
 native CSV ingress (``native/``) with ``g++`` at first use, never on
 import. ``entry.py`` holds the entry points ``entry()`` and
-``dryrun_multichip(n)``.
+``dryrun_multichip(n)`` (the partitioned lanes split over ``n`` devices).
+``gpu/dcn.py`` and ``resilience/dcn_guard.py`` are the DCN shard tier:
+lane groups over hosts, each shard stepping on the card.
 
 The engine: ``SiddhiManager(device=None)`` → ``create_siddhi_app_runtime``
 → ``input_handler(...).send(...)`` / ``StreamCallback`` (``core/``), on two

@@ -4,13 +4,16 @@
 the flagship 4-state rising chain (the blocked NFA kernel on the card),
 ``example_args`` one lane's state and wire batch of 8 events.
 
-``dryrun_multichip(n)`` runs the bench-shaped 8-state partitioned app on
-``n`` cards, one guaranteed match per lane, and checks itself against the
-plain version on the CPU and against the per-lane count the construction
-guarantees. The port's lanes live on one card: spreading them over several
-(``ROADMAP.md`` §A item 7) is not ported, so ``n > 1`` is refused.
+``dryrun_multichip(n)`` runs the bench-shaped 8-state partitioned app with
+its lanes split over ``n`` devices (``PartitionedNFARuntime(devices=)``, the
+counterpart of the reference's mesh), one guaranteed match per lane, and
+checks itself against the per-lane count the construction guarantees and,
+on the card, against the plain version on the CPU on one device. It takes
+``cuda:0 … cuda:n-1`` unless ``devices=`` names them (a device may repeat:
+``["cpu"] * n`` is the plain version, ``["cuda:0"] * n`` splits one card)
+and refuses, with no fallback, where fewer than ``n`` cards exist.
 
-Both run on the card unless the caller passes ``device="cpu"``.
+``entry()`` runs on the card unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -101,10 +104,11 @@ def dryrun_events(rt) -> list:
     return events
 
 
-def _run(device, P: int):
+def _run(devices: list, P: int):
     from .gpu.partition import PartitionedNFARuntime
     rt = PartitionedNFARuntime(bench_app(), num_partitions=P, key_attr="dev",
-                               slot_capacity=8, lane_batch=16, device=device)
+                               slot_capacity=8, lane_batch=16,
+                               devices=devices)
     rows = []
     rt.callback = rows.extend
     for dev, v, t in dryrun_events(rt):
@@ -114,33 +118,46 @@ def _run(device, P: int):
     return rt, rows
 
 
-def dryrun_multichip(n_devices: int, device=None) -> dict:
+def dryrun_multichip(n_devices: int, devices=None) -> dict:
     """One partitioned run of the bench-shaped app over ``2 * n_devices``
-    lanes; returns ``{"matches", "drops", "expected", "rows"}`` after
-    checking that every lane matched exactly once and, on the card, that
-    the kernel's state and rows equal the plain version's on the CPU."""
-    if n_devices != 1:
-        raise ValueError(
-            f"dryrun_multichip({n_devices}): the port runs its lanes on one "
-            f"card; lanes over several GPUs (ROADMAP.md §A item 7) are not "
-            f"ported")
-    dev = _device(device)
+    lanes split over ``n_devices`` devices; returns ``{"matches", "drops",
+    "expected", "rows", "devices"}`` after checking that every lane matched
+    exactly once and, on the card, that the kernel's state (the ranges
+    concatenated) and rows equal the plain version's on one CPU device.
+    ``devices`` defaults to ``cuda:0 … cuda:n-1``; with fewer than
+    ``n_devices`` cards present that raises ``ValueError``."""
+    if n_devices < 1:
+        raise ValueError(f"dryrun_multichip({n_devices}): need n >= 1")
+    if devices is None:
+        have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if have < n_devices:
+            raise ValueError(
+                f"dryrun_multichip({n_devices}): needs {n_devices} CUDA "
+                f"cards, {have} present (pass devices= to split fewer "
+                f"cards)")
+        devices = [f"cuda:{i}" for i in range(n_devices)]
+    devs = [_device(d) for d in devices]
+    if len(devs) != n_devices:
+        raise ValueError(f"dryrun_multichip({n_devices}): devices= names "
+                         f"{len(devs)} devices")
     P = 2 * n_devices
-    rt, rows = _run(dev, P)
+    rt, rows = _run(devs, P)
     if rt.match_count != P or len(rows) != P:
         raise AssertionError(f"expected one match per lane ({P}), got "
                              f"{rt.match_count} matches, {len(rows)} rows")
-    if dev.type != "cpu":
+    if any(d.type != "cpu" for d in devs):
         from .gpu.state_io import state_to_numpy
-        ref, ref_rows = _run(torch.device("cpu"), P)
+        ref, ref_rows = _run([torch.device("cpu")], P)
         want, got = state_to_numpy(ref.state), state_to_numpy(rt.state)
         _assert_same_tree(want, got)
         if rows != ref_rows:
             raise AssertionError("dryrun rows differ from the plain version's")
+    names = [str(d) for d in rt.devices]
     out = {"matches": rt.match_count, "drops": rt.drop_count,
-           "expected": P, "rows": rows}
-    print(f"dryrun_multichip({n_devices}): one partitioned run OK on {dev} "
-          f"— matches={rt.match_count} drops={rt.drop_count} expected={P}")
+           "expected": P, "rows": rows, "devices": names}
+    print(f"dryrun_multichip({n_devices}): one partitioned run OK on "
+          f"{names} — matches={rt.match_count} drops={rt.drop_count} "
+          f"expected={P}")
     return out
 
 

@@ -32,6 +32,13 @@ ids, parameter tables and segments are tensors. A member's snapshot has
 the reference's tree with numpy leaves (``gpu/state_io.py``:
 ``host_tree_to_numpy``/``host_tree_from_numpy``), so a tenant snapshotted in
 one package resumes in the other.
+
+A group step runs with Python's collector deferred
+(``gpu/host_exec.py::collector_deferred``): a full collection the step's
+decode would set off (hundreds of ms on a busy host, over the heap of a
+process that holds torch) runs after it, at the next window's staging, so
+the SLO controller reads it as fill wait and shrinks the window, as the
+reference's does, instead of blaming the step and splitting the group.
 """
 
 from __future__ import annotations
@@ -48,7 +55,12 @@ import torch
 
 from ..core.event import Event, EventType, StreamEvent
 from ..gpu.dtypes import TORCH_HOST
-from ..gpu.host_exec import HostRowStager, decode_columns, one_intraop_thread
+from ..gpu.host_exec import (
+    HostRowStager,
+    collector_deferred,
+    decode_columns,
+    one_intraop_thread,
+)
 from ..gpu.state_io import host_tree_from_numpy, host_tree_to_numpy
 from ..query_api.definition import DataType
 
@@ -891,7 +903,7 @@ class FleetGroup:
         self.events_in += n
         self.flush_causes[cause] = self.flush_causes.get(cause, 0) + 1
         t0 = time.perf_counter()
-        with one_intraop_thread():
+        with one_intraop_thread(), collector_deferred():
             if self.mode == "batched":
                 if g is not None:
                     g.step_batched(b, mids)

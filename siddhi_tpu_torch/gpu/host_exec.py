@@ -33,6 +33,7 @@ scalar interpreter.
 from __future__ import annotations
 
 import contextlib
+import gc
 import threading
 from typing import Any, Optional
 
@@ -82,6 +83,31 @@ def one_intraop_thread():
             _one_depth -= 1
             if _one_depth == 0 and _one_saved != 1:
                 torch.set_num_threads(_one_saved)
+
+
+_gc_lock = threading.Lock()
+_gc_depth = 0
+_gc_was_on = False
+
+
+@contextlib.contextmanager
+def collector_deferred():
+    """Runs the body with Python's cyclic collector off, and turns it back
+    on (if it was on) when the last concurrent body leaves: a collection
+    the body's allocations would set off runs after it instead."""
+    global _gc_depth, _gc_was_on
+    with _gc_lock:
+        if _gc_depth == 0:
+            _gc_was_on = gc.isenabled()
+            gc.disable()
+        _gc_depth += 1
+    try:
+        yield
+    finally:
+        with _gc_lock:
+            _gc_depth -= 1
+            if _gc_depth == 0 and _gc_was_on:
+                gc.enable()
 
 
 def _t(x) -> torch.Tensor:

@@ -497,9 +497,10 @@ class BlockPlan:
     kernel reads (uploaded once per device) and the launch wrapper. One
     launch a step; ``launches`` counts kernel launches.
 
-    A plan is stepped on one stream at a time: the global scratch of a
-    layout that keeps its creations there is allocated once per (device,
-    lanes) and reused by every launch."""
+    The global scratch of a layout that keeps its creations there is
+    allocated once per (device, lanes, stream) and reused by every launch
+    on that stream, so lane ranges stepped on streams of their own (a split
+    ``PartitionedNFARuntime``) never share it."""
 
     launches = 0          # class-wide: every launch of the step kernel
     LAUNCHES = 1          # launches a step
@@ -644,8 +645,8 @@ class BlockPlan:
             self._out_groups.setdefault(TORCH[t], []).append((o, name))
         self._out_groups = list(self._out_groups.items())
         self._dev = {}           # device → (descriptor, code) uploaded
-        self._state = {}         # device → (checked leaves, their pointers)
-        self._args = {}          # (device, L) → BlockArgs template
+        self._state = {}         # (device, stream) → (checked leaves, pointers)
+        self._args = {}          # (device, L, stream) → BlockArgs template
         self._layout = None      # layout()
         self._checked = False
 
@@ -727,13 +728,13 @@ class BlockPlan:
             leaves += [tbl[key] for key in self.keys[s]]
         return leaves
 
-    def _state_on(self, state, L: int, dev):
+    def _state_on(self, state, L: int, dev, stream):
         """Checks the state's leaves and uploads the tables' pointers (per
         stage: valid, first_ts, last_ts, bindings); both again only when
         the leaves are other tensors than the last step's (a step updates
         them in place). Returns (matches, drops, pointer table)."""
         leaves = self._state_leaves(state)
-        got = self._state.get(dev)
+        got = self._state.get((dev, stream))
         if got is None or len(got[0]) != len(leaves) or \
                 any(a is not b for a, b in zip(leaves, got[0])):
             C = self.nfa.C
@@ -742,7 +743,7 @@ class BlockPlan:
                     _need(t, name, dt, (L, C) if per_slot else (L,), dev)
             ptrs = [0 if t is None else t.data_ptr() for t in leaves[2:]]
             got = (leaves, torch.tensor(ptrs or [0], dtype=torch.int64).to(dev))
-            self._state[dev] = got
+            self._state[(dev, stream)] = got
         elif leaves[0].shape[0] != L:
             raise ValueError(f"state has {leaves[0].shape[0]} lanes, the "
                              f"batch {L}")
@@ -771,8 +772,8 @@ class BlockPlan:
         nfa = self.nfa
         dev = tag.device
         L, B = tag.shape
-        matches, drops, tptr = self._state_on(state, L, dev)
-        tmpl = self._args.get((dev, L))
+        matches, drops, tptr = self._state_on(state, L, dev, stream)
+        tmpl = self._args.get((dev, L, stream))
         if tmpl is None:
             cl, mode, per_lane = self.layout(lib)
             desc, code = self._on(dev)
@@ -784,7 +785,7 @@ class BlockPlan:
                                       device=dev)
                 tmpl.scratch = scratch.data_ptr()
                 tmpl._scratch = scratch
-            self._args[(dev, L)] = tmpl
+            self._args[(dev, L, stream)] = tmpl
         a = BlockArgs.from_buffer_copy(tmpl)
         a.tptr = tptr.data_ptr()
         for c, k in enumerate(self.col_keys):

@@ -1,18 +1,28 @@
-"""Partitioned execution: per-key NFA state on L lanes of one GPU.
+"""Partitioned execution: per-key NFA state on L lanes of one or more GPUs.
 
-Port of the reference's ``tpu/partition.py`` for one device (``mesh=None``).
-Keys hash to L partition lanes; each lane owns fixed-capacity match tables.
-Events are routed on the host to their lane's sub-batch; on the card the
-lane axis is the kernel's grid (one CTA per lane), so nothing crosses lanes.
-Both step shapes run here: the blocked chain (``nfa_block``) and the
-per-event scan (``nfa_scan``); absent states are refused under a partition,
-as the reference refuses them.
+Port of the reference's ``tpu/partition.py``. Keys hash to L partition
+lanes; each lane owns fixed-capacity match tables. Events are routed on the
+host to their lane's sub-batch; on the card the lane axis is the kernel's
+grid (one CTA or cluster per lane), so nothing crosses lanes. Both step
+shapes run here: the blocked chain (``nfa_block``) and the per-event scan
+(``nfa_scan``); absent states are refused under a partition, as the
+reference refuses them.
+
+The reference spreads the lane axis over a mesh (``mesh=``: ``shard_map``
+over ``P(axis)``, contiguous lane blocks, a donated sharded state). Here
+``devices=`` does the same: the lanes split into contiguous equal ranges,
+one a device (a device may repeat), each with its own state, its own CUDA
+stream and its own launch a step. Routing and batching are those of one
+device, so every step sees the same batches, and the rows come out in lane
+order; ``state`` reads the ranges concatenated along the lane axis. L not
+divisible by the number of devices is refused at construction, as the
+reference's ``device_put`` of the sharded state refuses it.
 
 Two ingress routes feed the lanes: ``send``/``send_many`` route rows on the
 host in Python (``partition_columns``), and the native route
 (``enable_native_ingress`` → ``ingest_csv``/``emit_native_feed``) parses raw
 CSV bytes, routes them by crc32 and packs the lanes in C++
-(``native/ingress.cpp``). Lanes spread over several GPUs are not ported yet.
+(``native/ingress.cpp``).
 """
 
 from __future__ import annotations
@@ -113,13 +123,24 @@ def _inject_key_equality(query, key_attr: str):
     return query
 
 
+def _indexed(dev: torch.device) -> torch.device:
+    """A CUDA device with its index (``cuda`` → ``cuda:<current>``), so two
+    names of one card compare equal."""
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
 class PartitionedNFARuntime:
-    """L-lane partitioned pattern matching on one device.
+    """L-lane partitioned pattern matching on one or more devices.
 
     ``partition with (<key> of <stream>)`` over a pattern query: every lane
     runs the compiled NFA independently on its key subset. ``device`` is the
     card unless the caller passes ``"cpu"`` (the plain version); with no card
-    and no explicit ``"cpu"`` the constructor raises.
+    and no explicit ``"cpu"`` the constructor raises. ``devices`` (instead of
+    ``device``) splits the lanes into contiguous equal ranges, one a device
+    in the order given; a device may repeat (each range keeps its own
+    stream).
     """
 
     def __init__(self, app_or_text, num_partitions: int,
@@ -128,8 +149,30 @@ class PartitionedNFARuntime:
                  lane_batch: int = 256,
                  query_index: int = 0,
                  creation_cap: Optional[int] = None,
-                 device=None):
-        self.device = resolve_device(device)
+                 device=None,
+                 devices=None):
+        if devices is None:
+            devs = [resolve_device(device)]
+        else:
+            if device is not None:
+                raise ValueError("pass device= or devices=, not both")
+            devs = [_indexed(resolve_device(d)) for d in devices]
+            if not devs:
+                raise ValueError("devices= names no device")
+            if num_partitions % len(devs):
+                raise ValueError(
+                    f"{num_partitions} lanes are not divisible by "
+                    f"{len(devs)} devices (each device takes an equal "
+                    f"contiguous range)")
+        self.device = devs[0]
+        self.devices = devs
+        n = num_partitions // len(devs)
+        self.ranges = [(i * n, (i + 1) * n) for i in range(len(devs))]
+        # a range of a split steps on a stream of its own, so the ranges of
+        # one card run side by side and none waits on another's launch
+        self._streams = [
+            torch.cuda.Stream(d) if len(devs) > 1 and d.type == "cuda"
+            else None for d in devs]
         app = _parse(app_or_text) if isinstance(app_or_text, str) else app_or_text
         # partition queries may live inside a `partition with` block
         if app.queries:
@@ -150,15 +193,35 @@ class PartitionedNFARuntime:
                                used_cols=self.compiler.used_cols)
             for _ in range(num_partitions)
         ]
-        # lane-batched step over [P, ...] state and batches; on the card it
-        # updates the state in place (the analog of the reference's donation)
+        # lane-batched step over [L, ...] state and batches (a range's, in
+        # a split); on the card it updates the state in place (the analog of
+        # the reference's donation)
         self.vstep = self.compiler.make_step()
+        self._states: list = [None] * len(devs)
         self.state = self.init_state()
         self.callback: Optional[Callable[[list[list]], None]] = None
 
     def init_state(self) -> dict:
-        """Fresh [P, ...]-stacked lane state."""
+        """Fresh [P, ...]-stacked lane state (on the first device)."""
         return self.compiler.init_state(self.P)
+
+    @property
+    def state(self) -> dict:
+        """The [P, ...] lane state; in a split, the ranges' states
+        concatenated along the lane axis on the first device (a copy)."""
+        if len(self._states) == 1:
+            return self._states[0]
+        return _tree_cat(self._states, self.device)
+
+    @state.setter
+    def state(self, tree: dict) -> None:
+        """Takes a [P, ...] lane state; a split copies each range's lanes
+        onto its device."""
+        if len(self._states) == 1:
+            self._states[0] = tree
+            return
+        self._states = [_tree_slice(tree, lo, hi, dev)
+                        for (lo, hi), dev in zip(self.ranges, self.devices)]
 
     def lane_of(self, key) -> int:
         return _hash_key(key) % self.P
@@ -410,9 +473,9 @@ class PartitionedNFARuntime:
         counts = np.array([bt["count"] for bt in batches], dtype=np.int32)
         return self._step_and_decode(cols, tag, ts, ts_base, counts, decode)
 
-    def _wire(self, cols, tag, ts, ts_base, counts) -> tuple:
-        """Host wire arrays → the step's device tensors."""
-        dev = self.device
+    def _wire(self, cols, tag, ts, ts_base, counts, dev) -> tuple:
+        """Host wire arrays → the step's tensors on ``dev`` (copied on the
+        current stream)."""
 
         def put(a):
             t = torch.from_numpy(np.ascontiguousarray(a))
@@ -421,35 +484,84 @@ class PartitionedNFARuntime:
         return ({k: put(v) for k, v in cols.items()}, put(tag), put(ts),
                 put(ts_base), put(counts))
 
+    def _step_ranges(self, cols, tag, ts, ts_base, counts) -> list:
+        """Steps every range over its lanes of one [P, ...] wire batch;
+        returns each range's ys, in lane order. A range on the card runs on
+        its own stream, which first waits for the device's current stream
+        (where its state was written); the current stream then waits for
+        every range, so what reads the state or ys after this sees the
+        step's results."""
+        if len(self.ranges) == 1:
+            self._states[0], ys = self.vstep(self._states[0], *self._wire(
+                cols, tag, ts, ts_base, counts, self.device))
+            return [ys]
+        parts = []
+        for i, ((lo, hi), dev, stream) in enumerate(
+                zip(self.ranges, self.devices, self._streams)):
+            wire = ({k: v[lo:hi] for k, v in cols.items()}, tag[lo:hi],
+                    ts[lo:hi], ts_base[lo:hi], counts[lo:hi])
+            if stream is None:
+                self._states[i], ys = self.vstep(
+                    self._states[i], *self._wire(*wire, dev))
+            else:
+                with torch.cuda.device(dev):
+                    stream.wait_stream(torch.cuda.current_stream(dev))
+                    with torch.cuda.stream(stream):
+                        self._states[i], ys = self.vstep(
+                            self._states[i], *self._wire(*wire, dev))
+            parts.append(ys)
+        for dev, stream in zip(self.devices, self._streams):
+            if stream is not None:
+                torch.cuda.current_stream(dev).wait_stream(stream)
+        return parts
+
     def _step_and_decode(self, cols, tag, ts, ts_base, counts, decode: bool):
-        self.state, ys = self.vstep(self.state, *self._wire(
-            cols, tag, ts, ts_base, counts))
+        parts = self._step_ranges(cols, tag, ts, ts_base, counts)
         if not decode:
-            return ys
-        if self.compiler.blocked:
-            host = {k: v.cpu().numpy() for k, v in ys.items()}
-            rows = []
-            for lane in range(self.P):
-                rows.extend(self.compiler.decode_outputs(
-                    {k: v[lane] for k, v in host.items()}))
-        else:
-            # scan ys: hits found where the ys lie, rows in (lane, b, src, c)
-            # order — the reference's lane-by-lane argwhere order
-            rows = self.compiler.decode_outputs(ys)
+            return parts[0] if len(parts) == 1 else \
+                _tree_cat(parts, self.device)
+        rows = []
+        for ys in parts:
+            if self.compiler.blocked:
+                host = {k: v.cpu().numpy() for k, v in ys.items()}
+                for lane in range(host["mask"].shape[0]):
+                    rows.extend(self.compiler.decode_outputs(
+                        {k: v[lane] for k, v in host.items()}))
+            else:
+                # scan ys: hits found where the ys lie, rows in (lane, b,
+                # src, c) order — the reference's lane-by-lane argwhere
+                # order
+                rows.extend(self.compiler.decode_outputs(ys))
         if self.callback is not None and rows:
             self.callback(rows)
         return rows
 
     @property
     def match_count(self) -> int:
-        return int(self.state["matches"].sum())
+        return sum(int(st["matches"].sum()) for st in self._states)
 
     @property
     def drop_count(self) -> int:
-        return int(self.state["drops"].sum())
+        return sum(int(st["drops"].sum()) for st in self._states)
 
     def block_until_ready(self) -> None:
-        """Waits for every step queued on the state's device."""
-        dev = self.state["matches"].device
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+        """Waits for every step queued on the lanes' devices."""
+        for dev in {st["matches"].device for st in self._states}:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+
+
+def _tree_cat(trees: list, dev) -> dict:
+    """Lane-stacked trees → one tree, concatenated along the lane axis on
+    ``dev``."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _tree_cat([t[k] for t in trees], dev) for k in first}
+    return torch.cat([t.to(dev) for t in trees])
+
+
+def _tree_slice(tree, lo: int, hi: int, dev) -> dict:
+    """Lanes ``[lo, hi)`` of a lane-stacked tree, copied onto ``dev``."""
+    if isinstance(tree, dict):
+        return {k: _tree_slice(v, lo, hi, dev) for k, v in tree.items()}
+    return tree[lo:hi].to(dev, copy=True).contiguous()

@@ -38,6 +38,13 @@ takes a tree with numpy leaves (what ``jax.device_get(rt.state)`` returns)
 and makes the port's tensors; ``state_to_numpy`` goes the other way. String dictionaries travel as the
 plain dict ``snapshot_dictionaries`` produces
 (``MergedBatchSchema.snapshot_dictionaries`` / ``restore_dictionaries``).
+
+A DCN lane-group snapshot (``gpu/dcn.py``, ``LaneGroupSnapshotStore``)
+stores a state as a flat list of numpy leaves in ``jax.tree_util``'s order:
+a dict's keys sorted, nested dicts depth first. ``state_leaves`` flattens a
+state that way and ``state_from_leaves`` rebuilds one over a prototype's
+structure, so a group snapshot written by either package restores in the
+other.
 """
 
 from __future__ import annotations
@@ -63,6 +70,49 @@ def state_to_numpy(state, single_lane: bool = False) -> dict:
         return {k: state_to_numpy(v, single_lane) for k, v in state.items()}
     a = state.detach().cpu().numpy()
     return a[0] if single_lane else a
+
+
+def state_leaves(state) -> list:
+    """A state tree's leaves as host numpy arrays, in ``jax.tree_util``'s
+    flattening order (a dict's keys sorted, nested dicts depth first)."""
+    if isinstance(state, dict):
+        return [a for k in sorted(state) for a in state_leaves(state[k])]
+    return [state.detach().cpu().numpy()]
+
+
+def state_from_leaves(proto, leaves: list, device) -> dict:
+    """``state_leaves``' inverse: a tree of ``proto``'s structure (its
+    dicts' key order kept) whose leaves are ``leaves``, taken in sorted-key
+    order, as tensors on ``device``. Every leaf must have its prototype's
+    dtype and shape."""
+    n = state_leaf_count(proto)
+    if len(leaves) != n:
+        raise ValueError(f"{len(leaves)} leaves, the state has {n}")
+    it = iter(leaves)
+
+    def build(p, at: str) -> dict:
+        out = {}
+        for k in sorted(p):
+            if isinstance(p[k], dict):
+                out[k] = build(p[k], f"{at}{k}.")
+                continue
+            a = np.array(next(it), copy=True)
+            t = torch.from_numpy(a) if a.ndim else torch.tensor(a)
+            want = (p[k].dtype, tuple(p[k].shape))
+            if (t.dtype, tuple(t.shape)) != want:
+                raise ValueError(f"state leaf {at}{k!r}: {t.dtype}"
+                                 f"{tuple(t.shape)}, expected {want[0]}"
+                                 f"{want[1]}")
+            out[k] = t.to(device)
+        return {k: out[k] for k in p}
+    return build(proto, "")
+
+
+def state_leaf_count(tree) -> int:
+    """The number of leaves of a state tree."""
+    if isinstance(tree, dict):
+        return sum(state_leaf_count(v) for v in tree.values())
+    return 1
 
 
 def query_state_from_numpy(q, tree: dict, device) -> dict:

@@ -46,6 +46,13 @@ import threading
 from ..query_api.annotation import find_annotation
 from .chaos import ChaosFault, ChaosInjector, parse_chaos_annotation
 from .circuit import CircuitBreaker, CircuitState
+from .dcn_guard import (
+    DCNGuard,
+    DCNGuardConfig,
+    LaneGroupSnapshotStore,
+    PeerHealth,
+    SpillQueue,
+)
 from .device_guard import DeviceGuard
 from .fleet_guard import FleetGuard, HostStepGuard
 from .sink_pipeline import OnErrorPolicy, ResilientSink, parse_sink_policy
@@ -54,8 +61,9 @@ log = logging.getLogger("siddhi_tpu_torch.resilience")
 
 __all__ = [
     "ChaosFault", "ChaosInjector", "CircuitBreaker", "CircuitState",
-    "DeviceGuard", "FleetGuard", "HostStepGuard", "OnErrorPolicy",
-    "ResilienceSubsystem", "ResilientSink",
+    "DCNGuard", "DCNGuardConfig", "DeviceGuard", "FleetGuard",
+    "HostStepGuard", "LaneGroupSnapshotStore", "OnErrorPolicy",
+    "PeerHealth", "ResilienceSubsystem", "ResilientSink", "SpillQueue",
     "parse_chaos_annotation", "parse_sink_policy",
 ]
 

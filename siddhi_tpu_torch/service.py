@@ -3,10 +3,11 @@
 The port's copy of the JAX package's ``service.py``, with one difference: a
 service that builds its own manager builds it as ``SiddhiManager(device)``
 (``device=None``, the default, is the card; ``"cpu"`` runs the plain
-versions). The ``fleet`` and ``slo`` endpoints read the port's fleet tier;
-the ``dcn`` and ``mesh`` endpoints read tiers the port does not have yet
-(``ROADMAP.md`` §A item 8) through ``getattr`` and answer ``enabled: false``
-as the JAX package's do without them.
+versions). The ``fleet`` and ``slo`` endpoints read the port's fleet tier
+and the ``dcn`` endpoint its DCN tier (a ``gpu/dcn.py`` ``DCNWorker``
+attached as ``runtime.dcn_worker``); the ``mesh`` endpoint reads a tier the
+port does not have yet (``ROADMAP.md`` §A item 8) through ``getattr`` and
+answers ``enabled: false`` as the JAX package's does without it.
 
 Reference: ``modules/siddhi-service`` —
 ``impl/SiddhiApiServiceImpl.java:45`` (deploy ``:51``, undeploy ``:100``): a

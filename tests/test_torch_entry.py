@@ -3,7 +3,7 @@
 ``entry()``'s step on the CPU (the plain version) equals the reference's
 ``fn(*example_args)`` leaf for leaf; ``dryrun_multichip(1)`` counts what the
 reference's host engine counts on the same events, one match per lane; more
-than one card is refused, since the port keeps its lanes on one card.
+cards than the machine has are refused.
 """
 
 import jax
@@ -42,7 +42,7 @@ def test_entry_step_equals_the_reference():
 
 def test_dryrun_counts_the_reference_host_oracle():
     from siddhi_tpu import SiddhiManager, StreamCallback
-    out = tentry.dryrun_multichip(1, device="cpu")
+    out = tentry.dryrun_multichip(1, devices=["cpu"])
     rt = PartitionedNFARuntime(tentry.bench_app(), num_partitions=2,
                                key_attr="dev", device="cpu")
     events = tentry.dryrun_events(rt)
@@ -59,6 +59,14 @@ def test_dryrun_counts_the_reference_host_oracle():
     assert sorted(out["rows"]) == sorted(list(e.data) for e in host)
 
 
-def test_dryrun_refuses_more_than_one_card():
-    with pytest.raises(ValueError, match="§A item 7"):
-        tentry.dryrun_multichip(2, device="cpu")
+def test_dryrun_refuses_more_than_one_card(monkeypatch):
+    """Two cards asked for where one exists: refused, never a fallback (the
+    split over repeated devices is ``tests/test_torch_partition_split.py``'s)."""
+    import torch
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match="needs 2 CUDA cards, 1 present"):
+        tentry.dryrun_multichip(2)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(ValueError, match="needs 2 CUDA cards, 0 present"):
+        tentry.dryrun_multichip(2)

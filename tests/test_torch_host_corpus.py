@@ -31,8 +31,11 @@ The reference suites are imported as data, never edited:
   each must reach the port's (a host bridge, a stager, or an
   ``@app:host_batch`` config read);
 - ``NEEDS_MODULE`` lists the functions that drive a JAX-package module the
-  port has no counterpart of yet (the DCN guard of distribution), with its
-  tier; the port must still lack it.
+  port has no counterpart of yet, with its tier; the port must still lack
+  it (none is left since the DCN guard came with distribution);
+- ``DCNWorker`` is bound to ``PortDCNWorker``, the port's worker on the CPU
+  unless a device is asked for, as ``SiddhiManager`` is bound to
+  ``PortManager``.
 
 ``test_torch_host_corpus_device.py`` runs both corpora again with a
 non-strict ``@device`` on every query.
@@ -46,6 +49,7 @@ import pytest
 
 import siddhi_tpu
 import siddhi_tpu_torch
+import siddhi_tpu_torch.gpu.dcn
 import siddhi_tpu_torch.service as port_service
 from siddhi_tpu_torch.core.errors import SiddhiAppCreationError
 
@@ -63,6 +67,19 @@ class PortManager(siddhi_tpu_torch.SiddhiManager):
     def __init__(self, device=None):
         super().__init__(device=device or "cpu")
         PortManager.built += 1
+
+
+class PortDCNWorker(siddhi_tpu_torch.gpu.dcn.DCNWorker):
+    """The port's DCN worker with its shards on the CPU (the kernels' plain
+    versions), built the way the suites build the reference's: with no
+    device. ``built`` counts the workers made, so a test can show that the
+    port's worker served it."""
+
+    built = 0
+
+    def __init__(self, *args, device=None, **kwargs):
+        super().__init__(*args, device=device or "cpu", **kwargs)
+        PortDCNWorker.built += 1
 
 
 # the reference's public names → the port's
@@ -118,6 +135,8 @@ PORTED_MODULES = {
     "siddhi_tpu.resilience": "siddhi_tpu_torch.resilience",
     "siddhi_tpu.resilience.chaos": "siddhi_tpu_torch.resilience.chaos",
     "siddhi_tpu.resilience.circuit": "siddhi_tpu_torch.resilience.circuit",
+    "siddhi_tpu.resilience.dcn_guard":
+        "siddhi_tpu_torch.resilience.dcn_guard",
     "siddhi_tpu.resilience.device_guard":
         "siddhi_tpu_torch.resilience.device_guard",
     "siddhi_tpu.resilience.fleet_guard":
@@ -130,6 +149,9 @@ PORTED_MODULES = {
     "siddhi_tpu.tpu.expr_compile": "siddhi_tpu_torch.gpu.expr_compile",
     "siddhi_tpu.tpu.host_exec": "siddhi_tpu_torch.gpu.host_exec",
 }
+
+# a bound name whose port object is the harness's subclass of the port's
+PORT_CLASSES = {("siddhi_tpu.tpu.dcn", "DCNWorker"): PortDCNWorker}
 
 # the module-level registries of a bound module that a suite fills: bound
 # too, so what the suite registers reaches the port's classes
@@ -158,7 +180,7 @@ def ported_names(suite: str = "") -> list:
                     or not getattr(obj, "__module__", "").startswith(
                         "siddhi_tpu_torch."):
                 continue
-            out.append((ref, name, obj))
+            out.append((ref, name, PORT_CLASSES.get((ref_name, name), obj)))
         out.extend((ref, name, getattr(port, name))
                    for name in REGISTRIES.get(ref_name, ()))
     return out
@@ -264,7 +286,7 @@ SUITES = ["test_partition_corpus", "test_join_corpus", "test_filter_query",
           "test_torn_fuzz", "test_bridge_fuzz", "test_device_pipeline",
           "test_observability", "test_xray", "test_service_and_docs",
           "test_host_batch", "test_procmesh", "test_fleet_guard",
-          "test_fleet", "test_slo"]
+          "test_fleet", "test_slo", "test_dcn", "test_dcn_resilience"]
 
 # suites that also test tiers outside the port's → the functions they
 # contribute: the IO tier, the sink pipeline, the columnar host tier and
@@ -338,11 +360,21 @@ NOT_SUITE_FUNCTIONS = {
     # runs the JAX package's scripts/check_bench_regression.py
     ("test_device_pipeline",
      "test_device_latency_guard_tolerates_partial_reports"),
-    # call only the JAX package's LaneGroupSnapshotStore
-    # (resilience/dcn_guard.py, which comes with distribution)
-    ("test_torn_fuzz", "test_snapshot_corrupt_newest_falls_back"),
-    ("test_torn_fuzz", "test_snapshot_all_revisions_corrupt_returns_none"),
-    ("test_torn_fuzz", "test_snapshot_missing_meta_member_falls_back"),
+    # spawns the JAX package's own DCN worker as host 1
+    # (tests/test_torch_dcn.py::test_two_process_dcn_ingest_routing spawns
+    # the port's)
+    ("test_dcn", "test_two_process_dcn_ingest_routing"),
+    # SIGKILLs and restarts the JAX package's own DCN worker process
+    # (tests/test_torch_dcn.py::test_kill_peer_soak_exactly_once does it to
+    # the port's)
+    ("test_dcn_resilience", "test_kill_peer_soak_exactly_once"),
+    # run the JAX package's scripts/check_socket_timeouts.py over its sources
+    # and on its own offender file (tests/test_torch_dcn.py::
+    # test_socket_timeout_lint_finds_nothing_in_the_port loads the script
+    # as data and checks the port's DCN modules with it)
+    ("test_dcn_resilience", "test_check_socket_timeouts_lint_passes"),
+    ("test_dcn_resilience",
+     "test_check_socket_timeouts_lint_catches_offenders"),
     # run the JAX package's scripts/check_metric_names.py over its render
     ("test_observability", "test_check_metric_names_lint_passes"),
     # the JAX package's metric-name lint on literal exposition text
@@ -397,16 +429,7 @@ COLUMNAR: set = {
 
 # suite function id → the JAX-package module it drives, which the port does
 # not have yet (the port must still lack it), and the tier it comes with
-NEEDS_MODULE: dict[str, tuple] = {
-    # the DCN trace stitching: the reference's DCNWorker and DCN guard
-    "test_xray::test_two_host_trace_stitching_survives_retry_and_takeover":
-        ("resilience.dcn_guard", "distribution"),
-    # the DCN guard's snapshot store (LaneGroupSnapshotStore)
-    "test_fleet_guard::test_snapshot_store_fsyncs_file_and_dir_before_rename":
-        ("resilience.dcn_guard", "distribution"),
-    "test_fleet_guard::test_snapshot_store_survives_torn_tmp":
-        ("resilience.dcn_guard", "distribution"),
-}
+NEEDS_MODULE: dict[str, tuple] = {}
 
 
 def _param_sets(fn) -> list:
@@ -619,7 +642,7 @@ def test_reference_suite_function_on_the_port(modname, fname, kwargs,
             f"siddhi_tpu_torch.{missing}") is None
         return
     bound = bind_port_names(monkeypatch, mod, request)
-    built = PortManager.built
+    built, workers = PortManager.built, PortDCNWorker.built
     fixtures = {"tmp_path": tmp_path, "caplog": caplog,
                 "monkeypatch": monkeypatch}
     reach = ColumnarReach(monkeypatch) if fid in COLUMNAR else None
@@ -631,6 +654,9 @@ def test_reference_suite_function_on_the_port(modname, fname, kwargs,
     if reach is not None:
         assert reach.n, "the function never reached the port's columnar " \
             "host tier"
+    if "DCNWorker" in names_used(fn):
+        assert PortDCNWorker.built > workers, \
+            "the function built no DCN worker of the port's"
 
 
 def test_suites_are_all_collected():

@@ -102,6 +102,21 @@ def test_import_loads_neither_jax_nor_the_reference():
     assert bad == [], bad
 
 
+def test_dcn_tier_imports_neither_jax_nor_the_reference():
+    """The DCN shard tier alone (the worker, the topology, the guard)."""
+    code = ("import siddhi_tpu_torch.gpu.dcn, "
+            "siddhi_tpu_torch.resilience.dcn_guard, sys\n"
+            "assert 'jax' not in sys.modules and not any("
+            "m.split('.')[0] == 'siddhi_tpu' for m in sys.modules)\n"
+            "from siddhi_tpu_torch.gpu.dcn import DCNWorker, LaneTopology\n"
+            "from siddhi_tpu_torch.resilience import LaneGroupSnapshotStore\n"
+            "print('\\n'.join(sorted(sys.modules)))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                         capture_output=True, text=True).stdout.split()
+    assert "siddhi_tpu_torch.resilience.dcn_guard" in out
+    assert [m for m in out if _forbidden(m)] == []
+
+
 def _imports(path: Path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
@@ -180,6 +195,9 @@ def test_entry_points_without_a_card_raise(monkeypatch):
     q = app.partitions[0].queries[0]
     with pytest.raises(RuntimeError, match="CUDA"):
         DeviceNFACompiler(q, dict(app.stream_definitions), 8, 16)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        PartitionedNFARuntime(APP, num_partitions=2, key_attr="dev",
+                              devices=["cuda:0", "cuda:0"])
     # explicit CPU is the plain version, and says so by its device
     rt = PartitionedNFARuntime(APP, num_partitions=2, key_attr="dev",
                                device="cpu")

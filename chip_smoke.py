@@ -26,7 +26,15 @@ Phases, one JSON line each:
                events/s and the kernel's step time; a checked run holds every
                step's state leaves, decoded rows, match and drop counts
                against the plain version stepped on the card from the same
-               state.
+               state. The bench's events give no match, so a second checked
+               run takes the matching stream (``engine_workloads.
+               rising_events``: the same distribution with a rising run of 8
+               values on one device every 512 events, ``MATCH_EVENTS``
+               events): every step against the plain version, the decoded
+               rows equal to the plain version's in order, more than zero of
+               them, each a rising chain, the drops reported, and over its
+               first ``MATCH_ORACLE_EVENTS`` events the match count equal to
+               the port's host interpreter's.
      native_main — the same app and events through the native route, as
                the bench feeds it: CSV lines ``dev,v,ts`` (built untimed)
                through ``enable_native_ingress`` → ``ingest_csv`` →
@@ -37,7 +45,11 @@ Phases, one JSON line each:
                decode); a checked run holds every step against the plain
                version on the card. No parse error, no clamped timestamp,
                one row a match, every row a rising chain, the two runs
-               equal.
+               equal. The matching stream as CSV: every step against the
+               plain version, rows in order equal to the plain version's and,
+               as a multiset, to ``main``'s (the route steps when a lane
+               fills, ``send_many`` per chunk: lanes' rows interleave
+               otherwise), more than zero.
      snapshot — two one-lane ``DeviceNFARuntime`` apps on the card, the
                8-state chain (blocked kernel) and the scan app without its
                partition (scan kernel), B = 2048: fed half their events,
@@ -393,18 +405,21 @@ Phases, one JSON line each:
                state, stream and launch a step) against one device: rows
                in order, state leaves (the ranges concatenated) and
                counters bitwise equal, launches the one device's times the
-               ranges; ``dryrun_multichip(2, devices=["cuda:0"] * 2)``;
+               ranges; the matching stream through each split, its rows
+               equal in order to one device's and to ``main``'s, more than
+               zero; ``dryrun_multichip(2, devices=["cuda:0"] * 2)``;
                (b) two ``DCNWorker``s on loopback, ``LaneTopology(64, 2)``
                (32 lanes a shard on the card, lane batch 2048, C = 64, no
                creation cap: the worker's own shard), every event into
                host 0 through ``ingest_chunk`` (``DCN_CHUNK`` a call), so
-               about half cross the socket as bulk frames: the two
-               workers' matches over the first ``DCN_ORACLE_EVENTS`` equal
-               the port's host interpreter's; over the first
-               ``DCN_TWIN_EVENTS`` (the cut of the plain twin, whose step
-               at this width takes seconds on the CPU) each worker's rows
-               in order and state leaves bitwise equal to the same two
-               workers with ``device="cpu"``; then all 2,000,000 events,
+               about half cross the socket as bulk frames: on the matching
+               stream, the two workers' matches over the first
+               ``DCN_ORACLE_EVENTS`` equal the port's host interpreter's,
+               more than zero; over its first ``DCN_TWIN_EVENTS`` (the cut
+               of the plain twin, whose step at this width takes seconds on
+               the CPU) each worker's rows in order and state leaves bitwise
+               equal to the same two workers with ``device="cpu"``, more
+               than zero matches; then all 2,000,000 of the bench's events,
                timed: events/s, ``forward_chunk_rows``; (c) failover on
                the card: host 1 snapshots each applied frame into a
                ``LaneGroupSnapshotStore``, both hosts snapshot, host 1 is
@@ -417,6 +432,39 @@ Phases, one JSON line each:
                and the final state leaves bitwise equal to the same script
                with ``device="cpu"``. B1's ``launches_by_path`` gains
                ``lanes_split`` ((a)) and ``dcn`` ((b)'s timed run).
+ 20. mesh    — the mesh fabric in-process (``siddhi_tpu_torch.mesh``),
+               every host a ``SiddhiManager`` on ``cuda:0``, the tenants in
+               ``siddhi_tpu_torch/tools/mesh_workloads.py``: (a) the
+               reference bench's placement scenario on two hosts: 1,024
+               ``@app:fleet`` tenants of 8 shapes fed one 256-event
+               ``gen_events`` feed in chunks of 64 by per-host threads, under
+               ``locality`` and ``random``: 512 tenants a host under both,
+               fewer compiled programs a host under ``locality``, each
+               tenant's alerts equal to the feed's count above its
+               threshold; events/s and deploy seconds (the fleet steps on
+               the CPU: no kernel); (b) four ``@device`` tenants, two of
+               ``engine_config("grouped_length")`` (B5a) and two of
+               ``engine_config("chain")`` (B1) fed ``rising_events``,
+               ``MESH_DEVICE_EVENTS`` each in chunks of
+               ``MESH_CHUNK_EVENTS`` through ``fab.send``, one of each kind
+               migrated to the other host after half the chunks: every
+               tenant's rows in order and counters equal to its solo run on
+               the card and to the same script with ``device="cpu"`` (the
+               grouped float32 columns within
+               ``tests/test_torch_query_shapes.py``'s tolerances), the chain
+               tenants matching, 2 migrations, no duplicate chunk;
+               events/s through ``fab.send`` and of the solo runs; (c) a
+               feeder thread sends the four tenants ``MESH_LIVE_EVENTS``
+               each while the main thread migrates the other two: rows
+               equal to the solo runs, the spill reported; (d) with
+               ``snapshot_every_chunks=1`` a host holding one tenant of
+               each kind is killed after half the chunks, a quarter more
+               spill, both are recovered onto ``cuda:0`` from their last
+               revision and fed the rest: rows equal to the solo runs, 2
+               recoveries, no duplicate chunk. Every move and kill falls on
+               a batch boundary of every tenant. B1 and B5a must launch
+               through the fabric; their ``launches_by_path`` gain
+               ``mesh``.
 Then the card's name and power limit (nvidia-smi), the ``kernels`` line and,
 last, ``{"ok": true, "device": {...}}``. Any failure exits non-zero before
 that line. Needs one CUDA card; fails without one.
@@ -729,6 +777,22 @@ MAIN = dict(num_partitions=64, key_attr="dev", slot_capacity=64,
             lane_batch=2048, creation_cap=320)
 N_KEYS = 256
 CHUNK = 16384        # events per send_many call: ~256 per lane keeps steps full
+MATCH_EVENTS = 262_144         # the matching stream (``rising_events``)
+MATCH_ORACLE_EVENTS = 65_536   # its prefix the host interpreter checks
+
+
+def rising_events(n: int, seed: int):
+    from siddhi_tpu_torch.tools.engine_workloads import rising_events as rise
+    return rise(n, seed)
+
+
+def check_chain_rows(where: str, rows: list) -> None:
+    """Every row keeps the rising-chain contract: 8 finite values, the
+    first above 90.0, each above the one before."""
+    for r in rows:
+        if len(r) != 8 or not all(np.isfinite(x) for x in r) or \
+                not (r[0] > 90.0 and all(a < b for a, b in zip(r, r[1:]))):
+            fail(f"{where}: row breaks the rising-chain contract: {r}")
 
 
 def gen_events(n: int, seed: int):
@@ -842,17 +906,45 @@ def phase_main(seed: int, n_events: int):
         fail("main path: the checked run differs from the timed run")
     if rt.match_count != len(rows):
         fail(f"main path: match_count {rt.match_count} != {len(rows)} rows")
-    for r in rows:
-        if len(r) != 8 or not all(np.isfinite(x) for x in r) or \
-                not (r[0] > 90.0 and all(a < b for a, b in zip(r, r[1:]))):
-            fail(f"main path: row breaks the rising-chain contract: {r}")
-
+    check_chain_rows("main path", rows)
+    checked_steps = len(plain_ms)
+    cells_per_step = work.get("cells", 0) / max(checked_steps, 1)
     med = float(np.median(step_ms))
     pmed = float(np.median(plain_ms))
     mean_bytes = float(np.mean(nbytes))
     ops_per_step = work.get("ops", 0) / max(len(plain_ms), 1)
     bound_bytes_ms = mean_bytes / HBM_BYTES_PER_S * 1e3
     bound_ops_ms = ops_per_step / F32_OPS_PER_S * 1e3
+
+    # ---- the matching stream: every step against the plain version, the
+    # decoded rows in order, more than zero of them
+    mev = rising_events(MATCH_EVENTS, seed)
+    rt = PartitionedNFARuntime(bench_app(), device="cuda", **MAIN)
+    kernel_step = rt.vstep
+    comp = rt.compiler
+    plain_rows = []
+    n_plain = len(plain_ms)
+    rt.vstep = checked
+    m_rows = feed(rt, *mev)
+    m_steps = len(plain_ms) - n_plain
+    if m_rows != plain_rows:
+        fail("main path, matching stream: decoded rows differ from the "
+             "plain version's")
+    if not m_rows or rt.match_count != len(m_rows):
+        fail(f"main path, matching stream: match_count {rt.match_count}, "
+             f"{len(m_rows)} rows")
+    check_chain_rows("main path, matching stream", m_rows)
+    m_matches, m_drops = rt.match_count, rt.drop_count
+    # the first MATCH_ORACLE_EVENTS events against the host interpreter
+    head = tuple(x[:MATCH_ORACLE_EVENTS] for x in mev)
+    rt = PartitionedNFARuntime(bench_app(), device="cuda", **MAIN)
+    head_rows = feed(rt, *head)
+    oracle = dcn_oracle(head, MATCH_ORACLE_EVENTS)
+    if not oracle or rt.match_count != oracle or len(head_rows) != oracle:
+        fail(f"main path, matching stream: {rt.match_count} matches over "
+             f"the first {MATCH_ORACLE_EVENTS} events, the interpreter's "
+             f"{oracle}")
+
     out = {
         "phase": "main", "events": int(n_events), "steps": steps,
         "events_per_s": n_events / wall, "wall_s": wall,
@@ -863,12 +955,18 @@ def phase_main(seed: int, n_events: int):
         "mean_lane_fill": float(np.mean(fill)) / (MAIN["num_partitions"] *
                                                   MAIN["lane_batch"]),
         "bytes_per_step": mean_bytes, "search_cells_per_step":
-            work.get("cells", 0) / max(len(plain_ms), 1),
+            cells_per_step,
         "ops_per_step": ops_per_step,
         "bound_ms_bytes": bound_bytes_ms, "bound_ms_ops": bound_ops_ms,
-        "max_abs_err": worst, "checked_steps": len(plain_ms),
+        "max_abs_err": worst, "checked_steps": checked_steps,
+        "matching": {"events": MATCH_EVENTS, "steps": m_steps,
+                     "matches": m_matches, "rows": len(m_rows),
+                     "drops": m_drops, "equal_to_plain": True,
+                     "oracle_events": MATCH_ORACLE_EVENTS,
+                     "oracle_matches": oracle},
     }
     emit(out)
+    out["matching_rows"] = m_rows
     return out
 
 
@@ -932,7 +1030,7 @@ class HostSplit:
         setattr(obj, attr, timed)
 
 
-def phase_native_main(seed: int, n_events: int):
+def phase_native_main(seed: int, n_events: int, matching_rows: list):
     import torch
     from siddhi_tpu_torch.gpu.nfa_block import BlockPlan, block_step_plain
     from siddhi_tpu_torch.gpu.partition import PartitionedNFARuntime
@@ -1023,10 +1121,33 @@ def phase_native_main(seed: int, n_events: int):
         fail("native_main: the checked run differs from the timed run")
     if rt.match_count != len(rows):
         fail(f"native_main: match_count {rt.match_count}, {len(rows)} rows")
-    for r in rows:
-        if len(r) != 8 or not all(np.isfinite(x) for x in r) or \
-                not (r[0] > 90.0 and all(a < b for a, b in zip(r, r[1:]))):
-            fail(f"native_main: row breaks the rising-chain contract: {r}")
+    check_chain_rows("native_main", rows)
+
+    # ---- the matching stream as CSV: every step against the plain
+    # version, the decoded rows in order; main's matching rows as a
+    # multiset (the native route steps whenever a lane fills, ``send_many``
+    # per chunk, so the rows of different lanes interleave otherwise)
+    mcsv = bench_csv(*rising_events(MATCH_EVENTS, seed))
+    rt = PartitionedNFARuntime(bench_app(), device="cuda", **MAIN)
+    kernel_step = rt.vstep
+    comp = rt.compiler
+    plain_rows = []
+    n_plain = len(plain_ms)
+    rt.vstep = checked
+    m_rows = ingest_native(rt, mcsv)
+    m_steps = len(plain_ms) - n_plain
+    if rt._ning.parse_errors or getattr(rt, "ts_clamped", 0):
+        fail("native_main, matching stream: parse errors or clamped "
+             "timestamps")
+    if m_rows != plain_rows:
+        fail("native_main, matching stream: decoded rows differ from the "
+             "plain version's")
+    if not m_rows or rt.match_count != len(m_rows) \
+            or sorted(m_rows) != sorted(matching_rows):
+        fail(f"native_main, matching stream: {len(m_rows)} rows "
+             f"({rt.match_count} matches) differ from main's "
+             f"{len(matching_rows)}")
+    check_chain_rows("native_main, matching stream", m_rows)
     out = {
         "phase": "native_main", "events": int(n_events), "steps": steps,
         "csv_bytes": len(csv), "csv_build_s": csv_s,
@@ -1034,13 +1155,17 @@ def phase_native_main(seed: int, n_events: int):
         "host_s": split.s,
         "kernel_step_ms_median": float(np.median(step_ms)),
         "kernel_step_ms_all": step_ms,
-        "plain_step_ms_median": float(np.median(plain_ms)),
+        "plain_step_ms_median": float(np.median(plain_ms[:n_plain])),
         "launches": launches, "launches_per_step": launches / steps,
         "matches": timed_matches, "drops": timed_drops, "rows": len(rows),
         "parse_errors": errors, "ts_clamped": clamped,
         "mean_lane_fill": float(np.mean(fill)) / (MAIN["num_partitions"] *
                                                   MAIN["lane_batch"]),
-        "max_abs_err": worst, "checked_steps": len(plain_ms),
+        "max_abs_err": worst, "checked_steps": n_plain,
+        "matching": {"events": MATCH_EVENTS, "steps": m_steps,
+                     "rows": len(m_rows), "matches": rt.match_count,
+                     "drops": rt.drop_count, "equal_to_plain": True,
+                     "equal_to_main_as_multiset": True},
     }
     emit(out)
     return out
@@ -3409,13 +3534,13 @@ IO_IDLE_S = 30.0                   # the longest wait for a deadline flush
 IO_EDGE_WARM = 16_384              # the edge's warm-up events
 
 
-def io_scratch() -> str:
-    """A directory for the phase's WAL, revisions and CSV file, inside the
+def io_scratch(prefix: str = "engine_io-") -> str:
+    """A directory for a phase's WAL, revisions and CSV file, inside the
     checkout (``siddhi_tpu_torch/_build/`` is git-ignored)."""
     import tempfile
     base = os.path.join(REPO, "siddhi_tpu_torch", "_build")
     os.makedirs(base, exist_ok=True)
-    return tempfile.mkdtemp(prefix="engine_io-", dir=base)
+    return tempfile.mkdtemp(prefix=prefix, dir=base)
 
 
 def durable_runtime(manager, wal: str, tag: str, store: str | None = None,
@@ -5831,10 +5956,13 @@ def phase_dcn(seed: int, n_events: int = DCN_EVENTS,
               lanes: int = DCN_LANES, widths: dict | None = None,
               split_widths: dict | None = None,
               twin_events: int = DCN_TWIN_EVENTS,
-              oracle_events: int = DCN_ORACLE_EVENTS) -> dict:
+              oracle_events: int = DCN_ORACLE_EVENTS,
+              matching_rows: list | None = None,
+              match_events: int = MATCH_EVENTS) -> dict:
     """Lanes over several devices and the DCN shard tier on the card
-    (module docstring, phase 19); the sizes shrink it for a rehearsal on
-    the CPU."""
+    (module docstring, phase 19); ``matching_rows`` are ``main``'s rows of
+    the matching stream; the sizes shrink it for a rehearsal on the
+    CPU."""
     import torch
     from siddhi_tpu_torch.entry import dryrun_multichip
     from siddhi_tpu_torch.gpu.nfa_block import BlockPlan
@@ -5846,6 +5974,7 @@ def phase_dcn(seed: int, n_events: int = DCN_EVENTS,
     split_widths = split_widths or MAIN
     t_phase = time.perf_counter()
     ev = gen_events(n_events, seed)
+    mev = rising_events(match_events, seed)
 
     # (a) the lane split: send_many over one card as 1, 2 and 4 ranges
     split = {}
@@ -5865,7 +5994,27 @@ def phase_dcn(seed: int, n_events: int = DCN_EVENTS,
                     "events_per_s": n_events / wall,
                     "ranges": len(rt.ranges),
                     "devices": [str(d) for d in rt.devices]}
+        # the matching stream over the same split: rows in order
+        rt = PartitionedNFARuntime(bench_app(), **kw, **split_widths)
+        m_rows = feed(rt, *mev)
+        if not m_rows or rt.match_count != len(m_rows):
+            fail(f"dcn (a): the matching stream over {n} ranges: "
+                 f"{rt.match_count} matches, {len(m_rows)} rows")
+        split[n]["matching"] = {"rows": m_rows, "drops": rt.drop_count}
     one = split[1]
+    for n in (2, 4):
+        if split[n]["matching"]["rows"] != one["matching"]["rows"]:
+            fail(f"dcn (a): the matching stream's rows over {n} ranges "
+                 f"differ from one device's")
+    if matching_rows is not None \
+            and one["matching"]["rows"] != matching_rows:
+        fail("dcn (a): the matching stream's rows differ from main's")
+    match_split = {}
+    for n in (1, 2, 4):
+        s = split[n]
+        m = s.pop("matching")
+        match_split[str(n)] = {"rows": len(m["rows"]),
+                                  "drops": m["drops"]}
     if not one["launches"] or one["matches"] != len(one["rows"]):
         fail(f"dcn (a): one device: {one['launches']} launches, "
              f"{one['matches']} matches, {len(one['rows'])} rows")
@@ -5889,16 +6038,22 @@ def phase_dcn(seed: int, n_events: int = DCN_EVENTS,
              f"{dry['expected']}, {dry_launches} launches")
     split_launches = BlockPlan.launches
 
-    # (b) two workers on loopback, every event into host 0
-    probe = dcn_pair("cuda", ev, oracle_events, lanes, widths)
-    oracle = dcn_oracle(ev, oracle_events)
-    if sum(probe["matches"]) != oracle:
+    # (b) two workers on loopback, every event into host 0; the checked
+    # prefixes run on the matching stream, the timed run on the bench's
+    probe = dcn_pair("cuda", mev, oracle_events, lanes, widths)
+    oracle = dcn_oracle(mev, oracle_events)
+    if not oracle or sum(probe["matches"]) != oracle:
         fail(f"dcn (b): the two workers' {probe['matches']} matches over "
-             f"the first {oracle_events} events, the interpreter's {oracle}")
+             f"the first {oracle_events} matching events, the "
+             f"interpreter's {oracle}")
     t_twin = time.perf_counter()
-    card_pre = dcn_pair("cuda", ev, twin_events, lanes, widths)
-    plain_pre = dcn_pair("cpu", ev, twin_events, lanes, widths)
-    dcn_same(f"dcn (b), the first {twin_events} events", plain_pre, card_pre)
+    card_pre = dcn_pair("cuda", mev, twin_events, lanes, widths)
+    plain_pre = dcn_pair("cpu", mev, twin_events, lanes, widths)
+    dcn_same(f"dcn (b), the first {twin_events} matching events", plain_pre,
+             card_pre)
+    if not sum(card_pre["matches"]):
+        fail(f"dcn (b): no match over the first {twin_events} matching "
+             f"events")
     twin_s = time.perf_counter() - t_twin
     BlockPlan.launches = 0                     # counts from here: (b)
     full = dcn_pair("cuda", ev, n_events, lanes, widths)
@@ -5938,6 +6093,10 @@ def phase_dcn(seed: int, n_events: int = DCN_EVENTS,
                                           "devices")}
                for n, s in split.items()},
            "lanes_split_rows": len(one["rows"]), "lanes_split_equal": True,
+           "lanes_split_matching": {"events": match_events,
+                                    "by_ranges": match_split,
+                                    "equal_to_main": matching_rows
+                                    is not None},
            "dryrun_multichip_2": {"matches": dry["matches"],
                                   "devices": dry["devices"],
                                   "launches": dry_launches},
@@ -5949,9 +6108,13 @@ def phase_dcn(seed: int, n_events: int = DCN_EVENTS,
                    "matches": list(full["matches"]),
                    "drops": full["drops"], "launches": dcn_launches,
                    "devices": full["devices"]},
-           "oracle": {"events": oracle_events, "matches": oracle},
+           "oracle": {"events": oracle_events, "matches": oracle,
+                      "stream": "matching"},
            "plain_twin": {"events": twin_events, "equal": True,
+                          "stream": "matching",
                           "rows": [len(r) for r in card_pre["rows"]],
+                          "matches": list(card_pre["matches"]),
+                          "drops": card_pre["drops"],
                           "seconds": twin_s},
            "failover": {k: card_fo[k] for k in (
                "matches", "spilled_frames", "replayed_frames", "adopted_on",
@@ -5963,6 +6126,344 @@ def phase_dcn(seed: int, n_events: int = DCN_EVENTS,
     emit(out)
     return out
 
+
+
+MESH_DEVICE_EVENTS = 131_072       # (b): events a device tenant
+MESH_LIVE_EVENTS = 65_536          # (c), (d): events a device tenant
+MESH_CHUNK_EVENTS = 4_096          # (b)-(d): events a fab.send
+# (d): half the rounds before the kill, a quarter of them spill
+MESH_MOVERS = ("mesh-gl-0", "mesh-chain-0")       # (b)
+MESH_LIVE_MOVERS = ("mesh-chain-1", "mesh-gl-1")  # (c)
+MESH_VICTIMS = ("mesh-chain-0", "mesh-gl-0")      # (d)
+
+
+def mesh_placement(seed: int, tenants: int, root: str) -> dict:
+    """(a): the reference bench's placement scenario on two hosts of the
+    card, under ``locality`` and ``random``: tenants and compiled programs
+    per host, each tenant's alert count against the feed's own count."""
+    from siddhi_tpu_torch.mesh import MeshConfig, MeshFabric
+    from siddhi_tpu_torch.tools import mesh_workloads as mw
+    from siddhi_tpu_torch.tools.fleet_workloads import FLEET_ANN
+    H = mw.MESH_HOSTS
+    cap = (tenants + H - 1) // H
+    feed = mw.gen_events(mw.MESH_PLACE_FEED, seed)
+    rows = [[d, v] for d, v, _ in feed]
+    tss = [t for _, _, t in feed]
+    vs = np.array([v for _, v, _ in feed])
+    expect = [int((vs > 80.0 + i % 8).sum()) for i in range(tenants)]
+    tids = [f"mtenant-{i}" for i in range(tenants)]
+    out = {}
+    for policy in ("locality", "random"):
+        t0 = time.perf_counter()
+        fab = MeshFabric(H, os.path.join(root, policy), MeshConfig(
+            capacity_per_host=cap, policy=policy))
+        try:
+            fab.add_tenants([mw.mesh_shape_app(i, i % mw.MESH_SHAPES,
+                                               FLEET_ANN)
+                             for i in range(tenants)])
+            deploy_s = time.perf_counter() - t0
+            counts = dict.fromkeys(tids, 0)
+            for t in tids:
+                fab.add_callback(t, "Alerts", lambda evs, t=t: counts.
+                                 __setitem__(t, counts[t] + len(evs)))
+            wall = mw.mesh_feed_all(fab, tids, rows, tss, mw.MESH_CHUNK)
+            ev = fab.evidence()
+            devices = sorted({str(h.manager.device)
+                              for h in fab.hosts.values()})
+        finally:
+            fab.close()
+        got = [counts[t] for t in tids]
+        if got != expect:
+            bad = next(i for i in range(tenants) if got[i] != expect[i])
+            fail(f"mesh (a) {policy}: tenant {bad} gave {got[bad]} alerts, "
+                 f"the feed {expect[bad]}")
+        if not all(d.startswith("cuda") for d in devices):
+            fail(f"mesh (a) {policy}: hosts on {devices}")
+        compiles = [e["compiled_programs"] for e in ev.values()]
+        lanes = [e["lanes_per_step"] for e in ev.values()
+                 if e["lanes_per_step"]]
+        out[policy] = {
+            "tenants_per_host": [e["tenants"] for e in ev.values()],
+            "compiles_per_host": compiles,
+            "lanes_per_step_mean": (sum(lanes) / len(lanes)) if lanes
+            else 0.0,
+            "events_per_s": tenants * len(rows) / wall, "feed_s": wall,
+            "deploy_s": deploy_s, "alerts": sum(got), "devices": devices}
+    for policy, o in out.items():
+        if o["tenants_per_host"] != [cap] * H:
+            fail(f"mesh (a) {policy}: tenants per host "
+                 f"{o['tenants_per_host']}")
+    loc, rnd = out["locality"], out["random"]
+    if not all(a < b for a, b in zip(loc["compiles_per_host"],
+                                     rnd["compiles_per_host"])):
+        fail(f"mesh (a): compiled programs per host {loc['compiles_per_host']}"
+             f" under locality, {rnd['compiles_per_host']} under random")
+    return out
+
+
+def mesh_scales(scales: dict):
+    """Wraps ``MeshHost.deploy`` so every grouped tenant's query step adds
+    the tolerance scale of what it reads to ``scales[tenant]`` (a running
+    sum across the tenant's moves). Returns the undo."""
+    from siddhi_tpu_torch.mesh.fabric import MeshHost
+    sh = query_shapes_module()
+    orig = MeshHost.deploy
+
+    def deploy(host, spec):
+        rt = orig(host, spec)
+        drt = rt.device_bridges[0].runtime if rt.device_bridges else None
+        if drt is not None and hasattr(drt, "compiled"):
+            q, step = drt.compiled, drt.compiled.step_tensors
+            tid = spec.tenant_id
+
+            def scaled(state, cols, ts, valid):
+                scales[tid] = (q, sh.next_scale(
+                    q, scales.get(tid, (q, sh.Scale()))[1], state, cols, ts,
+                    valid))
+                return step(state, cols, ts, valid)
+
+            q.step_tensors = scaled
+        return rt
+
+    MeshHost.deploy = deploy
+    return lambda: setattr(MeshHost, "deploy", orig)
+
+
+def mesh_solos(feeds: dict, chunks: dict, apps: dict) -> dict:
+    """Every device tenant alone on one manager on the card."""
+    from siddhi_tpu_torch import SiddhiManager
+    from siddhi_tpu_torch.tools import mesh_workloads as mw
+    return {t: mw.solo_rows(SiddhiManager(), t, feeds[t], chunks[t],
+                            app=apps[t]) for t in apps}
+
+
+def mesh_same(where: str, ref: dict, got: dict) -> None:
+    """Rows equal in order, tenant by tenant, and more than none."""
+    for t in ref:
+        if not got[t] or got[t] != ref[t]:
+            fail(f"mesh {where}: tenant {t}: {len(got[t])} rows differ from "
+                 f"its solo run's {len(ref[t])}")
+
+
+def mesh_launched(run, *args) -> tuple:
+    """``run(*args)`` and the B1 and B5a launches it made."""
+    from siddhi_tpu_torch.gpu.nfa_block import BlockPlan
+    from siddhi_tpu_torch.gpu.query_step import QueryPlan
+    b1, b5 = BlockPlan.launches, QueryPlan.launches
+    out = run(*args)
+    return out, {"nfa_block": BlockPlan.launches - b1,
+                 "query_step": QueryPlan.launches - b5}
+
+
+def phase_mesh(seed: int, place_tenants: int | None = None,
+               device_events: int = MESH_DEVICE_EVENTS,
+               live_events: int = MESH_LIVE_EVENTS,
+               chunk: int = MESH_CHUNK_EVENTS,
+               widths: dict | None = None) -> dict:
+    """The mesh fabric in-process on the card (module docstring, phase
+    20); the sizes and ``widths`` (the tenants' ``batch``/``slots``) shrink
+    it for a rehearsal on the CPU."""
+    import torch
+    from siddhi_tpu_torch.mesh import MeshConfig, MeshFabric
+    from siddhi_tpu_torch.tools import mesh_workloads as mw
+    if not torch.cuda.is_available():
+        fail("mesh: no CUDA device")
+    t_phase = time.perf_counter()
+    widths = widths or {}
+    place_tenants = place_tenants or mw.MESH_PLACE_TENANTS
+    root = io_scratch("mesh-")
+    placement = mesh_placement(seed, place_tenants, root)
+    t_place = time.perf_counter() - t_phase
+
+    tenants = list(mw.DEVICE_TENANTS)
+    apps = {t: mw.tenant_app(t, **widths) for t in tenants}
+    batch = {t: int(re.search(r"batch='(\d+)'", apps[t]).group(1))
+             for t in tenants}
+    feeds = {t: mw.tenant_feed(t, device_events, seed) for t in tenants}
+    chunks = {t: mw.tenant_chunks(feeds[t], chunk) for t in tenants}
+    rounds = device_events // chunk
+    at = rounds // 2
+    live_rounds = live_events // chunk
+    kill_at, spill_rounds = live_rounds // 2, live_rounds // 4
+    # every cut a move or a kill makes falls on a batch boundary of every
+    # tenant, so the flush it inserts leaves the batches as a solo run has
+    for t in tenants:
+        for cut in (at * chunk, kill_at * chunk,
+                    (kill_at + spill_rounds) * chunk):
+            if cut % batch[t]:
+                fail(f"mesh: cut at {cut} events is off tenant {t}'s "
+                     f"batch of {batch[t]}")
+    launches = {"nfa_block": 0, "query_step": 0}
+
+    def count(got: dict) -> None:
+        for k, n in got.items():
+            launches[k] += n
+
+    def card_fabric(cfg, name: str) -> "MeshFabric":
+        fab = MeshFabric(2, os.path.join(root, name), cfg)
+        devs = [str(h.manager.device) for h in fab.hosts.values()]
+        if not all(d.startswith("cuda") for d in devs) or \
+                [h.device for h in fab.hosts.values()] != [0, 0]:
+            fail(f"mesh: hosts on {devs}, ordinals "
+                 f"{[h.device for h in fab.hosts.values()]}")
+        return fab
+
+    # (b) device tenants, one deterministic migration of each kernel's
+    t0 = time.perf_counter()
+    fab = card_fabric(MeshConfig(capacity_per_host=4), "b-card")
+    try:
+        card, got = mesh_launched(mw.run_migration, fab, apps, feeds, chunks,
+                                  at, list(MESH_MOVERS))
+        count(got)
+        card_counters = mw.mesh_counters(fab)
+        card_devices = {t: str(fab.hosts[fab.tenants[t].host].runtimes[t]
+                               .device_bridges[0].runtime.device)
+                        for t in tenants}
+    finally:
+        fab.close()
+    rep = card["report"]
+    if rep["migrations"] != 2 or rep["dup_chunks"] != 0 or \
+            rep["migration_failures"] or \
+            any(a == b for a, b in card["moved"].values()):
+        fail(f"mesh (b): migrations {rep['migrations']}, dup_chunks "
+             f"{rep['dup_chunks']}, moves {card['moved']}")
+    if not all(d.startswith("cuda") for d in card_devices.values()):
+        fail(f"mesh (b): tenants' device state on {card_devices}")
+    solo = mesh_solos(feeds, chunks, apps)
+    mesh_same("(b), the card's solo runs", {t: solo[t]["rows"]
+                                            for t in tenants}, card["rows"])
+    for t in tenants:
+        if solo[t]["counters"] != card_counters[t]:
+            fail(f"mesh (b): tenant {t}'s counters {card_counters[t]}, its "
+                 f"solo run's {solo[t]['counters']}")
+        if mw.DEVICE_TENANTS[t] == "chain" and \
+                not card_counters[t]["matches"]:
+            fail(f"mesh (b): chain tenant {t} matched nothing")
+    t_card = time.perf_counter() - t0
+    # the same script on the CPU (the plain versions)
+    t0 = time.perf_counter()
+    scales: dict = {}
+    undo = mesh_scales(scales)
+    try:
+        fab = MeshFabric(2, os.path.join(root, "b-cpu"),
+                         MeshConfig(capacity_per_host=4), device="cpu")
+        try:
+            plain = mw.run_migration(fab, apps, feeds, chunks, at,
+                                     list(MESH_MOVERS))
+            plain_counters = mw.mesh_counters(fab)
+        finally:
+            fab.close()
+    finally:
+        undo()
+    if plain["moved"] != card["moved"]:
+        fail(f"mesh (b): the CPU's moves {plain['moved']}, the card's "
+             f"{card['moved']}")
+    sh = query_shapes_module()
+    for t in tenants:
+        if mw.DEVICE_TENANTS[t] == "chain":
+            if card["rows"][t] != plain["rows"][t]:
+                fail(f"mesh (b): chain tenant {t}: rows differ from the "
+                     f"CPU's ({len(card['rows'][t])} / "
+                     f"{len(plain['rows'][t])})")
+            if card_counters[t] != plain_counters[t]:
+                fail(f"mesh (b): chain tenant {t}: counters "
+                     f"{card_counters[t]}, the CPU's {plain_counters[t]}")
+        else:
+            q, sc = scales[t]
+            close_rows(sh, q, sc, plain["rows"][t], card["rows"][t],
+                       f"mesh (b) tenant {t} against the CPU")
+    t_plain = time.perf_counter() - t0
+    n_events = len(tenants) * device_events
+
+    # (c) live migration under sustained ingest (a feeder thread)
+    t0 = time.perf_counter()
+    live_chunks = {t: chunks[t][:live_rounds] for t in tenants}
+    live_solo = mesh_solos(feeds, live_chunks, apps)
+    solo_rows = {t: live_solo[t]["rows"] for t in tenants}
+    fab = card_fabric(MeshConfig(capacity_per_host=4), "c-card")
+    try:
+        live, got = mesh_launched(mw.run_live_migration, fab, apps, feeds,
+                                  live_chunks, list(MESH_LIVE_MOVERS))
+        count(got)
+    finally:
+        fab.close()
+    rep = live["report"]
+    if rep["migrations"] != 2 or rep["dup_chunks"] != 0 or \
+            rep["migration_failures"] or rep["spill_backlog"]:
+        fail(f"mesh (c): migrations {rep['migrations']}, dup_chunks "
+             f"{rep['dup_chunks']}, backlog {rep['spill_backlog']}")
+    mesh_same("(c), the card's solo runs", solo_rows, live["rows"])
+    t_live = time.perf_counter() - t0
+
+    # (d) kill a host of one B1 and one B5a tenant, recover both
+    t0 = time.perf_counter()
+    fab = card_fabric(MeshConfig(capacity_per_host=4,
+                                 snapshot_every_chunks=1), "d-card")
+    try:
+        kill, got = mesh_launched(mw.run_kill_recover, fab, apps, feeds,
+                                  live_chunks, list(MESH_VICTIMS),
+                                  kill_at, spill_rounds)
+        count(got)
+        rec_devices = {t: str(fab.hosts[fab.tenants[t].host].manager.device)
+                       for t in MESH_VICTIMS}
+    finally:
+        fab.close()
+    rep = kill["report"]
+    if sorted(kill["orphans"]) != sorted(MESH_VICTIMS) or \
+            rep["recoveries"] != len(MESH_VICTIMS) or rep["dup_chunks"] or \
+            kill["spilled"] != spill_rounds * len(MESH_VICTIMS) or \
+            rep["spill_backlog"]:
+        fail(f"mesh (d): orphans {kill['orphans']}, recoveries "
+             f"{rep['recoveries']}, dup_chunks {rep['dup_chunks']}, spilled "
+             f"{kill['spilled']}, backlog {rep['spill_backlog']}")
+    if not all(d.startswith("cuda") for d in rec_devices.values()):
+        fail(f"mesh (d): recovered onto {rec_devices}")
+    mesh_same("(d), the card's solo runs", solo_rows, kill["rows"])
+    t_kill = time.perf_counter() - t0
+    if not all(launches.values()):
+        fail(f"mesh: kernels not launched through the fabric: {launches}")
+    import shutil
+    shutil.rmtree(root, ignore_errors=True)
+    solo_s = sum(solo[t]["seconds"] for t in tenants)
+    out = {"phase": "mesh", "hosts": 2,
+           "placement": placement,
+           "device_tenants": {
+               t: {"kernel": "nfa_block" if k == "chain" else "query_step",
+                   "batch": batch[t], "rows": len(card["rows"][t]),
+                   **card_counters[t]}
+               for t, k in mw.DEVICE_TENANTS.items()},
+           "migration": {
+               "events_per_tenant": device_events, "chunk": chunk,
+               "moved": {t: list(m) for t, m in card["moved"].items()},
+               "at_round": at, "rounds": rounds,
+               "events_per_s_fabric_send": n_events / card["send_s"],
+               "events_per_s_solo": n_events / solo_s,
+               "send_s": card["send_s"], "move_s": card["move_s"],
+               "solo_s": solo_s, "migrations": card["report"]["migrations"],
+               "dup_chunks": card["report"]["dup_chunks"],
+               "equal_to_solo": True, "equal_to_cpu": True,
+               "tenant_devices": card_devices},
+           "live": {"events_per_tenant": live_events,
+                    "moved": {t: list(m) for t, m in live["moved"].items()},
+                    "spilled_chunks": live["report"]["spilled_chunks"],
+                    "replayed_chunks": live["report"]["replayed_chunks"],
+                    "wall_s": live["wall_s"], "equal_to_solo": True},
+           "kill": {"killed_host": kill["killed"], "at_round": kill_at,
+                    "spill_rounds": spill_rounds, "rounds": live_rounds,
+                    "orphans": kill["orphans"],
+                    "recovered_on": kill["recovered_on"],
+                    "recovered_devices": rec_devices,
+                    "spilled_chunks": kill["spilled"],
+                    "recoveries": kill["report"]["recoveries"],
+                    "dup_chunks": kill["report"]["dup_chunks"],
+                    "equal_to_solo": True},
+           "launches": launches,
+           "seconds": {"placement": t_place, "migration_card": t_card,
+                       "migration_cpu": t_plain, "live": t_live,
+                       "kill": t_kill},
+           "phase_s": time.perf_counter() - t_phase}
+    emit(out)
+    return out
 
 
 def main() -> int:
@@ -5980,7 +6481,8 @@ def main() -> int:
     card = phase_device()
     shape_err = phase_shapes(args.seed)
     main_out = phase_main(args.seed, args.events)
-    native_out = phase_native_main(args.seed, args.events)
+    native_out = phase_native_main(args.seed, args.events,
+                                   main_out["matching_rows"])
     snap_out = phase_snapshot(args.seed)
     entry_out = phase_entry()
     scan_err = phase_scan_shapes(args.seed)
@@ -6015,7 +6517,8 @@ def main() -> int:
     observe = phase_engine_observe(args.seed)
     columnar = phase_engine_columnar(args.seed)
     fleet = phase_engine_fleet(args.seed)
-    dcn = phase_dcn(args.seed)
+    dcn = phase_dcn(args.seed, matching_rows=main_out["matching_rows"])
+    mesh = audited("mesh", phase_mesh, args.seed)
     bound = max(main_out["bound_ms_bytes"], main_out["bound_ms_ops"])
     scan_bound = max(scan_out["bound_ms_bytes"], scan_out["bound_ms_ops"])
     kernels = [{
@@ -6041,7 +6544,8 @@ def main() -> int:
             "snapshot": snap_out["apps"][0]["launches"],
             "entry": entry_out["entry_launches"] + entry_out["dryrun_launches"],
             "lanes_split": dcn["lanes_split_launches"],
-            "dcn": dcn["dcn"]["launches"]},
+            "dcn": dcn["dcn"]["launches"],
+            "mesh": mesh["launches"]["nfa_block"]},
         "native_main_ms": native_out["kernel_step_ms_median"],
         "native_main_plain_ms": native_out["plain_step_ms_median"],
     }, {
@@ -6088,6 +6592,8 @@ def main() -> int:
             by_path["engine_columnar"] = columnar["launches"][k["name"]]
         if k["name"] in fleet["launches"]:
             by_path["engine_fleet"] = fleet["launches"][k["name"]]
+        if k["name"] == "query_step":
+            by_path["mesh"] = mesh["launches"]["query_step"]
     print(card, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

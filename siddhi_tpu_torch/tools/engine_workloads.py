@@ -104,6 +104,39 @@ def _with_device(app: str, ann: str) -> str:
     return f"{head}\n{ann}{sep}{tail}"
 
 
+RISING_EVERY = 512      # events from one rising run's start to the next's
+RISING_GAP = 64         # events between two values of a run (64 ms)
+RISING_LEN = 8          # values a run: the chain's states
+
+
+def rising_events(n: int, seed: int):
+    """The main path's matching stream: ``(dev, v, ts)`` arrays of the
+    bench's distribution (``chip_smoke.py``'s ``gen_events``: 256 device
+    keys, ``v`` uniform in [0, 100) to 3 decimals, ts = 1,000,000 + i, the
+    same draws for the same seed) with a rising run written over it every
+    ``RISING_EVERY`` events: ``RISING_LEN`` values on one device,
+    ``RISING_GAP`` events apart (448 ms, inside the chain's 4000), the
+    first in [90.5, 92.0), each 0.5 to 1.0 above the one before. The runs
+    take the 256 devices in a seeded order, so in 262,144 events each
+    device carries two and each of the main path's 64 lanes (3 to 5
+    devices) six to ten."""
+    rng = np.random.default_rng(seed)
+    names = np.array([f"dev{k}" for k in range(N_KEYS)])
+    dev = names[rng.integers(0, N_KEYS, n)]
+    v = np.round(rng.uniform(0.0, 100.0, n), 3)
+    ts = 1_000_000 + np.arange(n, dtype=np.int64)
+    order = rng.permutation(N_KEYS)
+    span = (RISING_LEN - 1) * RISING_GAP
+    for r in range(n // RISING_EVERY):
+        at = r * RISING_EVERY + int(rng.integers(0, RISING_EVERY - span)) \
+            + RISING_GAP * np.arange(RISING_LEN)
+        rise = np.cumsum(rng.uniform(0.5, 1.0, RISING_LEN - 1))
+        dev[at] = names[order[r % N_KEYS]]
+        v[at] = np.round(rng.uniform(90.5, 92.0)
+                         + np.concatenate(([0.0], rise)), 3)
+    return dev, v, ts
+
+
 def engine_config(name: str) -> dict:
     """``{"app", "out", "kind", "batch"}`` plus what the direct runtime
     needs."""

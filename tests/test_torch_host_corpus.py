@@ -35,7 +35,8 @@ The reference suites are imported as data, never edited:
   it (none is left since the DCN guard came with distribution);
 - ``DCNWorker`` is bound to ``PortDCNWorker``, the port's worker on the CPU
   unless a device is asked for, as ``SiddhiManager`` is bound to
-  ``PortManager``.
+  ``PortManager``; ``MeshFabric`` to ``PortMeshFabric``, the port's fabric
+  with every host on the CPU, for the mesh suites (``SUITE_MODULES``).
 
 ``test_torch_host_corpus_device.py`` runs both corpora again with a
 non-strict ``@device`` on every query.
@@ -50,6 +51,7 @@ import pytest
 import siddhi_tpu
 import siddhi_tpu_torch
 import siddhi_tpu_torch.gpu.dcn
+import siddhi_tpu_torch.mesh
 import siddhi_tpu_torch.service as port_service
 from siddhi_tpu_torch.core.errors import SiddhiAppCreationError
 
@@ -80,6 +82,19 @@ class PortDCNWorker(siddhi_tpu_torch.gpu.dcn.DCNWorker):
     def __init__(self, *args, device=None, **kwargs):
         super().__init__(*args, device=device or "cpu", **kwargs)
         PortDCNWorker.built += 1
+
+
+class PortMeshFabric(siddhi_tpu_torch.mesh.MeshFabric):
+    """The port's mesh fabric with every host's engine on the CPU (the
+    kernels' plain versions), built the way the suites build the
+    reference's: with no device. ``built`` counts the fabrics made, so a
+    test can show that the port's fabric served it."""
+
+    built = 0
+
+    def __init__(self, *args, device=None, **kwargs):
+        super().__init__(*args, device=device or "cpu", **kwargs)
+        PortMeshFabric.built += 1
 
 
 # the reference's public names → the port's
@@ -151,7 +166,9 @@ PORTED_MODULES = {
 }
 
 # a bound name whose port object is the harness's subclass of the port's
-PORT_CLASSES = {("siddhi_tpu.tpu.dcn", "DCNWorker"): PortDCNWorker}
+PORT_CLASSES = {("siddhi_tpu.tpu.dcn", "DCNWorker"): PortDCNWorker,
+                ("siddhi_tpu.mesh", "MeshFabric"): PortMeshFabric,
+                ("siddhi_tpu.mesh.fabric", "MeshFabric"): PortMeshFabric}
 
 # the module-level registries of a bound module that a suite fills: bound
 # too, so what the suite registers reaches the port's classes
@@ -159,10 +176,21 @@ REGISTRIES = {"siddhi_tpu.core.metrics": ("REPORTERS",)}
 
 # bound for one suite only, on top of PORTED_MODULES: test_fleet parses its
 # tenants' texts and normalizes their queries for the shared device plans
-# (function-local imports of the parser and the query API)
+# (function-local imports of the parser and the query API); the mesh suites
+# get the port's in-process mesh (test_metrics, which is not one of them,
+# still builds the reference's process-mode fabric, which the port's
+# refuses until the process mesh is ported)
+MESH_MODULES = {
+    "siddhi_tpu.mesh": "siddhi_tpu_torch.mesh",
+    "siddhi_tpu.mesh.fabric": "siddhi_tpu_torch.mesh.fabric",
+    "siddhi_tpu.mesh.plan": "siddhi_tpu_torch.mesh.plan",
+    "siddhi_tpu.mesh.rebalancer": "siddhi_tpu_torch.mesh.rebalancer",
+}
+MESH_SUITES = ("test_mesh", "test_federation", "test_gray_failure")
 SUITE_MODULES = {
     "test_fleet": {"siddhi_tpu.compiler": "siddhi_tpu_torch.compiler",
                    "siddhi_tpu.query_api": "siddhi_tpu_torch.query_api"},
+    **{suite: MESH_MODULES for suite in MESH_SUITES},
 }
 
 
@@ -286,14 +314,22 @@ SUITES = ["test_partition_corpus", "test_join_corpus", "test_filter_query",
           "test_torn_fuzz", "test_bridge_fuzz", "test_device_pipeline",
           "test_observability", "test_xray", "test_service_and_docs",
           "test_host_batch", "test_procmesh", "test_fleet_guard",
-          "test_fleet", "test_slo", "test_dcn", "test_dcn_resilience"]
+          "test_fleet", "test_slo", "test_dcn", "test_dcn_resilience",
+          "test_mesh", "test_federation", "test_gray_failure"]
 
 # suites that also test tiers outside the port's → the functions they
 # contribute: the IO tier, the sink pipeline, the columnar host tier and
 # the fleet (the rest of test_edge_rows holds the JAX package's own parsers
 # and lints; the rest of test_resilience the JAX package's except-clause
-# lint; the rest of test_procmesh the process mesh of distribution)
+# lint; the rest of test_procmesh, test_federation and test_gray_failure the
+# process mesh of distribution)
 SUITE_ONLY = {
+    "test_federation": {
+        "test_histogram_state_roundtrip_and_exact_merge",
+        "test_histogram_merge_empty_and_partial_snapshots",
+        "test_histogram_merge_rejects_ladder_mismatch",
+        "test_collect_scraped_renders_worker_families_and_merges_tenants"},
+    "test_gray_failure": {"test_drain_host_record_before_actuate"},
     "test_edge_rows": {
         "test_source_chunk_boundary_parity_fuzz",
         "test_file_source_end_to_end", "test_socket_source_lines",
@@ -400,6 +436,10 @@ NOT_SUITE_FUNCTIONS = {
     # sources (tests/test_torch_fleet.py checks the port's fleet sections:
     # the group's guard and the autopilot's record-before-actuate)
     ("test_fleet_guard", "test_guard_coverage_lint_passes"),
+    # runs the JAX package's scripts/check_guard_coverage.py over its
+    # sources (tests/test_torch_mesh.py loads its mesh section as data and
+    # applies its checks to the port's fabric and rebalancer)
+    ("test_mesh", "test_guard_coverage_includes_mesh_paths"),
 }
 
 # suite functions that drive the columnar host tier (its apps carry
@@ -643,20 +683,25 @@ def test_reference_suite_function_on_the_port(modname, fname, kwargs,
         return
     bound = bind_port_names(monkeypatch, mod, request)
     built, workers = PortManager.built, PortDCNWorker.built
+    fabrics = PortMeshFabric.built
     fixtures = {"tmp_path": tmp_path, "caplog": caplog,
                 "monkeypatch": monkeypatch}
     reach = ColumnarReach(monkeypatch) if fid in COLUMNAR else None
     call_suite_function(mod, fn, kwargs, fixtures)
-    # an engine function builds the port's engine; a unit function calls a
-    # class or function bound to the port's
-    assert PortManager.built > built or names_used(fn) & bound, \
-        "the function ran nothing of the port"
+    # an engine function builds the port's engine (or the port's mesh
+    # fabric, whose hosts are the port's engines, through a fixture); a
+    # unit function calls a class or function bound to the port's
+    assert PortManager.built > built or PortMeshFabric.built > fabrics \
+        or names_used(fn) & bound, "the function ran nothing of the port"
     if reach is not None:
         assert reach.n, "the function never reached the port's columnar " \
             "host tier"
     if "DCNWorker" in names_used(fn):
         assert PortDCNWorker.built > workers, \
             "the function built no DCN worker of the port's"
+    if modname in MESH_SUITES and "MeshFabric" in names_used(fn):
+        assert PortMeshFabric.built > fabrics, \
+            "the function built no mesh fabric of the port's"
 
 
 def test_suites_are_all_collected():

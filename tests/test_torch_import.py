@@ -117,6 +117,26 @@ def test_dcn_tier_imports_neither_jax_nor_the_reference():
     assert [m for m in out if _forbidden(m)] == []
 
 
+def test_mesh_tier_imports_neither_jax_nor_the_reference(tmp_path):
+    """The mesh fabric and its workloads, a two-host fabric on the CPU
+    built and given a tenant (the lazy imports of deploy and routing)."""
+    code = ("import sys\n"
+            "import siddhi_tpu_torch.mesh\n"
+            "import siddhi_tpu_torch.tools.mesh_workloads as mw\n"
+            "from siddhi_tpu_torch.mesh import MeshConfig, MeshFabric\n"
+            f"fab = MeshFabric(2, {str(tmp_path)!r}, MeshConfig("
+            "capacity_per_host=2), device='cpu')\n"
+            "fab.add_tenants([mw.mesh_shape_app(0, 1, '')])\n"
+            "fab.send('mtenant-0', 'S', [['dev1', 95.0]], [1000])\n"
+            "fab.close()\n"
+            "print('\\n'.join(sorted(sys.modules)))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                         capture_output=True, text=True).stdout.split()
+    assert "siddhi_tpu_torch.mesh.fabric" in out
+    assert "siddhi_tpu_torch.tools.mesh_workloads" in out
+    assert [m for m in out if _forbidden(m)] == []
+
+
 def _imports(path: Path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):

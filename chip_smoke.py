@@ -449,10 +449,12 @@ Phases, one JSON line each:
                ``MESH_CHUNK_EVENTS`` through ``fab.send``, one of each kind
                migrated to the other host after half the chunks: every
                tenant's rows in order and counters equal to its solo run on
-               the card and to the same script with ``device="cpu"`` (the
-               grouped float32 columns within
-               ``tests/test_torch_query_shapes.py``'s tolerances), the chain
-               tenants matching, 2 migrations, no duplicate chunk;
+               the card, and over the first ``MESH_TWIN_EVENTS`` (the move
+               after half of them) the rows equal to the same script with
+               ``device="cpu"`` (the grouped float32 columns within
+               ``tests/test_torch_query_shapes.py``'s tolerances) and the
+               chains' counters to a card solo run of those events, the
+               chain tenants matching, 2 migrations, no duplicate chunk;
                events/s through ``fab.send`` and of the solo runs; (c) a
                feeder thread sends the four tenants ``MESH_LIVE_EVENTS``
                each while the main thread migrates the other two: rows
@@ -465,6 +467,43 @@ Phases, one JSON line each:
                a batch boundary of every tenant. B1 and B5a must launch
                through the fabric; their ``launches_by_path`` gain
                ``mesh``.
+ 21. procmesh — the process mesh (``siddhi_tpu_torch.procmesh``):
+               ``MeshConfig(mode="process")``, each host a worker process
+               (``python -m siddhi_tpu_torch.procmesh.worker --device
+               cuda:0``) with its own CUDA context on the one card, the
+               kernels built by this process and loaded by the workers.
+               (a) the four device tenants of ``mesh`` (b) at the engine's
+               widths, ``PROCMESH_EVENTS`` each in chunks of
+               ``MESH_CHUNK_EVENTS`` through ``fab.send``, one of each kind
+               migrated to the other worker after half the chunks; (b)
+               then the worker holding one tenant of each kind SIGKILLed
+               (``fab.kill_host``), two rounds spill, the supervisor
+               restarts it and the fabric restores its tenants onto the
+               new worker's card: every tenant's rows in order and its
+               counters (read from its worker's snapshot, restored here)
+               equal to its solo run on the card, no duplicate chunk; a
+               CPU twin (workers ``--device cpu``) of (a) on the first
+               ``PROCMESH_TWIN_EVENTS`` equal to the CPU solo runs and to
+               the card's rows over those events (the grouped float32
+               columns within ``tests/test_torch_query_shapes.py``'s
+               tolerances); (c) a ``durable=True`` fabric of one B1 and one
+               B5a tenant abandoned with its workers alive, a second
+               fabric over the same root re-adopting them (same pids) and
+               resyncing, then closed and a third restoring the tenants
+               from snapshots into fresh workers on the card: the sinks,
+               deduplicated by ``(epoch, idx)``, equal to the solo runs;
+               (d) a worker's own ``DCNWorker`` (``boot_dcn``) on the card
+               fed ``PROCMESH_DCN_EVENTS`` of the matching stream by a
+               ``DCNIngestClient``: its matches more than zero and equal
+               to the same shard in this process. Every cut falls on a
+               batch boundary (a worker's tenant has no partial-batch
+               flush). B1 and B5a launches are read from the workers (each
+               tenant's ``device.<q>.steps_total`` over the ``metrics`` op
+               times its plan's launches a step), non-zero in every worker
+               of (a)/(b) and equal to the solo runs'; their
+               ``launches_by_path`` gain ``procmesh``. Each worker's boot
+               (spawn to ``PROCMESH_READY``) and build seconds, and
+               events/s through ``fab.send`` beside ``mesh`` (b)'s.
 Then the card's name and power limit (nvidia-smi), the ``kernels`` line and,
 last, ``{"ok": true, "device": {...}}``. Any failure exits non-zero before
 that line. Needs one CUDA card; fails without one.
@@ -480,6 +519,7 @@ import os
 import re
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -3394,7 +3434,7 @@ def phase_engine(seed: int, n_events: int, standalone: dict) -> dict:
 
 # ------------------------------------------------------------ engine_host
 
-ENGINE_HOST_EVENTS = 262_144       # iot_mixed events
+ENGINE_HOST_EVENTS = 131_072       # iot_mixed events
 
 
 def host_engine_run(manager, app: str, ev, card: bool, hook=None) -> dict:
@@ -6130,6 +6170,8 @@ def phase_dcn(seed: int, n_events: int = DCN_EVENTS,
 
 MESH_DEVICE_EVENTS = 131_072       # (b): events a device tenant
 MESH_LIVE_EVENTS = 65_536          # (c), (d): events a device tenant
+MESH_TWIN_EVENTS = 32_768          # (b): the CPU twin's prefix (its plain
+# steps at full width: 66 s of the phase over all 131,072 events)
 MESH_CHUNK_EVENTS = 4_096          # (b)-(d): events a fab.send
 # (d): half the rounds before the kill, a quarter of them spill
 MESH_MOVERS = ("mesh-gl-0", "mesh-chain-0")       # (b)
@@ -6258,6 +6300,7 @@ def mesh_launched(run, *args) -> tuple:
 def phase_mesh(seed: int, place_tenants: int | None = None,
                device_events: int = MESH_DEVICE_EVENTS,
                live_events: int = MESH_LIVE_EVENTS,
+               twin_events: int = MESH_TWIN_EVENTS,
                chunk: int = MESH_CHUNK_EVENTS,
                widths: dict | None = None) -> dict:
     """The mesh fabric in-process on the card (module docstring, phase
@@ -6285,11 +6328,13 @@ def phase_mesh(seed: int, place_tenants: int | None = None,
     at = rounds // 2
     live_rounds = live_events // chunk
     kill_at, spill_rounds = live_rounds // 2, live_rounds // 4
+    twin_rounds = min(twin_events, device_events) // chunk
     # every cut a move or a kill makes falls on a batch boundary of every
     # tenant, so the flush it inserts leaves the batches as a solo run has
     for t in tenants:
         for cut in (at * chunk, kill_at * chunk,
-                    (kill_at + spill_rounds) * chunk):
+                    (kill_at + spill_rounds) * chunk, twin_rounds * chunk,
+                    twin_rounds // 2 * chunk):
             if cut % batch[t]:
                 fail(f"mesh: cut at {cut} events is off tenant {t}'s "
                      f"batch of {batch[t]}")
@@ -6340,16 +6385,20 @@ def phase_mesh(seed: int, place_tenants: int | None = None,
                 not card_counters[t]["matches"]:
             fail(f"mesh (b): chain tenant {t} matched nothing")
     t_card = time.perf_counter() - t0
-    # the same script on the CPU (the plain versions)
+    # the same script on the CPU (the plain versions), over the first
+    # twin_rounds chunks, the move after half of them; held to the card's
+    # rows over those chunks and the chains' counters to a card solo run of
+    # them
     t0 = time.perf_counter()
+    twin_chunks = {t: chunks[t][:twin_rounds] for t in tenants}
     scales: dict = {}
     undo = mesh_scales(scales)
     try:
         fab = MeshFabric(2, os.path.join(root, "b-cpu"),
                          MeshConfig(capacity_per_host=4), device="cpu")
         try:
-            plain = mw.run_migration(fab, apps, feeds, chunks, at,
-                                     list(MESH_MOVERS))
+            plain = mw.run_migration(fab, apps, feeds, twin_chunks,
+                                     twin_rounds // 2, list(MESH_MOVERS))
             plain_counters = mw.mesh_counters(fab)
         finally:
             fab.close()
@@ -6358,19 +6407,22 @@ def phase_mesh(seed: int, place_tenants: int | None = None,
     if plain["moved"] != card["moved"]:
         fail(f"mesh (b): the CPU's moves {plain['moved']}, the card's "
              f"{card['moved']}")
+    twin_solo = mesh_solos(feeds, twin_chunks, apps)
     sh = query_shapes_module()
     for t in tenants:
+        head = card["rows"][t][:card["prefix"][twin_rounds - 1][t]]
         if mw.DEVICE_TENANTS[t] == "chain":
-            if card["rows"][t] != plain["rows"][t]:
-                fail(f"mesh (b): chain tenant {t}: rows differ from the "
-                     f"CPU's ({len(card['rows'][t])} / "
-                     f"{len(plain['rows'][t])})")
-            if card_counters[t] != plain_counters[t]:
+            if head != plain["rows"][t]:
+                fail(f"mesh (b): chain tenant {t}: the card's first "
+                     f"{len(head)} rows differ from the CPU's "
+                     f"{len(plain['rows'][t])}")
+            if twin_solo[t]["counters"] != plain_counters[t]:
                 fail(f"mesh (b): chain tenant {t}: counters "
-                     f"{card_counters[t]}, the CPU's {plain_counters[t]}")
+                     f"{plain_counters[t]} on the CPU, "
+                     f"{twin_solo[t]['counters']} on the card")
         else:
             q, sc = scales[t]
-            close_rows(sh, q, sc, plain["rows"][t], card["rows"][t],
+            close_rows(sh, q, sc, plain["rows"][t], head,
                        f"mesh (b) tenant {t} against the CPU")
     t_plain = time.perf_counter() - t0
     n_events = len(tenants) * device_events
@@ -6466,6 +6518,575 @@ def phase_mesh(seed: int, place_tenants: int | None = None,
     return out
 
 
+PROCMESH_EVENTS = 65_536           # (a), (b): events a device tenant
+PROCMESH_TWIN_EVENTS = 16_384      # (a): the CPU twin's prefix
+PROCMESH_DURABLE_EVENTS = 24_576   # (c): events a tenant, over three parents
+PROCMESH_DCN_EVENTS = 65_536       # (d): events of the matching stream
+PROCMESH_DCN_CHUNK = 16_384        # (d): rows a DCNIngestClient.send
+PROCMESH_MOVERS = ("mesh-gl-0", "mesh-chain-0")   # (a)
+PROCMESH_KILL_AT = 0.75            # (b): the kill's round, a share of them
+PROCMESH_SPILL_ROUNDS = 2          # (b): rounds sent while the child is down
+PROCMESH_DURABLE = ("mesh-chain-0", "mesh-gl-0")  # (c)
+PROCMESH_RECOVER_S = 180.0         # (b): the longest wait for the restart
+
+
+def procmesh_config(**kw):
+    """A process fabric's config. The supervisor's degrade rung is off
+    (``degrade_factor=0``): it drains a child whose windowed op p99 passes
+    4x its peer's, and two children of different tenants (one snapshotting
+    a grouped window, one a chain) differ by that much on the card, so the
+    rung would move tenants the script did not move."""
+    from siddhi_tpu_torch.mesh import MeshConfig
+    kw.setdefault("capacity_per_host", 4)
+    kw.setdefault("heartbeat_interval_s", 0.2)
+    kw.setdefault("degrade_factor", 0.0)
+    return MeshConfig(mode="process", **kw)
+
+
+def procmesh_workers(fab) -> dict:
+    """Each worker's pid, device, boot seconds (spawn to its
+    ``PROCMESH_READY``, as the supervisor saw it) and kernel build seconds
+    (0.0 a source: the parent's build reused)."""
+    return {str(i): {"pid": h.pid, "device": h.device, "boot_s": h.boot_s,
+                     "build_s": sum(h.build_seconds.values()),
+                     "build_seconds": dict(h.build_seconds),
+                     "adopted": h.adopted, "restarts": h.restarts}
+            for i, h in fab.supervisor.handles.items()}
+
+
+def procmesh_scrape(fab, seen: dict) -> None:
+    """Every live child's device step probes (``device.<q>.steps_total``,
+    shipped by the worker's ``metrics`` op) by ``(host, pid, tenant)``: a
+    child's count is the last one scraped from it."""
+    for i, host in fab.hosts.items():
+        if not host.alive:
+            continue
+        pid = fab.supervisor.handles[i].pid
+        for name, v in host.scrape_metrics().items():
+            if ".device." in name and name.endswith(".steps_total"):
+                seen[(i, pid, name.split(".device.")[0])] = int(v)
+
+
+def procmesh_launches(seen: dict, each: dict) -> dict:
+    """Per child (``h<host>:<pid>``), the launches of B1 and B5a: a
+    tenant's steps times the launches a step of its plan makes."""
+    out = {}
+    for (i, pid, t), steps in sorted(seen.items()):
+        kernel, n = each[t]
+        c = out.setdefault(f"h{i}:{pid}", {"nfa_block": 0, "query_step": 0})
+        c[kernel] += steps * n
+    return out
+
+
+def procmesh_each(apps: dict, device) -> dict:
+    """Tenant → (its kernel, launches a step of its plan), read from a
+    runtime of the parent's."""
+    from siddhi_tpu_torch import SiddhiManager
+    from siddhi_tpu_torch.gpu.nfa_block import BlockPlan
+    m = SiddhiManager(device=device)
+    out = {}
+    try:
+        for t, app in apps.items():
+            rt = m.create_siddhi_app_runtime(app, playback=True)
+            plan = plan_of(rt.device_bridges[0].runtime).plan
+            out[t] = (("nfa_block", BlockPlan.LAUNCHES)
+                      if isinstance(plan, BlockPlan)
+                      else ("query_step", plan.step_launches()))
+            rt.shutdown()
+    finally:
+        m.shutdown()
+    return out
+
+
+def procmesh_counters(fab, apps: dict, device) -> dict:
+    """Each tenant's kernel counters, read from its worker's state bytes
+    (the ``snapshot`` op) restored into a runtime of the parent's on
+    ``device``."""
+    from siddhi_tpu_torch import SiddhiManager
+    from siddhi_tpu_torch.tools import mesh_workloads as mw
+    m = SiddhiManager(device=device)
+    out = {}
+    try:
+        for t, app in apps.items():
+            blob = fab.hosts[fab.tenants[t].host].runtimes[t].snapshot()
+            rt = m.create_siddhi_app_runtime(app, playback=True)
+            rt.start()
+            rt.restore(blob)
+            out[t] = mw.tenant_counters(rt)
+            rt.shutdown()
+    finally:
+        m.shutdown()
+    return out
+
+
+def procmesh_script(fab, apps: dict, feeds: dict, chunks: dict, at: int,
+                    movers: tuple, seen: dict, kill_at: int | None = None,
+                    spill: int = 0) -> dict:
+    """(a) and (b) on a process fabric: every tenant's chunks in rounds;
+    before round ``at`` each of ``movers`` migrates to the other child;
+    before round ``kill_at`` the child now holding ``movers[0]`` is
+    SIGKILLed, ``spill`` rounds go in (its tenants' chunks spill), then the
+    script waits for the supervisor's restart and the fabric's recovery of
+    its tenants onto the new child. ``send_s`` is the time inside
+    ``fab.send``; ``prefix[k]`` each tenant's row count after round k."""
+    from siddhi_tpu_torch.tools import mesh_workloads as mw
+    rows = mw.deploy_tenants(fab, apps)
+    rounds = len(next(iter(chunks.values())))
+    send_s = move_s = 0.0
+    moved, kill, prefix = {}, {}, []
+    t_kill = None
+    for k in range(rounds):
+        if k == at:
+            procmesh_scrape(fab, seen)
+            t0 = time.perf_counter()
+            for t in movers:
+                src, dst = fab.tenants[t].host, mw.other_host(fab, t)
+                if not fab.migrate(t, dst, reason="script"):
+                    fail(f"procmesh: migration of {t} refused")
+                moved[t] = (src, fab.tenants[t].host)
+            move_s += time.perf_counter() - t0
+        if k == kill_at:
+            procmesh_scrape(fab, seen)
+            victim = fab.tenants[movers[0]].host
+            handle = fab.supervisor.handles[victim]
+            kill = {"host": victim, "pid": handle.pid,
+                    "boot_s_before": handle.boot_s, "at_round": k}
+            t_kill = time.perf_counter()
+            kill["orphans"] = fab.kill_host(victim)
+        if t_kill is not None and k == kill_at + spill:
+            deadline = time.perf_counter() + PROCMESH_RECOVER_S
+            while True:
+                rep = fab.report()
+                if all(h["alive"] for h in rep["hosts"].values()) \
+                        and not rep["spill_backlog"] and all(
+                            t in fab.hosts[fab.tenants[t].host].runtimes
+                            for t in kill["orphans"]):
+                    break
+                if time.perf_counter() > deadline:
+                    fail(f"procmesh (b): host {kill['host']} not recovered "
+                         f"in {PROCMESH_RECOVER_S} s: {rep['hosts']}, "
+                         f"backlog {rep['spill_backlog']}")
+                time.sleep(0.05)
+            kill["recovered_s"] = time.perf_counter() - t_kill
+            kill["pid_after"] = handle.pid
+            kill["boot_s_after"] = handle.boot_s
+            kill["build_seconds_after"] = dict(handle.build_seconds)
+            kill["recovered_on"] = {t: fab.tenants[t].host
+                                    for t in kill["orphans"]}
+        t0 = time.perf_counter()
+        mw.send_round(fab, feeds, chunks, k)
+        send_s += time.perf_counter() - t0
+        prefix.append({t: len(r) for t, r in rows.items()})
+    fab.flush()
+    procmesh_scrape(fab, seen)
+    decisions = [(e["kind"], e["site"]) for e in fab.flight.export()
+                 if e["kind"].startswith("decision:")]
+    return {"rows": rows, "send_s": send_s, "move_s": move_s,
+            "moved": moved, "kill": kill, "prefix": prefix,
+            "report": fab.report(), "decisions": decisions}
+
+
+def procmesh_cpu_solo(t: str, app: str, feed: tuple, chunks: list) -> tuple:
+    """Tenant ``t`` alone on the CPU engine (the plain versions): its rows
+    and, for the grouped window, ``(query, scale)`` of what its steps read
+    (``tests/test_torch_query_shapes.py``'s running scale)."""
+    from siddhi_tpu_torch import SiddhiManager, StreamCallback
+    from siddhi_tpu_torch.tools import mesh_workloads as mw
+    sh = query_shapes_module()
+    m = SiddhiManager(device="cpu")
+    try:
+        rt = m.create_siddhi_app_runtime(app, playback=True)
+        rows: list = []
+        rt.add_callback(mw.tenant_out(t), StreamCallback(
+            lambda evs: rows.extend((e.timestamp, list(e.data))
+                                    for e in evs)))
+        drt = rt.device_bridges[0].runtime
+        box = None
+        if hasattr(drt, "compiled"):
+            q, step = drt.compiled, drt.compiled.step_tensors
+            box = [q, sh.Scale()]
+
+            def scaled(state, cols, ts, valid):
+                box[1] = sh.next_scale(q, box[1], state, cols, ts, valid)
+                return step(state, cols, ts, valid)
+
+            q.step_tensors = scaled
+        rt.start()
+        ih = rt.input_handler(feed[0])
+        for c, ts in chunks:
+            ih.send_rows(c, ts)
+        rt.flush_device()
+        return rows, (None if box is None else tuple(box))
+    finally:
+        m.shutdown()
+
+
+def procmesh_dedup(entries: list) -> list:
+    """Sink entries ``(epoch, idx, stream, ts, row)`` kept first by their
+    ``(epoch, idx)`` identity, as ``(ts, row)``."""
+    seen, out = set(), []
+    for e in entries:
+        if (e[0], e[1]) not in seen:
+            seen.add((e[0], e[1]))
+            out.append((e[3], list(e[4])))
+    return out
+
+
+def procmesh_durable(root: str, apps: dict, feeds: dict, chunks: dict,
+                     cuts: tuple, device) -> dict:
+    """(c): a durable fabric of one B1 and one B5a tenant fed rounds
+    ``0:cuts[0]``, abandoned with its children alive (its monitor stopped,
+    as ``tests/test_parent_recovery.py::test_abandoned_parent_workers_
+    readopted`` does); a second fabric over the same root re-adopts them
+    and resyncs, is fed ``cuts[0]:cuts[1]`` and closed; a third restores
+    the tenants from their snapshots into fresh children and is fed the
+    rest. Returns the deduplicated sinks, the recoveries and the pids; the
+    third fabric stays open for (d) (``"fabric"``)."""
+    from siddhi_tpu_torch.mesh import MeshFabric
+    from siddhi_tpu_torch.tools import mesh_workloads as mw
+    cfg = procmesh_config(durable=True, snapshot_every_chunks=1,
+                          heartbeat_interval_s=0.3)
+    tids = list(apps)
+    sinks = {t: [] for t in tids}
+
+    def arm(fab) -> dict:
+        for t in tids:
+            fab.add_output_hook(t, sinks[t].extend,
+                                streams=(mw.tenant_out(t),))
+        return fab.resume_output_delivery()
+
+    def feed(fab, lo: int, hi: int) -> None:
+        for k in range(lo, hi):
+            for t in tids:
+                rows, tss = chunks[t][k]
+                fab.send(t, feeds[t][0], rows, tss)
+
+    a, b = cuts
+    n = len(chunks[tids[0]])
+    out = {}
+    first = MeshFabric(2, root, cfg, device=device)
+    try:
+        first.add_tenants([apps[t] for t in tids])
+        arm(first)
+        feed(first, 0, a)
+        out["first"] = procmesh_workers(first)
+        first.supervisor._stop.set()        # abandoned: workers stay live
+        if first.supervisor._monitor is not None:
+            first.supervisor._monitor.join(timeout=5.0)
+        # the abandoned children are still this process's: reap each as it
+        # exits, or the next parent's shutdown would wait out a zombie
+        for h in first.supervisor.handles.values():
+            threading.Thread(target=h.proc.wait, daemon=True).start()
+        second = MeshFabric(2, root, cfg, device=device)
+        try:
+            out["readopt"] = second.report()["recovery"]
+            out["second"] = procmesh_workers(second)
+            out["resume"] = arm(second)
+            feed(second, a, b)
+            out["dup_chunks_second"] = second.report()["dup_chunks"]
+        finally:
+            second.close()
+    finally:
+        for h in first.supervisor.handles.values():
+            h.kill()
+            h.reap(timeout=30)
+    third = MeshFabric(2, root, cfg, device=device)
+    try:
+        out["restore"] = third.report()["recovery"]
+        out["third"] = procmesh_workers(third)
+        arm(third)
+        feed(third, b, n)
+        out["dup_chunks_third"] = third.report()["dup_chunks"]
+    except BaseException:
+        third.close()
+        raise
+    out["fabric"] = third
+    out["sinks"] = {t: procmesh_dedup(sinks[t]) for t in tids}
+    out["sink_entries"] = {t: len(sinks[t]) for t in tids}
+    return out
+
+
+def procmesh_dcn(fab, ev, n: int, lanes: int, lane_batch: int,
+                 device) -> dict:
+    """(d): host 0's child boots its worker-owned ``DCNWorker`` (the
+    ``boot_dcn`` op: every lane group of ``lanes``, on the child's device);
+    a ``DCNIngestClient`` feeds it the first ``n`` events of the matching
+    stream and the child's ``dcn_report`` is held to the port's in-process
+    shard (the same worker in this process, on ``device``) fed the same
+    way."""
+    from siddhi_tpu_torch.gpu.dcn import (DCNIngestClient, DCNWorker,
+                                          LaneTopology)
+    dev, v, ts = ev
+
+    def feed(port: int) -> tuple:
+        client = DCNIngestClient(port, "sd")
+        try:
+            t0 = time.perf_counter()
+            for a in range(0, n, PROCMESH_DCN_CHUNK):
+                b = min(a + PROCMESH_DCN_CHUNK, n)
+                client.send([list(r) for r in zip(dev[a:b].tolist(),
+                                                  v[a:b].tolist())],
+                            ts[a:b].tolist())
+            flushed = client.flush()
+            return flushed, time.perf_counter() - t0
+        finally:
+            client.close()
+
+    t0 = time.perf_counter()
+    rh, _ = fab.hosts[0].client.call("boot_dcn", {
+        "num_lanes": lanes, "app_text": bench_app(), "key_attr": "dev",
+        "stream_id": "S", "lane_batch": lane_batch}, timeout=120.0)
+    boot_s = time.perf_counter() - t0
+    child_flushed, child_s = feed(int(rh["port"]))
+    rep, _ = fab.hosts[0].client.call("dcn_report")
+    shard = DCNWorker(0, LaneTopology(lanes, 1), bench_app(), "dev", 0, {},
+                      lane_batch=lane_batch, device=device)
+    try:
+        local_flushed, local_s = feed(shard.port)
+        local = shard.match_count
+        shard_device = str(next(iter(shard._shards.values())).device)
+    finally:
+        shard.close()
+    return {"events": n, "lanes": lanes, "lane_batch": lane_batch,
+            "boot_s": boot_s, "child_matches": rep["report"]["matches"],
+            "child_flushed": child_flushed, "child_s": child_s,
+            "local_matches": local, "local_flushed": local_flushed,
+            "local_s": local_s, "local_device": shard_device}
+
+
+def phase_procmesh(seed: int, n_events: int = PROCMESH_EVENTS,
+                   twin_events: int = PROCMESH_TWIN_EVENTS,
+                   durable_events: int = PROCMESH_DURABLE_EVENTS,
+                   dcn_events: int = PROCMESH_DCN_EVENTS,
+                   chunk: int = MESH_CHUNK_EVENTS,
+                   widths: dict | None = None,
+                   dcn_lanes: int = DCN_LANES,
+                   dcn_lane_batch: int = DCN_WIDTHS["lane_batch"],
+                   mesh_send_eps: float | None = None,
+                   device=None) -> dict:
+    """The process mesh on the card (module docstring, phase 21): worker
+    processes each with its own CUDA context on ``cuda:0``. The sizes,
+    ``widths`` (the tenants' ``batch``/``slots``) and ``device`` (``None``:
+    the card) shrink it for a rehearsal on the CPU."""
+    import shutil
+
+    import torch
+    from siddhi_tpu_torch import SiddhiManager
+    from siddhi_tpu_torch.mesh import MeshFabric
+    from siddhi_tpu_torch.tools import mesh_workloads as mw
+    from siddhi_tpu_torch.tools.engine_workloads import rising_events
+    if device is None and not torch.cuda.is_available():
+        fail("procmesh: no CUDA device")
+    t_phase = time.perf_counter()
+    widths = widths or {}
+    root = io_scratch("procmesh-")
+    tenants = list(mw.DEVICE_TENANTS)
+    apps = {t: mw.tenant_app(t, statistics=True, **widths) for t in tenants}
+    batch = {t: int(re.search(r"batch='(\d+)'", apps[t]).group(1))
+             for t in tenants}
+    feeds = {t: mw.tenant_feed(t, n_events, seed) for t in tenants}
+    chunks = {t: mw.tenant_chunks(feeds[t], chunk) for t in tenants}
+    rounds = n_events // chunk
+    at = rounds // 2
+    kill_at = int(rounds * PROCMESH_KILL_AT)
+    twin_rounds = twin_events // chunk
+    dur_rounds = durable_events // chunk
+    cuts = (dur_rounds // 3, 2 * dur_rounds // 3)
+    # a worker's tenant has no partial-batch flush (mw.flush_devices): every
+    # feed, move, kill and parent change falls on a batch boundary of every
+    # tenant, so each steps the batches its solo run steps
+    for t in tenants:
+        for cut in (n_events, at * chunk, kill_at * chunk,
+                    (kill_at + PROCMESH_SPILL_ROUNDS) * chunk, twin_events,
+                    twin_rounds // 2 * chunk, durable_events,
+                    cuts[0] * chunk, cuts[1] * chunk):
+            if cut % batch[t] or cut % chunk:
+                fail(f"procmesh: cut at {cut} events is off tenant {t}'s "
+                     f"batch of {batch[t]} or the chunk of {chunk}")
+    each = procmesh_each(apps, device)
+
+    # (a) + (b): two worker processes on the card, a migration of each
+    # kernel's tenant, then a SIGKILL of one child and its restart
+    t0 = time.perf_counter()
+    seen: dict = {}
+    fab = MeshFabric(2, os.path.join(root, "ab"), procmesh_config(
+        snapshot_every_chunks=1), device=device)
+    try:
+        boot_ab = procmesh_workers(fab)
+        want = "cpu" if device is not None else "cuda:0"
+        if [w["device"] for w in boot_ab.values()] != [want, want]:
+            fail(f"procmesh (a): workers on {boot_ab}")
+        run = procmesh_script(fab, apps, feeds, chunks, at,
+                              PROCMESH_MOVERS, seen, kill_at,
+                              PROCMESH_SPILL_ROUNDS)
+        counters = procmesh_counters(fab, apps, device)
+        workers_ab = procmesh_workers(fab)
+    finally:
+        fab.close()
+    t_card = time.perf_counter() - t0
+    rep, kill = run["report"], run["kill"]
+    if rep["migrations"] != 2 or rep["dup_chunks"] or \
+            rep["migration_failures"] or rep["spill_backlog"] or \
+            any(a == b for a, b in run["moved"].values()):
+        fail(f"procmesh (a): migrations {rep['migrations']}, dup_chunks "
+             f"{rep['dup_chunks']}, moves {run['moved']}, backlog "
+             f"{rep['spill_backlog']}, drains {rep['drains']}, decisions "
+             f"{run['decisions']}")
+    kinds = sorted(mw.DEVICE_TENANTS[t] for t in kill["orphans"])
+    if kinds != ["chain", "grouped_length"] or \
+            kill["pid_after"] == kill["pid"] or \
+            rep["recoveries"] != len(kill["orphans"]) or \
+            any(h != kill["host"] for h in kill["recovered_on"].values()) or \
+            workers_ab[str(kill["host"])]["restarts"] != 1:
+        fail(f"procmesh (b): kill {kill}, recoveries {rep['recoveries']}, "
+             f"workers {workers_ab}")
+    t0 = time.perf_counter()
+    solo, solo_launch = mesh_launched(
+        lambda: {t: mw.solo_rows(SiddhiManager(device=device), t, feeds[t],
+                                 chunks[t], app=apps[t]) for t in tenants})
+    t_solo = time.perf_counter() - t0
+    mesh_same("procmesh (a)/(b), the solo runs",
+              {t: solo[t]["rows"] for t in tenants}, run["rows"])
+    for t in tenants:
+        if solo[t]["counters"] != counters[t]:
+            fail(f"procmesh (a): tenant {t}'s counters {counters[t]}, its "
+                 f"solo run's {solo[t]['counters']}")
+        if mw.DEVICE_TENANTS[t] == "chain" and not counters[t]["matches"]:
+            fail(f"procmesh (a): chain tenant {t} matched nothing")
+    by_child = procmesh_launches(seen, each)
+    launches = {k: sum(c[k] for c in by_child.values())
+                for k in ("nfa_block", "query_step")}
+    if len(by_child) != 3 or any(not n for c in by_child.values()
+                                 for n in c.values()):
+        fail(f"procmesh: B1 and B5a launches by child {by_child}")
+    if device is None and launches != solo_launch:
+        fail(f"procmesh: the children launched {launches}, the solo runs "
+             f"{solo_launch}")
+
+    # (a)'s CPU twin: the same script over the first twin_events a tenant
+    t0 = time.perf_counter()
+    twin_chunks = {t: chunks[t][:twin_rounds] for t in tenants}
+    fab = MeshFabric(2, os.path.join(root, "twin"), procmesh_config(),
+                     device="cpu")
+    try:
+        twin = procmesh_script(fab, apps, feeds, twin_chunks,
+                               twin_rounds // 2, PROCMESH_MOVERS, {})
+        boot_twin = procmesh_workers(fab)
+    finally:
+        fab.close()
+    if twin["report"]["migrations"] != 2 or twin["report"]["dup_chunks"]:
+        fail(f"procmesh (a) twin: {twin['report']['migrations']} "
+             f"migrations, dup_chunks {twin['report']['dup_chunks']}")
+    sh = query_shapes_module()
+    for t in tenants:
+        plain, scale = procmesh_cpu_solo(t, apps[t], feeds[t],
+                                         twin_chunks[t])
+        if twin["rows"][t] != plain:
+            fail(f"procmesh (a) twin: tenant {t}: {len(twin['rows'][t])} "
+                 f"rows differ from its CPU solo run's {len(plain)}")
+        head = run["rows"][t][:run["prefix"][twin_rounds - 1][t]]
+        if scale is None:
+            if head != plain:
+                fail(f"procmesh (a): chain tenant {t}: the card's first "
+                     f"{len(head)} rows differ from the CPU twin's "
+                     f"{len(plain)}")
+        else:
+            close_rows(sh, scale[0], scale[1], plain, head,
+                       f"procmesh (a) tenant {t} against the CPU twin")
+    t_twin = time.perf_counter() - t0
+
+    # (c) a durable fabric's parent abandoned, re-adopted, closed, reopened
+    t0 = time.perf_counter()
+    dur_apps = {t: apps[t] for t in PROCMESH_DURABLE}
+    dur_chunks = {t: chunks[t][:dur_rounds] for t in PROCMESH_DURABLE}
+    dur = procmesh_durable(os.path.join(root, "c"), dur_apps, feeds,
+                           dur_chunks, cuts, device)
+    fab = dur.pop("fabric")
+    try:
+        t_dur = time.perf_counter() - t0
+        # (d) the worker-owned DCN shard in the third fabric's host 0
+        t0 = time.perf_counter()
+        ev = rising_events(dcn_events, seed)
+        dcn = procmesh_dcn(fab, ev, dcn_events, dcn_lanes, dcn_lane_batch,
+                           device)
+        t_dcn = time.perf_counter() - t0
+    finally:
+        fab.close()
+    ra, rs = dur["readopt"], dur["restore"]
+    pids = [{i: w["pid"] for i, w in dur[k].items()}
+            for k in ("first", "second", "third")]
+    if ra is None or ra["readopted_workers"] != 2 or \
+            ra["restored_workers"] or ra["readopted_tenants"] != 2 or \
+            pids[1] != pids[0] or dur["resume"]["resnapshotted"] != 2:
+        fail(f"procmesh (c): re-adoption {ra}, pids {pids[:2]}, resume "
+             f"{dur['resume']}")
+    if rs is None or rs["restored_workers"] != 2 or \
+            rs["restored_tenants"] != 2 or rs["readopted_workers"] or \
+            set(pids[2].values()) & set(pids[0].values()) or \
+            any(w["device"] != want for w in dur["third"].values()):
+        fail(f"procmesh (c): restore {rs}, pids {pids}, workers "
+             f"{dur['third']}")
+    if dur["dup_chunks_second"] or dur["dup_chunks_third"]:
+        fail(f"procmesh (c): dup_chunks {dur['dup_chunks_second']}, "
+             f"{dur['dup_chunks_third']}")
+    dur_solo = {t: mw.solo_rows(SiddhiManager(device=device), t, feeds[t],
+                                dur_chunks[t], app=apps[t])["rows"]
+                for t in PROCMESH_DURABLE}
+    mesh_same("procmesh (c), the solo runs after the (epoch, idx) dedup",
+              dur_solo, dur["sinks"])
+    if dcn["child_matches"] != dcn["local_matches"] or \
+            dcn["child_flushed"] != dcn["child_matches"] or \
+            not dcn["child_matches"]:
+        fail(f"procmesh (d): the child's DCN shard matched "
+             f"{dcn['child_matches']}, the in-process shard "
+             f"{dcn['local_matches']}")
+    shutil.rmtree(root, ignore_errors=True)
+    n_sent = len(tenants) * n_events
+    children = {"ab": workers_ab, "ab_at_spawn": boot_ab,
+                "twin": boot_twin, "c_first": dur["first"],
+                "c_third": dur["third"]}
+    out = {"phase": "procmesh", "hosts": 2,
+           "tenants": {t: {"kernel": each[t][0], "launches_a_step":
+                           each[t][1], "batch": batch[t],
+                           "rows": len(run["rows"][t]), **counters[t]}
+                       for t in tenants},
+           "a": {"events_per_tenant": n_events, "chunk": chunk,
+                 "moved": {t: list(m) for t, m in run["moved"].items()},
+                 "at_round": at, "rounds": rounds,
+                 "events_per_s_fabric_send": n_sent / run["send_s"],
+                 "mesh_b_events_per_s_fabric_send": mesh_send_eps,
+                 "send_s": run["send_s"], "move_s": run["move_s"],
+                 "solo_s": sum(solo[t]["seconds"] for t in tenants),
+                 "migrations": rep["migrations"],
+                 "dup_chunks": rep["dup_chunks"], "equal_to_solo": True,
+                 "counters_equal_to_solo": True,
+                 "twin_events_per_tenant": twin_events,
+                 "twin_equal": True},
+           "b": {**{k: v for k, v in kill.items()
+                    if k != "build_seconds_after"},
+                 "recoveries": rep["recoveries"],
+                 "spilled_chunks": rep["spilled_chunks"],
+                 "replayed_chunks": rep["replayed_chunks"],
+                 "dup_chunks": rep["dup_chunks"],
+                 "restart_build_s": sum(kill["build_seconds_after"].values()),
+                 "equal_to_solo": True},
+           "c": {"events_per_tenant": durable_events,
+                 "cuts_rounds": list(cuts), "readopt": ra, "restore": rs,
+                 "pids": pids, "resume": dur["resume"],
+                 "sink_entries": dur["sink_entries"],
+                 "rows": {t: len(r) for t, r in dur["sinks"].items()},
+                 "equal_to_solo": True},
+           "d": dcn,
+           "children": children,
+           "launches_by_child": by_child, "launches": launches,
+           "solo_launches": solo_launch,
+           "seconds": {"ab_card": t_card, "solo": t_solo, "twin": t_twin,
+                       "durable": t_dur, "dcn": t_dcn},
+           "phase_s": time.perf_counter() - t_phase}
+    emit(out)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=42)
@@ -6519,6 +7140,9 @@ def main() -> int:
     fleet = phase_engine_fleet(args.seed)
     dcn = phase_dcn(args.seed, matching_rows=main_out["matching_rows"])
     mesh = audited("mesh", phase_mesh, args.seed)
+    procmesh = audited(
+        "procmesh", phase_procmesh, args.seed,
+        mesh_send_eps=mesh["migration"]["events_per_s_fabric_send"])
     bound = max(main_out["bound_ms_bytes"], main_out["bound_ms_ops"])
     scan_bound = max(scan_out["bound_ms_bytes"], scan_out["bound_ms_ops"])
     kernels = [{
@@ -6545,7 +7169,8 @@ def main() -> int:
             "entry": entry_out["entry_launches"] + entry_out["dryrun_launches"],
             "lanes_split": dcn["lanes_split_launches"],
             "dcn": dcn["dcn"]["launches"],
-            "mesh": mesh["launches"]["nfa_block"]},
+            "mesh": mesh["launches"]["nfa_block"],
+            "procmesh": procmesh["launches"]["nfa_block"]},
         "native_main_ms": native_out["kernel_step_ms_median"],
         "native_main_plain_ms": native_out["plain_step_ms_median"],
     }, {
@@ -6594,6 +7219,7 @@ def main() -> int:
             by_path["engine_fleet"] = fleet["launches"][k["name"]]
         if k["name"] == "query_step":
             by_path["mesh"] = mesh["launches"]["query_step"]
+            by_path["procmesh"] = procmesh["launches"]["query_step"]
     print(card, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -14,11 +14,17 @@ lane-groups with failover — into one placement layer:
 - :mod:`rebalancer` — :class:`MeshRebalancer`: one move per decision,
   recorded with its evidence before actuating.
 
-The port's copy of the JAX package's ``mesh`` package, in-process mode:
-each host is a ``SiddhiManager`` on the fabric's device (the card by
-default, ``device="cpu"`` for the plain versions).
-``MeshConfig(mode='process')`` and ``durable=True`` are refused by name
-until the process mesh is ported (``ROADMAP.md`` §A item 3).
+``MeshConfig(mode='process')`` swaps the in-process host shards for REAL
+OS processes (:mod:`siddhi_tpu_torch.procmesh`): each host is its own
+interpreter behind a control socket, supervised with heartbeats and
+backoff-paced restarts — the same fabric ladder, byte-compatible, with
+actual SIGKILL chaos instead of simulated kills; ``durable=True`` adds
+the parent's journal.
+
+The port's copy of the JAX package's ``mesh`` package: each host is a
+``SiddhiManager`` on the fabric's device (the card by default, host ``i``
+on ``cuda:(i mod device_count())``; ``device="cpu"`` for the plain
+versions), in the fabric's process or in a worker process of its own.
 """
 
 from .fabric import MeshChaosFault, MeshConfig, MeshFabric, MeshHost

@@ -63,18 +63,17 @@ generation (same values minted in a different order on the target host)
 keeps the live table and logs loudly — co-locate same-shape tenants over
 one multiplexed feed (the locality policy's job) and the tables agree.
 
-**The port's copy** of the JAX package's ``mesh/fabric.py``, in-process
-mode. Every host's ``SiddhiManager`` runs on the fabric's ``device``: by
-default the card, host ``i`` on ``cuda:(i mod device_count())`` (no card
-raises, as every entry point of the port does, and never falls back);
-``device="cpu"`` builds every host on the CPU (the kernels' plain
-versions). A tenant moves between hosts as its app snapshot, whose device
-state is numpy, restored onto the destination host's device.
-``MeshConfig(mode='process')`` and ``durable=True`` need the process mesh
-(the procmesh host, worker, supervisor and journal), which the port does
-not have yet (``ROADMAP.md`` §A item 3): both are refused by name. The
-process-only branches below are the reference's, inert for in-process
-hosts.
+**The port's copy** of the JAX package's ``mesh/fabric.py``. Every host's
+``SiddhiManager`` runs on the fabric's ``device``: by default the card,
+host ``i`` on ``cuda:(i mod device_count())`` (no card raises, as every
+entry point of the port does, and never falls back); ``device="cpu"``
+builds every host on the CPU (the kernels' plain versions). In
+``MeshConfig(mode='process')`` each host is a worker process
+(``procmesh/``) whose engine runs on that same device: the supervisor
+spawns worker ``i`` with ``--device cuda:(i mod device_count())`` or the
+fabric's ``device``. A tenant moves between hosts as its app snapshot,
+whose device state is numpy, restored onto the destination host's
+device.
 """
 
 from __future__ import annotations
@@ -135,16 +134,9 @@ class MeshConfig:
                  drain_on_degrade: bool = True):
         if mode not in ("inproc", "process"):
             raise ValueError(f"mesh mode '{mode}' is not inproc|process")
-        if durable:
-            raise ValueError(
-                "durable=True is not in the port yet: the fabric journal "
-                "recovers the process mesh's workers, which come with "
-                "ROADMAP.md §A item 3")
-        if mode == "process":
-            raise ValueError(
-                "mesh mode 'process' is not in the port yet: its worker "
-                "processes (procmesh host, worker and supervisor) come with "
-                "ROADMAP.md §A item 3; use mode='inproc'")
+        if durable and mode != "process":
+            raise ValueError("durable=True requires mode='process' (the "
+                             "fabric journal recovers real worker processes)")
         if trace_sample is not None and int(trace_sample) < 1:
             raise ValueError(f"bad trace_sample {trace_sample} (need >= 1)")
         self.capacity_per_host = int(capacity_per_host)
@@ -387,7 +379,8 @@ class MeshFabric:
                     degrade_min_samples=self.cfg.degrade_min_samples),
                 flight=self.flight, playback=self.cfg.playback,
                 journal=self.journal,
-                worker_state=(jstate or {}).get("workers"))
+                worker_state=(jstate or {}).get("workers"),
+                devices=self._worker_devices(devices, num_hosts))
             self.supervisor.on_failed = self.host_failed
             self.supervisor.on_restarted = self.host_restarted
             self.supervisor.on_escalation = self._slo_escalate
@@ -458,6 +451,18 @@ class MeshFabric:
             return [i % count for i in range(n)]
         except Exception:   # noqa: BLE001 — metadata only, never fatal
             return [None] * n
+
+    def _worker_devices(self, ordinals: list, n: int) -> list:
+        """Each worker process's engine device, as ``--device`` takes it:
+        the host's engine device (:meth:`_engine_device`), which raises
+        here, before anything is spawned, where there is no card."""
+        from ..gpu.backend import resolve_device
+        out = []
+        for i in range(n):
+            dev = self._engine_device(ordinals[i] if i < len(ordinals)
+                                      else None)
+            out.append(str(resolve_device(dev) if dev is None else dev))
+        return out
 
     def _engine_device(self, ordinal: Optional[int]):
         """A host engine's device: the fabric's, else the card of the

@@ -94,16 +94,19 @@ def mesh_feed_all(fabric, tenant_ids, rows, tss, chunk) -> float:
 
 
 def tenant_app(tenant_id: str, batch: int | None = None,
-               slots: int | None = None) -> str:
+               slots: int | None = None, statistics: bool = False) -> str:
     """A device tenant's app: its engine configuration's, named; ``batch``
     and ``slots`` replace its ``@device`` widths (a rehearsal's small
-    sizes)."""
+    sizes); ``statistics`` turns on the app's trackers (the device step
+    probe's ``device.<query>.steps_total`` gauge, which a worker process's
+    ``metrics`` op ships)."""
     app = engine_config(DEVICE_TENANTS[tenant_id])["app"]
     if batch is not None:
         app = re.sub(r"batch='\d+'", f"batch='{batch}'", app)
     if slots is not None:
         app = re.sub(r"slots='\d+'", f"slots='{slots}'", app)
-    return f"@app(name='{tenant_id}')\n" + app
+    stats = ", statistics='true'" if statistics else ""
+    return f"@app(name='{tenant_id}'{stats})\n" + app
 
 
 def tenant_feed(tenant_id: str, n: int, seed: int) -> tuple:
@@ -196,11 +199,14 @@ def other_host(fab, tenant_id: str) -> int:
 
 def flush_devices(fab) -> None:
     """Steps every live tenant's partial device batch (``MeshFabric.flush``
-    drains the host tiers only)."""
+    drains the host tiers only). A tenant in a worker process (process
+    mode) has no such op: its batches step as they fill, so a script over
+    a process fabric cuts every feed on its tenants' batch boundaries."""
     for h in fab.hosts.values():
         if h.alive:
             for rt in list(h.runtimes.values()):
-                rt.flush_device()
+                if not getattr(rt, "procmesh_proxy", False):
+                    rt.flush_device()
 
 
 def send_round(fab, feeds: dict, chunks: dict, k: int) -> None:
@@ -214,11 +220,12 @@ def run_migration(fab, apps: dict, feeds: dict, chunks: dict, at: int,
                   movers: list) -> dict:
     """Every tenant's chunks in rounds; before round ``at`` the main thread
     migrates each of ``movers`` to the other host. ``send_s`` is the time
-    inside ``fab.send``, the moves out of it."""
+    inside ``fab.send``, the moves out of it; ``prefix[k]`` each tenant's
+    row count after round ``k``."""
     rows = deploy_tenants(fab, apps)
     rounds = len(next(iter(chunks.values())))
     send_s = move_s = 0.0
-    moved = {}
+    moved, prefix = {}, []
     for k in range(rounds):
         if k == at:
             t0 = time.perf_counter()
@@ -230,11 +237,12 @@ def run_migration(fab, apps: dict, feeds: dict, chunks: dict, at: int,
         t0 = time.perf_counter()
         send_round(fab, feeds, chunks, k)
         send_s += time.perf_counter() - t0
+        prefix.append({t: len(r) for t, r in rows.items()})
     t0 = time.perf_counter()
     flush_devices(fab)
     send_s += time.perf_counter() - t0
     return {"rows": rows, "send_s": send_s, "move_s": move_s,
-            "moved": moved, "report": fab.report()}
+            "moved": moved, "prefix": prefix, "report": fab.report()}
 
 
 def run_live_migration(fab, apps: dict, feeds: dict, chunks: dict,

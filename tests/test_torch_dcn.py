@@ -406,6 +406,23 @@ def test_socket_timeout_lint_finds_nothing_in_the_port():
         assert mod.check_file(path) == [], rel
 
 
+@pytest.mark.parametrize("rel", ["procmesh/protocol.py", "procmesh/host.py",
+                                 "procmesh/worker.py",
+                                 "procmesh/supervisor.py",
+                                 "procmesh/lanepool.py"])
+def test_socket_timeout_lint_finds_nothing_in_the_port_procmesh(rel):
+    """The reference's lint covers its procmesh control plane (the worker's
+    accept and serve loops, the supervisor's and the client's dials): the
+    port's copies pass it too."""
+    spec = importlib.util.spec_from_file_location(
+        "check_socket_timeouts",
+        os.path.join(REPO, "scripts", "check_socket_timeouts.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    path = os.path.join(REPO, "siddhi_tpu_torch", rel)
+    assert mod.check_file(path) == [], rel
+
+
 def test_worker_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

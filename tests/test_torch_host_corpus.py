@@ -15,7 +15,8 @@ The reference suites are imported as data, never edited:
   port's, in the suite's module and on the ``siddhi_tpu`` package, for the
   duration of the call: the reference's own assertions judge the port, the
   function-local imports included. The IO, flow, sink-pipeline,
-  observability, service, doc-generator, columnar host and fleet modules
+  observability, service, doc-generator, columnar host, fleet, mesh and
+process-mesh modules
   (``PORTED_MODULES``; for a suite, ``SUITE_MODULES`` too) are
   bound the same way, name by name: every name the
   port's module defines replaces the reference's in the reference's module
@@ -36,8 +37,16 @@ The reference suites are imported as data, never edited:
 - ``DCNWorker`` is bound to ``PortDCNWorker``, the port's worker on the CPU
   unless a device is asked for, as ``SiddhiManager`` is bound to
   ``PortManager``; ``MeshFabric`` to ``PortMeshFabric``, the port's fabric
-  with every host on the CPU, for the mesh suites (``SUITE_MODULES``).
+  with every host on the CPU: in process mode each host is a worker
+  process of the port's on the CPU, and ``PortSpawns`` shows that every
+  function that built such a fabric spawned the port's worker
+  (``python -m siddhi_tpu_torch.procmesh.worker ... --device cpu``); the
+  workers a function spawned are killed after it (by process, and by the
+  runfiles under its ``tmp_path``), so none outlives it.
 
+The process mesh's suites (``PROCMESH_SUITES``) run in
+``test_torch_host_corpus_procmesh.py``, through this harness, so that
+``--dist loadfile`` gives them a worker of their own.
 ``test_torch_host_corpus_device.py`` runs both corpora again with a
 non-strict ``@device`` on every query.
 """
@@ -45,6 +54,10 @@ non-strict ``@device`` on every query.
 import importlib
 import importlib.util
 import inspect
+import json
+import os
+import signal
+import sys
 
 import pytest
 
@@ -52,6 +65,7 @@ import siddhi_tpu
 import siddhi_tpu_torch
 import siddhi_tpu_torch.gpu.dcn
 import siddhi_tpu_torch.mesh
+import siddhi_tpu_torch.procmesh.supervisor as port_supervisor
 import siddhi_tpu_torch.service as port_service
 from siddhi_tpu_torch.core.errors import SiddhiAppCreationError
 
@@ -91,10 +105,64 @@ class PortMeshFabric(siddhi_tpu_torch.mesh.MeshFabric):
     test can show that the port's fabric served it."""
 
     built = 0
+    process_built = 0           # of them in mode='process'
 
     def __init__(self, *args, device=None, **kwargs):
+        cfg = kwargs.get("config", args[2] if len(args) > 2 else None)
+        if cfg is not None and cfg.mode == "process":
+            PortMeshFabric.process_built += 1
         super().__init__(*args, device=device or "cpu", **kwargs)
         PortMeshFabric.built += 1
+
+
+class PortSpawns:
+    """While open, records every worker the port's supervisor spawns (its
+    command line and process); ``close`` kills those still alive, and the
+    workers whose runfiles lie under ``root``, as the reference's
+    ``tests/test_parent_recovery.py::_kill_leftover_workers`` does."""
+
+    def __init__(self, monkeypatch, root):
+        self.root = str(root)
+        self.cmds: list = []
+        self.procs: list = []
+        orig = port_supervisor.ProcMeshSupervisor._spawn
+        spawns = self
+
+        def spawn(sup, h):
+            orig(sup, h)
+            spawns.cmds.append(list(h.proc.args))
+            spawns.procs.append(h.proc)
+
+        monkeypatch.setattr(port_supervisor.ProcMeshSupervisor, "_spawn",
+                            spawn)
+
+    def close(self) -> None:
+        for proc in self.procs:
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait(timeout=10)
+        kill_leftover_workers(self.root)
+
+
+def kill_leftover_workers(root: str) -> list:
+    """SIGKILLs every worker whose runfile (``<dir>/run/w<i>.run``)
+    survives anywhere under ``root``; returns their pids."""
+    killed = []
+    for dirpath, _dirs, files in os.walk(root):
+        if os.path.basename(dirpath) != "run":
+            continue
+        for name in sorted(files):
+            if not name.endswith(".run"):
+                continue
+            try:
+                with open(os.path.join(dirpath, name),
+                          encoding="utf-8") as f:
+                    pid = int(json.load(f)["pid"])
+                os.kill(pid, signal.SIGKILL)
+                killed.append(pid)
+            except (OSError, ValueError, KeyError):
+                continue
+    return killed
 
 
 # the reference's public names → the port's
@@ -127,6 +195,10 @@ PORTED_MODULES = {
     "siddhi_tpu.flow.records": "siddhi_tpu_torch.flow.records",
     "siddhi_tpu.flow.recovery": "siddhi_tpu_torch.flow.recovery",
     "siddhi_tpu.flow.wal": "siddhi_tpu_torch.flow.wal",
+    "siddhi_tpu.mesh": "siddhi_tpu_torch.mesh",
+    "siddhi_tpu.mesh.fabric": "siddhi_tpu_torch.mesh.fabric",
+    "siddhi_tpu.mesh.plan": "siddhi_tpu_torch.mesh.plan",
+    "siddhi_tpu.mesh.rebalancer": "siddhi_tpu_torch.mesh.rebalancer",
     "siddhi_tpu.fleet": "siddhi_tpu_torch.fleet",
     "siddhi_tpu.fleet.cache": "siddhi_tpu_torch.fleet.cache",
     "siddhi_tpu.fleet.group": "siddhi_tpu_torch.fleet.group",
@@ -146,7 +218,14 @@ PORTED_MODULES = {
     "siddhi_tpu.observability.slo": "siddhi_tpu_torch.observability.slo",
     "siddhi_tpu.observability.tracing":
         "siddhi_tpu_torch.observability.tracing",
+    "siddhi_tpu.procmesh": "siddhi_tpu_torch.procmesh",
+    "siddhi_tpu.procmesh.host": "siddhi_tpu_torch.procmesh.host",
+    "siddhi_tpu.procmesh.journal": "siddhi_tpu_torch.procmesh.journal",
     "siddhi_tpu.procmesh.lanepool": "siddhi_tpu_torch.procmesh.lanepool",
+    "siddhi_tpu.procmesh.parentmain": "siddhi_tpu_torch.procmesh.parentmain",
+    "siddhi_tpu.procmesh.protocol": "siddhi_tpu_torch.procmesh.protocol",
+    "siddhi_tpu.procmesh.supervisor": "siddhi_tpu_torch.procmesh.supervisor",
+    "siddhi_tpu.procmesh.worker": "siddhi_tpu_torch.procmesh.worker",
     "siddhi_tpu.resilience": "siddhi_tpu_torch.resilience",
     "siddhi_tpu.resilience.chaos": "siddhi_tpu_torch.resilience.chaos",
     "siddhi_tpu.resilience.circuit": "siddhi_tpu_torch.resilience.circuit",
@@ -176,22 +255,17 @@ REGISTRIES = {"siddhi_tpu.core.metrics": ("REPORTERS",)}
 
 # bound for one suite only, on top of PORTED_MODULES: test_fleet parses its
 # tenants' texts and normalizes their queries for the shared device plans
-# (function-local imports of the parser and the query API); the mesh suites
-# get the port's in-process mesh (test_metrics, which is not one of them,
-# still builds the reference's process-mode fabric, which the port's
-# refuses until the process mesh is ported)
-MESH_MODULES = {
-    "siddhi_tpu.mesh": "siddhi_tpu_torch.mesh",
-    "siddhi_tpu.mesh.fabric": "siddhi_tpu_torch.mesh.fabric",
-    "siddhi_tpu.mesh.plan": "siddhi_tpu_torch.mesh.plan",
-    "siddhi_tpu.mesh.rebalancer": "siddhi_tpu_torch.mesh.rebalancer",
-}
-MESH_SUITES = ("test_mesh", "test_federation", "test_gray_failure")
+# (function-local imports of the parser and the query API)
 SUITE_MODULES = {
     "test_fleet": {"siddhi_tpu.compiler": "siddhi_tpu_torch.compiler",
                    "siddhi_tpu.query_api": "siddhi_tpu_torch.query_api"},
-    **{suite: MESH_MODULES for suite in MESH_SUITES},
 }
+
+# a reference module a suite imports whole inside a function and then
+# monkeypatches (``import siddhi_tpu.procmesh.host as host_mod``): for that
+# suite the module itself is the port's, in ``sys.modules`` and on its
+# package, for the call
+SUITE_ALIASES = {"test_gray_failure": ("siddhi_tpu.procmesh.host",)}
 
 
 def ported_names(suite: str = "") -> list:
@@ -313,23 +387,20 @@ SUITES = ["test_partition_corpus", "test_join_corpus", "test_filter_query",
           "test_record_pushdown", "test_config", "test_metrics",
           "test_torn_fuzz", "test_bridge_fuzz", "test_device_pipeline",
           "test_observability", "test_xray", "test_service_and_docs",
-          "test_host_batch", "test_procmesh", "test_fleet_guard",
+          "test_host_batch", "test_fleet_guard",
           "test_fleet", "test_slo", "test_dcn", "test_dcn_resilience",
-          "test_mesh", "test_federation", "test_gray_failure"]
+          "test_mesh"]
+
+# the process mesh's suites (test_torch_host_corpus_procmesh.py runs them)
+PROCMESH_SUITES = ["test_procmesh", "test_federation", "test_gray_failure",
+                   "test_parent_recovery"]
 
 # suites that also test tiers outside the port's → the functions they
 # contribute: the IO tier, the sink pipeline, the columnar host tier and
 # the fleet (the rest of test_edge_rows holds the JAX package's own parsers
 # and lints; the rest of test_resilience the JAX package's except-clause
-# lint; the rest of test_procmesh, test_federation and test_gray_failure the
-# process mesh of distribution)
+# lint)
 SUITE_ONLY = {
-    "test_federation": {
-        "test_histogram_state_roundtrip_and_exact_merge",
-        "test_histogram_merge_empty_and_partial_snapshots",
-        "test_histogram_merge_rejects_ladder_mismatch",
-        "test_collect_scraped_renders_worker_families_and_merges_tenants"},
-    "test_gray_failure": {"test_drain_host_record_before_actuate"},
     "test_edge_rows": {
         "test_source_chunk_boundary_parity_fuzz",
         "test_file_source_end_to_end", "test_socket_source_lines",
@@ -345,8 +416,6 @@ SUITE_ONLY = {
         "test_send_columns_fallback_paths", "test_send_columns_validation",
         "test_zero_objects_on_rows_path",
         "test_stager_mixed_rows_and_columns_order"},
-    "test_procmesh": {"test_lane_pool_parity_and_snapshot",
-                      "test_lane_pool_rejects_bad_mode"},
     "test_resilience": {
         "test_circuit_breaker_transitions",
         "test_circuit_success_resets_consecutive_failures",
@@ -440,6 +509,17 @@ NOT_SUITE_FUNCTIONS = {
     # sources (tests/test_torch_mesh.py loads its mesh section as data and
     # applies its checks to the port's fabric and rebalancer)
     ("test_mesh", "test_guard_coverage_includes_mesh_paths"),
+    # runs the JAX package's parentmain as a real parent process, SIGKILLed
+    # at each SIDDHI_CRASH_AT site (tests/test_torch_parent_recovery.py::
+    # test_parent_sigkill_chaos runs the same CHAOS_SITES against the
+    # port's parentmain with --device cpu)
+    ("test_parent_recovery", "test_parent_sigkill_chaos"),
+    # run the JAX package's scripts/check_guard_coverage.py journal-intent
+    # check over its fabric and supervisor (tests/test_torch_parent_
+    # recovery.py loads the script as data and applies check_journal_intent
+    # to the port's fabric and supervisor sites, and to broken copies)
+    ("test_parent_recovery", "test_journal_intent_lint_passes"),
+    ("test_parent_recovery", "test_journal_intent_lint_catches_offenders"),
 }
 
 # suite functions that drive the columnar host tier (its apps carry
@@ -466,6 +546,16 @@ COLUMNAR: set = {
         "test_host_step_guard_quarantines_after_threshold",
         "test_host_guard_emit_failure_does_not_duplicate")),
 }
+
+# suite functions that use the fabric class only for its static journal
+# fold (``MeshFabric._merge_journal``), the port's while bound: they build
+# no fabric
+FABRIC_FOLD_ONLY = {
+    f"test_parent_recovery::{name}" for name in (
+        "test_merge_journal_cursor_and_delivery",
+        "test_merge_journal_migration_intent_and_commit",
+        "test_merge_journal_undeploy_and_workers",
+        "test_merge_journal_checkpoint_seeds_fold")}
 
 # suite function id → the JAX-package module it drives, which the port does
 # not have yet (the port must still lack it), and the tier it comes with
@@ -497,11 +587,11 @@ def _param_sets(fn) -> list:
     return out
 
 
-def suite_functions() -> list:
-    """A case per suite function and parameter set; a function the suite
-    marks ``slow`` or ``skipif`` keeps the mark."""
+def suite_functions(suites=SUITES) -> list:
+    """A case per function and parameter set of ``suites``; a function the
+    suite marks ``slow`` or ``skipif`` keeps the mark."""
     out = []
-    for modname in SUITES:
+    for modname in suites:
         mod = importlib.import_module(modname)
         only = SUITE_ONLY.get(modname)
         for name, fn in vars(mod).items():
@@ -540,6 +630,12 @@ def bind_port_names(monkeypatch, mod, request) -> set:
     for ref, name, obj in ported_names(suite):
         port_of[id(getattr(ref, name))] = obj
         monkeypatch.setattr(ref, name, obj)
+    for ref_name in SUITE_ALIASES.get(suite, ()):
+        port_mod = importlib.import_module(PORTED_MODULES[ref_name])
+        pkg_name, _, leaf = ref_name.rpartition(".")
+        monkeypatch.setitem(sys.modules, ref_name, port_mod)
+        monkeypatch.setattr(importlib.import_module(pkg_name), leaf,
+                            port_mod)
     # a service that builds its own manager builds the port's on the CPU
     monkeypatch.setattr(port_service, "SiddhiManager", PortManager)
     for name, val in list(vars(mod).items()):
@@ -668,10 +764,10 @@ def names_used(fn) -> set:
     return out
 
 
-@pytest.mark.parametrize("modname,fname,kwargs", SUITE_FUNCTIONS)
-def test_reference_suite_function_on_the_port(modname, fname, kwargs,
-                                              request, monkeypatch, tmp_path,
-                                              caplog):
+def run_suite_function(modname, fname, kwargs, request, monkeypatch,
+                       tmp_path, caplog) -> None:
+    """Calls the suite function with the port's names bound, and holds
+    what it ran to the port (the module docstring)."""
     mod = importlib.import_module(modname)
     fn = getattr(mod, fname)
     fid = request.node.callspec.id
@@ -682,12 +778,19 @@ def test_reference_suite_function_on_the_port(modname, fname, kwargs,
             f"siddhi_tpu_torch.{missing}") is None
         return
     bound = bind_port_names(monkeypatch, mod, request)
+    if fid in FABRIC_FOLD_ONLY:
+        assert vars(mod)["MeshFabric"] is PortMeshFabric
     built, workers = PortManager.built, PortDCNWorker.built
     fabrics = PortMeshFabric.built
+    process_fabrics = PortMeshFabric.process_built
     fixtures = {"tmp_path": tmp_path, "caplog": caplog,
                 "monkeypatch": monkeypatch}
     reach = ColumnarReach(monkeypatch) if fid in COLUMNAR else None
-    call_suite_function(mod, fn, kwargs, fixtures)
+    spawns = PortSpawns(monkeypatch, tmp_path)
+    try:
+        call_suite_function(mod, fn, kwargs, fixtures)
+    finally:
+        spawns.close()
     # an engine function builds the port's engine (or the port's mesh
     # fabric, whose hosts are the port's engines, through a fixture); a
     # unit function calls a class or function bound to the port's
@@ -699,9 +802,26 @@ def test_reference_suite_function_on_the_port(modname, fname, kwargs,
     if "DCNWorker" in names_used(fn):
         assert PortDCNWorker.built > workers, \
             "the function built no DCN worker of the port's"
-    if modname in MESH_SUITES and "MeshFabric" in names_used(fn):
+    if fid in FABRIC_FOLD_ONLY:
+        assert vars(mod)["MeshFabric"] is PortMeshFabric
+    elif "MeshFabric" in names_used(fn):
         assert PortMeshFabric.built > fabrics, \
             "the function built no mesh fabric of the port's"
+    if PortMeshFabric.process_built > process_fabrics:
+        # a process-mode fabric's hosts are the port's workers, on the CPU
+        assert spawns.cmds, "the process-mode fabric spawned no worker"
+        for cmd in spawns.cmds:
+            assert cmd[1:3] == ["-m", "siddhi_tpu_torch.procmesh.worker"], \
+                cmd
+            assert cmd[cmd.index("--device") + 1] == "cpu", cmd
+
+
+@pytest.mark.parametrize("modname,fname,kwargs", SUITE_FUNCTIONS)
+def test_reference_suite_function_on_the_port(modname, fname, kwargs,
+                                              request, monkeypatch, tmp_path,
+                                              caplog):
+    run_suite_function(modname, fname, kwargs, request, monkeypatch,
+                       tmp_path, caplog)
 
 
 def test_suites_are_all_collected():
@@ -710,7 +830,9 @@ def test_suites_are_all_collected():
     mods = {p.values[0] for p in SUITE_FUNCTIONS}
     assert mods == set(SUITES)
     ids = {p.id for p in SUITE_FUNCTIONS}
-    assert COLUMNAR <= ids
+    procmesh_ids = {p.id for p in suite_functions(PROCMESH_SUITES)}
+    assert COLUMNAR <= ids | procmesh_ids
+    assert FABRIC_FOLD_ONLY <= procmesh_ids
     assert set(NEEDS_MODULE) <= ids
     for modname, only in SUITE_ONLY.items():
         assert only <= set(vars(importlib.import_module(modname)))

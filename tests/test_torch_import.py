@@ -1,6 +1,9 @@
 """The port stands alone: no JAX, no ``siddhi_tpu``, no quiet CPU fallback."""
 
 import ast
+import json
+import os
+import signal
 import subprocess
 import sys
 from pathlib import Path
@@ -82,6 +85,13 @@ def test_import_loads_neither_jax_nor_the_reference():
         "import siddhi_tpu_torch.core.host_bridge\n"
         "import siddhi_tpu_torch.procmesh, siddhi_tpu_torch.procmesh.protocol\n"
         "import siddhi_tpu_torch.procmesh.lanepool\n"
+        "import siddhi_tpu_torch.procmesh.journal\n"
+        "import siddhi_tpu_torch.procmesh.host\n"
+        "import siddhi_tpu_torch.procmesh.worker\n"
+        "import siddhi_tpu_torch.procmesh.supervisor\n"
+        "import siddhi_tpu_torch.procmesh.parentmain\n"
+        "from siddhi_tpu_torch.procmesh import FabricJournal, ProcMeshHost\n"
+        "from siddhi_tpu_torch.procmesh import ProcMeshSupervisor\n"
         "import siddhi_tpu_torch.resilience.fleet_guard\n"
         "from siddhi_tpu_torch.resilience import HostStepGuard\n"
         "from siddhi_tpu_torch.resilience import FleetGuard\n"
@@ -135,6 +145,75 @@ def test_mesh_tier_imports_neither_jax_nor_the_reference(tmp_path):
     assert "siddhi_tpu_torch.mesh.fabric" in out
     assert "siddhi_tpu_torch.tools.mesh_workloads" in out
     assert [m for m in out if _forbidden(m)] == []
+
+
+def test_process_mesh_imports_neither_jax_nor_the_reference(tmp_path):
+    """A two-host process fabric on the CPU, given a tenant and a chunk: the
+    parent's modules and each worker child's (``-X importtime`` through
+    the fabric's ``worker_env``, on the child's stderr) are neither JAX nor
+    the JAX package, and each child is the port's worker on the CPU."""
+    code = ("import sys\n"
+            "from siddhi_tpu_torch.mesh import MeshConfig, MeshFabric\n"
+            "import siddhi_tpu_torch.tools.mesh_workloads as mw\n"
+            f"fab = MeshFabric(2, {str(tmp_path)!r}, MeshConfig("
+            "capacity_per_host=2, mode='process', durable=True, "
+            "worker_env={'PYTHONPROFILEIMPORTTIME': '1'}), device='cpu')\n"
+            "fab.add_tenants([mw.mesh_shape_app(0, 1, '')])\n"
+            "fab.send('mtenant-0', 'S', [['dev1', 95.0]], [1000])\n"
+            "cmds = [h.proc.args for h in fab.supervisor.handles.values()]\n"
+            "fab.close()\n"
+            "print('CMDS', repr(cmds))\n"
+            "print('\\n'.join(sorted(sys.modules)))\n")
+    try:
+        res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                             check=True, capture_output=True, text=True,
+                             timeout=240)
+    finally:
+        # a child that outlived its parent (its runfile survives) is killed
+        for run in (tmp_path / "run").glob("*.run"):
+            try:
+                os.kill(int(json.loads(run.read_text())["pid"]),
+                        signal.SIGKILL)
+            except (OSError, ValueError, KeyError):
+                pass
+    out = res.stdout.split("\n")
+    cmds = eval(next(line for line in out if line.startswith("CMDS "))[5:])
+    assert len(cmds) == 2
+    for cmd in cmds:
+        assert cmd[1:3] == ["-m", "siddhi_tpu_torch.procmesh.worker"]
+        assert cmd[cmd.index("--device") + 1] == "cpu"
+    mods = [m for m in out if m and not m.startswith("CMDS ")]
+    assert "siddhi_tpu_torch.procmesh.supervisor" in mods
+    assert "siddhi_tpu_torch.procmesh.journal" in mods
+    assert [m for m in mods if _forbidden(m)] == []
+    child = [line.rsplit("|", 1)[-1].strip()
+             for line in res.stderr.splitlines()
+             if line.startswith("import time:")]
+    # the worker module itself runs as __main__ (``-m``): its imports show
+    assert "siddhi_tpu_torch.procmesh.protocol" in child
+    assert "siddhi_tpu_torch.core.manager" in child
+    bad = sorted({m for m in child if _forbidden(m)})
+    assert bad == [], bad
+
+
+def test_every_reference_module_has_a_port_counterpart():
+    """With ``tpu/`` mapped to ``gpu/``, every module of the JAX package has
+    one of the port's at the same path (the port adds its kernels'
+    wrappers and tools)."""
+    def modules(pkg: str) -> set:
+        root = ROOT / pkg
+        out = set()
+        for f in root.rglob("*.py"):
+            rel = f.relative_to(root).as_posix()
+            if "_build" in rel:
+                continue
+            out.add("gpu/" + rel[4:] if rel.startswith("tpu/") else rel)
+        return out
+
+    ref = modules("siddhi_tpu")
+    assert {"procmesh/host.py", "procmesh/journal.py", "procmesh/worker.py",
+            "procmesh/supervisor.py", "procmesh/parentmain.py"} <= ref
+    assert sorted(ref - modules("siddhi_tpu_torch")) == []
 
 
 def _imports(path: Path):

@@ -16,7 +16,9 @@ package's (``siddhi_tpu.mesh``), on the CPU.
   port's solo run of the tenant stepped); the port's rows also equal its
   solo run's exactly;
 - ``MeshFabric`` without a device raises where there is no card, and never
-  falls back; ``mode='process'`` and ``durable=True`` are refused by name;
+  falls back; ``MeshConfig`` holds to the reference's rules in both
+  packages (``durable`` needs ``mode='process'``, an unknown mode raises,
+  ``mode='process', durable=True`` builds);
 - the mesh section of the reference's guard-coverage lint
   (``scripts/check_guard_coverage.py``), loaded as data, holds for the
   port's fabric and rebalancer;
@@ -272,18 +274,25 @@ def test_host_ordinals_follow_the_cards(monkeypatch):
     assert tmesh.MeshFabric._probe_devices(2, "cpu") == [None, None]
 
 
-@pytest.mark.parametrize("kw,word", [
-    (dict(mode="process"), "mode 'process'"),
-    (dict(mode="process", durable=True), "durable=True"),
-    (dict(durable=True), "durable=True")])
-def test_process_mode_and_durable_are_refused_by_name(kw, word):
-    with pytest.raises(ValueError, match=re.escape(word)) as e:
-        tmesh.MeshConfig(**kw)
-    assert "ROADMAP.md §A item 3" in str(e.value)
-    with pytest.raises(ValueError, match="not inproc|process"):
-        tmesh.MeshConfig(mode="rdma")
-    # the reference builds them (its process mesh exists)
-    assert jmesh.MeshConfig(mode="process").mode == "process"
+@pytest.mark.parametrize("kw,raises", [
+    (dict(durable=True), "requires mode='process'"),
+    (dict(mode="inproc", durable=True), "requires mode='process'"),
+    (dict(mode="rdma"), "is not inproc|process"),
+    (dict(mode="thread", durable=True), "is not inproc|process"),
+    (dict(mode="process"), None),
+    (dict(mode="process", durable=True), None),
+    (dict(), None)])
+def test_mesh_config_holds_to_the_reference_rules(kw, raises):
+    """Both packages' ``MeshConfig`` accept and refuse the same settings,
+    with the same message."""
+    for mesh in (jmesh, tmesh):
+        if raises is None:
+            cfg = mesh.MeshConfig(**kw)
+            assert (cfg.mode, cfg.durable) == \
+                (kw.get("mode", "inproc"), kw.get("durable", False))
+        else:
+            with pytest.raises(ValueError, match=re.escape(raises)):
+                mesh.MeshConfig(**kw)
 
 
 # ------------------------------------------------- guard coverage (the mesh)
